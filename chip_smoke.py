@@ -1,6 +1,7 @@
-"""GPU smoke run of the PyTorch port's single-request serving path.
+"""GPU smoke run of the PyTorch port's serving paths: one request at a time
+over a dense cache, and continuous batching over int8 KV-fused page pools.
 
-    python3 chip_smoke.py [--seed N] [--max-new-tokens N]
+    python3 chip_smoke.py [--seed N] [--max-new-tokens N] [--profile] [--phases a,b]
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the CUDA
 toolkit; exits non-zero on a machine without a card. Phases:
@@ -12,18 +13,53 @@ toolkit; exits non-zero on a machine without a card. Phases:
              inputs): causal T=S 256 and 2048, non-causal, and B=2 with
              right-padded keys plus a row that has no valid key;
              output max-abs <= 2e-2, logsumexp max-abs <= 1e-2;
-4. K2      — dense_cache_append against its plain version, bit-exact;
-             median kernel and plain times over 20 CUDA-event runs;
-5. slice   — full-width Zephyr-7B + CLIP-L/336 + Q-Former with random bf16
-             weights, the port's /chat server on 127.0.0.1, 3 sessions and 4
-             requests; checks the launch counters and the kernel path's
-             prefill and decode-step-8 logits against the plain path
-             (cosine >= 0.999); TTFT and decode tokens/s; last, the bf16
-             prefill logits against an f32 run of the same weights (the JAX
-             engine's arithmetic for f32 pixels; cosine >= 0.999).
+4. K2      — dense_cache_append against its plain version, bit-exact, at the
+             decode step's shape (T=1), a clamped tail, and chunked admission's
+             (B=1, T=256 into a scratch cache, one chunk ending at the cache's
+             end); median kernel and plain times over 20 CUDA-event runs;
+5. K3      — paged_attn_decode against its plain version at B=32, Hq=32,
+             Hkv=8, D=128, page 128, 16 pages per slot, a shuffled page table
+             and lengths that include 0, 1, 128, 129 and 2048: bf16 split,
+             int8 split and int8 fused pools, each with and without the
+             self-term, a windowed case, a two-row (S=2) case and NaN rows
+             past `length`; per slot, max-abs error <= 1e-2 of the slot's
+             largest value; exact zeros where no key is valid; the window's
+             edge told from 511 and 513;
+6. K4      — paged_kv_rows against its plain version at L=32, B=32 with
+             inactive slots on the trash page: bf16 and int8, split and
+             fused; whole pools and scales bit-exact;
+7. slice1  — full-width Zephyr-7B + CLIP-L/336 + Q-Former with random bf16
+             weights, the port's /chat server on 127.0.0.1 with no flags, 3
+             sessions and 4 requests; checks the launch counters and the
+             kernel path's prefill and decode-step-8 logits against the plain
+             path (cosine >= 0.999); TTFT and decode tokens/s;
+8. paged   — the same model behind the server started with
+             `--continuous-batching --kv-cache paged --kv-quant --max-slots 32`
+             (KV-fused int8 pools, page 128, prefill chunk 256): 48 /chat
+             requests from 48 sessions sent at once, prompts of about 40, 300
+             and 600 words; every reply HTTP 200 with all its tokens; launch
+             counters exact (K3 = 32 x decode steps, K4 = decode steps, K2 =
+             32 x prefill chunks); slots reused; every page back in the
+             allocator;
+9. batch   — direct PagedBatchers with the same 16 requests admitted before
+             the first step, whole (K1) and in chunks of 256 (K2 at T=256), on
+             the kernel path and on the plain path, and with bf16 pools:
+             chunked admission bit-equal between the paths; logits cosine per
+             slot at steps 1 and 16 (kernel vs plain >= 0.999, int8 vs bf16
+             pools >= 0.99); the two int8 runs' pools against each other
+             (dequantized rows cosine >= 0.999, int8 values within 1 for
+             >= 95 %, scales within 5 %);
+10. profile — only with --profile: wall, device-busy and idle share of one
+             batched decode step at B=32, and the largest device items
+             (torch.profiler);
+11. precision — last (it widens the model in place): the bf16 prefill logits
+             against an f32 run of the same weights (the JAX engine's
+             arithmetic for f32 pixels; cosine >= 0.999).
 
-The line before last is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}. Any failed check raises.
+`--phases` runs a subset (kernels, slice1, paged, batch, profile, precision)
+and then prints no result line. After a full run the line before last is a
+JSON object with one entry per kernel; the last line is
+{"ok": true, "device": {...}}. Any failed check raises.
 """
 
 from __future__ import annotations
@@ -36,8 +72,22 @@ import subprocess
 import threading
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
+
+# Published peaks of one H100 SXM at its full 700 W: HBM bytes/s, dense bf16
+# tensor-core FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+
+def bound_ms(n_bytes: float, n_flops: float):
+    """The least time the card could take: (ms, "bytes" | "operations")."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_flops / BF16_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -125,9 +175,18 @@ def check_flash(gen) -> dict:
         if causal and B == 1:
             kernel_ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, kv_valid, causal, scale))
             plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, kv_valid, causal, scale))
-            times[T] = (kernel_ms, plain_ms)
+            # The yardstick: one library call for the same function (never on a served path).
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True))
+            # q and out once, k and v once; 4·Hq·D flops per (row, key) pair, half the pairs.
+            n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            least, by = bound_ms(n_bytes, 4 * B * Hq * D * T * S / 2)
+            times[T] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=least, bound_by=by)
             print(f"K1 {name}: kernel {kernel_ms:.4f} ms, plain (bf16 matmul + f32 softmax) "
-                  f"{plain_ms:.4f} ms, median of 20")
+                  f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
+                  f"bound {least:.5f} ms by {by}, median of 20")
     return {"max_abs_err": worst, "times": times}
 
 
@@ -136,8 +195,15 @@ def check_cache_append(gen) -> dict:
 
     dev = "cuda"
     Hkv, D = 8, 128
+    # The dense decode step's shape, a clamped tail, and chunked admission's
+    # shapes (one 256-token chunk into a B=1 scratch cache): the third chunk of
+    # a longer prompt, and a last chunk that ends exactly at the cache's end.
     cases = [("L=32 B=1 S=2048 T=1", 32, 1, 2048, 1, [517]),
-             ("L=32 B=3 S=2048 T=4, one length at S-2", 32, 3, 2048, 4, [0, 1000, 2046])]
+             ("L=32 B=3 S=2048 T=4, one length at S-2", 32, 3, 2048, 4, [0, 1000, 2046]),
+             ("L=32 B=1 S=1024 T=256 at 512 (a prefill chunk)", 32, 1, 1024, 256, [512]),
+             ("L=32 B=1 S=768 T=256 at 512 (the chunk that fills the cache)", 32, 1, 768, 256,
+              [512]),
+             ("L=32 B=1 S=768 T=256 at 640 (128 rows clamped to S-1)", 32, 1, 768, 256, [640])]
     times = None
     for name, L, B, S, T, lens in cases:
         ck = torch.randn(L, B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -155,12 +221,240 @@ def check_cache_append(gen) -> dict:
         print(f"K2 {name}: bit-exact against the plain version: {exact}")
         if not exact:
             raise AssertionError(f"K2 {name}: kernel disagrees with the plain version")
-        if times is None:
+        if (T, lens) in ((1, [517]), (256, [512])) and S != 768:
             kernel_ms = median_ms(lambda: kv_cache.dense_cache_update(got_k, got_v, k, v, lengths, layer))
             plain_ms = median_ms(lambda: kv_cache.dense_cache_update_plain(ref_k, ref_v, k, v, lengths, layer))
-            times = (kernel_ms, plain_ms)
-            print(f"K2 {name}: kernel {kernel_ms:.4f} ms, plain (indexed write) "
-                  f"{plain_ms:.4f} ms, median of 20")
+            # The rows read once and written once; no arithmetic. The library
+            # call for this function is the indexed write, its plain version.
+            least, by = bound_ms(2 * 2 * (k.numel() + v.numel()), 0)
+            print(f"K2 {name}: kernel {kernel_ms:.4f} ms, plain ({T} indexed writes) "
+                  f"{plain_ms:.4f} ms, bound {least:.6f} ms by {by}, median of 20")
+            if times is None:  # the decode step's shape goes into the result line
+                times = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=plain_ms,
+                             bound_ms=least, bound_by=by)
+    return {"max_abs_err": 0.0, "times": times}
+
+
+def paged_case(gen, lengths, quant: bool, fused: bool, layers: int = 2):
+    """Pools of `layers` layers in the port's layout with a shuffled page table
+    [B, 16]: every slot owns 16 pages of its own; page 0 is the trash page."""
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    dev = "cuda"
+    Hkv, D, ps, pps = 8, 128, 128, 16
+    B = len(lengths)
+    P = B * pps + 1
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[:B * pps] + 1).reshape(B, pps)
+    shape = (layers * P, Hkv, ps, D)
+    kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    ksc = vsc = None
+    if quant:
+        kp, ksc = pa.quantize_kv_pool(kp)
+        vp, vsc = pa.quantize_kv_pool(vp)
+    if fused:
+        kp, vp = torch.cat([kp, vp], dim=2), None
+        if quant:
+            ksc, vsc = torch.cat([ksc, vsc], dim=2), None
+    return dict(kp=kp, vp=vp, ksc=ksc, vsc=vsc, table=table.to(torch.int32).contiguous(),
+                lengths=torch.tensor(lengths, dtype=torch.int32, device=dev), P=P)
+
+
+def paged_call(pa, case, q, selfterm, k_new, v_new, window=None, plain=False, **over):
+    from vis_zephyr_tpu_torch.ops import _kernels
+
+    if plain:
+        with _kernels.plain_versions():
+            return paged_call(pa, case, q, selfterm, k_new, v_new, window, **over)
+    S = q.shape[1]
+    lengths = case["lengths"]
+    q_offs = lengths if selfterm else (lengths - S).contiguous()
+    c = dict(case, **over)
+    return pa.paged_attention_fa(
+        q, c["kp"], c["vp"], c["table"], lengths, q_offs, sliding_window=window,
+        k_scales=c["ksc"], v_scales=c["vsc"], k_new=k_new if selfterm else None,
+        v_new=v_new if selfterm else None, page_offset=case["P"])
+
+
+def check_paged_attention(gen) -> dict:
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    dev = "cuda"
+    Hq, Hkv, D, ps, B = 32, 8, 128, 128, 32
+    edge = [0, 1, 128, 129, 2048, 2047, 127, 1025]
+    rand = torch.randint(1, 2049, (B - len(edge),), generator=gen, device=dev).tolist()
+    lengths = edge + rand
+    q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    k_new = torch.randn(B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    v_new = torch.randn(B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    worst = 0.0
+
+    def slot_err(a, b):  # max-abs difference per slot, [B]
+        return (a.float() - b.float()).abs().flatten(1).amax(dim=1)
+
+    def compare(name, case, qq, selfterm, window=None):
+        # A slot of 2048 keys has outputs near 0.05 and a slot of one key near
+        # 3, so one max-abs over all slots would gate the long slots at half a
+        # typical value. Each slot is held to its own scale instead: max-abs
+        # error over the slot's largest |plain| value (a bf16 ulp is at most
+        # 0.78 % of a value).
+        nonlocal worst
+        got = paged_call(pa, case, qq, selfterm, k_new, v_new, window)
+        torch.cuda.synchronize()
+        want = paged_call(pa, case, qq, selfterm, k_new, v_new, window, plain=True)
+        err = slot_err(got, want)
+        top = want.float().abs().flatten(1).amax(dim=1)
+        rel = torch.where(top > 0, err / top.clamp_min(1e-30), err)
+        long_slots = case["lengths"] >= 1000
+        print(f"K3 {name}: out max-abs {float(err.max()):.3e}; per slot, relative to the slot's "
+              f"largest value: max {float(rel.max()):.3e} (<= 1e-2), over slots of >= 1000 keys "
+              f"{float(rel[long_slots].max()):.3e}")
+        if not (float(rel.max()) <= 1e-2 and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"K3 {name}: kernel disagrees with the plain version")
+        worst = max(worst, float(err.max()))
+        return got
+
+    for quant, fused, label in ((False, False, "bf16 split"), (True, False, "int8 split"),
+                                (True, True, "int8 fused")):
+        case = paged_case(gen, lengths, quant, fused)
+        for selfterm in (False, True):
+            got = compare(f"{label}, {'self-term' if selfterm else 'pool only'}", case, q, selfterm)
+            if not selfterm and float(got[0].float().abs().max()) != 0.0:
+                raise AssertionError(f"K3 {label}: the slot with no key is not exactly 0")
+        if not quant:
+            # Whatever a recycled page holds at or past `length` must not reach
+            # the output: NaN there, the same result bit for bit.
+            clean = paged_call(pa, case, q, True, k_new, v_new)
+            kd, vd = case["kp"].clone(), case["vp"].clone()
+            for b, n in enumerate(lengths):
+                if n < 2048:
+                    page = int(case["table"][b, n // ps]) + case["P"]
+                    kd[page, :, n % ps:] = float("nan")
+                    vd[page, :, n % ps:] = float("nan")
+            dirty = paged_call(pa, case, q, True, k_new, v_new, kp=kd, vp=vd)
+            torch.cuda.synchronize()
+            same = torch.equal(clean, dirty)
+            print(f"K3 {label}: NaN rows past length leave the output unchanged: {same}")
+            if not same:
+                raise AssertionError("K3: rows past length reached the output")
+    got = compare("int8 fused, self-term, window 512", case, q, True, window=512)
+    # The window's edge: on the slots it cuts (query at `length`: 512 keys or more
+    # in the pool), the kernel at 512 must sit nearer the plain
+    # version at 512 than the plain version at 511 or 513, and differ from its
+    # own unwindowed output.
+    cut = case["lengths"] >= 512
+    near = float(slot_err(got, paged_call(pa, case, q, True, k_new, v_new, 512, plain=True))[cut].sum())
+    off = [float(slot_err(got, paged_call(pa, case, q, True, k_new, v_new, w, plain=True))[cut].sum())
+           for w in (511, 513)]
+    unwindowed = paged_call(pa, case, q, True, k_new, v_new)
+    differs = bool((slot_err(got, unwindowed)[cut] > 0).all())
+    same_short = torch.equal(got[~cut], unwindowed[~cut])
+    print(f"K3 window 512 over the {int(cut.sum())} slots it cuts: summed max-abs against the "
+          f"plain version at 512 {near:.3e}, at 511 {off[0]:.3e}, at 513 {off[1]:.3e}; differs "
+          f"from the unwindowed output on every such slot: {differs}; equal on the others: "
+          f"{same_short}")
+    if not (near < min(off) and differs and same_short):
+        raise AssertionError("K3: the sliding window's edge is off")
+    q2 = torch.randn(B, 2, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    two = dict(case, lengths=torch.clamp(case["lengths"], min=2))
+    compare("int8 fused, two query rows per slot (S=2), pool only", two, q2, False)
+
+    # Times at lengths like the served path's (prompts of 60 to 800 tokens), int8
+    # fused pools with the self-term: what every layer of a decode step calls.
+    served = torch.randint(60, 801, (B,), generator=gen, device=dev).tolist()
+    case = paged_case(gen, served, True, True)
+    ms = median_ms(lambda: paged_call(pa, case, q, True, k_new, v_new))
+    plain_ms = median_ms(lambda: paged_call(pa, case, q, True, k_new, v_new, plain=True))
+    tokens = sum(served)
+    # Each valid K and V row read once with its scale; q, the self-term, the
+    # table and the lengths read once; the output written once. 4·Hq·D flops
+    # per key (q·k and p·v), counting this run's lengths.
+    n_bytes = (tokens * Hkv * 2 * (D + 4) + 2 * 2 * q.numel() + 2 * 2 * k_new.numel()
+               + 4 * case["table"].numel() + 8 * B)
+    least, by = bound_ms(n_bytes, 4 * Hq * D * (tokens + B))
+    print(f"K3 B={B}, {tokens} tokens in the pools (60 to 800 per slot), int8 fused, self-term: "
+          f"kernel {ms:.4f} ms, plain (gather + f32 matmuls) {plain_ms:.4f} ms, bound "
+          f"{least:.5f} ms by {by} ({n_bytes / 1e6:.2f} MB), median of 20")
+    full = paged_case(gen, [2048] * B, True, True)
+    full_ms = median_ms(lambda: paged_call(pa, full, q, True, k_new, v_new))
+    full_bytes = B * 2048 * Hkv * 2 * (D + 4)
+    print(f"K3 B={B}, every slot at 2048 tokens: kernel {full_ms:.4f} ms, bound "
+          f"{bound_ms(full_bytes, 0)[0]:.5f} ms by bytes ({full_bytes / 1e6:.1f} MB)")
+    return {"max_abs_err": worst, "times": dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                                bound_ms=least, bound_by=by)}
+
+
+def check_paged_rows(gen) -> dict:
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    dev = "cuda"
+    L, B, Hkv, D, ps, P = 32, 32, 8, 128, 128, 65
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[[3, 4, 11, 17, 18, 19, 30, 31]] = False
+    # An active slot writes its own page at any row; inactive slots all write
+    # row 0 of trash page 0, with equal rows (a step's pad tokens at position 0).
+    pages = torch.where(active, torch.randperm(P - 1, generator=gen, device=dev)[:B] + 1, 0)
+    offsets = torch.where(active, torch.randint(0, ps, (B,), generator=gen, device=dev), 0)
+    pages, offsets = pages.to(torch.int32), offsets.to(torch.int32)
+    ks = torch.randn(L, B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    vs = torch.randn(L, B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    idle = (~active).nonzero()[:, 0]
+    ks[:, idle], vs[:, idle] = ks[:, idle[:1]], vs[:, idle[:1]]
+    times = None
+    for quant, fused, label in ((False, False, "bf16 split"), (False, True, "bf16 fused"),
+                                (True, False, "int8 split"), (True, True, "int8 fused")):
+        rows = 2 * ps if fused else ps
+        shape = (L * P, Hkv, rows, D)
+        if quant:
+            kp = torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            vp = None if fused else torch.randint(-128, 128, shape, generator=gen, device=dev,
+                                                   dtype=torch.int8)
+            ksc = torch.rand(shape[:3], generator=gen, device=dev)
+            vsc = None if fused else torch.rand(shape[:3], generator=gen, device=dev)
+        else:
+            kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            vp = None if fused else torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            ksc = vsc = None
+        got = [None if t is None else t.clone() for t in (kp, vp, ksc, vsc)]
+        ref = [None if t is None else t.clone() for t in (kp, vp, ksc, vsc)]
+        if quant:
+            pa.paged_kv_update_rows_q(*got, ks, vs, pages, offsets)
+            with _kernels.plain_versions():
+                pa.paged_kv_update_rows_q(*ref, ks, vs, pages, offsets)
+        else:
+            pa.paged_kv_update_rows(got[0], got[1], ks, vs, pages, offsets)
+            with _kernels.plain_versions():
+                pa.paged_kv_update_rows(ref[0], ref[1], ks, vs, pages, offsets)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(g, r) for g, r in zip(got, ref) if g is not None)
+        changed = int((got[0] != kp).any(dim=-1).sum())
+        print(f"K4 {label}: whole pools and scales bit-exact against the plain version: {exact} "
+              f"({changed} rows of the first pool changed)")
+        if not exact or changed == 0:
+            raise AssertionError(f"K4 {label}: kernel disagrees with the plain version")
+        if quant and fused:  # the served path's form
+            ms = median_ms(lambda: pa.paged_kv_update_rows_q(*got, ks, vs, pages, offsets))
+            with _kernels.plain_versions():
+                plain_ms = median_ms(lambda: pa.paged_kv_update_rows_q(*ref, ks, vs, pages, offsets))
+            # The library call nearest to it: ONE indexed write of rows that are
+            # already quantized (the write half of the function only).
+            kq, vq = pa.quantize_kv(ks)[0], pa.quantize_kv(vs)[0]
+            page = (torch.arange(L, device=dev)[:, None] * P + pages.long()[None, :])[:, :, None]
+            head = torch.arange(Hkv, device=dev)[None, None, :]
+            row = offsets.long()[None, :, None]
+            index = (torch.cat([page, page]), head, torch.cat([row.expand(L, B, 1),
+                                                               row.expand(L, B, 1) + ps]))
+            both = torch.cat([kq, vq])
+            library_ms = median_ms(lambda: ref[0].index_put_(index, both))
+            # bf16 rows read once; int8 rows and f32 scales written once.
+            n_rows = 2 * L * B * Hkv
+            least, by = bound_ms(n_rows * (2 * D + D + 4) + 8 * B, 0)
+            times = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=least,
+                         bound_by=by)
+            print(f"K4 {label}: kernel {ms:.4f} ms, plain (quantize + 4 indexed writes) "
+                  f"{plain_ms:.4f} ms, one index_put_ of quantized rows {library_ms:.4f} ms, "
+                  f"bound {least:.6f} ms by {by}, median of 20")
     return {"max_abs_err": 0.0, "times": times}
 
 
@@ -216,28 +510,63 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.nn.functional.cosine_similarity(a.double().flatten(), b.double().flatten(), dim=0))
 
 
-def run_slice(seed: int, max_new_tokens: int, card: str) -> dict:
-    import numpy as np
-
-    from vis_zephyr_tpu_torch.models.vis_zephyr import VisZephyrConfig, init_vis_zephyr
-    from vis_zephyr_tpu_torch.ops import flash_attention as fa
-    from vis_zephyr_tpu_torch.ops import kv_cache
-    from vis_zephyr_tpu_torch.serve.api import serve
-    from vis_zephyr_tpu_torch.serve.engine import DEFAULT_IMAGE_TOKEN, ChatEngine
-    from vis_zephyr_tpu_torch.serve.generate import _cache_len, decode_step, prefill
+def build_model(seed: int):
+    from vis_zephyr_tpu_torch.config import VisZephyrConfig
+    from vis_zephyr_tpu_torch.models.vis_zephyr import init_vis_zephyr
 
     cfg = VisZephyrConfig()
-    L = cfg.decoder.num_layers
     t0 = time.perf_counter()
     model = init_vis_zephyr(cfg, torch.Generator("cuda").manual_seed(seed), device="cuda",
                             dtype=torch.bfloat16)
+    # No random reply may end early: the EOS row of lm_head is zeroed, so its
+    # logit is 0 and never the largest of 32000 random ones. Every reply then
+    # has exactly max_new_tokens tokens and the launch counts are exact.
+    model.decoder.lm_head.weight[WordTokenizer.eos_token_id].zero_()
     torch.cuda.synchronize()
     n_params = {name: sum(p.numel() for p in getattr(model, name).parameters())
                 for name in ("vision", "projector", "decoder")}
-    print(f"slice: full-width VisZephyrConfig() with random bf16 weights "
+    print(f"model: full-width VisZephyrConfig() with random bf16 weights "
           f"(vision {n_params['vision'] / 1e9:.2f} B, projector {n_params['projector'] / 1e9:.2f} B, "
           f"decoder {n_params['decoder'] / 1e9:.2f} B params) in {time.perf_counter() - t0:.1f} s")
+    return model, cfg
 
+
+def session_pixels(rng, side: int, crops: int):
+    """Seeded pixels [4, side, side, 3] with `crops` valid patches, as
+    `attach_image` stores a preprocessed image (no PIL on the card's host)."""
+    import numpy as np
+
+    px = rng.standard_normal((4, side, side, 3)).astype(np.float32)
+    px[crops:] = 0.0
+    return px, np.arange(4) < crops
+
+
+def start_server(engine):
+    from vis_zephyr_tpu_torch.serve.api import serve
+
+    server = serve(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread
+
+
+def stop_server(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=30)
+
+
+def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str) -> dict:
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.serve.engine import ChatEngine
+    from vis_zephyr_tpu_torch.serve.generate import _cache_len, decode_step, prefill
+
+    L = cfg.decoder.num_layers
     tokenizer = WordTokenizer(cfg.decoder.vocab_size)
     engine = ChatEngine(model, cfg, tokenizer, max_new_tokens=max_new_tokens)
     rng = np.random.default_rng(seed)
@@ -245,17 +574,12 @@ def run_slice(seed: int, max_new_tokens: int, card: str) -> dict:
     sessions = [f"s{i}" for i in range(3)]
     pixels = {}
     for sid in sessions:
-        # Seeded pixels [4, 336, 336, 3] with 3 valid patches, attached the way
-        # `attach_image` stores a preprocessed image (no PIL on the card's host).
-        px = rng.standard_normal((4, side, side, 3)).astype(np.float32)
-        px[3] = 0.0
+        px, valid = session_pixels(rng, side, 3)
         pixels[sid] = px
-        engine.attach_pixels(sid, px, np.array([True, True, True, False]), (2 * side, side))
+        engine.attach_pixels(sid, px, valid, (2 * side, side))
 
-    server = serve(engine, "127.0.0.1", 0)
+    server, thread = start_server(engine)
     port = server.server_address[1]
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
     # A session's first turn carries the <image> placeholder, as `chat` adds
     # it when it attaches an image itself.
     requests = [(sessions[0], f"{DEFAULT_IMAGE_TOKEN}\ndescribe the picture"),
@@ -272,22 +596,20 @@ def run_slice(seed: int, max_new_tokens: int, card: str) -> dict:
             results.append((sid, status, text, ttft, total, n))
         flash_launches, append_launches = fa.launches, kv_cache.launches
     finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
+        stop_server(server, thread)
 
     decode_steps = 0
     rates = []
     for sid, status, text, ttft, total, n in results:
         words_ok = n > 0 and all(w[0] == "w" and w[1:].isdigit() for w in text.split())
-        print(f"slice request {sid}: HTTP {status}, {n} tokens streamed, TTFT {ttft * 1e3:.1f} ms, "
+        print(f"slice1 request {sid}: HTTP {status}, {n} tokens streamed, TTFT {ttft * 1e3:.1f} ms, "
               f"total {total * 1e3:.1f} ms, text starts {text[:48]!r}")
         if status != 200 or not words_ok:
             raise AssertionError(f"request on {sid} did not stream text")
         decode_steps += min(n, max_new_tokens - 1)
         if n > 1:
             rates.append((n - 1) / (total - ttft))
-    print(f"slice counters: K1 flash_fwd {flash_launches} launches (want {L * len(requests)}), "
+    print(f"slice1 counters: K1 flash_fwd {flash_launches} launches (want {L * len(requests)}), "
           f"K2 dense_cache_append {append_launches} (want {L} x {decode_steps} decode steps)")
     if flash_launches != L * len(requests) or append_launches != L * decode_steps:
         raise AssertionError("the serving path did not go through the kernels as counted")
@@ -300,23 +622,25 @@ def run_slice(seed: int, max_new_tokens: int, card: str) -> dict:
     # tokens must equal the streamed ones exactly.
     cache_len = _cache_len(ids.shape[1], images, cfg, max_new_tokens)
     last_k, cache_k, lengths = prefill(model, ids, images, valid, cfg, cache_len)
-    last_p, cache_p, _ = prefill(model, ids, images, valid, cfg, cache_len, use_flash=False)
+    with _kernels.plain_versions():
+        last_p, cache_p, _ = prefill(model, ids, images, valid, cfg, cache_len)
     if not (bool(torch.isfinite(last_k).all()) and last_k.shape == (1, cfg.decoder.vocab_size)):
         raise AssertionError(f"prefill logits not finite of shape [1, V]: {tuple(last_k.shape)}")
     cos_prefill = cosine(last_k, last_p)
     token = last_k.argmax(-1)
     direct = [int(token)]
     for _ in range(8):
-        logits_k, cache_k = decode_step(model, cache_k, token, cfg, pallas_cache=True)
-        logits_p, cache_p = decode_step(model, cache_p, token, cfg, pallas_cache=False)
+        logits_k, cache_k = decode_step(model, cache_k, token, cfg)
+        with _kernels.plain_versions():
+            logits_p, cache_p = decode_step(model, cache_p, token, cfg)
         token = logits_k.argmax(-1)
         direct.append(int(token))
     cos_decode = cosine(logits_k, logits_p)
     streamed = [int(w[1:]) for w in results[1][2].split()][:len(direct)]
     same_tokens = direct[:len(streamed)] == streamed  # a stream ends early only at EOS
-    print(f"slice check (prefill length {int(lengths[0])}, padded to a multiple of 128): "
+    print(f"slice1 check (prefill length {int(lengths[0])}, padded to a multiple of 128): "
           f"prefill last-token logits cosine {cos_prefill:.6f}, decode-step-8 logits cosine "
-          f"{cos_decode:.6f} (kernel path vs use_flash=False / pallas_cache=False, >= 0.999); "
+          f"{cos_decode:.6f} (kernel path vs the plain versions of K1 and K2, >= 0.999); "
           f"direct greedy tokens equal the streamed ones: {same_tokens}")
     if not (cos_prefill >= 0.999 and cos_decode >= 0.999 and bool(torch.isfinite(logits_k).all())):
         raise AssertionError("kernel path disagrees with the plain path")
@@ -325,65 +649,443 @@ def run_slice(seed: int, max_new_tokens: int, card: str) -> dict:
 
     ttfts = [r[3] for r in results]
     rate = statistics.median(rates) if rates else float("nan")
-    print(f"slice: TTFT median {statistics.median(ttfts) * 1e3:.1f} ms (first request "
+    print(f"slice1: TTFT median {statistics.median(ttfts) * 1e3:.1f} ms (first request "
           f"{ttfts[0] * 1e3:.1f} ms), decode {rate:.2f} tokens/s median over requests, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
+    return {"flash_launches": flash_launches, "append_launches": append_launches,
+            "precision_inputs": (ids, images, valid, cache_len, last_k)}
 
-    # Precision: the port runs the multimodal prefill in bf16, while the JAX
-    # engine's f32 pixels promote its vision stack and prefill to f32 over the
-    # same bf16 weights. Hold the kernel path's logits against that
-    # arithmetic: the same weights widened to f32 (exactly), plain attention.
-    del cache_k, cache_p
+
+def check_precision(model, cfg, ids, images, valid, cache_len, last_k) -> None:
+    """The port runs the multimodal prefill in bf16, while the JAX engine's f32
+    pixels promote its vision stack and prefill to f32 over the same bf16
+    weights. Hold the kernel path's logits against that arithmetic: the same
+    weights widened to f32 (exactly), plain attention. Widens `model` in place."""
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.serve.generate import prefill
+
     model.float()
-    last_f32, _, _ = prefill(model, ids, images, valid, cfg, cache_len, use_flash=False)
+    with _kernels.plain_versions():
+        last_f32, _, _ = prefill(model, ids, images, valid, cfg, cache_len)
     cos_f32 = cosine(last_k, last_f32)
     same_top1 = int(last_k.argmax(-1)) == int(last_f32.argmax(-1))
-    print(f"slice precision: bf16 kernel-path prefill last-token logits against an f32 run of "
+    print(f"precision: bf16 kernel-path prefill last-token logits against an f32 run of "
           f"the same weights: cosine {cos_f32:.6f} (>= 0.999), max-abs "
           f"{float((last_k - last_f32).abs().max()):.4e}, same top-1 token: {same_top1}")
     if not cos_f32 >= 0.999:
         raise AssertionError("bf16 prefill disagrees with the f32 run of the same weights")
-    return {"flash_launches": flash_launches, "append_launches": append_launches}
+
+
+# -- the batched paged path -------------------------------------------------------------
+
+PAGED_FLAGS = ["--continuous-batching", "--kv-cache", "paged", "--kv-quant", "--max-slots", "32"]
+QUESTION_WORDS = (20, 280, 580)
+WORDS = ("the picture shows a street with people cars trees shops and signs under a "
+         "bright sky while someone asks what is happening here and why").split()
+
+
+def make_question(rng, n_words: int) -> str:
+    return " ".join(WORDS[int(i)] for i in rng.integers(0, len(WORDS), n_words))
+
+
+def paged_requests(rng, cfg, n: int):
+    """[(session id, question, pixels, valid)]: question lengths cycle through
+    about 40, 300 and 600 words; every third session's image has 3 valid
+    anyres crops, the others the global view alone (`/chat` takes no session
+    without an image)."""
+    from vis_zephyr_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
+
+    out = []
+    for i in range(n):
+        px, valid = session_pixels(rng, cfg.vision.image_size, 3 if i % 3 == 0 else 1)
+        question = f"{DEFAULT_IMAGE_TOKEN}\n" + make_question(rng, QUESTION_WORDS[(i // 3) % 3])
+        out.append((f"p{i}", question, px, valid))
+    return out
+
+
+def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str) -> dict:
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+    from vis_zephyr_tpu_torch.serve import api
+
+    L = cfg.decoder.num_layers
+    parser = argparse.ArgumentParser()
+    api.add_engine_args(parser)
+    flags = parser.parse_args(PAGED_FLAGS + ["--max-new-tokens", str(new_tokens)])
+    engine = api.engine_from_args(model, cfg, WordTokenizer(cfg.decoder.vocab_size), flags)
+    b = engine.batcher
+    side = cfg.vision.image_size
+    requests = paged_requests(np.random.default_rng(seed + 1), cfg, 48)
+    chunks = 0
+    for sid, question, px, valid in requests:
+        engine.attach_pixels(sid, px, valid, (2 * side, side))
+        length = len(engine.prompt_ids(question)) - 1 + int(valid.sum()) * cfg.tokens_per_patch
+        chunks += -(-length // b.prefill_chunk)
+    print(f"paged: server flags {' '.join(PAGED_FLAGS)} -> max_slots {b.max_slots}, cache_len "
+          f"{b.cache_len}, page {b.page_size}, {b.num_pages} pages per layer, prefill chunk "
+          f"{b.prefill_chunk}, int8 {b.kv_quant}, fused {b.kv_fused}; pools "
+          f"{(b.kp.numel() + 4 * b.ksp.numel()) / 2**30:.2f} GiB")
+
+    # Warm the path once (cuBLAS handles, allocator), outside the counted run.
+    engine.attach_pixels("warm", requests[0][2], requests[0][3], (2 * side, side))
+    engine.chat_text("warm", requests[0][1])
+    uses = np.zeros(b.max_slots, np.int64)
+    install = b._install
+
+    def counting_install(req, slot, *args):
+        ok = install(req, slot, *args)
+        uses[slot] += bool(ok)
+        return ok
+
+    b._install = counting_install
+    server, thread = start_server(engine)
+    port = server.server_address[1]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        fa.launches = kv_cache.launches = pa.attn_launches = pa.rows_launches = 0
+        b.steps = b.slots_stepped = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(requests)) as pool:
+            results = list(pool.map(
+                lambda r: post_chat(port, {"session_id": r[0], "question": r[1]}), requests))
+        wall = time.perf_counter() - t0
+        counts = dict(k1=fa.launches, k2=kv_cache.launches, k3=pa.attn_launches,
+                      k4=pa.rows_launches)
+    finally:
+        stop_server(server, thread)
+        engine.close()
+
+    for (sid, _, _, _), (status, text, ttft, total) in zip(requests, results):
+        words = text.split()
+        if status != 200 or len(words) != new_tokens or not all(
+                w[0] == "w" and w[1:].isdigit() for w in words):
+            raise AssertionError(f"paged request {sid}: HTTP {status}, {len(words)} tokens "
+                                 f"(want {new_tokens}): {text[:60]!r}")
+    steps = b.steps
+    print(f"paged: 48 requests, all HTTP 200 with {new_tokens} tokens; {steps} decode steps, "
+          f"mean active slots per step {b.slots_stepped / steps:.2f} of {b.max_slots}")
+    print(f"paged counters: K3 paged_attn_decode {counts['k3']} (want {L} x {steps} = {L * steps}), "
+          f"K4 paged_kv_rows {counts['k4']} (want {steps}), K2 dense_cache_append {counts['k2']} "
+          f"(want {L} x {chunks} prefill chunks = {L * chunks}), K1 flash_fwd {counts['k1']} (want 0: "
+          f"chunked admission attends its scratch cache with plain attention)")
+    if (counts["k3"], counts["k4"], counts["k2"], counts["k1"]) != (L * steps, steps, L * chunks, 0):
+        raise AssertionError("the paged serving path did not go through the kernels as counted")
+    reused = int((uses > 1).sum())
+    free = b.allocator.available
+    print(f"paged slots: {int((uses > 0).sum())} of {b.max_slots} used, {reused} of them more than "
+          f"once ({int(uses.sum())} admissions); allocator {free} of {b.num_pages - 1} pages free, "
+          f"page table all zero: {not bool(b.page_table.any())}")
+    if (int(uses.sum()) != 48 or reused == 0 or free != b.num_pages - 1 or b.has_work
+            or bool(b.page_table.any()) or b.slots_stepped <= steps):
+        raise AssertionError("slots were not reused, requests did not share steps, or pages leaked")
+    ttfts = sorted(r[2] for r in results)
+    decoded = 48 * (new_tokens - 1)
+    print(f"paged: TTFT median {statistics.median(ttfts) * 1e3:.1f} ms, max {ttfts[-1] * 1e3:.1f} ms; "
+          f"{48 * new_tokens} tokens in {wall:.2f} s = {48 * new_tokens / wall:.1f} tokens/s over all "
+          f"slots ({decoded / wall:.1f} decode tokens/s), {wall / steps * 1e3:.1f} ms of wall per "
+          f"scheduler step (decode + one prefill chunk), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
+    return counts
+
+
+def admitted_batcher(model, cfg, requests, max_slots: int, prefill_chunk=None, **kw):
+    """A direct PagedBatcher with every request admitted before any decode
+    step: whole (the prompt prefills through K1) or, with `prefill_chunk`, in
+    chunks over a scratch cache (K2 at T = chunk). Inside
+    `_kernels.plain_versions()` the same admission takes the plain versions."""
+    from vis_zephyr_tpu_torch.serve.generate import SamplingConfig
+    from vis_zephyr_tpu_torch.serve.paged import PagedBatcher
+
+    b = PagedBatcher(model, cfg, max_slots=max_slots, cache_len=2048,
+                     sampling=SamplingConfig(max_new_tokens=64, eos_token_id=-1),
+                     prefill_chunk=prefill_chunk, **kw)
+    for ids, px, valid in requests:
+        b.submit(ids, px, valid)
+    if prefill_chunk:
+        while not b.pending.empty() or b._prefilling is not None:
+            b._pump_prefill()
+    else:
+        b._admit_pending()
+    if int(b.active.sum()) != len(requests):
+        raise AssertionError("not every request was admitted")
+    return b
+
+
+def direct_requests(cfg, seed: int, n: int):
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.data.tokenization import tokenize_with_images
+
+    tok = WordTokenizer(cfg.decoder.vocab_size)
+    return [(np.asarray(tokenize_with_images(q, tok), np.int64), px, valid)
+            for _, q, px, valid in paged_requests(np.random.default_rng(seed + 2), cfg, n)]
+
+
+def slot_cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=-1)
+
+
+def valid_rows(b, L: int) -> torch.Tensor:
+    """Bool [L·P, Hkv, rows]: the K and V rows below each slot's length (a
+    prefill's padded tail holds rows nothing reads, filled differently by the
+    two prefill paths)."""
+    ps, P = b.page_size, b.num_pages
+    valid = torch.zeros(b.ksp.shape, dtype=torch.bool, device=b.ksp.device)
+    layer0 = torch.arange(L, device=valid.device) * P
+    for slot in range(b.max_slots):
+        n = int(b.slot_len[slot])
+        for j, page in enumerate(b.slot_pages[slot]):
+            rows = min(max(n - j * ps, 0), ps)
+            valid[layer0 + page, :, :rows] = True
+            valid[layer0 + page, :, ps:ps + rows] = True
+    return valid
+
+
+def run_fixed_batch(model, cfg, seed: int) -> int:
+    """HTTP timing changes which requests share a step, so agreement is read on
+    a fixed batch: the same 16 requests admitted whole (K1) and in chunks of 256
+    (K2 at T=256), each on the kernel path and on the plain path, and whole with
+    bf16 pools; all are fed the whole-prompt kernel path's tokens so that they
+    see the same sequence. Returns K2's launches of the chunked admission."""
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    L = cfg.decoder.num_layers
+    requests = direct_requests(cfg, seed, 16)
+    int8_fused = dict(kv_quant=True, kv_fused=True)
+    fa.launches = kv_cache.launches = 0
+    kern = admitted_batcher(model, cfg, requests, 16, **int8_fused)
+    k1 = fa.launches
+    chunk_kern = admitted_batcher(model, cfg, requests, 16, prefill_chunk=256, **int8_fused)
+    k2 = kv_cache.launches
+    with _kernels.plain_versions():
+        plain = admitted_batcher(model, cfg, requests, 16, **int8_fused)
+        chunk_plain = admitted_batcher(model, cfg, requests, 16, prefill_chunk=256, **int8_fused)
+    wide = admitted_batcher(model, cfg, requests, 16, kv_quant=False, kv_fused=True)
+    chunks = sum(-(-int(n) // 256) for n in kern.slot_len)
+    print(f"batch: 16 requests, prompt lengths {sorted(int(n) for n in kern.slot_len)}; admitted "
+          f"whole: K1 flash_fwd {k1} launches (want {L} per prompt = {L * 16}); admitted in chunks "
+          f"of 256: K2 dense_cache_append {k2} launches (want {L} x {chunks} chunks = {L * chunks})")
+    if (k1, k2) != (L * 16, L * chunks):
+        raise AssertionError("the admissions did not go through K1 and K2 as counted")
+
+    # Chunked admission runs the same arithmetic on both paths but for the row
+    # write (K2, a copy, against the indexed write), so everything it leaves
+    # behind must be equal bit for bit: pools, scales, table, lengths, tokens.
+    rows = valid_rows(chunk_kern, L)
+    same = {"int8 rows": torch.equal(chunk_kern.kp[rows], chunk_plain.kp[rows]),
+            "scales": torch.equal(chunk_kern.ksp[rows], chunk_plain.ksp[rows]),
+            "whole pools": (torch.equal(chunk_kern.kp, chunk_plain.kp)
+                            and torch.equal(chunk_kern.ksp, chunk_plain.ksp)),
+            "page table": torch.equal(chunk_kern.page_table, chunk_plain.page_table),
+            "lengths": torch.equal(chunk_kern.lengths, chunk_plain.lengths),
+            "first tokens": torch.equal(chunk_kern.token, chunk_plain.token)}
+    print(f"batch chunked admission, kernel path (K2 at B=1, T=256 into scratch caches of "
+          f"{sorted({-(-int(n) // 256) * 256 for n in kern.slot_len})} rows) against the plain path, "
+          f"{int(rows.sum())} K and V rows below the slots' lengths; bit-equal: {same}")
+    if not all(same.values()):
+        raise AssertionError("chunked admission through K2 differs from its plain version")
+
+    others = (plain, wide, chunk_kern, chunk_plain)
+    for other in others:
+        other.token.copy_(kern.token)
+    for step in range(1, 17):
+        for b in (kern, wide, chunk_kern):
+            if b.step() != 16:
+                raise AssertionError("a slot finished early")
+        with _kernels.plain_versions():
+            for b in (plain, chunk_plain):
+                if b.step() != 16:
+                    raise AssertionError("a slot finished early")
+        if step in (1, 16):
+            cos_plain = slot_cosines(kern.last_logits, plain.last_logits)
+            cos_wide = slot_cosines(kern.last_logits, wide.last_logits)
+            cos_chunk = slot_cosines(chunk_kern.last_logits, chunk_plain.last_logits)
+            cos_route = slot_cosines(chunk_kern.last_logits, kern.last_logits)
+            print(f"batch step {step}: logits cosine, minimum over the 16 slots: kernel path vs "
+                  f"plain path, admitted whole {float(cos_plain.min()):.6f}, admitted in chunks "
+                  f"{float(cos_chunk.min()):.6f} (>= 0.999); chunked vs whole admission "
+                  f"{float(cos_route.min()):.6f} (>= 0.999); int8 pools vs bf16 pools min "
+                  f"{float(cos_wide.min()):.6f} median {float(cos_wide.median()):.6f} (>= 0.99)")
+            if not (min(float(cos_plain.min()), float(cos_chunk.min()),
+                        float(cos_route.min())) >= 0.999 and float(cos_wide.min()) >= 0.99
+                    and bool(torch.isfinite(kern.last_logits).all())
+                    and bool(torch.isfinite(chunk_kern.last_logits).all())):
+                raise AssertionError("the batched kernel path disagrees")
+        for other in others:
+            other.token.copy_(kern.token)
+
+    # The two whole-prompt int8 runs' pools. Their K/V rows come from bf16
+    # activations that differ in the last bits between the paths (K1 against
+    # plain attention), so an int8 value may move by a few steps and a scale by
+    # a bf16 ulp or two (0.4 to 0.8 % each): "every value within 1, every
+    # scale within 1e-3" cannot hold between two bf16 paths. The gates sit just under
+    # what this comparison reads on an H100 (0.9996 / 0.960 / one to two ulps),
+    # so a wrong row write by K4 or by admission fails them.
+    valid = valid_rows(kern, L)
+    diff = (kern.kp.int() - plain.kp.int()).abs()[valid]
+    rel = ((kern.ksp - plain.ksp).abs() / kern.ksp.clamp_min(1e-30))[valid]
+    deq_k = pa.dequant_kv_pool(kern.kp, kern.ksp, torch.float32)[valid]
+    deq_p = pa.dequant_kv_pool(plain.kp, plain.ksp, torch.float32)[valid]
+    cos_rows = slot_cosines(deq_k, deq_p)
+    within_1 = float((diff <= 1).float().mean())
+    print(f"batch pools after 16 steps, the {int(valid.sum())} K and V rows below the slots' "
+          f"lengths: int8 values max |diff| {int(diff.max())}, within 1: {within_1:.6f} of all "
+          f"(>= 0.95); scales relative diff median {float(rel.median()):.2e}, max "
+          f"{float(rel.max()):.2e} (<= 5e-2), within 1e-3: "
+          f"{float((rel <= 1e-3).float().mean()):.4f}; dequantized rows cosine min "
+          f"{float(cos_rows.min()):.6f} (>= 0.999), mean {float(cos_rows.mean()):.6f} (>= 0.9995)")
+    if not (float(cos_rows.min()) >= 0.999 and float(cos_rows.mean()) >= 0.9995
+            and within_1 >= 0.95 and float(rel.max()) <= 5e-2
+            and torch.equal(kern.page_table, plain.page_table)
+            and torch.equal(kern.lengths, plain.lengths)):
+        raise AssertionError("the kernel path's pools disagree with the plain path's")
+    # After the steps too, the chunked pair: the decode rows K4 wrote.
+    rows = valid_rows(chunk_kern, L)
+    cos_rows = slot_cosines(pa.dequant_kv_pool(chunk_kern.kp, chunk_kern.ksp, torch.float32)[rows],
+                            pa.dequant_kv_pool(chunk_plain.kp, chunk_plain.ksp, torch.float32)[rows])
+    print(f"batch pools after 16 steps, admitted in chunks: dequantized rows cosine min "
+          f"{float(cos_rows.min()):.6f} (>= 0.999)")
+    if not float(cos_rows.min()) >= 0.999:
+        raise AssertionError("the chunked kernel path's pools disagree with the plain path's")
+    return k2
+
+
+def run_profile(model, cfg, seed: int, card: str) -> None:
+    """One batched decode step at B=32: wall (host clock around steps that end
+    in a synchronize), device-busy time and the largest device items
+    (torch.profiler kernel sums; one stream, so kernels do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b = admitted_batcher(model, cfg, direct_requests(cfg, seed, 32), 32, kv_quant=True,
+                         kv_fused=True)
+    for _ in range(4):
+        b.step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(16):
+        t0 = time.perf_counter()
+        b.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n = 8
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            b.step()
+        torch.cuda.synchronize()
+    def device_us(e):  # the attribute's name changed between PyTorch releases
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    # Kernel rows only: an operator's row repeats the time of the kernels it launched.
+    rows = [(e.key, device_us(e) / 1e3 / n, e.count / n) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    wall = statistics.median(walls)
+    print(f"profile: batched decode step, B=32 active slots, lengths about "
+          f"{int(b.slot_len.mean())}: wall median {wall:.2f} ms (16 steps, min {min(walls):.2f}, "
+          f"max {max(walls):.2f}), device busy {busy:.2f} ms per step, idle share "
+          f"{1 - busy / wall:.2f} [{card}]")
+    for key, ms, count in rows[:8]:
+        print(f"profile:   {ms:8.3f} ms  {count:6.1f} launches/step  {key[:90]}")
+    if busy <= 0:
+        print("profile: the profiler reported no device time")
+
+
+PHASES = ("kernels", "slice1", "paged", "batch", "profile", "precision")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-new-tokens", type=int, default=32)
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one batched decode step (torch.profiler)")
+    ap.add_argument("--phases", default=None,
+                    help=f"comma-separated subset of {', '.join(PHASES)}; prints no result line")
     args = ap.parse_args(argv)
+    full = [p for p in PHASES if p != "profile" or args.profile]
+    phases = full if args.phases is None else args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        raise SystemExit(f"chip_smoke: unknown phase in {phases}")
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi name, power.limit: {card}")
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi name, power.limit: {card}; "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from vis_zephyr_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
     _kernels.build(force=True)
     _kernels.lib()
-    print(f"build: nvcc {' '.join(_kernels.NVCC_FLAGS)} -> {_kernels.LIB} "
-          f"in {time.perf_counter() - t0:.1f} s")
+    print(f"build: nvcc {' '.join(_kernels.NVCC_FLAGS)}, one process per source -> "
+          f"{_kernels.LIB} in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator("cuda").manual_seed(args.seed)
-    k1 = check_flash(gen)
-    k2 = check_cache_append(gen)
-    counts = run_slice(args.seed, args.max_new_tokens, card)
+    if "kernels" in phases:
+        k1 = check_flash(gen)
+        k2 = check_cache_append(gen)
+        k3 = check_paged_attention(gen)
+        k4 = check_paged_rows(gen)
+    if set(phases) - {"kernels"}:
+        model, cfg = build_model(args.seed)
+    if "slice1" in phases:
+        dense = run_slice(model, cfg, args.seed, args.max_new_tokens, card)
+    if "paged" in phases:
+        paged = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card)
+    if "batch" in phases:
+        run_fixed_batch(model, cfg, args.seed)
+    if "profile" in phases:
+        run_profile(model, cfg, args.seed, card)
+    if "precision" in phases:
+        if "slice1" not in phases:
+            raise SystemExit("chip_smoke: the precision phase needs slice1")
+        torch.cuda.empty_cache()
+        check_precision(model, cfg, *dense["precision_inputs"])
+    if phases != full:
+        print(f"partial run of phases {phases}: no result line")
+        return
 
-    k1_ms, k1_plain = k1["times"][256]
+    # The counts of the two served runs, each set to 0 just before its run and
+    # read just after it. `launches` is their sum (K2 is on both paths) and
+    # `launches_by_path` says which run gave what.
+    by_path = {"flash_fwd": {"dense": dense["flash_launches"], "paged": paged["k1"]},
+               "dense_cache_append": {"dense": dense["append_launches"], "paged": paged["k2"]},
+               "paged_attn_decode": {"dense": 0, "paged": paged["k3"]},
+               "paged_kv_rows": {"dense": 0, "paged": paged["k4"]}}
+    # Each path must have gone through its own kernels (chunked admission
+    # attends its scratch cache with plain attention, so K1 is the dense path's).
+    on_path = {"dense": ("flash_fwd", "dense_cache_append"),
+               "paged": ("dense_cache_append", "paged_attn_decode", "paged_kv_rows")}
+    if not all(by_path[name][path] > 0 for path, names in on_path.items() for name in names):
+        raise AssertionError(f"a kernel was never launched on its served path: {by_path}")
+    paged_py = "vis_zephyr_tpu/ops/paged_attention.py"
     kernels = [
-        {"name": "flash_fwd", "route": "cuda", "source": "vis_zephyr_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "vis_zephyr_tpu/ops/flash_attention.py:42",
-         "launches": counts["flash_launches"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "dense_cache_append", "route": "cuda",
-         "source": "vis_zephyr_tpu_torch/csrc/dense_cache_append.cu",
-         "replaces": "vis_zephyr_tpu/ops/kv_cache.py:37",
-         "launches": counts["append_launches"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["times"][0], "plain_ms": k2["times"][1]},
+        dict(name="flash_fwd", source="vis_zephyr_tpu_torch/csrc/flash_fwd.cu",
+             replaces="vis_zephyr_tpu/ops/flash_attention.py:42",
+             max_abs_err=k1["max_abs_err"], **k1["times"][256]),
+        dict(name="dense_cache_append", source="vis_zephyr_tpu_torch/csrc/dense_cache_append.cu",
+             replaces="vis_zephyr_tpu/ops/kv_cache.py:37",
+             max_abs_err=k2["max_abs_err"], **k2["times"]),
+        dict(name="paged_attn_decode", source="vis_zephyr_tpu_torch/csrc/paged_attn_decode.cu",
+             replaces=f"{paged_py}:604 and {paged_py}:911",
+             max_abs_err=k3["max_abs_err"], **k3["times"]),
+        dict(name="paged_kv_rows", source="vis_zephyr_tpu_torch/csrc/paged_kv_rows.cu",
+             replaces=f"{paged_py}:1691", max_abs_err=k4["max_abs_err"], **k4["times"]),
     ]
+    for kernel in kernels:
+        counts = by_path[kernel["name"]]
+        kernel.update(route="cuda", launches=sum(counts.values()), launches_by_path=counts)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,185 @@
+"""The port stands alone: it imports neither `jax` nor the JAX package.
+
+A fresh interpreter, with both blocked by an import hook, imports every module
+of `vis_zephyr_tpu_torch` and serves a chat through a serialized and a paged
+`ChatEngine` on the CPU; a source scan finds no such import in the port or in
+`chip_smoke.py`. The modules the port copied instead of importing (`config`,
+`constants`, `conversation`, `data/anyres`, `data/tokenization`) give what the
+JAX package's give on the same inputs.
+"""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+import vis_zephyr_tpu.config as jconfig
+import vis_zephyr_tpu.constants as jconstants
+import vis_zephyr_tpu.conversation as jconversation
+import vis_zephyr_tpu.data.anyres as janyres
+import vis_zephyr_tpu.data.tokenization as jtokenization
+import vis_zephyr_tpu_torch.config as tconfig
+import vis_zephyr_tpu_torch.constants as tconstants
+import vis_zephyr_tpu_torch.conversation as tconversation
+import vis_zephyr_tpu_torch.data.anyres as tanyres
+import vis_zephyr_tpu_torch.data.tokenization as ttokenization
+from conftest import MockTokenizer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCKED_RUN = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "vis_zephyr_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+
+import numpy as np
+import torch
+import vis_zephyr_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(vis_zephyr_tpu_torch.__path__,
+                                               "vis_zephyr_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) >= 25, names
+
+from vis_zephyr_tpu_torch.config import tiny_config
+from vis_zephyr_tpu_torch.models.vis_zephyr import init_vis_zephyr
+from vis_zephyr_tpu_torch.serve.engine import ChatEngine
+
+
+class Tokenizer:
+    bos_token_id, eos_token_id = 1, 2
+
+    def __call__(self, text):
+        return {"input_ids": [1] + [3 + len(w) % 200 for w in text.split()]}
+
+    def decode(self, ids, skip_special_tokens=False):
+        return " ".join(f"w{i}" for i in ids)
+
+
+cfg = tiny_config()
+model = init_vis_zephyr(cfg, torch.Generator().manual_seed(0))
+pixels = np.zeros((4, 56, 56, 3), np.float32)
+valid = np.array([True, True, False, False])
+replies = []
+for flags in ({}, dict(continuous_batching=True, kv_cache="paged", kv_quant=True, kv_fused=True,
+                       max_slots=2, cache_len=256, page_size=16, prefill_chunk=32)):
+    engine = ChatEngine(model, cfg, Tokenizer(), max_new_tokens=3, **flags)
+    engine.attach_pixels("s", pixels, valid, (112, 56))
+    replies.append(engine.chat_text("s", "<image>\nwhat is this"))
+    engine.close()
+assert all(len(r.split()) == 3 for r in replies), replies
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "vis_zephyr_tpu")]
+print("ok", len(names))
+"""
+
+
+def test_every_port_module_imports_and_serves_with_jax_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "VZT_PLATFORM"}
+    env["PYTHONPATH"] = os.pathsep.join([REPO, env.get("PYTHONPATH", "")])
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "vis_zephyr_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|vis_zephyr_tpu)(\.|\s|$)")
+    files = port_sources()
+    assert len(files) >= 25
+    hits = [f"{os.path.relpath(path, REPO)}:{n}: {line.strip()}"
+            for path in files
+            for n, line in enumerate(open(path, encoding="utf-8"), 1) if pattern.match(line)]
+    assert not hits, hits
+
+
+# -- the copied modules against the originals -----------------------------------------
+
+
+@pytest.mark.parametrize("make", ["VisZephyrConfig", "tiny_config", "smoke_config"])
+def test_config_fields_match(make):
+    want, got = getattr(jconfig, make)(), getattr(tconfig, make)()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.to_json() == want.to_json()
+    assert tconfig.VisZephyrConfig.from_json(want.to_json()) == got
+    assert got.tokens_per_patch == want.tokens_per_patch
+    assert got.max_extra_merge_tokens() == want.max_extra_merge_tokens()
+    unpad = dict(mm_patch_merge_type="spatial_unpad", mm_projector_type="mlp2x_gelu")
+    assert (got.replace(**unpad).max_extra_merge_tokens()
+            == want.replace(**unpad).max_extra_merge_tokens())
+    assert got.replace(**unpad).tokens_per_patch == want.replace(**unpad).tokens_per_patch
+    for part in ("vision", "decoder"):
+        for prop in ("tokens_per_side", "tokens_per_image", "head_dim"):
+            if hasattr(getattr(want, part), prop):
+                assert getattr(getattr(got, part), prop) == getattr(getattr(want, part), prop)
+
+
+def test_constants_match():
+    names = [n for n in dir(jconstants) if n.isupper()]
+    assert "IMAGE_TOKEN_INDEX" in names and "DEFAULT_IMAGE_TOKEN" in names
+    for n in names:
+        assert getattr(tconstants, n) == getattr(jconstants, n), n
+
+
+@pytest.mark.parametrize("name", sorted(jconversation.templates))
+def test_conversation_templates_match(name):
+    assert sorted(tconversation.templates) == sorted(jconversation.templates)
+    want, got = jconversation.templates[name].copy(), tconversation.templates[name].copy()
+    for conv in (want, got):
+        conv.append_message(conv.roles[0], "<image>\nwhat is in the picture")
+        conv.append_message(conv.roles[1], "a cat")
+        conv.append_message(conv.roles[0], "what colour")
+        conv.append_message(conv.roles[1], None)
+    assert got.get_prompt() == want.get_prompt()
+    assert got.roles == want.roles and got.messages == want.messages
+
+
+@pytest.mark.parametrize("prompt", [
+    "plain text only", "<image>\ndescribe it", "before <image> after",
+    "two <image> images <image> here", "<image>"])
+def test_tokenize_with_images_matches(prompt):
+    want = jtokenization.tokenize_with_images(prompt, MockTokenizer())
+    got = ttokenization.tokenize_with_images(prompt, MockTokenizer())
+    assert got == want
+    assert got.count(tconstants.IMAGE_TOKEN_INDEX) == prompt.count("<image>")
+
+
+PINPOINTS = "[[336, 672], [672, 336], [336, 1008], [1008, 336]]"
+SIZES = [(640, 480), (500, 321), (2000, 100), (336, 336), (100, 1000), (80, 60)]
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_anyres_geometry_matches(size):
+    pins = tanyres.parse_grid_pinpoints(PINPOINTS)
+    assert pins == janyres.parse_grid_pinpoints(PINPOINTS)
+    best = tanyres.select_best_fit_resolution(size, pins)
+    assert best == janyres.select_best_fit_resolution(size, pins)
+    assert tanyres.resize_pad_geometry(size, best) == janyres.resize_pad_geometry(size, best)
+    assert tanyres.tile_boxes(best, 336) == janyres.tile_boxes(best, 336)
+    assert (tanyres.calculate_grid_shape(size, PINPOINTS, 336)
+            == janyres.calculate_grid_shape(size, PINPOINTS, 336))
+    assert (tanyres.num_anyres_patches(size, PINPOINTS, 336)
+            == janyres.num_anyres_patches(size, PINPOINTS, 336))
+    assert tanyres.max_anyres_patches(PINPOINTS, 336) == janyres.max_anyres_patches(PINPOINTS, 336)
+    grid = tanyres.calculate_grid_shape(size, PINPOINTS, 336)
+    cur = (grid[1] * 24, grid[0] * 24)
+    assert tanyres.unpad_slice(cur, size) == janyres.unpad_slice(cur, size)
+    assert (tanyres.robust_literal_eval(PINPOINTS) == janyres.robust_literal_eval(PINPOINTS))

@@ -27,9 +27,11 @@ from vis_zephyr_tpu_torch.models import mistral as tmistral
 from vis_zephyr_tpu_torch.models import vis_zephyr as tvz
 from vis_zephyr_tpu_torch.models.convert import state_dict_from_jax
 from vis_zephyr_tpu_torch.ops import splice as tsplice
+from torch_port_util import port_config
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 CFG = tiny_config(vocab_size=256)
+TCFG = port_config(CFG)  # the port's own dataclasses, field for field
 
 # The JAX side runs jitted: one compile is far cheaper than op-by-op dispatch.
 j_init = jax.jit(jvz.init_vis_zephyr, static_argnums=(0,))
@@ -44,8 +46,8 @@ j_splice = jax.jit(jsplice.splice_image_tokens, static_argnames=("max_length", "
 @pytest.fixture(scope="module")
 def models():
     params = jax.tree_util.tree_map(np.asarray, j_init(CFG, jax.random.PRNGKey(0)))
-    port = tvz.VisZephyr(CFG)
-    port.load_state_dict(state_dict_from_jax(params, CFG), strict=True)
+    port = tvz.VisZephyr(TCFG)
+    port.load_state_dict(state_dict_from_jax(params, TCFG), strict=True)
     return params, port.requires_grad_(False).eval()
 
 
@@ -85,7 +87,7 @@ def test_clip_all_hidden_states(models):
     assert got.shape == (CFG.vision.num_layers + 1, 2, CFG.vision.tokens_per_image + 1,
                          CFG.vision.hidden_size)
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
-    np.testing.assert_allclose(_np(tclip.select_and_stack(got, CFG.vision)),
+    np.testing.assert_allclose(_np(tclip.select_and_stack(got, TCFG.vision)),
                                np.asarray(jclip.select_and_stack(want, CFG.vision)), **TOL)
 
 
@@ -161,7 +163,7 @@ def test_mistral_prefill_logits_and_kv(models):
     want, (wk, wv) = j_mistral(params["decoder"], jnp.asarray(emb), CFG.decoder,
                                jnp.asarray(positions), attn_valid=jnp.asarray(valid),
                                return_kv=True)
-    got, (gk, gv) = tmistral.mistral_forward(port.decoder, _t(emb), CFG.decoder, _t(positions),
+    got, (gk, gv) = tmistral.mistral_forward(port.decoder, _t(emb), TCFG.decoder, _t(positions),
                                              attn_valid=_t(valid), return_kv=True)
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
     np.testing.assert_allclose(_np(gk), np.asarray(wk), **TOL)
@@ -187,7 +189,7 @@ def test_mistral_dense_cache_decode(models):
         e = np.asarray(jmistral.embed(params["decoder"], jnp.asarray(tok)))
         want, jcache = j_mistral(params["decoder"], jnp.asarray(e), CFG.decoder,
                                  jcache["length"][:, None], cache=jcache, logits_slice="last")
-        got, tcache = tmistral.mistral_forward(port.decoder, _t(e), CFG.decoder,
+        got, tcache = tmistral.mistral_forward(port.decoder, _t(e), TCFG.decoder,
                                                tcache["length"][:, None], cache=tcache,
                                                logits_slice="last")
         np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
@@ -208,7 +210,7 @@ def test_vis_zephyr_forward(models):
     patch_valid = np.array([[1, 1, 1, 0], [1, 1, 0, 0]], bool)
     want, waux = j_forward(params, jnp.asarray(ids), jnp.asarray(images),
                            jnp.asarray(patch_valid), CFG, text_valid=jnp.asarray(text_valid))
-    got, gaux = tvz.vis_zephyr_forward(port, _t(ids), _t(images), _t(patch_valid), CFG,
+    got, gaux = tvz.vis_zephyr_forward(port, _t(ids), _t(images), _t(patch_valid), TCFG,
                                        text_valid=_t(text_valid))
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
     for key in ("valid", "positions", "lengths"):
@@ -239,7 +241,7 @@ def test_builder_loads_hf_layout(models, tmp_path):
     _, loaded, cfg, context_len = load_pretrained_model(
         str(model_dir), model_base=str(base), vision_tower_path=str(tower),
         dtype=torch.float32, device="cpu")
-    assert cfg == CFG and context_len == CFG.tokenizer_model_max_length
+    assert cfg == TCFG and context_len == CFG.tokenizer_model_max_length
     want = port.state_dict()
     got = loaded.state_dict()
     assert set(got) == set(want)

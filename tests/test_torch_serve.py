@@ -38,8 +38,10 @@ from vis_zephyr_tpu_torch.models.vis_zephyr import VisZephyr
 from vis_zephyr_tpu_torch.serve import api as tapi
 from vis_zephyr_tpu_torch.serve import engine as tengine
 from vis_zephyr_tpu_torch.serve import generate as tgen
+from torch_port_util import port_config
 
 CFG = tiny_config(vocab_size=256)
+TCFG = port_config(CFG)  # the port's own dataclasses, field for field
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TURNS = ["describe the picture", "what colour is it"]
 
@@ -48,8 +50,8 @@ TURNS = ["describe the picture", "what colour is it"]
 def models():
     params = jax.tree_util.tree_map(
         np.asarray, jax.jit(jax_init, static_argnums=(0,))(CFG, jax.random.PRNGKey(1)))
-    port = VisZephyr(CFG)
-    port.load_state_dict(state_dict_from_jax(params, CFG), strict=True)
+    port = VisZephyr(TCFG)
+    port.load_state_dict(state_dict_from_jax(params, TCFG), strict=True)
     return params, port.requires_grad_(False).eval()
 
 
@@ -111,13 +113,13 @@ def test_generate_greedy_tokens_match_jax(models, image):
     want_stream = list(jgen.generate_stream(params, ids, pixels[None], valid[None], CFG, sampling))
 
     args = (port, torch.from_numpy(ids), torch.from_numpy(pixels)[None],
-            torch.from_numpy(valid)[None], CFG, tgen.SamplingConfig(max_new_tokens=8))
+            torch.from_numpy(valid)[None], TCFG, tgen.SamplingConfig(max_new_tokens=8))
     np.testing.assert_array_equal(tgen.generate(*args), want)
     assert list(tgen.generate_stream(*args)) == want_stream
 
 
 def test_chat_engine_two_turns_match_jax(models, image, jax_chat):
-    engine = tengine.ChatEngine(models[1], CFG, MockTokenizer(), max_new_tokens=6)
+    engine = tengine.ChatEngine(models[1], TCFG, MockTokenizer(), max_new_tokens=6)
     replies = [engine.chat_text("s", q, pil_image=image if i == 0 else None)
                for i, q in enumerate(TURNS)]
     assert replies == jax_chat
@@ -134,7 +136,7 @@ def _post(port, payload):
 
 
 def test_chat_server_streams_jax_text(models, image, jax_chat):
-    engine = tengine.ChatEngine(models[1], CFG, MockTokenizer(), max_new_tokens=6)
+    engine = tengine.ChatEngine(models[1], TCFG, MockTokenizer(), max_new_tokens=6)
     server = tapi.serve(engine, "127.0.0.1", 0)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -157,7 +159,7 @@ def test_serving_modules_leave_jax_unimported():
     code = "\n".join([
         "import sys, torch",
         "import vis_zephyr_tpu_torch.serve.api, vis_zephyr_tpu_torch.serve.cli",
-        "from vis_zephyr_tpu.config import tiny_config",
+        "from vis_zephyr_tpu_torch.config import tiny_config",
         "from vis_zephyr_tpu_torch.models.vis_zephyr import init_vis_zephyr",
         "from vis_zephyr_tpu_torch.serve.generate import SamplingConfig, generate",
         "cfg = tiny_config()",
@@ -166,6 +168,7 @@ def test_serving_modules_leave_jax_unimported():
         "               torch.tensor([[True, True, False, False]]), cfg, SamplingConfig(max_new_tokens=3))",
         "assert out.shape == (1, 3), out.shape",
         "assert 'jax' not in sys.modules, 'jax was imported'",
+        "assert 'vis_zephyr_tpu' not in sys.modules, 'the JAX package was imported'",
     ])
     env = {k: v for k, v in os.environ.items() if k != "VZT_PLATFORM"}
     env["PYTHONPATH"] = os.pathsep.join([REPO, env.get("PYTHONPATH", "")])

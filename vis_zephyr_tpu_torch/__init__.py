@@ -3,8 +3,9 @@ NVIDIA H100.
 
 The JAX package `vis_zephyr_tpu` stays the reference. This package mirrors
 its module names (`models/mistral.py` ↔ `models/mistral.py`), imports
-`torch` and never `jax`, and reuses the JAX package's framework-free modules
-(`config`, `constants`, `conversation`, `data/anyres`, `data/tokenization`).
+`torch`, never `jax` and nothing of `vis_zephyr_tpu`: it keeps its own copy of
+that package's framework-free modules (`config`, `constants`,
+`conversation`, `data/anyres`, `data/tokenization`).
 Parameters carry HF state-dict names, so `vis_zephyr_tpu/models/hf_convert.py`
 reads the port's `state_dict()` as it is.
 

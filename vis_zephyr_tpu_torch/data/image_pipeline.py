@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from vis_zephyr_tpu.data import anyres
+from . import anyres
 
 # OpenAI CLIP normalization constants (CLIPImageProcessor defaults).
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)

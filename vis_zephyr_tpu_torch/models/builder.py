@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from vis_zephyr_tpu.config import VisZephyrConfig
+from ..config import VisZephyrConfig
 
 from .vis_zephyr import VisZephyr
 

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vis_zephyr_tpu.config import VisionConfig
+from ..config import VisionConfig
 
 
 def layer_norm_f32(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:

@@ -14,7 +14,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from vis_zephyr_tpu.config import DecoderConfig, ProjectorConfig, VisionConfig, VisZephyrConfig
+from ..config import DecoderConfig, ProjectorConfig, VisionConfig, VisZephyrConfig
 
 
 def _t(x) -> torch.Tensor:

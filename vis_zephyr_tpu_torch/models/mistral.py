@@ -24,11 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vis_zephyr_tpu.config import DecoderConfig
+from ..config import DecoderConfig
 
 from ..ops.attention import attention_mask, dot_product_attention
 from ..ops.flash_attention import flash_attention
-from ..ops.kv_cache import dense_cache_update, dense_cache_update_plain
+from ..ops.kv_cache import dense_cache_update
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -159,8 +159,6 @@ def mistral_forward(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     logits_slice: str = "all",  # "all" | "last"
     return_kv: bool = False,
-    use_flash: Optional[bool] = None,
-    pallas_cache_update: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Optional[object]]:
     """Run the decoder stack.
 
@@ -168,12 +166,10 @@ def mistral_forward(
       - cache=None: self-contained forward over [B, T] (prefill). Mask =
         causal ∧ sliding-window ∧ attn_valid. Attention runs through the
         flash kernel K1 on a CUDA device when T % 128 == 0, head_dim % 128
-        == 0 and T fits the sliding window (`use_flash=None` → that gate),
-        the plain op otherwise. With `return_kv=True` the per-layer K/V are
+        == 0 and T fits the sliding window, the masked plain op otherwise. With `return_kv=True` the per-layer K/V are
         returned too, stacked [L, B, T, Hkv, D].
       - cache given: appends T tokens at slots `cache.length[b] + arange(T)`
-        (kernel K2 unless `pallas_cache_update=False`, which takes K2's
-        plain version, `dense_cache_update_plain`) and attends against the
+        (`dense_cache_update`, kernel K2) and attends against the
         whole cache buffer with plain attention.
 
     Returns (logits f32, new_cache_or_kv).
@@ -184,14 +180,8 @@ def mistral_forward(
     h = inputs_embeds
 
     if cache is None:
-        if use_flash is None:
-            use_flash = (
-                h.device.type == "cuda"
-                and T % 128 == 0
-                and cfg.head_dim % 128 == 0
-                and (cfg.sliding_window is None or T <= cfg.sliding_window)
-            )
-        if use_flash:
+        if (h.device.type == "cuda" and T % 128 == 0 and cfg.head_dim % 128 == 0
+                and (cfg.sliding_window is None or T <= cfg.sliding_window)):
             kv_valid = (torch.ones((B, T), dtype=torch.bool, device=h.device)
                         if attn_valid is None else attn_valid.bool().contiguous())
 
@@ -237,15 +227,10 @@ def mistral_forward(
         pad_slots[rows[inside], slot[inside]] = new_valid[inside]
         mask &= pad_slots[:, None, :]
 
-        if pallas_cache_update is None:
-            pallas_cache_update = True
         for i, layer in enumerate(layers):
             hn = rms_norm(h, layer.input_layernorm.weight, cfg.rms_norm_eps)
             q, k, v = _project_qkv(hn, layer.self_attn, cfg, cos, sin)
-            if pallas_cache_update:
-                dense_cache_update(ck, cv, k, v, lengths, i)
-            else:
-                dense_cache_update_plain(ck, cv, k.to(ck.dtype), v.to(cv.dtype), lengths, i)
+            dense_cache_update(ck, cv, k, v, lengths, i)
             attn = dot_product_attention(q, ck[i].to(q.dtype), cv[i].to(q.dtype), mask=mask)
             h = h + layer.self_attn.o_proj(attn.reshape(B, T, -1))
             hn = rms_norm(h, layer.post_attention_layernorm.weight, cfg.rms_norm_eps)

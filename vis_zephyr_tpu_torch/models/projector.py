@@ -4,7 +4,7 @@ ported yet and is refused."""
 
 from __future__ import annotations
 
-from vis_zephyr_tpu.config import VisZephyrConfig
+from ..config import VisZephyrConfig
 
 from .qformer import QFormer
 

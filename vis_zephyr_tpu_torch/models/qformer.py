@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vis_zephyr_tpu.config import ProjectorConfig
+from ..config import ProjectorConfig
 
 from .clip_vit import layer_norm_f32
 

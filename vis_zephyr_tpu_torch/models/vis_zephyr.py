@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from vis_zephyr_tpu.config import VisZephyrConfig
+from ..config import VisZephyrConfig
 
 from ..ops.splice import compact_text_ids, splice_image_tokens
 from .clip_vit import CLIPVisionTower, select_and_stack
@@ -133,7 +133,6 @@ def vis_zephyr_forward(
     text_valid: Optional[torch.Tensor] = None,
     return_kv: bool = False,
     pad_to_multiple: Optional[int] = None,
-    use_flash: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Full multimodal forward (prefill). Returns (logits, aux) where aux
     carries valid/positions/lengths and, with `return_kv`, the per-layer
@@ -155,7 +154,7 @@ def vis_zephyr_forward(
 
     logits, extra = mistral_forward(
         model.decoder, prepared["embeds"], cfg.decoder, prepared["positions"],
-        attn_valid=prepared["valid"], return_kv=return_kv, use_flash=use_flash,
+        attn_valid=prepared["valid"], return_kv=return_kv,
     )
     aux = {k: v for k, v in prepared.items() if k != "embeds"}
     if extra is not None:

@@ -1,19 +1,25 @@
 """Build and load the port's hand-written CUDA kernels.
 
 No JAX counterpart: Pallas kernels compile inside `jax.jit`. Here every
-`csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one shared
-library with a plain C interface, loaded with `ctypes`. Sources include no
-PyTorch header, so the build takes seconds. It runs at first use and is
-cached in `vis_zephyr_tpu_torch/build/` until a source is newer than the
-library.
+`csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`), one process per
+source and all at once, and the objects are linked into one shared library
+with a plain C interface, loaded with `ctypes`. Sources include no PyTorch
+header, so the build takes seconds. It runs at first use and is cached in
+`vis_zephyr_tpu_torch/build/` until a source is newer than the library.
 
 Every C entry point returns `cudaGetLastError()` right after its launch;
 `check` turns a non-zero code into an exception, because a refused launch
 never runs and a later synchronize does not report it.
+
+A wrapper launches its kernel on a CUDA tensor and takes the plain PyTorch
+version on a CPU tensor. `plain_versions()` is the one switch that asks for
+the plain versions on the card too: a comparison run wraps the plain pass in
+it. Nothing on a served path does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -25,7 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 LIB = os.path.join(BUILD, "libvzt_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,10 +41,30 @@ _SIGNATURES = {
     "vzt_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       ctypes.c_float, _P],
     "vzt_dense_cache_append": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vzt_paged_attn_decode": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
+    "vzt_paged_kv_rows": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 _lib = None
 _lock = threading.Lock()
+_plain = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside the block every wrapper takes its kernel's plain version, on
+    CUDA tensors too. Process-wide, so not while another thread serves."""
+    global _plain
+    before, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = before
+
+
+def use_kernel(t) -> bool:
+    """Whether a wrapper given tensor `t` launches its kernel."""
+    return t.device.type != "cpu" and not _plain
 
 
 def _sources():
@@ -66,14 +92,35 @@ def build(force: bool = False) -> str:
             and os.path.getmtime(LIB) >= max(os.path.getmtime(s) for s in srcs)):
         return LIB
     os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIB)
+    nvcc = _nvcc()
+    tag = os.getpid()
+    jobs = []
+    for src in srcs:
+        if src.endswith(".cu"):
+            obj = os.path.join(BUILD, f"{os.path.basename(src)}.{tag}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, _, proc in jobs:  # wait for every compile, then report
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}{err}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{LIB}.{tag}.tmp"
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, LIB)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return LIB
 
 

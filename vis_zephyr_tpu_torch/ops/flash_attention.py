@@ -3,7 +3,8 @@ and its plain PyTorch version.
 
 Port of `vis_zephyr_tpu/ops/flash_attention.py::flash_attention` (forward
 only; the backward kernels are still to be ported). A tensor on the CPU takes
-the plain version; a CUDA tensor launches the kernel or raises.
+the plain version; a CUDA tensor launches the kernel or raises (outside
+`_kernels.plain_versions()`).
 """
 
 from __future__ import annotations
@@ -90,6 +91,6 @@ def flash_attention(
         raise ValueError(f"T={T}, S={S} must be multiples of 128 (pad to a bucket)")
     if kv_valid is None:
         kv_valid = torch.ones((B, S), dtype=torch.bool, device=q.device)
-    if q.device.type == "cpu":
+    if not _kernels.use_kernel(q):
         return flash_attention_plain(q, k, v, kv_valid, causal, scale)
     return flash_attention_fwd(q, k, v, kv_valid, causal, scale)[0]

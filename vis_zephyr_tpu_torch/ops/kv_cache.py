@@ -2,7 +2,8 @@
 (`csrc/dense_cache_append.cu`) and its plain PyTorch version.
 
 Port of `vis_zephyr_tpu/ops/kv_cache.py::dense_cache_update`. A tensor on
-the CPU takes the plain version; a CUDA tensor launches the kernel or raises.
+the CPU takes the plain version; a CUDA tensor launches the kernel or raises
+(outside `_kernels.plain_versions()`).
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ def dense_cache_update(
                          f"cache {tuple(ck.shape)}")
     k = k.to(ck.dtype)
     v = v.to(cv.dtype)
-    if ck.device.type == "cpu":
+    if not _kernels.use_kernel(ck):
         dense_cache_update_plain(ck, cv, k, v, lengths, layer)
     else:
         _launch(ck, cv, k, v, lengths, layer)

@@ -1,0 +1,413 @@
+"""Paged KV pools: decode attention over pages (kernel K3,
+`csrc/paged_attn_decode.cu`), the per-step row write (kernel K4,
+`csrc/paged_kv_rows.cu`), int8 KV quantization, and the plain PyTorch version
+of each.
+
+Port of `vis_zephyr_tpu/ops/paged_attention.py`: `paged_attention_fa` (the
+flash-structure kernel with the self-term), `paged_kv_update_rows{,_q}`,
+`quantize_kv`/`dequant_kv` and the pool forms, `paged_attention_reference`.
+A tensor on the CPU takes the plain version; a CUDA tensor launches the
+kernel or raises (outside `_kernels.plain_versions()`, the comparison runs'
+switch).
+
+POOL LAYOUT of the port (page-major):
+
+    k_pages / v_pages  [N, Hkv, rows, D]   N = layers * pages_per_layer
+    k_scales/v_scales  [N, Hkv, rows] f32  (int8 pools only)
+    rows = page_size, or 2 * page_size in a KV-fused pool (v_pages None): a
+    page's K rows, then its V rows.
+
+One page's rows of all kv heads are one contiguous piece, so admission writes
+a page with one copy and a block of kernel K3 reads its (page, head) rows as
+one contiguous run; scales need no singleton axis (the JAX package's
+`[Hkv, N, rows, D]` pools and `[Hkv, N, 1, rows]` scales follow the TPU's
+tiles). `pools_to_jax_layout` / `pools_from_jax_layout` convert between the
+two, so pools can be compared with, or handed to, the JAX package.
+
+Layer l's pages are pool entries `[l * P, (l + 1) * P)`; a slot's page table
+holds within-layer ids and the layer's offset `l * P` is an argument
+(`page_offset`), not a new table per layer. Page 0 of every layer is a trash
+page: inactive slots write there.
+
+The pools are updated IN PLACE (the JAX functions donate them).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import _kernels
+from .attention import attention_mask, dot_product_attention
+
+HEAD_DIM = 128  # the kernels' compiled head dimension
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+# int8 KV quantization: row ≈ int8 · scale / 127.5, scale = absmax of the row.
+KV_QUANT_MAX = 127.5
+
+attn_launches = 0  # K3 launches in this process (reset by callers that count)
+rows_launches = 0  # K4 launches
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] float → (int8 [..., D], scales [..., 1] f32), per-row absmax.
+
+    The row's largest positive element rounds to 128 and saturates to 127 (as
+    XLA's float → int8 convert does); a plain `.to(torch.int8)` would wrap it
+    to -128, hence the clamp."""
+    x32 = x.float()
+    s = x32.abs().amax(dim=-1, keepdim=True)
+    # A true division: `float / tensor` would multiply by a rounded reciprocal.
+    q = torch.round(x32 * torch.div(torch.full_like(s, KV_QUANT_MAX), s.clamp_min(1e-9)))
+    return q.clamp_(-128, 127).to(torch.int8), s
+
+
+def dequant_kv(q: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 [..., D] with scales [..., 1] → float [..., D]."""
+    return (q.float() * (s / KV_QUANT_MAX)).to(dtype)
+
+
+def quantize_kv_pool(pool: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[N, Hkv, rows, D] float pool → (int8 pool, scales [N, Hkv, rows])."""
+    q, s = quantize_kv(pool)
+    return q, s[..., 0]
+
+
+def dequant_kv_pool(q: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of `quantize_kv_pool`."""
+    return dequant_kv(q, s[..., None], dtype)
+
+
+# -- layout converters (numpy; they know the JAX layout, import nothing) ------
+
+
+def _swap_head_and_page(pool):
+    """[A, B, rows, D] → [B, A, rows, D], contiguous; None stays None."""
+    return None if pool is None else np.ascontiguousarray(np.transpose(np.asarray(pool), (1, 0, 2, 3)))
+
+
+def pools_to_jax_layout(k_pages, v_pages=None, k_scales=None, v_scales=None):
+    """Port pools `[N, Hkv, rows, D]` / scales `[N, Hkv, rows]` → the JAX
+    package's `[Hkv, N, rows, D]` / `[Hkv, N, 1, rows]`. numpy in, numpy out;
+    None stays None."""
+    def scale(s):
+        return None if s is None else np.ascontiguousarray(
+            np.transpose(np.asarray(s), (1, 0, 2))[:, :, None, :])
+
+    return (_swap_head_and_page(k_pages), _swap_head_and_page(v_pages),
+            scale(k_scales), scale(v_scales))
+
+
+def pools_from_jax_layout(k_pages, v_pages=None, k_scales=None, v_scales=None):
+    """Inverse of `pools_to_jax_layout`."""
+    def scale(s):
+        return None if s is None else np.ascontiguousarray(
+            np.transpose(np.asarray(s)[:, :, 0, :], (1, 0, 2)))
+
+    return (_swap_head_and_page(k_pages), _swap_head_and_page(v_pages),
+            scale(k_scales), scale(v_scales))
+
+
+# -- K3: paged decode attention --------------------------------------------------
+
+
+def _page_size(k_pages: torch.Tensor, fused: bool) -> int:
+    return k_pages.shape[2] // 2 if fused else k_pages.shape[2]
+
+
+def paged_attention_fa_plain(q, k_pages, v_pages, page_table, lengths, q_offs, scale,
+                             sliding_window=None, k_scales=None, v_scales=None,
+                             k_new=None, v_new=None, page_offset: int = 0) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: gather every page of the
+    table, f32 scores with the K scales folded in, the mask, one softmax with
+    the self-term as a last column, probabilities times the V scales rounded
+    to the working dtype, f32 P·V. A row with no key is 0."""
+    B, S, Hq, D = q.shape
+    fused = v_pages is None
+    quant = k_scales is not None
+    Hkv = k_pages.shape[1]
+    ps = _page_size(k_pages, fused)
+    G = Hq // Hkv
+    T = page_table.shape[1] * ps
+    idx = page_table.long() + page_offset                       # [B, pps]
+
+    def rows(pool, lo):  # → [B, Hkv, T, ...]
+        r = pool[idx][:, :, :, lo:lo + ps]                      # [B, pps, Hkv, ps, ...]
+        r = r.transpose(1, 2)
+        return r.reshape((B, Hkv, T) + tuple(r.shape[4:]))
+
+    v_lo = ps if fused else 0
+    k = rows(k_pages, 0).float()                                # [B, Hkv, T, D]
+    v = rows(k_pages if fused else v_pages, v_lo).float()
+    # Rows at or past `length` never reach the output (a recycled page may
+    # hold anything there, and 0 · NaN = NaN).
+    in_pool = torch.arange(T, device=q.device)[None, :] < lengths.long()[:, None]
+    v = torch.where(in_pool[:, None, :, None], v, torch.zeros_like(v))
+    qg = q.float().reshape(B, S, Hkv, G, D)
+    s = torch.einsum("bshgd,bhtd->bhsgt", qg, k) * scale        # [B, Hkv, S, G, T]
+    if quant:
+        ksc = rows(k_scales, 0)                                 # [B, Hkv, T]
+        s = s * (ksc * (1.0 / KV_QUANT_MAX))[:, :, None, None, :]
+    slot = torch.arange(T, device=q.device)[None, None, :]
+    qpos = (q_offs.long()[:, None] + torch.arange(S, device=q.device))[:, :, None]
+    mask = (slot <= qpos) & (slot < lengths.long()[:, None, None])
+    if sliding_window is not None:
+        mask = mask & (slot > qpos - sliding_window)
+    mask = mask[:, None, :, None, :]                            # [B, 1, S, 1, T]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    if k_new is not None:
+        kn = k_new.to(q.dtype).float()                          # [B, Hkv, D]
+        vn = v_new.to(q.dtype).float()
+        s_self = torch.einsum("bshgd,bhd->bhsg", qg, kn)[..., None] * scale
+        m = torch.maximum(m, s_self)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    if quant:
+        vsc = rows(k_scales if fused else v_scales, v_lo)
+        p = torch.where(mask, p * (vsc * (1.0 / KV_QUANT_MAX))[:, :, None, None, :],
+                        torch.zeros_like(p))
+    work = q.dtype if quant else k_pages.dtype  # the P·V operand's dtype
+    acc = torch.einsum("bhsgt,bhtd->bhsgd", p.to(work).float(), v)
+    if k_new is not None:
+        p_self = torch.exp(s_self - m)
+        l = l + p_self
+        acc = acc + p_self * vn[:, :, None, None, :]
+    l_inv = torch.where(l == 0.0, torch.zeros_like(l), 1.0 / l)
+    out = (acc * l_inv).to(q.dtype)                             # [B, Hkv, S, G, D]
+    return out.permute(0, 2, 1, 3, 4).reshape(B, S, Hq, D)
+
+
+def _check_cuda(name: str, t: torch.Tensor, device, dtype, shape=None) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_attention(q, k_pages, v_pages, page_table, lengths, q_offs, scale, sliding_window,
+                      k_scales, v_scales, k_new, v_new, page_offset) -> torch.Tensor:
+    global attn_launches
+    B, S, Hq, D = q.shape
+    fused = v_pages is None
+    quant = k_scales is not None
+    N, Hkv, rows, _ = k_pages.shape
+    ps = _page_size(k_pages, fused)
+    dev = q.device
+    if D != HEAD_DIM or k_pages.shape[3] != D or Hq % Hkv:
+        raise ValueError(f"paged_attention_fa: head_dim must be {HEAD_DIM} and Hq a multiple "
+                         f"of Hkv; q={tuple(q.shape)}, pool={tuple(k_pages.shape)}")
+    if S * (Hq // Hkv) not in (4, 8):
+        raise ValueError(f"paged_attention_fa: S * (Hq / Hkv) = {S * (Hq // Hkv)} query rows "
+                         "per kv head; the kernel is built for 4 and 8")
+    pool_dtype = torch.int8 if quant else torch.bfloat16
+    _check_cuda("q", q, dev, torch.bfloat16)
+    _check_cuda("k_pages", k_pages, dev, pool_dtype)
+    if not fused:
+        _check_cuda("v_pages", v_pages, dev, pool_dtype, k_pages.shape)
+    if quant:
+        _check_cuda("k_scales", k_scales, dev, torch.float32, (N, Hkv, rows))
+        if fused != (v_scales is None):
+            raise ValueError("paged_attention_fa: v_scales go with split pools only")
+        if not fused:
+            _check_cuda("v_scales", v_scales, dev, torch.float32, (N, Hkv, rows))
+    elif k_pages.dtype != torch.bfloat16:
+        raise TypeError("paged_attention_fa: int8 pools need k_scales")
+    _check_cuda("page_table", page_table, dev, torch.int32, (B, page_table.shape[1]))
+    _check_cuda("lengths", lengths, dev, torch.int32, (B,))
+    _check_cuda("q_offs", q_offs, dev, torch.int32, (B,))
+    if (k_new is None) != (v_new is None):
+        raise ValueError("paged_attention_fa: k_new and v_new go together")
+    if k_new is not None:
+        _check_cuda("k_new", k_new, dev, torch.bfloat16, (B, Hkv, D))
+        _check_cuda("v_new", v_new, dev, torch.bfloat16, (B, Hkv, D))
+    if k_pages.data_ptr() % 16 or (ps * D * k_pages.element_size()) % 16:
+        raise ValueError("paged_attention_fa: pool rows must be 16-byte aligned")
+    out = torch.empty_like(q)
+    code = _kernels.lib().vzt_paged_attn_decode(
+        q.data_ptr(), out.data_ptr(), k_pages.data_ptr(), _ptr(v_pages), _ptr(k_scales),
+        _ptr(v_scales), page_table.data_ptr(), lengths.data_ptr(), q_offs.data_ptr(),
+        _ptr(k_new), _ptr(v_new), B, S, Hq, Hkv, ps, page_table.shape[1], int(page_offset),
+        int(sliding_window or 0), int(quant), float(scale), _kernels.stream_ptr(dev))
+    _kernels.check(code, "vzt_paged_attn_decode")
+    attn_launches += 1
+    return out
+
+
+def paged_attention_fa(
+    q: torch.Tensor,                # [B, S, Hq, D]
+    k_pages: torch.Tensor,          # [N, Hkv, ps, D] bf16 or int8; [N, Hkv, 2·ps, D] fused
+    v_pages: Optional[torch.Tensor],  # None: KV-fused pool
+    page_table: torch.Tensor,       # [B, pages_per_seq] int32, within-layer page ids
+    lengths: torch.Tensor,          # [B] int32 tokens of the slot in the pool
+    q_offs: torch.Tensor,           # [B] int32 position of query row 0
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,  # [N, Hkv, rows] f32 (int8 pools)
+    v_scales: Optional[torch.Tensor] = None,
+    k_new: Optional[torch.Tensor] = None,     # [B, Hkv, D] self-term (S = 1)
+    v_new: Optional[torch.Tensor] = None,
+    page_offset: int = 0,
+) -> torch.Tensor:
+    """Flash-structure paged attention. Query row j of slot b sits at position
+    `q_offs[b] + j` and attends pool slots `[max(0, pos − window + 1), pos]`
+    below `lengths[b]`; S = 1 with `q_offs = lengths − 1` is single-token
+    decode over a pool that already holds the token.
+
+    `k_new`/`v_new` (S = 1): the current token's K/V as a final
+    online-softmax self-term. The pool then holds `[0, lengths)`, the query
+    sits at `lengths` (`q_offs = lengths`), and the decode step can attend
+    first and write all layers' rows once (`paged_kv_update_rows`). The
+    self-term stays unquantized even over int8 pools.
+
+    `page_offset` is added to every table entry (the layer's pool segment).
+    Returns [B, S, Hq, D]."""
+    B, S, Hq, D = q.shape
+    scale = D ** -0.5 if scale is None else scale
+    if k_new is not None and S != 1:
+        raise ValueError("k_new/v_new self-term requires S == 1")
+    args = (q, k_pages, v_pages, page_table, lengths, q_offs, scale, sliding_window,
+            k_scales, v_scales, k_new, v_new, page_offset)
+    if not _kernels.use_kernel(q):
+        return paged_attention_fa_plain(*args)
+    return _launch_attention(*args)
+
+
+# -- K4: one step's rows of every layer into the pools ------------------------------
+
+
+def _kv_update_rows_plain(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets) -> None:
+    fused = v_pages is None
+    quant = k_scales is not None
+    L, B, Hkv, D = ks.shape
+    P = k_pages.shape[0] // L
+    ps = _page_size(k_pages, fused)
+    dev = k_pages.device
+    page = (torch.arange(L, device=dev)[:, None] * P + pages.long()[None, :])[:, :, None]
+    head = torch.arange(Hkv, device=dev)[None, None, :]
+    k_row = offsets.long()[None, :, None]
+    v_row = k_row + (ps if fused else 0)
+    v_pool = k_pages if fused else v_pages
+    if quant:
+        kq, ksc = quantize_kv(ks)
+        vq, vsc = quantize_kv(vs)
+        v_sc_pool = k_scales if fused else v_scales
+        k_pages[page, head, k_row] = kq
+        v_pool[page, head, v_row] = vq
+        k_scales[page, head, k_row] = ksc[..., 0]
+        v_sc_pool[page, head, v_row] = vsc[..., 0]
+    else:
+        k_pages[page, head, k_row] = ks.to(k_pages.dtype)
+        v_pool[page, head, v_row] = vs.to(v_pool.dtype)
+
+
+def _launch_rows(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets) -> None:
+    global rows_launches
+    fused = v_pages is None
+    quant = k_scales is not None
+    L, B, Hkv, D = ks.shape
+    N, _, rows, _ = k_pages.shape
+    dev = k_pages.device
+    pool_dtype = torch.int8 if quant else torch.bfloat16
+    _check_cuda("k_pages", k_pages, dev, pool_dtype, (N, Hkv, rows, D))
+    if not fused:
+        _check_cuda("v_pages", v_pages, dev, pool_dtype, k_pages.shape)
+    if quant:
+        _check_cuda("k_scales", k_scales, dev, torch.float32, (N, Hkv, rows))
+        if fused != (v_scales is None):
+            raise ValueError("paged_kv_update_rows_q: v_scales go with split pools only")
+        if not fused:
+            _check_cuda("v_scales", v_scales, dev, torch.float32, (N, Hkv, rows))
+    _check_cuda("ks", ks, dev, torch.bfloat16)
+    _check_cuda("vs", vs, dev, torch.bfloat16, ks.shape)
+    _check_cuda("pages", pages, dev, torch.int32, (B,))
+    _check_cuda("offsets", offsets, dev, torch.int32, (B,))
+    if N % L or D > 1024:
+        raise ValueError(f"paged_kv_update_rows: {N} pool pages are not {L} layers of pages, "
+                         f"or head_dim {D} > 1024")
+    code = _kernels.lib().vzt_paged_kv_rows(
+        k_pages.data_ptr(), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales), ks.data_ptr(),
+        vs.data_ptr(), pages.data_ptr(), offsets.data_ptr(), L, B, Hkv, D, N // L,
+        _page_size(k_pages, fused), _kernels.stream_ptr(dev))
+    _kernels.check(code, "vzt_paged_kv_rows")
+    rows_launches += 1
+
+
+def _kv_update_rows(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets) -> None:
+    if vs.shape != ks.shape or k_pages.shape[1] != ks.shape[2] or k_pages.shape[3] != ks.shape[3]:
+        raise ValueError(f"paged_kv_update_rows: rows {tuple(ks.shape)} / {tuple(vs.shape)} do "
+                         f"not fit pool {tuple(k_pages.shape)}")
+    args = (k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets)
+    if not _kernels.use_kernel(k_pages):
+        _kv_update_rows_plain(*args)
+    else:
+        _launch_rows(*args)
+
+
+def paged_kv_update_rows(
+    k_pages: torch.Tensor,            # [L·P, Hkv, ps, D] (2·ps fused), written in place
+    v_pages: Optional[torch.Tensor],  # None: KV-fused pool
+    ks: torch.Tensor,                 # [L, B, Hkv, D] — one step's rows, ALL layers
+    vs: torch.Tensor,
+    pages: torch.Tensor,              # [B] int32 within-layer page id
+    offsets: torch.Tensor,            # [B] int32 row within the page
+):
+    """Write one decode step's K/V rows of every layer: slot b's row of layer
+    l lands at page `l·P + pages[b]`, row `offsets[b]` (its V row at
+    `ps + offsets[b]` of the same page in a fused pool). Returns the pools."""
+    _kv_update_rows(k_pages, v_pages, None, None, ks, vs, pages, offsets)
+    return k_pages, v_pages
+
+
+def paged_kv_update_rows_q(
+    k_pages: torch.Tensor,            # int8, written in place
+    v_pages: Optional[torch.Tensor],
+    k_scales: torch.Tensor,           # [L·P, Hkv, rows] f32, written in place
+    v_scales: Optional[torch.Tensor],
+    ks: torch.Tensor,                 # [L, B, Hkv, D] float
+    vs: torch.Tensor,
+    pages: torch.Tensor,
+    offsets: torch.Tensor,
+):
+    """`paged_kv_update_rows` for int8 pools: each row is absmax-quantized
+    (`quantize_kv`) and written with its scale."""
+    _kv_update_rows(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets)
+    return k_pages, v_pages, k_scales, v_scales
+
+
+# -- oracle ------------------------------------------------------------------------
+
+
+def paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
+                              k_new=None, v_new=None, sliding_window=None):
+    """Test oracle: gather pages into dense KV (appending the current token's
+    K/V when given) and run masked attention. q [B, Hq, D]; split float pools
+    in the port's layout."""
+    B, Hq, D = q.shape
+    _, Hkv, ps, _ = k_pages.shape
+    S = page_table.shape[1] * ps
+    dev = q.device
+    k = k_pages[page_table.long()].transpose(2, 3).reshape(B, S, Hkv, D)
+    v = v_pages[page_table.long()].transpose(2, 3).reshape(B, S, Hkv, D)
+    kv_valid = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+    q_pos = lengths.long()[:, None] - 1
+    kv_pos = torch.arange(S, device=dev).expand(B, S)
+    if k_new is not None:
+        k = torch.cat([k, k_new[:, None].to(k.dtype)], dim=1)
+        v = torch.cat([v, v_new[:, None].to(v.dtype)], dim=1)
+        kv_valid = torch.cat([kv_valid, torch.ones((B, 1), dtype=torch.bool, device=dev)], dim=1)
+        q_pos = q_pos + 1
+        kv_pos = torch.cat([kv_pos, q_pos], dim=1)
+    mask = attention_mask(q_pos, kv_pos, kv_valid=kv_valid, causal=True,
+                          sliding_window=sliding_window)
+    return dot_product_attention(q[:, None], k, v, mask=mask)[:, 0]

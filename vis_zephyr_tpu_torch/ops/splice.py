@@ -15,7 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
-from vis_zephyr_tpu.constants import IMAGE_TOKEN_INDEX
+from ..constants import IMAGE_TOKEN_INDEX
 
 
 def splice_image_tokens(

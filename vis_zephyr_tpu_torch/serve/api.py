@@ -3,12 +3,17 @@
 Port of the `/chat` endpoint of `vis_zephyr_tpu/serve/api.py`: POST /chat
 with ``{"session_id": str, "image_base64": str?, "question": str}`` →
 chunked text/plain stream of the reply; the first request of a session must
-carry the image unless one is already attached. The OpenAI endpoints,
-health, metrics, profiling and draining are not ported yet.
+carry the image unless one is already attached. With
+`--continuous-batching --kv-cache paged` requests of different sessions share
+decode steps over paged KV pools (`--kv-quant`, `--kv-fused`, `--page-size`,
+`--num-pages`, `--max-slots`, `--prefill-chunk`, defaults as in the JAX
+server). The OpenAI endpoints, health, metrics, profiling and draining are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
 import io
 import json
@@ -89,18 +94,53 @@ class ChatHandler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
 
+class ChatServer(ThreadingHTTPServer):
+    # The stdlib's listen backlog of 5 resets connections when a batch of
+    # clients arrives at once, which is what a batching server is for.
+    request_queue_size = 128
+
+
 def serve(engine: ChatEngine, host: str = "0.0.0.0", port: int = 8000) -> ThreadingHTTPServer:
     handler = type("BoundChatHandler", (ChatHandler,), {"engine": engine})
-    server = ThreadingHTTPServer((host, port), handler)
+    server = ChatServer((host, port), handler)
     # Handler threads must not block interpreter exit (a client that never
     # drains its stream would otherwise pin a thread).
     server.daemon_threads = True
     return server
 
 
-def main(args=None):
-    import argparse
+def add_engine_args(p) -> None:
+    """The flags that shape the `ChatEngine`, with the JAX server's defaults."""
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--max-new-tokens", type=int, default=512)
+    p.add_argument("--continuous-batching", action="store_true")
+    p.add_argument("--max-slots", type=int, default=8)
+    p.add_argument("--kv-cache", choices=["dense", "paged"], default="dense",
+                   help="paged: shared page pools (memory follows the tokens in flight)")
+    p.add_argument("--num-pages", type=int, default=None,
+                   help="paged pool size per layer (default: half the dense footprint)")
+    p.add_argument("--page-size", type=int, default=128, help="tokens per KV page (paged only)")
+    p.add_argument("--kv-quant", action="store_true",
+                   help="int8 KV pools (paged only): per-row absmax scales")
+    p.add_argument("--prefill-chunk", type=int, default=256,
+                   help="admit prompts in chunks of N tokens, interleaved with decode "
+                        "steps; 0 for whole-prompt admission")
+    p.add_argument("--kv-fused", action=argparse.BooleanOptionalAction, default=True,
+                   help="fused KV pool layout (paged only): a page holds its K rows then "
+                        "its V rows; --no-kv-fused for split pools")
 
+
+def engine_from_args(model, cfg, tokenizer, a) -> ChatEngine:
+    """The `ChatEngine` the parsed flags `a` ask for."""
+    return ChatEngine(model, cfg, tokenizer, temperature=a.temperature,
+                      max_new_tokens=a.max_new_tokens,
+                      continuous_batching=a.continuous_batching, max_slots=a.max_slots,
+                      kv_cache=a.kv_cache, kv_quant=a.kv_quant, num_pages=a.num_pages,
+                      prefill_chunk=a.prefill_chunk or None, kv_fused=a.kv_fused,
+                      page_size=a.page_size)
+
+
+def main(args=None):
     import torch
 
     from ..models.builder import load_pretrained_model
@@ -111,8 +151,7 @@ def main(args=None):
     p.add_argument("--vision-tower", default=None)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
-    p.add_argument("--temperature", type=float, default=0.0)
-    p.add_argument("--max-new-tokens", type=int, default=512)
+    add_engine_args(p)
     a = p.parse_args(args)
 
     tokenizer, model, cfg, _ = load_pretrained_model(
@@ -122,8 +161,7 @@ def main(args=None):
     if tokenizer is None:
         raise SystemExit("could not load a tokenizer; pass --model-base or a "
                          "--model-path with tokenizer files")
-    engine = ChatEngine(model, cfg, tokenizer, temperature=a.temperature,
-                        max_new_tokens=a.max_new_tokens)
+    engine = engine_from_args(model, cfg, tokenizer, a)
     server = serve(engine, a.host, a.port)
     print(f"serving on {a.host}:{a.port}")
     try:
@@ -132,6 +170,7 @@ def main(args=None):
         pass
     finally:
         server.server_close()
+        engine.close()
 
 
 if __name__ == "__main__":

@@ -1,29 +1,40 @@
 """ChatEngine: session/conversation state + streaming generation for the CLI
 and the HTTP server.
 
-Port of `vis_zephyr_tpu/serve/engine.py` in its default mode: serialized
-generation (one request decodes at a time, under a lock) over a dense KV
-cache. A session's image is preprocessed once and kept on the device.
-Continuous batching, paged caches, speculation, multi-step bursts, meshes,
-adapters, metrics, draining and the OpenAI endpoints are not ported yet.
+Port of `vis_zephyr_tpu/serve/engine.py`. Two modes:
+
+- the default: serialized generation (one request decodes at a time, under a
+  lock) over a dense KV cache;
+- `continuous_batching=True` with `kv_cache="paged"`: requests of different
+  sessions share decode steps in a `PagedBatcher`, advanced by one
+  background pump thread.
+
+A session's image is preprocessed once and kept on the device. Not ported
+yet, each raising `NotImplementedError` when asked for: the dense batcher
+(`kv_cache="dense"` under continuous batching), speculation, multi-step
+bursts, meshes, adapters, metrics, the prefix cache and lazy allocation;
+draining and the OpenAI endpoints are not ported either.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Iterator
+import time
+import warnings
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
-from vis_zephyr_tpu.config import VisZephyrConfig
-from vis_zephyr_tpu.constants import DEFAULT_IMAGE_TOKEN
-from vis_zephyr_tpu.conversation import templates
-from vis_zephyr_tpu.data import anyres
-from vis_zephyr_tpu.data.tokenization import tokenize_with_images
+from ..config import VisZephyrConfig
+from ..constants import DEFAULT_IMAGE_TOKEN
+from ..conversation import templates
+from ..data import anyres
+from ..data.tokenization import tokenize_with_images
 
 from ..data.image_pipeline import anyres_preprocess_host, preprocess_mode_host
 from ..models.vis_zephyr import VisZephyr
+from .batching import ContinuousBatcher, not_ported
 from .generate import SamplingConfig, generate_stream
 
 
@@ -36,6 +47,25 @@ class ChatEngine:
         conv_mode: str = "zephyr_v1",
         temperature: float = 0.0,
         max_new_tokens: int = 512,
+        continuous_batching: bool = False,
+        max_slots: int = 8,
+        cache_len: int = 2048,
+        kv_cache: str = "dense",  # "dense" | "paged"
+        kv_quant: bool = False,
+        num_pages: Optional[int] = None,
+        mesh=None,
+        metrics=None,
+        prefill_chunk: Optional[int] = None,
+        lookahead: int = 0,
+        draft_params=None,
+        draft_cfg=None,
+        multi_step: int = 1,
+        kv_fused: bool = False,
+        prefix_cache: bool = False,
+        page_size: int = 128,
+        mlora=None,
+        adapter_names=None,
+        lazy_alloc: bool = False,
     ):
         self.model = model
         self.cfg = cfg
@@ -53,6 +83,94 @@ class ChatEngine:
         self.sessions: Dict[str, Dict] = {}
         self._sessions_lock = threading.Lock()
         self._lock = threading.Lock()  # one generation at a time
+
+        # Optional continuous batching: concurrent requests share decode
+        # steps instead of serializing on the lock.
+        self.batcher = None
+        self._pump = None
+        self._pump_stop = False
+        self._pump_lock = threading.Lock()
+        if kv_cache not in ("dense", "paged"):
+            raise ValueError(f"kv_cache must be 'dense' or 'paged', got {kv_cache!r}")
+        if lazy_alloc and (not continuous_batching or kv_cache != "paged"):
+            raise ValueError("lazy_alloc requires continuous batching with kv_cache='paged'")
+        if continuous_batching:
+            if draft_params is not None or draft_cfg is not None:
+                raise not_ported("a draft model", "Queue A step 9")
+            if kv_cache == "paged":
+                from .paged import PagedBatcher
+
+                self.batcher = PagedBatcher(
+                    model, cfg, max_slots=max_slots, cache_len=cache_len,
+                    sampling=self.sampling, num_pages=num_pages, mesh=mesh, metrics=metrics,
+                    prefill_chunk=prefill_chunk, kv_quant=kv_quant, lookahead=lookahead,
+                    multi_step=multi_step, kv_fused=kv_fused, prefix_cache=prefix_cache,
+                    page_size=page_size, mlora=mlora, adapter_names=adapter_names,
+                    lazy_alloc=lazy_alloc)
+            else:
+                self.batcher = ContinuousBatcher(
+                    model, cfg, max_slots=max_slots, cache_len=cache_len,
+                    sampling=self.sampling, mesh=mesh, metrics=metrics,
+                    prefill_chunk=prefill_chunk, lookahead=lookahead, multi_step=multi_step,
+                    mlora=mlora, adapter_names=adapter_names)
+        else:
+            # The serialized path has none of these; say so instead of ignoring them.
+            for value, what, step in (
+                    (mesh, "a device mesh", "Queue A step 13"),
+                    (metrics, "ServingMetrics", "Queue A step 10"),
+                    (lookahead, "speculative decoding (lookahead)", "Queue A step 9"),
+                    (draft_params, "a draft model", "Queue A step 9"),
+                    (multi_step > 1, "multi-step bursts", "Queue A step 7, to do"),
+                    (mlora, "multi-LoRA serving", "Queue A step 10")):
+                if value:
+                    raise not_ported(what, step)
+
+    def _ensure_pump(self) -> None:
+        """Background thread advancing the batcher while work exists. Exactly
+        ONE pump may run: the batcher updates its pools in place."""
+        with self._pump_lock:
+            if self._pump is not None and self._pump.is_alive():
+                return
+
+            def pump():
+                idle = 0
+                while not self._pump_stop:
+                    if self.batcher.has_work:
+                        idle = 0
+                        self.batcher.step()
+                        continue
+                    idle += 1
+                    time.sleep(0.001)
+                    if idle >= 2000:  # ~2 s of no work → try to exit
+                        # Decide under _pump_lock: a request submitted after
+                        # the last has_work check would otherwise see a live
+                        # pump in _ensure_pump and be orphaned when it dies.
+                        with self._pump_lock:
+                            if self.batcher.has_work:
+                                idle = 0
+                                continue
+                            self._pump = None
+                            return
+
+            self._pump = threading.Thread(target=pump, daemon=True)
+            self._pump.start()
+
+    def close(self) -> None:
+        """Stop the background pump and wait for it to exit. Call when
+        retiring an engine while the process lives on: the pump idles ~2 s
+        past the last request before exiting on its own."""
+        self._pump_stop = True
+        pump = self._pump
+        if pump is not None and pump.is_alive():
+            pump.join(timeout=30)
+        if pump is not None and pump.is_alive():
+            # Wedged pump: leave the stop flag SET so that it can never step
+            # the pools again under a successor engine.
+            warnings.warn("ChatEngine.close(): pump thread did not exit within 30s; "
+                          "leaving stop flag set")
+            return
+        self._pump = None
+        self._pump_stop = False
 
     # -- session management -------------------------------------------------
 
@@ -127,22 +245,34 @@ class ChatEngine:
 
         produced: list[int] = []
         emitted_text = ""
-        with self._lock:
-            try:
-                for tok in generate_stream(self.model, input_ids, sess["images"],
-                                           sess["patch_valid"], self.cfg, self.sampling):
-                    produced.append(tok)
-                    text = self.tokenizer.decode(produced, skip_special_tokens=True)
-                    # Emit only the stable prefix delta (the last token may merge).
-                    delta = text[len(emitted_text):]
-                    if delta:
-                        emitted_text = text
-                        yield delta
-            finally:
-                # Record the (possibly partial) reply even when the consumer
-                # closes the stream early: a None assistant turn would corrupt
-                # the next turn's prompt.
-                conv.messages[-1][1] = emitted_text
+        if self.batcher is not None:
+            images = sess["images"]
+            handle = self.batcher.submit(
+                np.asarray(ids, np.int64),
+                None if images is None else images[0].cpu().numpy(),
+                None if images is None else sess["patch_valid"][0].cpu().numpy())
+            self._ensure_pump()
+            stream = self.batcher.stream(handle)
+        else:
+            self._lock.acquire()
+            stream = generate_stream(self.model, input_ids, sess["images"],
+                                     sess["patch_valid"], self.cfg, self.sampling)
+        try:
+            for tok in stream:
+                produced.append(tok)
+                text = self.tokenizer.decode(produced, skip_special_tokens=True)
+                # Emit only the stable prefix delta (the last token may merge).
+                delta = text[len(emitted_text):]
+                if delta:
+                    emitted_text = text
+                    yield delta
+        finally:
+            if self.batcher is None:
+                self._lock.release()
+            # Record the (possibly partial) reply even when the consumer
+            # closes the stream early: a None assistant turn would corrupt
+            # the next turn's prompt.
+            conv.messages[-1][1] = emitted_text
 
     def chat_text(self, session_id: str, question: str, pil_image=None) -> str:
         return "".join(self.chat(session_id, question, pil_image))

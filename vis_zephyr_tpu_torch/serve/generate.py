@@ -16,7 +16,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from vis_zephyr_tpu.config import VisZephyrConfig
+from ..config import VisZephyrConfig
 
 from ..models.mistral import embed, init_cache, mistral_forward
 from ..models.vis_zephyr import VisZephyr, vis_zephyr_forward
@@ -66,7 +66,6 @@ def prefill(
     cfg: VisZephyrConfig,
     cache_len: int,
     text_valid: Optional[torch.Tensor] = None,
-    use_flash: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Run the multimodal prefill; the per-layer K/V it returns are copied
     into a fresh decode cache of `cache_len` slots. On a CUDA device the
@@ -78,7 +77,6 @@ def prefill(
     logits, aux = vis_zephyr_forward(
         model, input_ids, images, patch_valid, cfg,
         text_valid=text_valid, return_kv=True, pad_to_multiple=pad_mult,
-        use_flash=use_flash,
     )
     lengths = aux["lengths"]
     k, v = aux["kv"]  # [L, B, T, Hkv, D]
@@ -99,16 +97,14 @@ def decode_step(
     cache: Dict,
     token: torch.Tensor,  # [B]
     cfg: VisZephyrConfig,
-    pallas_cache: bool = True,
 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step; the cache is updated in place. Returns (logits
-    [B, V], cache). `pallas_cache=False` appends with K2's plain version
-    instead of the kernel."""
+    [B, V], cache)."""
     positions = cache["length"][:, None]
     embeds = embed(model.decoder, token[:, None])
     logits, new_cache = mistral_forward(
         model.decoder, embeds, cfg.decoder, positions,
-        cache=cache, logits_slice="last", pallas_cache_update=pallas_cache,
+        cache=cache, logits_slice="last",
     )
     return logits[:, 0], new_cache
 
