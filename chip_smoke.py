@@ -1,5 +1,6 @@
 """GPU smoke run of the PyTorch port's serving paths: one request at a time
-over a dense cache, and continuous batching over int8 KV-fused page pools.
+over a dense cache, and continuous batching over int8 KV-fused page pools,
+each with bf16 weights and with int8 weights (`--load-8bit`).
 
     python3 chip_smoke.py [--seed N] [--max-new-tokens N] [--profile] [--phases a,b]
 
@@ -28,12 +29,21 @@ toolkit; exits non-zero on a machine without a card. Phases:
 6. K4      — paged_kv_rows against its plain version at L=32, B=32 with
              inactive slots on the trash page: bf16 and int8, split and
              fused; whole pools and scales bit-exact;
-7. slice1  — full-width Zephyr-7B + CLIP-L/336 + Q-Former with random bf16
+7. K5      — quant_matmul_int8 against its plain version at every (K, N) of
+             an int8 projection (decoder q/o, k/v, gate/up, down; Q-Former
+             packed in_proj, cross k/v, ffn.0, ffn.2) with M = 1, 7, 32, 128,
+             plus a K % 64 tail with ragged N and K = 16, each also with f32
+             output; per row, max-abs error <= 1e-2 of the row's largest
+             value; kernel (per call, on the device alone from a CUDA-graph
+             replay, and issued back to back), plain, library
+             (`torch._weight_int8pack_mm` where it runs, else dequantize +
+             matmul) and bound per shape and per decoder pass;
+8. slice1  — full-width Zephyr-7B + CLIP-L/336 + Q-Former with random bf16
              weights, the port's /chat server on 127.0.0.1 with no flags, 3
              sessions and 4 requests; checks the launch counters and the
              kernel path's prefill and decode-step-8 logits against the plain
              path (cosine >= 0.999); TTFT and decode tokens/s;
-8. paged   — the same model behind the server started with
+9. paged   — the same model behind the server started with
              `--continuous-batching --kv-cache paged --kv-quant --max-slots 32`
              (KV-fused int8 pools, page 128, prefill chunk 256): 48 /chat
              requests from 48 sessions sent at once, prompts of about 40, 300
@@ -41,7 +51,7 @@ toolkit; exits non-zero on a machine without a card. Phases:
              counters exact (K3 = 32 x decode steps, K4 = decode steps, K2 =
              32 x prefill chunks); slots reused; every page back in the
              allocator;
-9. batch   — direct PagedBatchers with the same 16 requests admitted before
+10. batch  — direct PagedBatchers with the same 16 requests admitted before
              the first step, whole (K1) and in chunks of 256 (K2 at T=256), on
              the kernel path and on the plain path, and with bf16 pools:
              chunked admission bit-equal between the paths; logits cosine per
@@ -49,22 +59,33 @@ toolkit; exits non-zero on a machine without a card. Phases:
              pools >= 0.99); the two int8 runs' pools against each other
              (dequantized rows cosine >= 0.999, int8 values within 1 for
              >= 95 %, scales within 5 %);
-10. profile — only with --profile: wall, device-busy and idle share of one
+11. profile — only with --profile: wall, device-busy and idle share of one
              batched decode step at B=32, and the largest device items
-             (torch.profiler);
-11. precision — last (it widens the model in place): the bf16 prefill logits
+             (torch.profiler); again on int8 weights after phase 13;
+12. precision — (it widens the model in place): the bf16 prefill logits
              against an f32 run of the same weights (the JAX engine's
-             arithmetic for f32 pixels; cosine >= 0.999).
+             arithmetic for f32 pixels; cosine >= 0.999);
+13. int8   — the model rebuilt from the same seed and quantized in place by
+             `load_8bit`'s step (`models/builder.py::quantize_weights`;
+             memory before, after and at the peak), then 2 dense /chat
+             requests and a paged burst of 16 on it, and the fixed batch of
+             16 admitted whole on the kernel path, the plain path and against
+             phase 10's bf16 logits (fed its tokens): kernel vs plain cosine
+             >= 0.999, int8 vs bf16 weights >= 0.997; K5 (224 per decoder
+             pass of at most 128 rows) and dequantize-route counts (224 per
+             longer pass) exact against what the prefill, chunk and step
+             counters predict, the Q-Former's projections counted by rows.
 
-`--phases` runs a subset (kernels, slice1, paged, batch, profile, precision)
-and then prints no result line. After a full run the line before last is a
-JSON object with one entry per kernel; the last line is
+`--phases` runs a subset (kernels, slice1, paged, batch, profile, precision,
+int8) and then prints no result line. After a full run the line before last
+is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import http.client
 import json
 import statistics
@@ -109,6 +130,44 @@ def median_ms(fn, runs: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 10, runs: int = 10):
+    """Device time of one fn() without the host's launch path: `calls` calls
+    captured in a CUDA graph, the graph replayed `runs` times, the median
+    CUDA-event time of a replay over `calls`. None (printed as not measured)
+    when fn cannot be captured."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as e:
+        print(f"graph capture failed ({str(e).splitlines()[0][:120]}): device time not measured")
+        torch.cuda.synchronize()
+        return None
+    ms = median_ms(graph.replay, runs) / calls
+    del graph
+    return ms
+
+
+def show(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def issue_ms(fn, calls: int = 50) -> float:
+    """Host time to issue one fn() when calls go back to back: the wall of
+    `calls` calls ended by a synchronize, over `calls`. Above the device time
+    it is the wrapper's host path."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
 
 
 def masked_lse(q, k, kv_valid, causal, scale):
@@ -458,6 +517,106 @@ def check_paged_rows(gen) -> dict:
     return {"max_abs_err": 0.0, "times": times}
 
 
+# (K, N) of every int8 projection: the decoder's q/o, k/v, gate/up and down,
+# and the Q-Former's packed self in_proj, cross q / out_proj, cross k/v, ffn.0
+# and ffn.2.
+QMM_SHAPES = {"decoder q, o": (4096, 4096), "decoder k, v": (4096, 1024),
+              "decoder gate, up": (4096, 14336), "decoder down": (14336, 4096),
+              "Q-Former in_proj": (4096, 12288), "Q-Former cross k, v": (5120, 4096),
+              "Q-Former ffn.0": (4096, 8192), "Q-Former ffn.2": (8192, 4096)}
+QMM_ROWS = (1, 7, 32, 128)
+
+
+def int8_library_call(x, weight_q, scale):
+    """The yardstick for K5: `torch._weight_int8pack_mm` where this PyTorch has
+    it on CUDA (and it agrees), else dequantize + `torch.matmul`. Used nowhere
+    in the port. Returns (name, fn)."""
+    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
+
+    want = qmm.quantized_matmul_plain(x, weight_q, scale).float()
+    for name, s in (("torch._weight_int8pack_mm", scale), ("torch._weight_int8pack_mm", scale.to(x.dtype))):
+        try:
+            got = torch._weight_int8pack_mm(x, weight_q, s).float()
+        except (RuntimeError, NotImplementedError, AttributeError, TypeError):
+            continue
+        if float((got - want).abs().max()) <= 2e-2 * float(want.abs().max()):
+            return f"{name} (scales {s.dtype})", lambda: torch._weight_int8pack_mm(x, weight_q, s)
+    return "dequantize + torch.matmul", lambda: x @ qmm.dequantize(weight_q, scale, x.dtype).T
+
+
+def check_quant_matmul(gen) -> dict:
+    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
+
+    dev = "cuda"
+    worst = 0.0
+    times = {}
+    library = None
+    cases = [(name, K, N, M) for name, (K, N) in QMM_SHAPES.items() for M in QMM_ROWS]
+    # Edges the served shapes do not reach: a K % 64 tail, ragged N, f32 output.
+    cases += [("edge: K % 64 = 48, ragged N", 4144, 1000, 33), ("edge: K = 16", 16, 72, 5)]
+    for name, K, N, M in cases:
+        wq = torch.randint(-127, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+        scale = (torch.rand(N, generator=gen, device=dev) + 0.5) * (2.0 / (127 * K ** 0.5))
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        for xx in ((x, x.float()) if name.startswith("edge") else (x,)):
+            got = qmm.quantized_matmul(xx, wq, scale)
+            torch.cuda.synchronize()
+            want = qmm.quantized_matmul_plain(xx, wq, scale)
+            # Each row is held to its own largest value (a bf16 ulp is at most
+            # 0.78 % of a value): per-row max-abs error over the row's max |plain|.
+            err = (got.float() - want.float()).abs().amax(dim=1)
+            rel = float((err / want.float().abs().amax(dim=1).clamp_min(1e-30)).max())
+            if not (got.dtype == xx.dtype and got.shape == (M, N) and rel <= 1e-2
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"K5 {name} M={M} {xx.dtype}: kernel disagrees with the plain "
+                                     f"version (per-row relative max-abs {rel:.3e})")
+            worst = max(worst, float(err.max()))
+        if name.startswith("edge"):
+            print(f"K5 {name} (K={K}, N={N}, M={M}), bf16 and f32 output: per-row max-abs over the "
+                  f"row's largest value {rel:.3e} (<= 1e-2)")
+            continue
+        name_of_library, lib_fn = int8_library_call(x, wq, scale)
+        if library is None:
+            library = name_of_library
+            print(f"K5 library yardstick: {library}")
+        kernel = lambda: qmm.quantized_matmul(x, wq, scale)  # noqa: E731
+        # The kernel three ways: CUDA events around one call (the host's
+        # launch path included, as K1 to K4 are timed), the device time alone
+        # (CUDA graph replay), and the host's issue time when calls go back to
+        # back. Plain and library: events around one call.
+        t = dict(ms=median_ms(kernel), device_ms=graph_ms(kernel), issue_ms=issue_ms(kernel),
+                 plain_ms=median_ms(lambda: qmm.quantized_matmul_plain(x, wq, scale), 10),
+                 library_ms=median_ms(lib_fn, 10))
+        # x, the int8 weight and the scales read once, the bf16 output written
+        # once; 2·M·N·K tensor-core operations.
+        least, by = bound_ms(2 * M * K + N * K + 4 * N + 2 * M * N, 2 * M * N * K)
+        splits = qmm.k_splits(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)[0]
+        times[(name, M)] = dict(t, bound_ms=least, bound_by=by)
+
+        print(f"K5 {name} (K={K}, N={N}) M={M}: kernel {t['ms']:.4f} ms per call, "
+              f"{show(t['device_ms'])} on the device ({splits} K splits), issued back to back "
+              f"{t['issue_ms']:.4f}; plain (f32 matmul) {t['plain_ms']:.4f}; library "
+              f"{t['library_ms']:.4f}; bound {least:.5f} ms by {by} "
+              f"({(N * K) / 1e6:.1f} MB of weights); per-row error {rel:.2e}")
+    # One decoder pass at M rows runs q, k, v, o, gate, up, down in 32 layers.
+    per_layer = [("decoder q, o", 2), ("decoder k, v", 2), ("decoder gate, up", 2),
+                 ("decoder down", 1)]
+    for M in QMM_ROWS:
+        total = {}
+        for key in ("ms", "device_ms", "issue_ms", "plain_ms", "library_ms", "bound_ms"):
+            vals = [times[(name, M)][key] for name, _ in per_layer]
+            total[key] = (None if None in vals
+                          else 32 * sum(n * v for (_, n), v in zip(per_layer, vals)))
+        print(f"K5 one decoder pass at M={M} (224 launches): kernel {show(total['ms'])} ms per "
+              f"call summed, {show(total['device_ms'])} on the device, issued back to back "
+              f"{show(total['issue_ms'])}; plain {show(total['plain_ms'])}; library "
+              f"{show(total['library_ms'])}; bound {total['bound_ms']:.3f} ms")
+    headline = times[("decoder gate, up", 32)]
+    return {"max_abs_err": worst, "library": library,
+            "times": {key: headline[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by", "device_ms", "issue_ms")}}
+
+
 class WordTokenizer:
     """A stand-in tokenizer with the surface `tokenize_with_images` and
     `ChatEngine` use: words hash to ids, every id decodes to "w<id>"."""
@@ -556,13 +715,52 @@ def stop_server(server, thread) -> None:
     thread.join(timeout=30)
 
 
-def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str) -> dict:
+def is_int8(model) -> bool:
+    from vis_zephyr_tpu_torch.models.quant_linear import QuantLinear
+
+    return isinstance(model.decoder.model.layers[0].mlp.up_proj, QuantLinear)
+
+
+def qformer_routes(cfg, n_images: int, text_len: int):
+    """(K5 launches, dequantize-route calls) of one int8 Q-Former pass over
+    `n_images` crops conditioned on `text_len` prompt tokens. Per block: the
+    packed self in_proj, the self out_proj, the cross q and out_proj, ffn.0 and
+    ffn.2 at the query rows (block 0's queries are followed by the text), the
+    cross k and v at the visual rows."""
+    from vis_zephyr_tpu_torch.ops.quant_matmul import QMM_MAX_M
+
+    pc = cfg.projector
+    query_rows = ([n_images * (pc.num_queries + text_len)]
+                  + [n_images * pc.num_queries] * (pc.num_blocks - 1))
+    visual_rows = n_images * cfg.vision.tokens_per_image
+    calls = [m for rows in query_rows for m in [rows] * 6 + [visual_rows] * 2]
+    k5 = sum(m <= QMM_MAX_M for m in calls)
+    return k5, len(calls) - k5
+
+
+def decoder_routes(cfg, rows: int, passes: int = 1):
+    """(K5 launches, dequantize-route calls) of `passes` int8 decoder passes of
+    `rows` rows each: q, k, v, o, gate, up and down in every layer, 224 at
+    full depth, all on one route."""
+    from vis_zephyr_tpu_torch.ops.quant_matmul import QMM_MAX_M
+
+    n = 7 * cfg.decoder.num_layers * passes
+    return (n, 0) if rows <= QMM_MAX_M else (0, n)
+
+
+def add_routes(*routes):
+    return tuple(map(sum, zip(*routes))) if routes else (0, 0)
+
+
+def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str, n_requests: int = 4,
+              label: str = "slice1") -> dict:
     import numpy as np
 
     from vis_zephyr_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
     from vis_zephyr_tpu_torch.ops import _kernels
     from vis_zephyr_tpu_torch.ops import flash_attention as fa
     from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
     from vis_zephyr_tpu_torch.serve.engine import ChatEngine
     from vis_zephyr_tpu_torch.serve.generate import _cache_len, decode_step, prefill
 
@@ -585,16 +783,16 @@ def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str) -> dict:
     requests = [(sessions[0], f"{DEFAULT_IMAGE_TOKEN}\ndescribe the picture"),
                 (sessions[1], f"{DEFAULT_IMAGE_TOKEN}\nwhat is in the image"),
                 (sessions[2], f"{DEFAULT_IMAGE_TOKEN}\ncount the objects"),
-                (sessions[0], "and what colour is it")]
+                (sessions[0], "and what colour is it")][:n_requests]
     results = []
     try:
-        fa.launches = 0
-        kv_cache.launches = 0
+        fa.launches = kv_cache.launches = qmm.launches = qmm.dequant_calls = 0
         for sid, question in requests:
             status, text, ttft, total = post_chat(port, {"session_id": sid, "question": question})
             n = len(text.split())
             results.append((sid, status, text, ttft, total, n))
         flash_launches, append_launches = fa.launches, kv_cache.launches
+        k5_launches, dequant_calls = qmm.launches, qmm.dequant_calls
     finally:
         stop_server(server, thread)
 
@@ -602,16 +800,32 @@ def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str) -> dict:
     rates = []
     for sid, status, text, ttft, total, n in results:
         words_ok = n > 0 and all(w[0] == "w" and w[1:].isdigit() for w in text.split())
-        print(f"slice1 request {sid}: HTTP {status}, {n} tokens streamed, TTFT {ttft * 1e3:.1f} ms, "
+        print(f"{label} request {sid}: HTTP {status}, {n} tokens streamed, TTFT {ttft * 1e3:.1f} ms, "
               f"total {total * 1e3:.1f} ms, text starts {text[:48]!r}")
         if status != 200 or not words_ok:
             raise AssertionError(f"request on {sid} did not stream text")
         decode_steps += min(n, max_new_tokens - 1)
         if n > 1:
             rates.append((n - 1) / (total - ttft))
-    print(f"slice1 counters: K1 flash_fwd {flash_launches} launches (want {L * len(requests)}), "
-          f"K2 dense_cache_append {append_launches} (want {L} x {decode_steps} decode steps)")
-    if flash_launches != L * len(requests) or append_launches != L * decode_steps:
+    # int8 weights: each first-turn request runs one Q-Former pass over its 4
+    # crops and one prefill over the spliced rows (the prompt without its
+    # sentinel and 4 crops' tokens, padded to 128), then a decode step (M = 1)
+    # per token after the first.
+    want_int8 = (0, 0)
+    if is_int8(model):
+        assert all(q.startswith(DEFAULT_IMAGE_TOKEN) for _, q in requests), "first turns only"
+        passes = []
+        for _, question in requests:
+            n_ids = len(engine.prompt_ids(question))
+            rows = -(-(n_ids - 1 + 4 * cfg.tokens_per_patch) // 128) * 128
+            passes += [qformer_routes(cfg, 4, n_ids - 1), decoder_routes(cfg, rows)]
+        want_int8 = add_routes(*passes, decoder_routes(cfg, 1, decode_steps))
+    print(f"{label} counters: K1 flash_fwd {flash_launches} launches (want {L * len(requests)}), "
+          f"K2 dense_cache_append {append_launches} (want {L} x {decode_steps} decode steps), "
+          f"K5 quant_matmul_int8 {k5_launches} (want {want_int8[0]}), dequantize route "
+          f"{dequant_calls} (want {want_int8[1]})")
+    if (flash_launches != L * len(requests) or append_launches != L * decode_steps
+            or (k5_launches, dequant_calls) != want_int8):
         raise AssertionError("the serving path did not go through the kernels as counted")
 
     # Kernel path against the plain path on session s1's request.
@@ -638,9 +852,9 @@ def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str) -> dict:
     cos_decode = cosine(logits_k, logits_p)
     streamed = [int(w[1:]) for w in results[1][2].split()][:len(direct)]
     same_tokens = direct[:len(streamed)] == streamed  # a stream ends early only at EOS
-    print(f"slice1 check (prefill length {int(lengths[0])}, padded to a multiple of 128): "
+    print(f"{label} check (prefill length {int(lengths[0])}, padded to a multiple of 128): "
           f"prefill last-token logits cosine {cos_prefill:.6f}, decode-step-8 logits cosine "
-          f"{cos_decode:.6f} (kernel path vs the plain versions of K1 and K2, >= 0.999); "
+          f"{cos_decode:.6f} (kernel path vs the kernels' plain versions, >= 0.999); "
           f"direct greedy tokens equal the streamed ones: {same_tokens}")
     if not (cos_prefill >= 0.999 and cos_decode >= 0.999 and bool(torch.isfinite(logits_k).all())):
         raise AssertionError("kernel path disagrees with the plain path")
@@ -649,11 +863,11 @@ def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str) -> dict:
 
     ttfts = [r[3] for r in results]
     rate = statistics.median(rates) if rates else float("nan")
-    print(f"slice1: TTFT median {statistics.median(ttfts) * 1e3:.1f} ms (first request "
+    print(f"{label}: TTFT median {statistics.median(ttfts) * 1e3:.1f} ms (first request "
           f"{ttfts[0] * 1e3:.1f} ms), decode {rate:.2f} tokens/s median over requests, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
-    return {"flash_launches": flash_launches, "append_launches": append_launches,
-            "precision_inputs": (ids, images, valid, cache_len, last_k)}
+    return {"k1": flash_launches, "k2": append_launches, "k5": k5_launches,
+            "dequant": dequant_calls, "precision_inputs": (ids, images, valid, cache_len, last_k)}
 
 
 def check_precision(model, cfg, ids, images, valid, cache_len, last_k) -> None:
@@ -703,12 +917,14 @@ def paged_requests(rng, cfg, n: int):
     return out
 
 
-def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str) -> dict:
+def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int = 48,
+                     label: str = "paged") -> dict:
     import numpy as np
 
     from vis_zephyr_tpu_torch.ops import flash_attention as fa
     from vis_zephyr_tpu_torch.ops import kv_cache
     from vis_zephyr_tpu_torch.ops import paged_attention as pa
+    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
     from vis_zephyr_tpu_torch.serve import api
 
     L = cfg.decoder.num_layers
@@ -718,13 +934,16 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str) -> dict:
     engine = api.engine_from_args(model, cfg, WordTokenizer(cfg.decoder.vocab_size), flags)
     b = engine.batcher
     side = cfg.vision.image_size
-    requests = paged_requests(np.random.default_rng(seed + 1), cfg, 48)
+    requests = paged_requests(np.random.default_rng(seed + 1), cfg, n)
     chunks = 0
+    qformer = []  # int8: one Q-Former pass per request, at admission
     for sid, question, px, valid in requests:
         engine.attach_pixels(sid, px, valid, (2 * side, side))
-        length = len(engine.prompt_ids(question)) - 1 + int(valid.sum()) * cfg.tokens_per_patch
+        n_ids = len(engine.prompt_ids(question))
+        length = n_ids - 1 + int(valid.sum()) * cfg.tokens_per_patch
         chunks += -(-length // b.prefill_chunk)
-    print(f"paged: server flags {' '.join(PAGED_FLAGS)} -> max_slots {b.max_slots}, cache_len "
+        qformer.append(qformer_routes(cfg, px.shape[0], n_ids - 1))
+    print(f"{label}: server flags {' '.join(PAGED_FLAGS)} -> max_slots {b.max_slots}, cache_len "
           f"{b.cache_len}, page {b.page_size}, {b.num_pages} pages per layer, prefill chunk "
           f"{b.prefill_chunk}, int8 {b.kv_quant}, fused {b.kv_fused}; pools "
           f"{(b.kp.numel() + 4 * b.ksp.numel()) / 2**30:.2f} GiB")
@@ -746,6 +965,7 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     try:
         fa.launches = kv_cache.launches = pa.attn_launches = pa.rows_launches = 0
+        qmm.launches = qmm.dequant_calls = 0
         b.steps = b.slots_stepped = 0
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(requests)) as pool:
@@ -753,7 +973,7 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str) -> dict:
                 lambda r: post_chat(port, {"session_id": r[0], "question": r[1]}), requests))
         wall = time.perf_counter() - t0
         counts = dict(k1=fa.launches, k2=kv_cache.launches, k3=pa.attn_launches,
-                      k4=pa.rows_launches)
+                      k4=pa.rows_launches, k5=qmm.launches, dequant=qmm.dequant_calls)
     finally:
         stop_server(server, thread)
         engine.close()
@@ -762,29 +982,38 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str) -> dict:
         words = text.split()
         if status != 200 or len(words) != new_tokens or not all(
                 w[0] == "w" and w[1:].isdigit() for w in words):
-            raise AssertionError(f"paged request {sid}: HTTP {status}, {len(words)} tokens "
+            raise AssertionError(f"{label} request {sid}: HTTP {status}, {len(words)} tokens "
                                  f"(want {new_tokens}): {text[:60]!r}")
     steps = b.steps
-    print(f"paged: 48 requests, all HTTP 200 with {new_tokens} tokens; {steps} decode steps, "
+    print(f"{label}: {n} requests, all HTTP 200 with {new_tokens} tokens; {steps} decode steps, "
           f"mean active slots per step {b.slots_stepped / steps:.2f} of {b.max_slots}")
-    print(f"paged counters: K3 paged_attn_decode {counts['k3']} (want {L} x {steps} = {L * steps}), "
+    # int8 weights: every chunk (256 rows) takes the dequantize route, every
+    # decode step (M = max_slots) K5; plus each request's Q-Former pass.
+    want_int8 = (add_routes(*qformer, decoder_routes(cfg, b.prefill_chunk, chunks),
+                            decoder_routes(cfg, b.max_slots, steps))
+                 if is_int8(model) else (0, 0))
+    print(f"{label} counters: K3 paged_attn_decode {counts['k3']} (want {L} x {steps} = {L * steps}), "
           f"K4 paged_kv_rows {counts['k4']} (want {steps}), K2 dense_cache_append {counts['k2']} "
           f"(want {L} x {chunks} prefill chunks = {L * chunks}), K1 flash_fwd {counts['k1']} (want 0: "
-          f"chunked admission attends its scratch cache with plain attention)")
-    if (counts["k3"], counts["k4"], counts["k2"], counts["k1"]) != (L * steps, steps, L * chunks, 0):
+          f"chunked admission attends its scratch cache with plain attention), K5 "
+          f"quant_matmul_int8 {counts['k5']} (want {want_int8[0]}), dequantize route "
+          f"{counts['dequant']} (want {want_int8[1]})")
+    if ((counts["k3"], counts["k4"], counts["k2"], counts["k1"]) != (L * steps, steps, L * chunks, 0)
+            or (counts["k5"], counts["dequant"]) != want_int8):
         raise AssertionError("the paged serving path did not go through the kernels as counted")
     reused = int((uses > 1).sum())
     free = b.allocator.available
-    print(f"paged slots: {int((uses > 0).sum())} of {b.max_slots} used, {reused} of them more than "
+    print(f"{label} slots: {int((uses > 0).sum())} of {b.max_slots} used, {reused} of them more than "
           f"once ({int(uses.sum())} admissions); allocator {free} of {b.num_pages - 1} pages free, "
           f"page table all zero: {not bool(b.page_table.any())}")
-    if (int(uses.sum()) != 48 or reused == 0 or free != b.num_pages - 1 or b.has_work
-            or bool(b.page_table.any()) or b.slots_stepped <= steps):
+    # Fewer requests than slots need not reuse a slot.
+    if (int(uses.sum()) != n or (reused == 0 and n > b.max_slots) or free != b.num_pages - 1
+            or b.has_work or bool(b.page_table.any()) or b.slots_stepped <= steps):
         raise AssertionError("slots were not reused, requests did not share steps, or pages leaked")
     ttfts = sorted(r[2] for r in results)
-    decoded = 48 * (new_tokens - 1)
-    print(f"paged: TTFT median {statistics.median(ttfts) * 1e3:.1f} ms, max {ttfts[-1] * 1e3:.1f} ms; "
-          f"{48 * new_tokens} tokens in {wall:.2f} s = {48 * new_tokens / wall:.1f} tokens/s over all "
+    decoded = n * (new_tokens - 1)
+    print(f"{label}: TTFT median {statistics.median(ttfts) * 1e3:.1f} ms, max {ttfts[-1] * 1e3:.1f} ms; "
+          f"{n * new_tokens} tokens in {wall:.2f} s = {n * new_tokens / wall:.1f} tokens/s over all "
           f"slots ({decoded / wall:.1f} decode tokens/s), {wall / steps * 1e3:.1f} ms of wall per "
           f"scheduler step (decode + one prefill chunk), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
@@ -844,12 +1073,14 @@ def valid_rows(b, L: int) -> torch.Tensor:
     return valid
 
 
-def run_fixed_batch(model, cfg, seed: int) -> int:
+def run_fixed_batch(model, cfg, seed: int) -> dict:
     """HTTP timing changes which requests share a step, so agreement is read on
     a fixed batch: the same 16 requests admitted whole (K1) and in chunks of 256
     (K2 at T=256), each on the kernel path and on the plain path, and whole with
     bf16 pools; all are fed the whole-prompt kernel path's tokens so that they
-    see the same sequence. Returns K2's launches of the chunked admission."""
+    see the same sequence. Returns K2's launches of the chunked admission, the
+    tokens fed before each step and the kernel path's logits at steps 1 and 16
+    (the int8 phase replays them)."""
     from vis_zephyr_tpu_torch.ops import _kernels
     from vis_zephyr_tpu_torch.ops import flash_attention as fa
     from vis_zephyr_tpu_torch.ops import kv_cache
@@ -894,6 +1125,7 @@ def run_fixed_batch(model, cfg, seed: int) -> int:
     others = (plain, wide, chunk_kern, chunk_plain)
     for other in others:
         other.token.copy_(kern.token)
+    fed, logits = [kern.token.clone()], {}
     for step in range(1, 17):
         for b in (kern, wide, chunk_kern):
             if b.step() != 16:
@@ -903,6 +1135,7 @@ def run_fixed_batch(model, cfg, seed: int) -> int:
                 if b.step() != 16:
                     raise AssertionError("a slot finished early")
         if step in (1, 16):
+            logits[step] = kern.last_logits.clone()
             cos_plain = slot_cosines(kern.last_logits, plain.last_logits)
             cos_wide = slot_cosines(kern.last_logits, wide.last_logits)
             cos_chunk = slot_cosines(chunk_kern.last_logits, chunk_plain.last_logits)
@@ -919,6 +1152,7 @@ def run_fixed_batch(model, cfg, seed: int) -> int:
                 raise AssertionError("the batched kernel path disagrees")
         for other in others:
             other.token.copy_(kern.token)
+        fed.append(kern.token.clone())
 
     # The two whole-prompt int8 runs' pools. Their K/V rows come from bf16
     # activations that differ in the last bits between the paths (K1 against
@@ -953,10 +1187,101 @@ def run_fixed_batch(model, cfg, seed: int) -> int:
           f"{float(cos_rows.min()):.6f} (>= 0.999)")
     if not float(cos_rows.min()) >= 0.999:
         raise AssertionError("the chunked kernel path's pools disagree with the plain path's")
-    return k2
+    return {"k2": k2, "fed": fed, "logits": logits}
 
 
-def run_profile(model, cfg, seed: int, card: str) -> None:
+def quantize_model(seed: int, card: str):
+    """The full-width model with random bf16 weights from `seed` (the same as
+    the bf16 phases'), made int8 in place by `load_8bit`'s step
+    (`models/builder.py::quantize_weights`): decoder layers and Q-Former
+    projections, one layer at a time."""
+    from vis_zephyr_tpu_torch.models.builder import quantize_weights
+
+    model, cfg = build_model(seed)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    quantize_weights(model)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+
+    def gib(module):
+        return sum(t.numel() * t.element_size()
+                   for t in list(module.parameters()) + list(module.buffers())) / 2**30
+
+    decoder = model.decoder
+    int8_decoder = gib(decoder.model.layers)
+    kept = gib(decoder) - int8_decoder
+    print(f"int8: load_8bit quantized the decoder layers and the Q-Former in {seconds:.1f} s; "
+          f"device memory {before / 2**30:.2f} GiB before, {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB after, peak while quantizing {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"weights: vision {gib(model.vision):.2f} GiB bf16, Q-Former {gib(model.projector):.2f} "
+          f"GiB int8, decoder layers {int8_decoder:.2f} GiB int8, embed + lm_head + norms "
+          f"{kept:.2f} GiB bf16 [{card}]")
+    if not is_int8(model):
+        raise AssertionError("load_8bit left the decoder in bf16")
+    return model, cfg
+
+
+def run_fixed_batch_int8(model, cfg, seed: int, bf16: dict, card: str) -> dict:
+    """The fixed batch of 16 on int8 weights, admitted whole: the kernel path
+    against the plain path, and against the bf16 weights' kernel path, all fed
+    the bf16 run's tokens; K5 and dequantize-route counts exact."""
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
+
+    requests = direct_requests(cfg, seed, 16)
+    int8_fused = dict(kv_quant=True, kv_fused=True)
+    qmm.launches = qmm.dequant_calls = 0
+    kern = admitted_batcher(model, cfg, requests, 16, **int8_fused)
+    admitted = (qmm.launches, qmm.dequant_calls)
+    # Whole admission: one Q-Former pass and one prefill per prompt, of its
+    # spliced rows (the prompt without its sentinel and 4 crops' tokens)
+    # padded to 128.
+    want = add_routes(*(add_routes(qformer_routes(cfg, px.shape[0], len(ids) - 1),
+                                   decoder_routes(cfg, -(-(len(ids) - 1 + px.shape[0]
+                                                            * cfg.tokens_per_patch) // 128) * 128))
+                        for ids, px, _ in requests))
+    lengths = sorted(int(n) for n in kern.slot_len)
+    with _kernels.plain_versions():
+        plain = admitted_batcher(model, cfg, requests, 16, **int8_fused)
+    k5_steps = dequant_steps = 0
+    cosines = {}
+    for step in range(1, 17):
+        for b in (kern, plain):
+            b.token.copy_(bf16["fed"][step - 1])
+        k5, dequant = qmm.launches, qmm.dequant_calls
+        if kern.step() != 16:
+            raise AssertionError("a slot finished early")
+        k5_steps += qmm.launches - k5
+        dequant_steps += qmm.dequant_calls - dequant
+        with _kernels.plain_versions():
+            if plain.step() != 16:
+                raise AssertionError("a slot finished early")
+        if step in (1, 16):
+            cos_plain = slot_cosines(kern.last_logits, plain.last_logits)
+            cos_bf16 = slot_cosines(kern.last_logits, bf16["logits"][step])
+            cosines[step] = (float(cos_plain.min()), float(cos_bf16.min()))
+            # int8 against bf16 weights read 0.998075 to 0.998123 (min over
+            # slots) on an H100: the gate sits just under that.
+            print(f"int8 batch step {step}: logits cosine, minimum over the 16 slots: kernel path vs "
+                  f"plain path {float(cos_plain.min()):.6f} (>= 0.999); int8 weights vs bf16 weights "
+                  f"min {float(cos_bf16.min()):.6f} median {float(cos_bf16.median()):.6f} (>= 0.997)")
+            if not (float(cos_plain.min()) >= 0.999 and float(cos_bf16.min()) >= 0.997
+                    and bool(torch.isfinite(kern.last_logits).all())):
+                raise AssertionError("the int8 kernel path disagrees")
+    want_steps = decoder_routes(cfg, 16, 16)
+    print(f"int8 batch counters: admission of 16 prompts {lengths} tokens long: K5 {admitted[0]} "
+          f"launches (want {want[0]}), dequantize route {admitted[1]} (want {want[1]}); 16 decode "
+          f"steps at M=16: K5 {k5_steps} (want {want_steps[0]}), dequantize route {dequant_steps} "
+          f"(want 0); peak device memory since load_8bit "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if admitted != want or (k5_steps, dequant_steps) != want_steps:
+        raise AssertionError("the int8 batch did not go through K5 as counted")
+    return cosines
+
+
+def run_profile(model, cfg, seed: int, card: str, label: str = "profile") -> None:
     """One batched decode step at B=32: wall (host clock around steps that end
     in a synchronize), device-busy time and the largest device items
     (torch.profiler kernel sums; one stream, so kernels do not overlap)."""
@@ -988,17 +1313,17 @@ def run_profile(model, cfg, seed: int, card: str) -> None:
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     wall = statistics.median(walls)
-    print(f"profile: batched decode step, B=32 active slots, lengths about "
+    print(f"{label}: batched decode step, B=32 active slots, lengths about "
           f"{int(b.slot_len.mean())}: wall median {wall:.2f} ms (16 steps, min {min(walls):.2f}, "
           f"max {max(walls):.2f}), device busy {busy:.2f} ms per step, idle share "
           f"{1 - busy / wall:.2f} [{card}]")
     for key, ms, count in rows[:8]:
-        print(f"profile:   {ms:8.3f} ms  {count:6.1f} launches/step  {key[:90]}")
+        print(f"{label}:   {ms:8.3f} ms  {count:6.1f} launches/step  {key[:90]}")
     if busy <= 0:
-        print("profile: the profiler reported no device time")
+        print(f"{label}: the profiler reported no device time")
 
 
-PHASES = ("kernels", "slice1", "paged", "batch", "profile", "precision")
+PHASES = ("kernels", "slice1", "paged", "batch", "profile", "precision", "int8")
 
 
 def main(argv=None) -> None:
@@ -1031,42 +1356,80 @@ def main(argv=None) -> None:
     print(f"build: nvcc {' '.join(_kernels.NVCC_FLAGS)}, one process per source -> "
           f"{_kernels.LIB} in {time.perf_counter() - t0:.1f} s")
 
+    clock = [time.perf_counter()]
+
+    def done(phase: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     gen = torch.Generator("cuda").manual_seed(args.seed)
     if "kernels" in phases:
         k1 = check_flash(gen)
         k2 = check_cache_append(gen)
         k3 = check_paged_attention(gen)
         k4 = check_paged_rows(gen)
+        done("kernels K1-K4")
+        k5 = check_quant_matmul(gen)
+        done("kernels K5")
     if set(phases) - {"kernels"}:
         model, cfg = build_model(args.seed)
     if "slice1" in phases:
         dense = run_slice(model, cfg, args.seed, args.max_new_tokens, card)
+        done("slice1")
     if "paged" in phases:
         paged = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card)
+        done("paged")
     if "batch" in phases:
-        run_fixed_batch(model, cfg, args.seed)
+        batch = run_fixed_batch(model, cfg, args.seed)
+        done("batch")
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
+        done("profile")
     if "precision" in phases:
         if "slice1" not in phases:
             raise SystemExit("chip_smoke: the precision phase needs slice1")
         torch.cuda.empty_cache()
         check_precision(model, cfg, *dense["precision_inputs"])
+        done("precision")
+    if "int8" in phases:
+        # --load-8bit on both served paths: a fresh model from the same seed,
+        # quantized in place after the bf16 one is gone.
+        if "batch" not in phases:
+            raise SystemExit("chip_smoke: the int8 phase needs batch (its bf16 reference)")
+        del model
+        dense.pop("precision_inputs", None)
+        gc.collect()  # the servers' handler classes hold their engines in cycles
+        torch.cuda.empty_cache()
+        model, cfg = quantize_model(args.seed, card)
+        dense8 = run_slice(model, cfg, args.seed, args.max_new_tokens, card, n_requests=2,
+                           label="int8 dense")
+        paged8 = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card, n=16,
+                                  label="int8 paged")
+        run_fixed_batch_int8(model, cfg, args.seed, batch, card)
+        done("int8")
+        if "profile" in phases:
+            run_profile(model, cfg, args.seed, card, label="int8 profile")
+            done("int8 profile")
     if phases != full:
         print(f"partial run of phases {phases}: no result line")
         return
 
-    # The counts of the two served runs, each set to 0 just before its run and
-    # read just after it. `launches` is their sum (K2 is on both paths) and
-    # `launches_by_path` says which run gave what.
-    by_path = {"flash_fwd": {"dense": dense["flash_launches"], "paged": paged["k1"]},
-               "dense_cache_append": {"dense": dense["append_launches"], "paged": paged["k2"]},
-               "paged_attn_decode": {"dense": 0, "paged": paged["k3"]},
-               "paged_kv_rows": {"dense": 0, "paged": paged["k4"]}}
+    # The counts of the four served runs (bf16 and int8 weights on each path),
+    # each set to 0 just before its run and read just after it. `launches` is
+    # their sum and `launches_by_path` says which run gave what.
+    runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8}
+    by_path = {name: {path: run.get(key, 0) for path, run in runs.items()}
+               for name, key in (("flash_fwd", "k1"), ("dense_cache_append", "k2"),
+                                 ("paged_attn_decode", "k3"), ("paged_kv_rows", "k4"),
+                                 ("quant_matmul_int8", "k5"))}
     # Each path must have gone through its own kernels (chunked admission
     # attends its scratch cache with plain attention, so K1 is the dense path's).
-    on_path = {"dense": ("flash_fwd", "dense_cache_append"),
-               "paged": ("dense_cache_append", "paged_attn_decode", "paged_kv_rows")}
+    dense_kernels = ("flash_fwd", "dense_cache_append")
+    paged_kernels = ("dense_cache_append", "paged_attn_decode", "paged_kv_rows")
+    on_path = {"dense": dense_kernels, "paged": paged_kernels,
+               "dense_int8": dense_kernels + ("quant_matmul_int8",),
+               "paged_int8": paged_kernels + ("quant_matmul_int8",)}
     if not all(by_path[name][path] > 0 for path, names in on_path.items() for name in names):
         raise AssertionError(f"a kernel was never launched on its served path: {by_path}")
     paged_py = "vis_zephyr_tpu/ops/paged_attention.py"
@@ -1082,6 +1445,9 @@ def main(argv=None) -> None:
              max_abs_err=k3["max_abs_err"], **k3["times"]),
         dict(name="paged_kv_rows", source="vis_zephyr_tpu_torch/csrc/paged_kv_rows.cu",
              replaces=f"{paged_py}:1691", max_abs_err=k4["max_abs_err"], **k4["times"]),
+        dict(name="quant_matmul_int8", source="vis_zephyr_tpu_torch/csrc/quant_matmul_int8.cu",
+             replaces="vis_zephyr_tpu/ops/quant_matmul.py:34", max_abs_err=k5["max_abs_err"],
+             **k5["times"]),
     ]
     for kernel in kernels:
         counts = by_path[kernel["name"]]

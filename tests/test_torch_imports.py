@@ -2,7 +2,7 @@
 
 A fresh interpreter, with both blocked by an import hook, imports every module
 of `vis_zephyr_tpu_torch` and serves a chat through a serialized and a paged
-`ChatEngine` on the CPU; a source scan finds no such import in the port or in
+`ChatEngine` on the CPU, with float and with int8 weights; a source scan finds no such import in the port or in
 `chip_smoke.py`. The modules the port copied instead of importing (`config`,
 `constants`, `conversation`, `data/anyres`, `data/tokenization`) give what the
 JAX package's give on the same inputs.
@@ -73,13 +73,18 @@ model = init_vis_zephyr(cfg, torch.Generator().manual_seed(0))
 pixels = np.zeros((4, 56, 56, 3), np.float32)
 valid = np.array([True, True, False, False])
 replies = []
-for flags in ({}, dict(continuous_batching=True, kv_cache="paged", kv_quant=True, kv_fused=True,
-                       max_slots=2, cache_len=256, page_size=16, prefill_chunk=32)):
-    engine = ChatEngine(model, cfg, Tokenizer(), max_new_tokens=3, **flags)
-    engine.attach_pixels("s", pixels, valid, (112, 56))
-    replies.append(engine.chat_text("s", "<image>\nwhat is this"))
-    engine.close()
-assert all(len(r.split()) == 3 for r in replies), replies
+for load_8bit in (False, True):
+    if load_8bit:
+        from vis_zephyr_tpu_torch.models.builder import quantize_weights
+        quantize_weights(model)
+    for flags in ({}, dict(continuous_batching=True, kv_cache="paged", kv_quant=True,
+                           kv_fused=True, max_slots=2, cache_len=256, page_size=16,
+                           prefill_chunk=32)):
+        engine = ChatEngine(model, cfg, Tokenizer(), max_new_tokens=3, **flags)
+        engine.attach_pixels("s", pixels, valid, (112, 56))
+        replies.append(engine.chat_text("s", "<image>\nwhat is this"))
+        engine.close()
+assert len(replies) == 4 and all(len(r.split()) == 3 for r in replies), replies
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "vis_zephyr_tpu")]
 print("ok", len(names))
 """

@@ -7,8 +7,13 @@ port's parameters carry HF names, so each part loads with
 `load_state_dict(strict=True)` after its key prefix is stripped. safetensors
 and transformers are imported lazily.
 
+`load_8bit` quantizes the decoder's and the Q-Former's projections to int8
+weights with per-output-channel scales (`ops/quant.py`, the reference's
+bitsandbytes option mapped as in the JAX builder) after the float weights
+are on the device, one layer at a time.
+
 Not ported yet: the native orbax checkpoint (needs orbax), LoRA artifacts,
-the consolidated single-dir checkpoint, and 8/4-bit loading.
+the consolidated single-dir checkpoint, and `load_4bit` (int4 weights).
 
 Returns `(tokenizer, model, cfg, context_len)`.
 """
@@ -24,6 +29,7 @@ import torch
 
 from ..config import VisZephyrConfig
 
+from ..ops.quant import quantize_decoder_layers, quantize_qformer
 from .vis_zephyr import VisZephyr
 
 # HF CLIPVisionModel keys the tower does not use (it returns raw hidden states).
@@ -80,7 +86,12 @@ def load_pretrained_model(
     vision_tower_path: Optional[str] = None,
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
+    load_8bit: bool = False,
+    load_4bit: bool = False,
 ) -> Tuple[object, VisZephyr, VisZephyrConfig, int]:
+    if load_4bit:  # it wins over load_8bit, as in the JAX builder
+        raise NotImplementedError("load_4bit (int4 weights) is not ported to PyTorch yet "
+                                  "(ROADMAP.md, Queue A step 6b)")
     if os.path.isdir(os.path.join(model_path, "state")):
         raise NotImplementedError(
             f"{model_path} is a native orbax checkpoint; the PyTorch port loads only "
@@ -105,6 +116,8 @@ def load_pretrained_model(
     for module, sd in parts:
         module.load_state_dict(sd, strict=True, assign=True)
     model = model.to(device=device, dtype=dtype).requires_grad_(False).eval()
+    if load_8bit:
+        quantize_weights(model)
 
     tokenizer = None
     try:
@@ -114,3 +127,12 @@ def load_pretrained_model(
     except Exception:  # noqa: BLE001 — the tokenizer is optional for weight-only use
         tokenizer = None
     return tokenizer, model, cfg, cfg.tokenizer_model_max_length
+
+
+def quantize_weights(model: VisZephyr) -> VisZephyr:
+    """`load_8bit` on a model already on its device: int8 decoder layers
+    (q, k, v, o, gate, up, down) and Q-Former projections, in place, each
+    float weight freed as its layer is done. Returns the model."""
+    quantize_decoder_layers(model.decoder, bits=8)
+    quantize_qformer(model.projector)
+    return model

@@ -4,7 +4,11 @@ The inverse of `vis_zephyr_tpu/models/hf_convert.py`. The JAX tree has numpy
 leaves, per-layer parameters stacked on a leading [L] axis, dense kernels
 stored [in, out] and the CLIP patch kernel stored [ph*pw*3, D]; the port
 keeps torch's [out, in] weights and HF's conv layout [D, 3, ph, pw]. The
-result loads into `VisZephyr` with `load_state_dict(strict=True)`.
+result loads into `VisZephyr` with `load_state_dict(strict=True)`. A tree
+quantized by the JAX package's `quantize_decoder_layers(bits=8)` and
+`quantize_qformer` (`{"kernel_q" [in, out], "scale" [1, out]}` leaves) gives
+`weight_q` int8 [out, in] and `scale` [out] entries, which load into a model
+quantized by the port's `ops.quant` the same way.
 """
 
 from __future__ import annotations
@@ -21,11 +25,26 @@ def _t(x) -> torch.Tensor:
     return torch.tensor(np.asarray(x))
 
 
+def _pick(x, i=None) -> np.ndarray:
+    return np.asarray(x if i is None else x[i])
+
+
+def _weight(out: Dict, name: str, p: Mapping, i=None) -> None:
+    """A dense kernel [in, out] as `{name}` [out, in]; an int8 one
+    (`{"kernel_q", "scale"}`) as `{name}_q` int8 [out, in] and its scales
+    [1, out] as [out] under `name` with "weight" replaced by "scale"
+    (`out_proj.weight` → `out_proj.scale`, `q_proj_weight` → `q_proj_scale`)."""
+    if "kernel_q" in p:
+        out[f"{name}_q"] = _t(_pick(p["kernel_q"], i).T)
+        out[name[:-len("weight")] + "scale"] = _t(_pick(p["scale"], i)[0])
+    else:
+        out[name] = _t(_pick(p["kernel"], i).T)
+
+
 def _linear(out: Dict, prefix: str, p: Mapping, i=None) -> None:
-    kernel = p["kernel"] if i is None else p["kernel"][i]
-    out[f"{prefix}.weight"] = _t(np.asarray(kernel).T)
+    _weight(out, f"{prefix}.weight", p, i)
     if "bias" in p:
-        out[f"{prefix}.bias"] = _t(p["bias"] if i is None else p["bias"][i])
+        out[f"{prefix}.bias"] = _t(_pick(p["bias"], i))
 
 
 def _norm(out: Dict, prefix: str, p: Mapping, i=None, bias: bool = True) -> None:
@@ -67,12 +86,15 @@ def qformer_state_dict(params: Mapping, cfg: ProjectorConfig) -> Dict[str, torch
             _norm(out, f"{pre}.{n}", bp[n], i)
         for name, kv_dim in (("self_attn", cfg.hidden_size), ("cross_attn", cfg.visual_hidden_size)):
             a = bp[name]
-            w = [np.asarray(a[x]["kernel"][i]).T for x in ("q", "k", "v")]
-            if kv_dim == cfg.hidden_size:
-                out[f"{pre}.{name}.in_proj_weight"] = _t(np.concatenate(w, axis=0))
+            if kv_dim == cfg.hidden_size:  # packed: q, k and v stacked along out
+                parts = [{} for _ in range(3)]
+                for part, x in zip(parts, ("q", "k", "v")):
+                    _weight(part, "in_proj_weight", a[x], i)
+                for key in parts[0]:
+                    out[f"{pre}.{name}.{key}"] = torch.cat([part[key] for part in parts])
             else:
-                for x, wx in zip(("q", "k", "v"), w):
-                    out[f"{pre}.{name}.{x}_proj_weight"] = _t(wx)
+                for x in ("q", "k", "v"):
+                    _weight(out, f"{pre}.{name}.{x}_proj_weight", a[x], i)
             out[f"{pre}.{name}.in_proj_bias"] = _t(
                 np.concatenate([np.asarray(a[x]["bias"][i]) for x in ("q", "k", "v")]))
             _linear(out, f"{pre}.{name}.out_proj", a["out"], i)

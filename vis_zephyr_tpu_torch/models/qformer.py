@@ -11,7 +11,9 @@ Parameter names follow the released `mm_projector.bin` (torch
 the query width, `q_proj_weight`/`k_proj_weight`/`v_proj_weight` otherwise,
 always a packed `in_proj_bias`), so `hf_convert.convert_qformer` reads
 `state_dict()` as it is. LayerNorms run in f32; attention is plain matmul
-with an f32 softmax, masked scores set to the score dtype's minimum.
+with an f32 softmax, masked scores set to the score dtype's minimum. Every
+projection goes through `ops.quant_matmul.qlinear`, so a Q-Former that
+`ops.quant.quantize_qformer` made int8 runs the same code.
 """
 
 from __future__ import annotations
@@ -19,12 +21,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..config import ProjectorConfig
 
+from ..ops.quant_matmul import qlinear
 from .clip_vit import layer_norm_f32
+from .quant_linear import Projection
 
 
 class MultiheadAttention(nn.Module):
@@ -43,20 +46,42 @@ class MultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim, device=device, dtype=dtype))
         self.out_proj = nn.Linear(dim, dim, device=device, dtype=dtype)
 
+    def _projection(self, prefix: str, bias: torch.Tensor) -> Projection:
+        """`{prefix}_weight`, or `{prefix}_weight_q` and `{prefix}_scale` after
+        `ops.quant.quantize_qformer`."""
+        return Projection(getattr(self, f"{prefix}_weight", None),
+                          getattr(self, f"{prefix}_weight_q", None),
+                          getattr(self, f"{prefix}_scale", None), bias)
+
+    def in_proj(self) -> Projection:
+        """The packed q/k/v projection [3·dim, dim] with `in_proj_bias`."""
+        return self._projection("in_proj", self.in_proj_bias)
+
     def projections(self):
-        if self.packed:
-            return self.in_proj_weight.chunk(3, dim=0)
-        return self.q_proj_weight, self.k_proj_weight, self.v_proj_weight
+        """The q, k and v `Projection`s, float or int8, each with its third of
+        `in_proj_bias`."""
+        biases = self.in_proj_bias.chunk(3)
+        if not self.packed:
+            return [self._projection(f"{x}_proj", b) for x, b in zip("qkv", biases)]
+        packed = self.in_proj()
+        if packed.weight_q is None:
+            return [Projection(weight=w, bias=b)
+                    for w, b in zip(packed.weight.chunk(3, dim=0), biases)]
+        return [Projection(weight_q=w, scale=s, bias=b)
+                for w, s, b in zip(packed.weight_q.chunk(3, dim=0), packed.scale.chunk(3), biases)]
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, Tq, D = q_in.shape
         hd = D // self.num_heads
-        wq, wk, wv = self.projections()
-        bq, bk, bv = self.in_proj_bias.chunk(3)
-        q = F.linear(q_in, wq, bq).reshape(B, Tq, self.num_heads, hd)
-        k = F.linear(kv_in, wk, bk).reshape(B, -1, self.num_heads, hd)
-        v = F.linear(kv_in, wv, bv).reshape(B, -1, self.num_heads, hd)
+        if self.packed and kv_in is q_in:  # self-attention: one product for q, k and v
+            q, k, v = qlinear(q_in, self.in_proj()).chunk(3, dim=-1)
+        else:
+            pq, pk, pv = self.projections()
+            q, k, v = qlinear(q_in, pq), qlinear(kv_in, pk), qlinear(kv_in, pv)
+        q = q.reshape(B, Tq, self.num_heads, hd)
+        k = k.reshape(B, -1, self.num_heads, hd)
+        v = v.reshape(B, -1, self.num_heads, hd)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (hd ** -0.5)
         if kv_mask is not None:
             scores = scores.masked_fill(~kv_mask[:, None, None, :], torch.finfo(scores.dtype).min)

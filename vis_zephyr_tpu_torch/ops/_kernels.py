@@ -43,6 +43,7 @@ _SIGNATURES = {
     "vzt_dense_cache_append": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vzt_paged_attn_decode": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
     "vzt_paged_kv_rows": [_P] * 8 + [_I] * 6 + [_P],
+    "vzt_quant_matmul_int8": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _lib = None
@@ -127,6 +128,8 @@ def build(force: bool = False) -> str:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:  # every launch asks: no lock once it is loaded
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(build())
@@ -147,7 +150,9 @@ def check(code: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current stream on `device`, as the C entry points take it."""
+    """PyTorch's current stream on `device`, as the C entry points take it
+    (the raw handle, without building a `torch.cuda.Stream` per launch)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -7,8 +7,8 @@ carry the image unless one is already attached. With
 `--continuous-batching --kv-cache paged` requests of different sessions share
 decode steps over paged KV pools (`--kv-quant`, `--kv-fused`, `--page-size`,
 `--num-pages`, `--max-slots`, `--prefill-chunk`, defaults as in the JAX
-server). The OpenAI endpoints, health, metrics, profiling and draining are
-not ported yet.
+server). `--load-8bit` serves int8 weights on either path. The OpenAI
+endpoints, health, metrics, profiling and draining are not ported yet.
 """
 
 from __future__ import annotations
@@ -151,12 +151,14 @@ def main(args=None):
     p.add_argument("--vision-tower", default=None)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--load-8bit", action="store_true", help="int8 weight-only decoder and Q-Former")
+    p.add_argument("--load-4bit", action="store_true", help="int4 weights (not ported yet)")
     add_engine_args(p)
     a = p.parse_args(args)
 
     tokenizer, model, cfg, _ = load_pretrained_model(
         a.model_path, model_base=a.model_base, vision_tower_path=a.vision_tower,
-        dtype=torch.bfloat16, device="cuda",
+        dtype=torch.bfloat16, device="cuda", load_8bit=a.load_8bit, load_4bit=a.load_4bit,
     )
     if tokenizer is None:
         raise SystemExit("could not load a tokenizer; pass --model-base or a "

@@ -27,6 +27,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--conv-mode", default="zephyr_v1")
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--max-new-tokens", type=int, default=512)
+    p.add_argument("--load-8bit", action="store_true", help="int8 weight-only decoder and Q-Former")
+    p.add_argument("--load-4bit", action="store_true", help="int4 weights (not ported yet)")
     return p
 
 
@@ -34,7 +36,7 @@ def main(args=None):
     args = build_parser().parse_args(args)
     tokenizer, model, cfg, _ = load_pretrained_model(
         args.model_path, model_base=args.model_base, vision_tower_path=args.vision_tower,
-        dtype=torch.bfloat16, device="cuda",
+        dtype=torch.bfloat16, device="cuda", load_8bit=args.load_8bit, load_4bit=args.load_4bit,
     )
     if tokenizer is None:
         raise SystemExit("could not load a tokenizer; pass --model-base or a "
