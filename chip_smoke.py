@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch port's serving paths: one request at a time
 over a dense cache, and continuous batching over int8 KV-fused page pools,
-each with bf16 weights and with int8 weights (`--load-8bit`).
+each with bf16 weights, int8 weights (`--load-8bit`) and int4 weights
+(`--load-4bit`).
 
     python3 chip_smoke.py [--seed N] [--max-new-tokens N] [--profile] [--phases a,b]
 
@@ -38,12 +39,18 @@ toolkit; exits non-zero on a machine without a card. Phases:
              replay, and issued back to back), plain, library
              (`torch._weight_int8pack_mm` where it runs, else dequantize +
              matmul) and bound per shape and per decoder pass;
-8. slice1  — full-width Zephyr-7B + CLIP-L/336 + Q-Former with random bf16
+8. K6      — quant_matmul_int4 against its plain version at every (K, N) of
+             an int4 projection (decoder q/o, k/v, gate/up, down; group 128)
+             with M = 1, 7, 32, 128, plus one group (K = 128) and a 256-wide
+             group, each also with f32 x; the same check and readings as K5's
+             (library: `torch._weight_int4pack_mm` where it runs, else
+             dequantize + matmul);
+9. slice1  — full-width Zephyr-7B + CLIP-L/336 + Q-Former with random bf16
              weights, the port's /chat server on 127.0.0.1 with no flags, 3
              sessions and 4 requests; checks the launch counters and the
              kernel path's prefill and decode-step-8 logits against the plain
              path (cosine >= 0.999); TTFT and decode tokens/s;
-9. paged   — the same model behind the server started with
+10. paged  — the same model behind the server started with
              `--continuous-batching --kv-cache paged --kv-quant --max-slots 32`
              (KV-fused int8 pools, page 128, prefill chunk 256): 48 /chat
              requests from 48 sessions sent at once, prompts of about 40, 300
@@ -51,7 +58,7 @@ toolkit; exits non-zero on a machine without a card. Phases:
              counters exact (K3 = 32 x decode steps, K4 = decode steps, K2 =
              32 x prefill chunks); slots reused; every page back in the
              allocator;
-10. batch  — direct PagedBatchers with the same 16 requests admitted before
+11. batch  — direct PagedBatchers with the same 16 requests admitted before
              the first step, whole (K1) and in chunks of 256 (K2 at T=256), on
              the kernel path and on the plain path, and with bf16 pools:
              chunked admission bit-equal between the paths; logits cosine per
@@ -59,26 +66,35 @@ toolkit; exits non-zero on a machine without a card. Phases:
              pools >= 0.99); the two int8 runs' pools against each other
              (dequantized rows cosine >= 0.999, int8 values within 1 for
              >= 95 %, scales within 5 %);
-11. profile — only with --profile: wall, device-busy and idle share of one
+12. profile — only with --profile: wall, device-busy and idle share of one
              batched decode step at B=32, and the largest device items
-             (torch.profiler); again on int8 weights after phase 13;
-12. precision — (it widens the model in place): the bf16 prefill logits
+             (torch.profiler); again on int8 and int4 weights after phases 14
+             and 15;
+13. precision — (it widens the model in place): the bf16 prefill logits
              against an f32 run of the same weights (the JAX engine's
              arithmetic for f32 pixels; cosine >= 0.999);
-13. int8   — the model rebuilt from the same seed and quantized in place by
+14. int8   — the model rebuilt from the same seed and quantized in place by
              `load_8bit`'s step (`models/builder.py::quantize_weights`;
              memory before, after and at the peak), then 2 dense /chat
              requests and a paged burst of 16 on it, and the fixed batch of
              16 admitted whole on the kernel path, the plain path and against
-             phase 10's bf16 logits (fed its tokens): kernel vs plain cosine
+             phase 11's bf16 logits (fed its tokens): kernel vs plain cosine
              >= 0.999, int8 vs bf16 weights >= 0.997; K5 (224 per decoder
              pass of at most 128 rows) and dequantize-route counts (224 per
              longer pass) exact against what the prefill, chunk and step
-             counters predict, the Q-Former's projections counted by rows.
+             counters predict, the Q-Former's projections counted by rows;
+15. int4   — the same on a model rebuilt from the seed and quantized by
+             `load_4bit`'s step (int4 decoder with group-128 scales, int8
+             Q-Former): 2 dense requests, a paged burst of 16, the fixed batch
+             (kernel vs plain cosine >= 0.999; against bf16 and int8 weights
+             printed, not gated: random weights say nothing of int4's
+             quality); K6 (224 per decoder pass of at most 128 rows), its
+             dequantize route (224 per longer pass) and K5 (the Q-Former's
+             rows) counted exactly.
 
 `--phases` runs a subset (kernels, slice1, paged, batch, profile, precision,
-int8) and then prints no result line. After a full run the line before last
-is a JSON object with one entry per kernel; the last line is
+int8, int4) and then prints no result line. After a full run the line before
+last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
 """
 
@@ -617,6 +633,110 @@ def check_quant_matmul(gen) -> dict:
                                                      "bound_by", "device_ms", "issue_ms")}}
 
 
+# (K, N) of every int4 projection: the decoder's q/o, k/v, gate/up and down (the
+# Q-Former stays int8 under --load-4bit).
+QMM4_SHAPES = {name: QMM_SHAPES[name] for name in
+               ("decoder q, o", "decoder k, v", "decoder gate, up", "decoder down")}
+
+
+def int4_library_call(x, weight_q4, scale4):
+    """The yardstick for K6: `torch._weight_int4pack_mm` after
+    `torch._convert_weight_to_int4pack` (codes + 8 as uint4, two to a byte,
+    bf16 scales, zero points 0) where this PyTorch runs it on CUDA and it
+    agrees, else dequantize + `torch.matmul` (the name says why). Used
+    nowhere in the port. Returns (name, fn)."""
+    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
+
+    want = qmm.quantized_matmul_int4_plain(x, weight_q4, scale4).float()
+    N, G = scale4.shape
+    K = x.shape[1]
+    try:
+        codes = qmm.unpack_int4(weight_q4, G).to(torch.int32) + 8        # [N, K] in 1..15
+        packed = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)  # [N, K/2]
+        w = torch._convert_weight_to_int4pack(packed, 8)
+        scales_zeros = torch.stack([scale4.T, torch.zeros_like(scale4.T)], dim=-1)
+        scales_zeros = scales_zeros.to(torch.bfloat16).contiguous()        # [G, N, 2]
+        fn = lambda: torch._weight_int4pack_mm(x, w, K // G, scales_zeros)  # noqa: E731
+        err = float((fn().float() - want).abs().max())
+        if err <= 2e-2 * float(want.abs().max()):
+            return "torch._weight_int4pack_mm (bf16 scales)", fn
+        why = f"torch._weight_int4pack_mm disagrees, max-abs {err:.3e}"
+    except (RuntimeError, NotImplementedError, AttributeError, TypeError) as e:
+        why = f"torch._weight_int4pack_mm does not run: {str(e).splitlines()[0][:100]}"
+    return (f"dequantize + torch.matmul ({why})",
+            lambda: x @ qmm.dequant_int4(weight_q4, scale4, x.dtype).T)
+
+
+def check_quant_matmul_int4(gen) -> dict:
+    from vis_zephyr_tpu_torch.ops import quant as quant_ops
+    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
+
+    dev = "cuda"
+    worst = 0.0
+    times = {}
+    library = None
+    cases = [(name, K, N, M, 128) for name, (K, N) in QMM4_SHAPES.items() for M in QMM_ROWS]
+    # Edges the served shapes do not reach: one group, a 256-wide group, f32 x.
+    cases += [("edge: one group, K = 128", 128, 384, 5, 128), ("edge: group 256", 1024, 256, 33, 256)]
+    for name, K, N, M, group in cases:
+        w = torch.randn(N, K, generator=gen, device=dev) * K ** -0.5
+        wq4, scale4 = quant_ops.quantize_kernel_int4(w, group)
+        del w
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        for xx in ((x, x.float()) if name.startswith("edge") else (x,)):
+            got = qmm.quantized_matmul_int4(xx, wq4, scale4)
+            torch.cuda.synchronize()
+            want = qmm.quantized_matmul_int4_plain(xx, wq4, scale4)
+            # Each row is held to its own largest value, as K5's: per-row max-abs
+            # error over the row's max |plain|.
+            err = (got.float() - want.float()).abs().amax(dim=1)
+            rel = float((err / want.float().abs().amax(dim=1).clamp_min(1e-30)).max())
+            if not (got.dtype == xx.dtype and got.shape == (M, N) and rel <= 1e-2
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"K6 {name} M={M} {xx.dtype}: kernel disagrees with the plain "
+                                     f"version (per-row relative max-abs {rel:.3e})")
+            worst = max(worst, float(err.max()))
+        if name.startswith("edge"):
+            print(f"K6 {name} (K={K}, N={N}, M={M}), bf16 and f32 x: per-row max-abs over the "
+                  f"row's largest value {rel:.3e} (<= 1e-2)")
+            continue
+        name_of_library, lib_fn = int4_library_call(x, wq4, scale4)
+        if library is None:
+            library = name_of_library
+            print(f"K6 library yardstick: {library}")
+        kernel = lambda: qmm.quantized_matmul_int4(x, wq4, scale4)  # noqa: E731
+        t = dict(ms=median_ms(kernel), device_ms=graph_ms(kernel), issue_ms=issue_ms(kernel),
+                 plain_ms=median_ms(lambda: qmm.quantized_matmul_int4_plain(x, wq4, scale4), 10),
+                 library_ms=median_ms(lib_fn, 10))
+        # The nibbles, the f32 group scales and x read once, the bf16 output
+        # written once; 2·M·N·K tensor-core operations.
+        G = K // group
+        least, by = bound_ms(N * K // 2 + 4 * N * G + 2 * M * K + 2 * M * N, 2 * M * N * K)
+        splits = qmm.group_splits(M, N, G, torch.cuda.get_device_properties(0).multi_processor_count)[0]
+        times[(name, M)] = dict(t, bound_ms=least, bound_by=by)
+        print(f"K6 {name} (K={K}, N={N}) M={M}: kernel {t['ms']:.4f} ms per call, "
+              f"{show(t['device_ms'])} on the device ({splits} K splits), issued back to back "
+              f"{t['issue_ms']:.4f}; plain (f32 group matmuls) {t['plain_ms']:.4f}; library "
+              f"{t['library_ms']:.4f}; bound {least:.5f} ms by {by} "
+              f"({N * K / 2e6:.1f} MB of nibbles); per-row error {rel:.2e}")
+    per_layer = [("decoder q, o", 2), ("decoder k, v", 2), ("decoder gate, up", 2),
+                 ("decoder down", 1)]
+    for M in QMM_ROWS:
+        total = {}
+        for key in ("ms", "device_ms", "issue_ms", "plain_ms", "library_ms", "bound_ms"):
+            vals = [times[(name, M)][key] for name, _ in per_layer]
+            total[key] = (None if None in vals
+                          else 32 * sum(n * v for (_, n), v in zip(per_layer, vals)))
+        print(f"K6 one decoder pass at M={M} (224 launches): kernel {show(total['ms'])} ms per "
+              f"call summed, {show(total['device_ms'])} on the device, issued back to back "
+              f"{show(total['issue_ms'])}; plain {show(total['plain_ms'])}; library "
+              f"{show(total['library_ms'])}; bound {total['bound_ms']:.3f} ms")
+    headline = times[("decoder gate, up", 32)]
+    return {"max_abs_err": worst, "library": library,
+            "times": {key: headline[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by", "device_ms", "issue_ms")}}
+
+
 class WordTokenizer:
     """A stand-in tokenizer with the surface `tokenize_with_images` and
     `ChatEngine` use: words hash to ids, every id decodes to "w<id>"."""
@@ -715,10 +835,43 @@ def stop_server(server, thread) -> None:
     thread.join(timeout=30)
 
 
-def is_int8(model) -> bool:
-    from vis_zephyr_tpu_torch.models.quant_linear import QuantLinear
+def weight_bits(model) -> int:
+    """16, 8 or 4: the form of the decoder's projections."""
+    from vis_zephyr_tpu_torch.models.quant_linear import QuantLinear, QuantLinear4
 
-    return isinstance(model.decoder.model.layers[0].mlp.up_proj, QuantLinear)
+    up = model.decoder.model.layers[0].mlp.up_proj
+    return 4 if isinstance(up, QuantLinear4) else 8 if isinstance(up, QuantLinear) else 16
+
+
+def reset_routes() -> None:
+    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
+
+    qmm.launches = qmm.dequant_calls = qmm.launches4 = qmm.dequant4_calls = 0
+
+
+def read_routes() -> dict:
+    """K5 and K6 launches and their dequantize routes' calls since the last reset."""
+    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
+
+    return dict(k5=qmm.launches, dequant=qmm.dequant_calls, k6=qmm.launches4,
+                dequant4=qmm.dequant4_calls)
+
+
+def expected_routes(model, qformer, decoder) -> dict:
+    """What `read_routes` must give after a run whose Q-Former passes route as
+    `qformer` and whose decoder passes as `decoder` ((kernel, dequantize)
+    pairs): on int8 weights K5 takes both, on int4 weights K5 the Q-Former's
+    and K6 the decoder's; on bf16 weights nothing is quantized."""
+    bits = weight_bits(model)
+    int8 = {16: (0, 0), 8: add_routes(qformer, decoder), 4: qformer}[bits]
+    int4 = decoder if bits == 4 else (0, 0)
+    return dict(k5=int8[0], dequant=int8[1], k6=int4[0], dequant4=int4[1])
+
+
+def show_routes(got: dict, want: dict) -> str:
+    return (f"K5 quant_matmul_int8 {got['k5']} (want {want['k5']}), its dequantize route "
+            f"{got['dequant']} (want {want['dequant']}); K6 quant_matmul_int4 {got['k6']} (want "
+            f"{want['k6']}), its dequantize route {got['dequant4']} (want {want['dequant4']})")
 
 
 def qformer_routes(cfg, n_images: int, text_len: int):
@@ -739,9 +892,10 @@ def qformer_routes(cfg, n_images: int, text_len: int):
 
 
 def decoder_routes(cfg, rows: int, passes: int = 1):
-    """(K5 launches, dequantize-route calls) of `passes` int8 decoder passes of
-    `rows` rows each: q, k, v, o, gate, up and down in every layer, 224 at
-    full depth, all on one route."""
+    """(kernel launches, dequantize-route calls) of `passes` quantized decoder
+    passes of `rows` rows each: q, k, v, o, gate, up and down in every layer,
+    224 at full depth, all on one route (K5 on int8 weights; K6 on int4, whose
+    gate the full-width shapes pass whole)."""
     from vis_zephyr_tpu_torch.ops.quant_matmul import QMM_MAX_M
 
     n = 7 * cfg.decoder.num_layers * passes
@@ -760,7 +914,6 @@ def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str, n_requests:
     from vis_zephyr_tpu_torch.ops import _kernels
     from vis_zephyr_tpu_torch.ops import flash_attention as fa
     from vis_zephyr_tpu_torch.ops import kv_cache
-    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
     from vis_zephyr_tpu_torch.serve.engine import ChatEngine
     from vis_zephyr_tpu_torch.serve.generate import _cache_len, decode_step, prefill
 
@@ -786,13 +939,14 @@ def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str, n_requests:
                 (sessions[0], "and what colour is it")][:n_requests]
     results = []
     try:
-        fa.launches = kv_cache.launches = qmm.launches = qmm.dequant_calls = 0
+        fa.launches = kv_cache.launches = 0
+        reset_routes()
         for sid, question in requests:
             status, text, ttft, total = post_chat(port, {"session_id": sid, "question": question})
             n = len(text.split())
             results.append((sid, status, text, ttft, total, n))
         flash_launches, append_launches = fa.launches, kv_cache.launches
-        k5_launches, dequant_calls = qmm.launches, qmm.dequant_calls
+        routes = read_routes()
     finally:
         stop_server(server, thread)
 
@@ -807,25 +961,25 @@ def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str, n_requests:
         decode_steps += min(n, max_new_tokens - 1)
         if n > 1:
             rates.append((n - 1) / (total - ttft))
-    # int8 weights: each first-turn request runs one Q-Former pass over its 4
-    # crops and one prefill over the spliced rows (the prompt without its
+    # Quantized weights: each first-turn request runs one Q-Former pass over its
+    # 4 crops and one prefill over the spliced rows (the prompt without its
     # sentinel and 4 crops' tokens, padded to 128), then a decode step (M = 1)
     # per token after the first.
-    want_int8 = (0, 0)
-    if is_int8(model):
+    qformer, prefills = [], []
+    if weight_bits(model) != 16:
         assert all(q.startswith(DEFAULT_IMAGE_TOKEN) for _, q in requests), "first turns only"
-        passes = []
         for _, question in requests:
             n_ids = len(engine.prompt_ids(question))
             rows = -(-(n_ids - 1 + 4 * cfg.tokens_per_patch) // 128) * 128
-            passes += [qformer_routes(cfg, 4, n_ids - 1), decoder_routes(cfg, rows)]
-        want_int8 = add_routes(*passes, decoder_routes(cfg, 1, decode_steps))
+            qformer.append(qformer_routes(cfg, 4, n_ids - 1))
+            prefills.append(decoder_routes(cfg, rows))
+    want = expected_routes(model, add_routes(*qformer),
+                           add_routes(*prefills, decoder_routes(cfg, 1, decode_steps)))
     print(f"{label} counters: K1 flash_fwd {flash_launches} launches (want {L * len(requests)}), "
           f"K2 dense_cache_append {append_launches} (want {L} x {decode_steps} decode steps), "
-          f"K5 quant_matmul_int8 {k5_launches} (want {want_int8[0]}), dequantize route "
-          f"{dequant_calls} (want {want_int8[1]})")
+          f"{show_routes(routes, want)}")
     if (flash_launches != L * len(requests) or append_launches != L * decode_steps
-            or (k5_launches, dequant_calls) != want_int8):
+            or routes != want):
         raise AssertionError("the serving path did not go through the kernels as counted")
 
     # Kernel path against the plain path on session s1's request.
@@ -866,8 +1020,8 @@ def run_slice(model, cfg, seed: int, max_new_tokens: int, card: str, n_requests:
     print(f"{label}: TTFT median {statistics.median(ttfts) * 1e3:.1f} ms (first request "
           f"{ttfts[0] * 1e3:.1f} ms), decode {rate:.2f} tokens/s median over requests, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
-    return {"k1": flash_launches, "k2": append_launches, "k5": k5_launches,
-            "dequant": dequant_calls, "precision_inputs": (ids, images, valid, cache_len, last_k)}
+    return {"k1": flash_launches, "k2": append_launches, **routes,
+            "precision_inputs": (ids, images, valid, cache_len, last_k)}
 
 
 def check_precision(model, cfg, ids, images, valid, cache_len, last_k) -> None:
@@ -924,7 +1078,6 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
     from vis_zephyr_tpu_torch.ops import flash_attention as fa
     from vis_zephyr_tpu_torch.ops import kv_cache
     from vis_zephyr_tpu_torch.ops import paged_attention as pa
-    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
     from vis_zephyr_tpu_torch.serve import api
 
     L = cfg.decoder.num_layers
@@ -936,7 +1089,7 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
     side = cfg.vision.image_size
     requests = paged_requests(np.random.default_rng(seed + 1), cfg, n)
     chunks = 0
-    qformer = []  # int8: one Q-Former pass per request, at admission
+    qformer = []  # quantized weights: one Q-Former pass per request, at admission
     for sid, question, px, valid in requests:
         engine.attach_pixels(sid, px, valid, (2 * side, side))
         n_ids = len(engine.prompt_ids(question))
@@ -965,7 +1118,7 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
     torch.cuda.reset_peak_memory_stats()
     try:
         fa.launches = kv_cache.launches = pa.attn_launches = pa.rows_launches = 0
-        qmm.launches = qmm.dequant_calls = 0
+        reset_routes()
         b.steps = b.slots_stepped = 0
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(requests)) as pool:
@@ -973,7 +1126,7 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
                 lambda r: post_chat(port, {"session_id": r[0], "question": r[1]}), requests))
         wall = time.perf_counter() - t0
         counts = dict(k1=fa.launches, k2=kv_cache.launches, k3=pa.attn_launches,
-                      k4=pa.rows_launches, k5=qmm.launches, dequant=qmm.dequant_calls)
+                      k4=pa.rows_launches, **read_routes())
     finally:
         stop_server(server, thread)
         engine.close()
@@ -987,19 +1140,20 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
     steps = b.steps
     print(f"{label}: {n} requests, all HTTP 200 with {new_tokens} tokens; {steps} decode steps, "
           f"mean active slots per step {b.slots_stepped / steps:.2f} of {b.max_slots}")
-    # int8 weights: every chunk (256 rows) takes the dequantize route, every
-    # decode step (M = max_slots) K5; plus each request's Q-Former pass.
-    want_int8 = (add_routes(*qformer, decoder_routes(cfg, b.prefill_chunk, chunks),
-                            decoder_routes(cfg, b.max_slots, steps))
-                 if is_int8(model) else (0, 0))
+    # Quantized weights: every chunk (256 rows) takes the dequantize route,
+    # every decode step (M = max_slots) the kernel; plus each request's
+    # Q-Former pass.
+    want = expected_routes(model, add_routes(*qformer),
+                           add_routes(decoder_routes(cfg, b.prefill_chunk, chunks),
+                                      decoder_routes(cfg, b.max_slots, steps)))
+    routes = {key: counts[key] for key in want}
     print(f"{label} counters: K3 paged_attn_decode {counts['k3']} (want {L} x {steps} = {L * steps}), "
           f"K4 paged_kv_rows {counts['k4']} (want {steps}), K2 dense_cache_append {counts['k2']} "
           f"(want {L} x {chunks} prefill chunks = {L * chunks}), K1 flash_fwd {counts['k1']} (want 0: "
-          f"chunked admission attends its scratch cache with plain attention), K5 "
-          f"quant_matmul_int8 {counts['k5']} (want {want_int8[0]}), dequantize route "
-          f"{counts['dequant']} (want {want_int8[1]})")
+          f"chunked admission attends its scratch cache with plain attention), "
+          f"{show_routes(routes, want)}")
     if ((counts["k3"], counts["k4"], counts["k2"], counts["k1"]) != (L * steps, steps, L * chunks, 0)
-            or (counts["k5"], counts["dequant"]) != want_int8):
+            or routes != want):
         raise AssertionError("the paged serving path did not go through the kernels as counted")
     reused = int((uses > 1).sum())
     free = b.allocator.available
@@ -1190,18 +1344,19 @@ def run_fixed_batch(model, cfg, seed: int) -> dict:
     return {"k2": k2, "fed": fed, "logits": logits}
 
 
-def quantize_model(seed: int, card: str):
+def quantize_model(seed: int, card: str, bits: int = 8):
     """The full-width model with random bf16 weights from `seed` (the same as
-    the bf16 phases'), made int8 in place by `load_8bit`'s step
-    (`models/builder.py::quantize_weights`): decoder layers and Q-Former
-    projections, one layer at a time."""
+    the bf16 phases'), quantized in place by `load_8bit`'s (`bits` 8) or
+    `load_4bit`'s (`bits` 4) step (`models/builder.py::quantize_weights`):
+    decoder layers in `bits`, Q-Former projections in int8, one layer at a
+    time."""
     from vis_zephyr_tpu_torch.models.builder import quantize_weights
 
     model, cfg = build_model(seed)
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    quantize_weights(model)
+    quantize_weights(model, bits=bits)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
 
@@ -1210,75 +1365,91 @@ def quantize_model(seed: int, card: str):
                    for t in list(module.parameters()) + list(module.buffers())) / 2**30
 
     decoder = model.decoder
-    int8_decoder = gib(decoder.model.layers)
-    kept = gib(decoder) - int8_decoder
-    print(f"int8: load_8bit quantized the decoder layers and the Q-Former in {seconds:.1f} s; "
+    layers = gib(decoder.model.layers)
+    kept = gib(decoder) - layers
+    flag = f"load_{bits}bit"
+    print(f"int{bits}: {flag} quantized the decoder layers and the Q-Former in {seconds:.1f} s; "
           f"device memory {before / 2**30:.2f} GiB before, {torch.cuda.memory_allocated() / 2**30:.2f} "
           f"GiB after, peak while quantizing {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"weights: vision {gib(model.vision):.2f} GiB bf16, Q-Former {gib(model.projector):.2f} "
-          f"GiB int8, decoder layers {int8_decoder:.2f} GiB int8, embed + lm_head + norms "
-          f"{kept:.2f} GiB bf16 [{card}]")
-    if not is_int8(model):
-        raise AssertionError("load_8bit left the decoder in bf16")
+          f"GiB int8, decoder layers {layers:.2f} GiB int{bits}, embed + lm_head + norms "
+          f"{kept:.2f} GiB bf16; in all {gib(model):.2f} GiB [{card}]")
+    if weight_bits(model) != bits:
+        raise AssertionError(f"{flag} left the decoder in another form")
     return model, cfg
 
 
-def run_fixed_batch_int8(model, cfg, seed: int, bf16: dict, card: str) -> dict:
-    """The fixed batch of 16 on int8 weights, admitted whole: the kernel path
-    against the plain path, and against the bf16 weights' kernel path, all fed
-    the bf16 run's tokens; K5 and dequantize-route counts exact."""
+def run_fixed_batch_quant(model, cfg, seed: int, bf16: dict, card: str, int8=None) -> dict:
+    """The fixed batch of 16 on quantized weights, admitted whole: the kernel
+    path against the plain path, and against the bf16 weights' kernel path
+    (and, on int4 weights, the int8 one's), all fed the bf16 run's tokens;
+    K5, K6 and dequantize-route counts exact. Returns the kernel path's
+    logits at steps 1 and 16."""
     from vis_zephyr_tpu_torch.ops import _kernels
-    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
 
+    bits = weight_bits(model)
+    label = f"int{bits} batch"
     requests = direct_requests(cfg, seed, 16)
     int8_fused = dict(kv_quant=True, kv_fused=True)
-    qmm.launches = qmm.dequant_calls = 0
+    reset_routes()
     kern = admitted_batcher(model, cfg, requests, 16, **int8_fused)
-    admitted = (qmm.launches, qmm.dequant_calls)
+    admitted = read_routes()
     # Whole admission: one Q-Former pass and one prefill per prompt, of its
     # spliced rows (the prompt without its sentinel and 4 crops' tokens)
     # padded to 128.
-    want = add_routes(*(add_routes(qformer_routes(cfg, px.shape[0], len(ids) - 1),
-                                   decoder_routes(cfg, -(-(len(ids) - 1 + px.shape[0]
-                                                            * cfg.tokens_per_patch) // 128) * 128))
-                        for ids, px, _ in requests))
+    want = expected_routes(
+        model, add_routes(*(qformer_routes(cfg, px.shape[0], len(ids) - 1) for ids, px, _ in requests)),
+        add_routes(*(decoder_routes(cfg, -(-(len(ids) - 1 + px.shape[0] * cfg.tokens_per_patch)
+                                          // 128) * 128) for ids, px, _ in requests)))
     lengths = sorted(int(n) for n in kern.slot_len)
     with _kernels.plain_versions():
         plain = admitted_batcher(model, cfg, requests, 16, **int8_fused)
-    k5_steps = dequant_steps = 0
-    cosines = {}
+    reset_routes()
+    logits = {}
     for step in range(1, 17):
         for b in (kern, plain):
             b.token.copy_(bf16["fed"][step - 1])
-        k5, dequant = qmm.launches, qmm.dequant_calls
         if kern.step() != 16:
             raise AssertionError("a slot finished early")
-        k5_steps += qmm.launches - k5
-        dequant_steps += qmm.dequant_calls - dequant
+        counted = read_routes()
         with _kernels.plain_versions():
             if plain.step() != 16:
                 raise AssertionError("a slot finished early")
+        if read_routes() != counted:
+            raise AssertionError("the plain path launched a kernel")
         if step in (1, 16):
+            logits[step] = kern.last_logits.clone()
             cos_plain = slot_cosines(kern.last_logits, plain.last_logits)
             cos_bf16 = slot_cosines(kern.last_logits, bf16["logits"][step])
-            cosines[step] = (float(cos_plain.min()), float(cos_bf16.min()))
-            # int8 against bf16 weights read 0.998075 to 0.998123 (min over
-            # slots) on an H100: the gate sits just under that.
-            print(f"int8 batch step {step}: logits cosine, minimum over the 16 slots: kernel path vs "
-                  f"plain path {float(cos_plain.min()):.6f} (>= 0.999); int8 weights vs bf16 weights "
-                  f"min {float(cos_bf16.min()):.6f} median {float(cos_bf16.median()):.6f} (>= 0.997)")
-            if not (float(cos_plain.min()) >= 0.999 and float(cos_bf16.min()) >= 0.997
+            line = (f"{label} step {step}: logits cosine, minimum over the 16 slots: kernel path vs "
+                    f"plain path {float(cos_plain.min()):.6f} (>= 0.999); int{bits} weights vs bf16 "
+                    f"weights min {float(cos_bf16.min()):.6f} median {float(cos_bf16.median()):.6f}")
+            if bits == 8:
+                # int8 against bf16 weights read 0.998075 to 0.998123 (min over
+                # slots) on an H100: the gate sits just under that.
+                line += " (>= 0.997)"
+                good = float(cos_bf16.min()) >= 0.997
+            else:
+                # Random weights say nothing of int4's quality (its rounding
+                # step is about 13 times int8's): read, not gated.
+                good = True
+                if int8 is not None:
+                    cos_int8 = slot_cosines(kern.last_logits, int8[step])
+                    line += (f"; vs int8 weights min {float(cos_int8.min()):.6f} median "
+                             f"{float(cos_int8.median()):.6f} (not gated)")
+            print(line)
+            if not (float(cos_plain.min()) >= 0.999 and good
                     and bool(torch.isfinite(kern.last_logits).all())):
-                raise AssertionError("the int8 kernel path disagrees")
-    want_steps = decoder_routes(cfg, 16, 16)
-    print(f"int8 batch counters: admission of 16 prompts {lengths} tokens long: K5 {admitted[0]} "
-          f"launches (want {want[0]}), dequantize route {admitted[1]} (want {want[1]}); 16 decode "
-          f"steps at M=16: K5 {k5_steps} (want {want_steps[0]}), dequantize route {dequant_steps} "
-          f"(want 0); peak device memory since load_8bit "
+                raise AssertionError(f"the int{bits} kernel path disagrees")
+    stepped = read_routes()
+    want_steps = expected_routes(model, (0, 0), decoder_routes(cfg, 16, 16))
+    print(f"{label} counters: admission of 16 prompts {lengths} tokens long: "
+          f"{show_routes(admitted, want)}; 16 decode steps at M=16: "
+          f"{show_routes(stepped, want_steps)}; peak device memory since load_{bits}bit "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-    if admitted != want or (k5_steps, dequant_steps) != want_steps:
-        raise AssertionError("the int8 batch did not go through K5 as counted")
-    return cosines
+    if admitted != want or stepped != want_steps:
+        raise AssertionError(f"the int{bits} batch did not go through the kernels as counted")
+    return logits
 
 
 def run_profile(model, cfg, seed: int, card: str, label: str = "profile") -> None:
@@ -1323,7 +1494,7 @@ def run_profile(model, cfg, seed: int, card: str, label: str = "profile") -> Non
         print(f"{label}: the profiler reported no device time")
 
 
-PHASES = ("kernels", "slice1", "paged", "batch", "profile", "precision", "int8")
+PHASES = ("kernels", "slice1", "paged", "batch", "profile", "precision", "int8", "int4")
 
 
 def main(argv=None) -> None:
@@ -1364,6 +1535,7 @@ def main(argv=None) -> None:
         clock[0] = now
 
     gen = torch.Generator("cuda").manual_seed(args.seed)
+    dense, dense8, int8_logits = {}, {}, None
     if "kernels" in phases:
         k1 = check_flash(gen)
         k2 = check_cache_append(gen)
@@ -1372,6 +1544,8 @@ def main(argv=None) -> None:
         done("kernels K1-K4")
         k5 = check_quant_matmul(gen)
         done("kernels K5")
+        k6 = check_quant_matmul_int4(gen)
+        done("kernels K6")
     if set(phases) - {"kernels"}:
         model, cfg = build_model(args.seed)
     if "slice1" in phases:
@@ -1401,35 +1575,58 @@ def main(argv=None) -> None:
         dense.pop("precision_inputs", None)
         gc.collect()  # the servers' handler classes hold their engines in cycles
         torch.cuda.empty_cache()
-        model, cfg = quantize_model(args.seed, card)
+        model, cfg = quantize_model(args.seed, card, bits=8)
         dense8 = run_slice(model, cfg, args.seed, args.max_new_tokens, card, n_requests=2,
                            label="int8 dense")
         paged8 = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card, n=16,
                                   label="int8 paged")
-        run_fixed_batch_int8(model, cfg, args.seed, batch, card)
+        int8_logits = run_fixed_batch_quant(model, cfg, args.seed, batch, card)
         done("int8")
         if "profile" in phases:
             run_profile(model, cfg, args.seed, card, label="int8 profile")
             done("int8 profile")
+    if "int4" in phases:
+        # --load-4bit on both served paths: int4 decoder, int8 Q-Former, again a
+        # fresh model from the same seed once the one before is gone.
+        if "batch" not in phases:
+            raise SystemExit("chip_smoke: the int4 phase needs batch (its bf16 reference)")
+        del model
+        for run in (dense, dense8):
+            run.pop("precision_inputs", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, cfg = quantize_model(args.seed, card, bits=4)
+        dense4 = run_slice(model, cfg, args.seed, args.max_new_tokens, card, n_requests=2,
+                           label="int4 dense")
+        paged4 = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card, n=16,
+                                  label="int4 paged")
+        run_fixed_batch_quant(model, cfg, args.seed, batch, card, int8=int8_logits)
+        done("int4")
+        if "profile" in phases:
+            run_profile(model, cfg, args.seed, card, label="int4 profile")
+            done("int4 profile")
     if phases != full:
         print(f"partial run of phases {phases}: no result line")
         return
 
-    # The counts of the four served runs (bf16 and int8 weights on each path),
-    # each set to 0 just before its run and read just after it. `launches` is
-    # their sum and `launches_by_path` says which run gave what.
-    runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8}
+    # The counts of the six served runs (bf16, int8 and int4 weights on each
+    # path), each set to 0 just before its run and read just after it.
+    # `launches` is their sum and `launches_by_path` says which run gave what.
+    runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
+            "dense_int4": dense4, "paged_int4": paged4}
     by_path = {name: {path: run.get(key, 0) for path, run in runs.items()}
                for name, key in (("flash_fwd", "k1"), ("dense_cache_append", "k2"),
                                  ("paged_attn_decode", "k3"), ("paged_kv_rows", "k4"),
-                                 ("quant_matmul_int8", "k5"))}
+                                 ("quant_matmul_int8", "k5"), ("quant_matmul_int4", "k6"))}
     # Each path must have gone through its own kernels (chunked admission
     # attends its scratch cache with plain attention, so K1 is the dense path's).
     dense_kernels = ("flash_fwd", "dense_cache_append")
     paged_kernels = ("dense_cache_append", "paged_attn_decode", "paged_kv_rows")
+    both = ("quant_matmul_int8", "quant_matmul_int4")  # the int4 Q-Former stays int8
     on_path = {"dense": dense_kernels, "paged": paged_kernels,
                "dense_int8": dense_kernels + ("quant_matmul_int8",),
-               "paged_int8": paged_kernels + ("quant_matmul_int8",)}
+               "paged_int8": paged_kernels + ("quant_matmul_int8",),
+               "dense_int4": dense_kernels + both, "paged_int4": paged_kernels + both}
     if not all(by_path[name][path] > 0 for path, names in on_path.items() for name in names):
         raise AssertionError(f"a kernel was never launched on its served path: {by_path}")
     paged_py = "vis_zephyr_tpu/ops/paged_attention.py"
@@ -1448,6 +1645,9 @@ def main(argv=None) -> None:
         dict(name="quant_matmul_int8", source="vis_zephyr_tpu_torch/csrc/quant_matmul_int8.cu",
              replaces="vis_zephyr_tpu/ops/quant_matmul.py:34", max_abs_err=k5["max_abs_err"],
              **k5["times"]),
+        dict(name="quant_matmul_int4", source="vis_zephyr_tpu_torch/csrc/quant_matmul_int4.cu",
+             replaces="vis_zephyr_tpu/ops/quant_matmul.py:116", max_abs_err=k6["max_abs_err"],
+             **k6["times"]),
     ]
     for kernel in kernels:
         counts = by_path[kernel["name"]]

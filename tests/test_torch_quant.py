@@ -17,7 +17,8 @@
   (int8 KV-fused pools, chunked admission) on int8 weights equal the JAX
   package's.
 - `load_pretrained_model(load_8bit=True)` quantizes exactly the listed
-  projections; `--load-4bit` raises `NotImplementedError`.
+  projections. (`--load-4bit` is held against the JAX package in
+  `tests/test_torch_quant4.py`.)
 """
 
 import jax
@@ -43,8 +44,6 @@ from vis_zephyr_tpu_torch.models.convert import state_dict_from_jax
 from vis_zephyr_tpu_torch.models.quant_linear import QuantLinear
 from vis_zephyr_tpu_torch.ops import quant as tquant
 from vis_zephyr_tpu_torch.ops import quant_matmul as tqmm
-from vis_zephyr_tpu_torch.serve import api as tapi
-from vis_zephyr_tpu_torch.serve import cli as tcli
 from vis_zephyr_tpu_torch.serve import generate as tgen
 from vis_zephyr_tpu_torch.serve import paged as tpaged
 
@@ -367,19 +366,3 @@ def test_load_8bit_quantizes_exactly_the_listed_projections(models, tmp_path):
     for key, value in got.items():
         if value.dtype != torch.int8 and not key.endswith("scale"):
             assert torch.equal(value, untouched[key]), key
-
-
-@pytest.mark.parametrize("entry", ["cli", "api", "builder"])
-def test_load_4bit_raises_not_implemented(models, entry, tmp_path):
-    """`--load-4bit` is accepted by both parsers (and wins over
-    `--load-8bit`, as in the JAX builder) and raises in the builder, before
-    any weight is read."""
-    flags = ["--model-path", str(tmp_path), "--load-8bit", "--load-4bit"]
-    with pytest.raises(NotImplementedError, match="Queue A step 6"):
-        if entry == "cli":
-            assert tcli.build_parser().parse_args(flags + ["--image-file", "x"]).load_4bit
-            tcli.main(flags + ["--image-file", "x"])
-        elif entry == "api":
-            tapi.main(flags)
-        else:
-            tquant.quantize_decoder_layers(models[2].decoder, bits=4)

@@ -8,12 +8,14 @@ port's parameters carry HF names, so each part loads with
 and transformers are imported lazily.
 
 `load_8bit` quantizes the decoder's and the Q-Former's projections to int8
-weights with per-output-channel scales (`ops/quant.py`, the reference's
-bitsandbytes option mapped as in the JAX builder) after the float weights
-are on the device, one layer at a time.
+weights with per-output-channel scales; `load_4bit` (which wins over
+`load_8bit`) makes the decoder's int4 with group-128 scales and the
+Q-Former's int8 (`ops/quant.py`, the reference's bitsandbytes options
+mapped as in the JAX builder). Both run after the float weights are on the
+device, one layer at a time.
 
-Not ported yet: the native orbax checkpoint (needs orbax), LoRA artifacts,
-the consolidated single-dir checkpoint, and `load_4bit` (int4 weights).
+Not ported yet: the native orbax checkpoint (needs orbax), LoRA artifacts
+and the consolidated single-dir checkpoint.
 
 Returns `(tokenizer, model, cfg, context_len)`.
 """
@@ -89,9 +91,6 @@ def load_pretrained_model(
     load_8bit: bool = False,
     load_4bit: bool = False,
 ) -> Tuple[object, VisZephyr, VisZephyrConfig, int]:
-    if load_4bit:  # it wins over load_8bit, as in the JAX builder
-        raise NotImplementedError("load_4bit (int4 weights) is not ported to PyTorch yet "
-                                  "(ROADMAP.md, Queue A step 6b)")
     if os.path.isdir(os.path.join(model_path, "state")):
         raise NotImplementedError(
             f"{model_path} is a native orbax checkpoint; the PyTorch port loads only "
@@ -116,8 +115,8 @@ def load_pretrained_model(
     for module, sd in parts:
         module.load_state_dict(sd, strict=True, assign=True)
     model = model.to(device=device, dtype=dtype).requires_grad_(False).eval()
-    if load_8bit:
-        quantize_weights(model)
+    if load_8bit or load_4bit:  # load_4bit wins, as in the JAX builder
+        quantize_weights(model, bits=4 if load_4bit else 8)
 
     tokenizer = None
     try:
@@ -129,10 +128,11 @@ def load_pretrained_model(
     return tokenizer, model, cfg, cfg.tokenizer_model_max_length
 
 
-def quantize_weights(model: VisZephyr) -> VisZephyr:
-    """`load_8bit` on a model already on its device: int8 decoder layers
-    (q, k, v, o, gate, up, down) and Q-Former projections, in place, each
-    float weight freed as its layer is done. Returns the model."""
-    quantize_decoder_layers(model.decoder, bits=8)
+def quantize_weights(model: VisZephyr, bits: int = 8) -> VisZephyr:
+    """`load_8bit` (`bits` 8) or `load_4bit` (`bits` 4) on a model already on
+    its device: the decoder layers' q, k, v, o, gate, up and down in `bits`
+    (int4 with group-128 scales) and the Q-Former's projections in int8, in
+    place, each float weight freed as its layer is done. Returns the model."""
+    quantize_decoder_layers(model.decoder, bits=bits)
     quantize_qformer(model.projector)
     return model

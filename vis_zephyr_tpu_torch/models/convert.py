@@ -7,8 +7,10 @@ keeps torch's [out, in] weights and HF's conv layout [D, 3, ph, pw]. The
 result loads into `VisZephyr` with `load_state_dict(strict=True)`. A tree
 quantized by the JAX package's `quantize_decoder_layers(bits=8)` and
 `quantize_qformer` (`{"kernel_q" [in, out], "scale" [1, out]}` leaves) gives
-`weight_q` int8 [out, in] and `scale` [out] entries, which load into a model
-quantized by the port's `ops.quant` the same way.
+`weight_q` int8 [out, in] and `scale` [out] entries; one quantized by
+`quantize_decoder_layers(bits=4)` (`{"kernel_q4" [in/2, out], "scale4"
+[G, out]}`) gives `weight_q4` [out, in/2] and `scale4` [out, G]. Either
+loads into a model quantized by the port's `ops.quant` the same way.
 """
 
 from __future__ import annotations
@@ -33,8 +35,13 @@ def _weight(out: Dict, name: str, p: Mapping, i=None) -> None:
     """A dense kernel [in, out] as `{name}` [out, in]; an int8 one
     (`{"kernel_q", "scale"}`) as `{name}_q` int8 [out, in] and its scales
     [1, out] as [out] under `name` with "weight" replaced by "scale"
-    (`out_proj.weight` → `out_proj.scale`, `q_proj_weight` → `q_proj_scale`)."""
-    if "kernel_q" in p:
+    (`out_proj.weight` → `out_proj.scale`, `q_proj_weight` → `q_proj_scale`);
+    an int4 one (`{"kernel_q4", "scale4"}`) as `{name}_q4` [out, in/2] and
+    its scales [G, out] as `...scale4` [out, G]."""
+    if "kernel_q4" in p:
+        out[f"{name}_q4"] = _t(_pick(p["kernel_q4"], i).T)
+        out[name[:-len("weight")] + "scale4"] = _t(_pick(p["scale4"], i).T)
+    elif "kernel_q" in p:
         out[f"{name}_q"] = _t(_pick(p["kernel_q"], i).T)
         out[name[:-len("weight")] + "scale"] = _t(_pick(p["scale"], i)[0])
     else:

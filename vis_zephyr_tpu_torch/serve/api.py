@@ -152,7 +152,8 @@ def main(args=None):
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--load-8bit", action="store_true", help="int8 weight-only decoder and Q-Former")
-    p.add_argument("--load-4bit", action="store_true", help="int4 weights (not ported yet)")
+    p.add_argument("--load-4bit", action="store_true",
+                   help="int4 weight-only decoder (group-128 scales), int8 Q-Former")
     add_engine_args(p)
     a = p.parse_args(args)
 

@@ -28,7 +28,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--max-new-tokens", type=int, default=512)
     p.add_argument("--load-8bit", action="store_true", help="int8 weight-only decoder and Q-Former")
-    p.add_argument("--load-4bit", action="store_true", help="int4 weights (not ported yet)")
+    p.add_argument("--load-4bit", action="store_true",
+                   help="int4 weight-only decoder (group-128 scales), int8 Q-Former")
     return p
 
 
