@@ -1,7 +1,7 @@
 """GPU smoke run of the PyTorch port's serving paths: one request at a time
 over a dense cache, and continuous batching over int8 KV-fused page pools,
 each with bf16 weights, int8 weights (`--load-8bit`) and int4 weights
-(`--load-4bit`).
+(`--load-4bit`), and each with prompt-lookup speculation (`--lookahead`).
 
     python3 chip_smoke.py [--seed N] [--max-new-tokens N] [--profile] [--phases a,b]
 
@@ -26,10 +26,15 @@ toolkit; exits non-zero on a machine without a card. Phases:
              self-term, a windowed case, a two-row (S=2) case and NaN rows
              past `length`; per slot, max-abs error <= 1e-2 of the slot's
              largest value; exact zeros where no key is valid; the window's
-             edge told from 511 and 513;
+             edge told from 511 and 513; then without the self-term at
+             S = 1 to 9 query rows per slot (the verify shape; S = 9 is two
+             row tiles) over int8 fused pools of 60 to 800 tokens, times
+             and bound per S, bf16 split pools at S = 5 with a window;
 6. K4      — paged_kv_rows against its plain version at L=32, B=32 with
              inactive slots on the trash page: bf16 and int8, split and
-             fused; whole pools and scales bit-exact;
+             fused; whole pools and scales bit-exact; the same for its
+             absolute-page entry paged_kv_update at L = 1 and 2, timed at
+             the verify step's L = 1, B = 32;
 7. K5      — quant_matmul_int8 against its plain version at every (K, N) of
              an int8 projection (decoder q/o, k/v, gate/up, down; Q-Former
              packed in_proj, cross k/v, ffn.0, ffn.2) with M = 1, 7, 32, 128,
@@ -66,14 +71,25 @@ toolkit; exits non-zero on a machine without a card. Phases:
              pools >= 0.99); the two int8 runs' pools against each other
              (dequantized rows cosine >= 0.999, int8 values within 1 for
              >= 95 %, scales within 5 %);
-12. profile — only with --profile: wall, device-busy and idle share of one
-             batched decode step at B=32, and the largest device items
-             (torch.profiler); again on int8 and int4 weights after phases 14
-             and 15;
-13. precision — (it widens the model in place): the bf16 prefill logits
+12. spec   — speculation (`--lookahead 4`): two dense /chat requests with
+             lookahead 4 and the same two with lookahead 0 (K1 and K2 counts
+             exact, verify calls > 0; the streams' agreement printed); a
+             paged server burst of 16 repetitive questions with `--lookahead
+             4` (K3 = 32 x verify steps, paged_kv_update = 32 x 5 x verify
+             steps, no paged_kv_rows launch), after the same burst without
+             it for comparison; one verify step of a fixed
+             batch of 16 on clones of int8 fused and bf16 split pools:
+             kernel vs plain path cosine >= 0.999 on every column, column 0
+             vs the decode step >= 0.99 (int8) and >= 0.999 (bf16);
+13. profile — only with --profile: wall, device-busy and idle share of one
+             batched decode step at B=32, and of one verify step (S = 5), and
+             the largest device items (torch.profiler); the decode step again
+             on int8 and int4 weights after phases 15 and 16, the verify step
+             on int8 weights;
+14. precision — (it widens the model in place): the bf16 prefill logits
              against an f32 run of the same weights (the JAX engine's
              arithmetic for f32 pixels; cosine >= 0.999);
-14. int8   — the model rebuilt from the same seed and quantized in place by
+15. int8   — the model rebuilt from the same seed and quantized in place by
              `load_8bit`'s step (`models/builder.py::quantize_weights`;
              memory before, after and at the peak), then 2 dense /chat
              requests and a paged burst of 16 on it, and the fixed batch of
@@ -83,7 +99,9 @@ toolkit; exits non-zero on a machine without a card. Phases:
              pass of at most 128 rows) and dequantize-route counts (224 per
              longer pass) exact against what the prefill, chunk and step
              counters predict, the Q-Former's projections counted by rows;
-15. int4   — the same on a model rebuilt from the seed and quantized by
+             one verify step of 32 slots (160 rows: the dequantize route on
+             every projection) counted;
+16. int4   — the same on a model rebuilt from the seed and quantized by
              `load_4bit`'s step (int4 decoder with group-128 scales, int8
              Q-Former): 2 dense requests, a paged burst of 16, the fixed batch
              (kernel vs plain cosine >= 0.999; against bf16 and int8 weights
@@ -92,8 +110,8 @@ toolkit; exits non-zero on a machine without a card. Phases:
              dequantize route (224 per longer pass) and K5 (the Q-Former's
              rows) counted exactly.
 
-`--phases` runs a subset (kernels, slice1, paged, batch, profile, precision,
-int8, int4) and then prints no result line. After a full run the line before
+`--phases` runs a subset (kernels, slice1, paged, batch, spec, profile,
+precision, int8, int4) and then prints no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
 """
@@ -457,6 +475,155 @@ def check_paged_attention(gen) -> dict:
           f"{bound_ms(full_bytes, 0)[0]:.5f} ms by bytes ({full_bytes / 1e6:.1f} MB)")
     return {"max_abs_err": worst, "times": dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                                 bound_ms=least, bound_by=by)}
+
+
+# K3 without the self-term at S query rows per slot (the verify step's shape,
+# S = lookahead + 1): 1 to 8, and 9 (36 rows per kv head: two tiles of 32).
+VERIFY_ROWS = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+
+
+def check_paged_attention_rows(gen) -> dict:
+    """K3 with S rows already in the pool (`q_offs = lengths - S`, no
+    self-term) over int8 fused pools, 32 slots of 60 to 800 tokens, against
+    its plain version per slot; times and bound per S. Then bf16 split pools
+    at S = 5 with a window of 512, and one S = 5 case whose slots hold only
+    their own rows."""
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    dev = "cuda"
+    Hq, Hkv, D, B = 32, 8, 128, 32
+    served = torch.randint(60, 801, (B,), generator=gen, device=dev).tolist()
+    case = paged_case(gen, served, True, True)
+    tokens = sum(served)
+    worst, by_rows = 0.0, []
+
+    def compare(name, c, q, window=None):
+        got = paged_call(pa, c, q, False, None, None, window)
+        torch.cuda.synchronize()
+        want = paged_call(pa, c, q, False, None, None, window, plain=True)
+        err = (got.float() - want.float()).abs().flatten(1).amax(dim=1)
+        top = want.float().abs().flatten(1).amax(dim=1)
+        rel = float(torch.where(top > 0, err / top.clamp_min(1e-30), err).max())
+        if not (rel <= 1e-2 and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"K3 {name}: kernel disagrees with the plain version "
+                                 f"(per-slot relative max-abs {rel:.3e})")
+        return float(err.max()), rel
+
+    for S in VERIFY_ROWS:
+        q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+        err, rel = compare(f"S={S}", case, q)
+        worst = max(worst, err)
+        ms = median_ms(lambda: paged_call(pa, case, q, False, None, None))
+        plain_ms = median_ms(lambda: paged_call(pa, case, q, False, None, None, plain=True), 10)
+        # Each valid K and V row read once with its scale, q and the output
+        # once, the table and lengths; 4·Hq·D flops per (query row, key) pair
+        # that the causal mask keeps (row j of a slot sees length − S + j + 1 keys).
+        pairs = sum(S * (n - S) + S * (S + 1) // 2 for n in served)
+        n_bytes = (tokens * Hkv * 2 * (D + 4) + 2 * 2 * q.numel() + 4 * case["table"].numel()
+                   + 8 * B)
+        least, by = bound_ms(n_bytes, 4 * Hq * D * pairs)
+        rows = S * Hq // Hkv
+        by_rows.append(dict(S=S, rows_per_kv_head=rows, tiles=-(-rows // 32),
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=least,
+                            bound_by=by))
+        print(f"K3 pool only, S={S} ({rows} query rows per kv head, tile "
+              f"{min(32, max(4, 1 << (rows - 1).bit_length()))}), B={B}, {tokens} tokens, int8 "
+              f"fused: max-abs {err:.3e}, per slot relative {rel:.3e} (<= 1e-2); kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {least:.5f} ms by {by}, median of 20")
+    q5 = torch.randn(B, 5, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    wide = paged_case(gen, served, False, False)
+    err, rel = compare("bf16 split, S=5, window 512", wide, q5, window=512)
+    worst = max(worst, err)
+    own = paged_case(gen, [5] * B, True, True)  # the rows are the slot's only keys
+    err2, rel2 = compare("int8 fused, S=5, lengths 5", own, q5)
+    worst = max(worst, err2)
+    print(f"K3 pool only, S=5: bf16 split pools with a window of 512 max-abs {err:.3e} (per slot "
+          f"relative {rel:.3e}); slots holding only their 5 rows max-abs {err2:.3e} ({rel2:.3e})")
+    return {"max_abs_err": worst, "by_rows": by_rows}
+
+
+def check_paged_update(gen) -> dict:
+    """K4's absolute-page entry (`paged_kv_update{,_q}`) against its plain
+    version: bf16 and int8 pools, split and fused, L = 1 (the verify step's
+    calls) and L = 2, 32 slots with inactive ones on the trash page; whole
+    pools and scales bit-exact. Timed at the verify step's form (int8 fused,
+    L = 1, B = 32)."""
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    dev = "cuda"
+    B, Hkv, D, ps, N = 32, 8, 128, 128, 130
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[[2, 9, 21, 30]] = False
+    offsets = torch.where(active, torch.randint(0, ps, (B,), generator=gen, device=dev), 0)
+    offsets = offsets.to(torch.int32)
+    times = None
+    for L in (1, 2):
+        # Every active (layer, slot) writes a page of its own; inactive slots the
+        # trash page 0 at row 0 with equal rows (a verify step's pad rows).
+        ids = (torch.randperm(N - 1, generator=gen, device=dev)[:L * B] + 1).reshape(L, B)
+        page_ids = torch.where(active[None], ids, 0).to(torch.int32).contiguous()
+        ks = torch.randn(L, B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+        vs = torch.randn(L, B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+        idle = (~active).nonzero()[:, 0]
+        # Equal rows in every layer too: the layers' trash rows are one row here.
+        ks[:, idle], vs[:, idle] = ks[:1, idle[:1]], vs[:1, idle[:1]]
+        for quant, fused, label in ((False, False, "bf16 split"), (False, True, "bf16 fused"),
+                                    (True, False, "int8 split"), (True, True, "int8 fused")):
+            rows = 2 * ps if fused else ps
+            shape = (N, Hkv, rows, D)
+            if quant:
+                kp = torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                vp = None if fused else torch.randint(-128, 128, shape, generator=gen,
+                                                       device=dev, dtype=torch.int8)
+                ksc = torch.rand(shape[:3], generator=gen, device=dev)
+                vsc = None if fused else torch.rand(shape[:3], generator=gen, device=dev)
+            else:
+                kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                vp = None if fused else torch.randn(shape, generator=gen,
+                                                    device=dev).to(torch.bfloat16)
+                ksc = vsc = None
+            got = [None if t is None else t.clone() for t in (kp, vp, ksc, vsc)]
+            ref = [None if t is None else t.clone() for t in (kp, vp, ksc, vsc)]
+            if quant:
+                pa.paged_kv_update_q(*got, ks, vs, page_ids, offsets)
+                with _kernels.plain_versions():
+                    pa.paged_kv_update_q(*ref, ks, vs, page_ids, offsets)
+            else:
+                pa.paged_kv_update(got[0], got[1], ks, vs, page_ids, offsets)
+                with _kernels.plain_versions():
+                    pa.paged_kv_update(ref[0], ref[1], ks, vs, page_ids, offsets)
+            torch.cuda.synchronize()
+            exact = all(torch.equal(g, r) for g, r in zip(got, ref) if g is not None)
+            changed = int((got[0] != kp).any(dim=-1).sum())
+            print(f"K4 paged_kv_update L={L}, {label}: whole pools and scales bit-exact against "
+                  f"the plain version: {exact} ({changed} rows of the first pool changed)")
+            if not exact or changed == 0:
+                raise AssertionError(f"K4 paged_kv_update L={L} {label}: kernel disagrees "
+                                     "with the plain version")
+            if quant and fused and L == 1:  # the verify step's form
+                ms = median_ms(lambda: pa.paged_kv_update_q(*got, ks, vs, page_ids, offsets))
+                with _kernels.plain_versions():
+                    plain_ms = median_ms(
+                        lambda: pa.paged_kv_update_q(*ref, ks, vs, page_ids, offsets))
+                # One index_put_ of rows already quantized (the write half only).
+                kq, vq = pa.quantize_kv(ks)[0], pa.quantize_kv(vs)[0]
+                page = page_ids.long()[:, :, None]
+                head = torch.arange(Hkv, device=dev)[None, None, :]
+                row = offsets.long()[None, :, None].expand(L, B, 1)
+                index = (torch.cat([page, page]), head, torch.cat([row, row + ps]))
+                both = torch.cat([kq, vq])
+                library_ms = median_ms(lambda: ref[0].index_put_(index, both))
+                # bf16 rows read once; int8 rows and f32 scales written once.
+                n_rows = 2 * L * B * Hkv
+                least, by = bound_ms(n_rows * (2 * D + D + 4) + 8 * L * B + 4 * B, 0)
+                times = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=least,
+                             bound_by=by)
+                print(f"K4 paged_kv_update L=1, B={B}, int8 fused: kernel {ms:.4f} ms, plain "
+                      f"(quantize + 4 indexed writes) {plain_ms:.4f} ms, one index_put_ of "
+                      f"quantized rows {library_ms:.4f} ms, bound {least:.6f} ms by {by}, "
+                      f"median of 20")
+    return {"max_abs_err": 0.0, "times": times}
 
 
 def check_paged_rows(gen) -> dict:
@@ -1056,23 +1223,31 @@ def make_question(rng, n_words: int) -> str:
     return " ".join(WORDS[int(i)] for i in rng.integers(0, len(WORDS), n_words))
 
 
-def paged_requests(rng, cfg, n: int):
+def paged_requests(rng, cfg, n: int, repeat: bool = False):
     """[(session id, question, pixels, valid)]: question lengths cycle through
     about 40, 300 and 600 words; every third session's image has 3 valid
     anyres crops, the others the global view alone (`/chat` takes no session
-    without an image)."""
+    without an image). `repeat`: each question is one 10-word phrase said
+    over and over (for prompt lookup to find)."""
     from vis_zephyr_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
 
     out = []
     for i in range(n):
         px, valid = session_pixels(rng, cfg.vision.image_size, 3 if i % 3 == 0 else 1)
-        question = f"{DEFAULT_IMAGE_TOKEN}\n" + make_question(rng, QUESTION_WORDS[(i // 3) % 3])
+        n_words = QUESTION_WORDS[(i // 3) % 3]
+        text = (" ".join([make_question(rng, 10)] * (n_words // 10)) if repeat
+                else make_question(rng, n_words))
+        question = f"{DEFAULT_IMAGE_TOKEN}\n" + text
         out.append((f"p{i}", question, px, valid))
     return out
 
 
 def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int = 48,
-                     label: str = "paged") -> dict:
+                     label: str = "paged", lookahead: int = 0, repeat: bool = False) -> dict:
+    """The paged server under a burst of `n` concurrent /chat requests, with
+    `--lookahead` when `lookahead` > 0 (then every scheduler step is a verify
+    step of S = lookahead + 1 rows per slot); `repeat`: repetitive questions
+    (`paged_requests`)."""
     import numpy as np
 
     from vis_zephyr_tpu_torch.ops import flash_attention as fa
@@ -1083,11 +1258,12 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
     L = cfg.decoder.num_layers
     parser = argparse.ArgumentParser()
     api.add_engine_args(parser)
-    flags = parser.parse_args(PAGED_FLAGS + ["--max-new-tokens", str(new_tokens)])
+    flags = parser.parse_args(PAGED_FLAGS + ["--max-new-tokens", str(new_tokens),
+                                             "--lookahead", str(lookahead)])
     engine = api.engine_from_args(model, cfg, WordTokenizer(cfg.decoder.vocab_size), flags)
     b = engine.batcher
     side = cfg.vision.image_size
-    requests = paged_requests(np.random.default_rng(seed + 1), cfg, n)
+    requests = paged_requests(np.random.default_rng(seed + 1), cfg, n, repeat=repeat)
     chunks = 0
     qformer = []  # quantized weights: one Q-Former pass per request, at admission
     for sid, question, px, valid in requests:
@@ -1098,7 +1274,7 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
         qformer.append(qformer_routes(cfg, px.shape[0], n_ids - 1))
     print(f"{label}: server flags {' '.join(PAGED_FLAGS)} -> max_slots {b.max_slots}, cache_len "
           f"{b.cache_len}, page {b.page_size}, {b.num_pages} pages per layer, prefill chunk "
-          f"{b.prefill_chunk}, int8 {b.kv_quant}, fused {b.kv_fused}; pools "
+          f"{b.prefill_chunk}, int8 {b.kv_quant}, fused {b.kv_fused}, lookahead {b.lookahead}; pools "
           f"{(b.kp.numel() + 4 * b.ksp.numel()) / 2**30:.2f} GiB")
 
     # Warm the path once (cuBLAS handles, allocator), outside the counted run.
@@ -1118,15 +1294,16 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
     torch.cuda.reset_peak_memory_stats()
     try:
         fa.launches = kv_cache.launches = pa.attn_launches = pa.rows_launches = 0
+        pa.update_launches = 0
         reset_routes()
-        b.steps = b.slots_stepped = 0
+        b.steps = b.slots_stepped = b.verify_steps = b.proposed = b.accepted = 0
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(requests)) as pool:
             results = list(pool.map(
                 lambda r: post_chat(port, {"session_id": r[0], "question": r[1]}), requests))
         wall = time.perf_counter() - t0
         counts = dict(k1=fa.launches, k2=kv_cache.launches, k3=pa.attn_launches,
-                      k4=pa.rows_launches, **read_routes())
+                      k4=pa.rows_launches, kvu=pa.update_launches, **read_routes())
     finally:
         stop_server(server, thread)
         engine.close()
@@ -1137,24 +1314,39 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
                 w[0] == "w" and w[1:].isdigit() for w in words):
             raise AssertionError(f"{label} request {sid}: HTTP {status}, {len(words)} tokens "
                                  f"(want {new_tokens}): {text[:60]!r}")
-    steps = b.steps
-    print(f"{label}: {n} requests, all HTTP 200 with {new_tokens} tokens; {steps} decode steps, "
+    S = lookahead + 1
+    steps = b.verify_steps if lookahead else b.steps
+    kind = f"verify steps (S = {S})" if lookahead else "decode steps"
+    print(f"{label}: {n} requests, all HTTP 200 with {new_tokens} tokens; {steps} {kind}, "
           f"mean active slots per step {b.slots_stepped / steps:.2f} of {b.max_slots}")
     # Quantized weights: every chunk (256 rows) takes the dequantize route,
-    # every decode step (M = max_slots) the kernel; plus each request's
+    # every decode step (M = max_slots) the kernel, every verify step (M =
+    # max_slots x S) whichever route its rows take; plus each request's
     # Q-Former pass.
     want = expected_routes(model, add_routes(*qformer),
                            add_routes(decoder_routes(cfg, b.prefill_chunk, chunks),
-                                      decoder_routes(cfg, b.max_slots, steps)))
+                                      decoder_routes(cfg, b.max_slots * S, steps)))
     routes = {key: counts[key] for key in want}
+    # A decode step: K3 once per layer and K4 once over all layers. A verify
+    # step: K3 once per layer over S rows, and S single-layer row writes per
+    # layer (`paged_kv_update`), no all-layer write.
+    k4_want, kvu_want = (0, L * S * steps) if lookahead else (steps, 0)
     print(f"{label} counters: K3 paged_attn_decode {counts['k3']} (want {L} x {steps} = {L * steps}), "
-          f"K4 paged_kv_rows {counts['k4']} (want {steps}), K2 dense_cache_append {counts['k2']} "
+          f"K4 paged_kv_rows {counts['k4']} (want {k4_want}), K4 paged_kv_update {counts['kvu']} "
+          f"(want {kvu_want}), K2 dense_cache_append {counts['k2']} "
           f"(want {L} x {chunks} prefill chunks = {L * chunks}), K1 flash_fwd {counts['k1']} (want 0: "
           f"chunked admission attends its scratch cache with plain attention), "
           f"{show_routes(routes, want)}")
-    if ((counts["k3"], counts["k4"], counts["k2"], counts["k1"]) != (L * steps, steps, L * chunks, 0)
-            or routes != want):
+    if ((counts["k3"], counts["k4"], counts["kvu"], counts["k2"], counts["k1"])
+            != (L * steps, k4_want, kvu_want, L * chunks, 0) or routes != want
+            or (lookahead and (b.steps != 0 or steps == 0))):
         raise AssertionError("the paged serving path did not go through the kernels as counted")
+    if lookahead:
+        emitted = n * (new_tokens - 1)  # every token after each request's first
+        counts.update(verify_steps=steps, proposed=b.proposed, accepted=b.accepted)
+        print(f"{label} speculation: {b.proposed} tokens proposed, {b.accepted} accepted "
+              f"({b.accepted / max(b.proposed, 1):.3f}); {emitted / b.slots_stepped:.3f} tokens "
+              f"per slot per verify step")
     reused = int((uses > 1).sum())
     free = b.allocator.available
     print(f"{label} slots: {int((uses > 0).sum())} of {b.max_slots} used, {reused} of them more than "
@@ -1171,10 +1363,13 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
           f"slots ({decoded / wall:.1f} decode tokens/s), {wall / steps * 1e3:.1f} ms of wall per "
           f"scheduler step (decode + one prefill chunk), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
+    counts.update(tokens_per_s=n * new_tokens / wall, ttft_median=statistics.median(ttfts),
+                  streams={sid: text.split() for (sid, *_), (_, text, _, _) in zip(requests, results)})
     return counts
 
 
-def admitted_batcher(model, cfg, requests, max_slots: int, prefill_chunk=None, **kw):
+def admitted_batcher(model, cfg, requests, max_slots: int, prefill_chunk=None,
+                     max_new_tokens: int = 64, **kw):
     """A direct PagedBatcher with every request admitted before any decode
     step: whole (the prompt prefills through K1) or, with `prefill_chunk`, in
     chunks over a scratch cache (K2 at T = chunk). Inside
@@ -1183,7 +1378,7 @@ def admitted_batcher(model, cfg, requests, max_slots: int, prefill_chunk=None, *
     from vis_zephyr_tpu_torch.serve.paged import PagedBatcher
 
     b = PagedBatcher(model, cfg, max_slots=max_slots, cache_len=2048,
-                     sampling=SamplingConfig(max_new_tokens=64, eos_token_id=-1),
+                     sampling=SamplingConfig(max_new_tokens=max_new_tokens, eos_token_id=-1),
                      prefill_chunk=prefill_chunk, **kw)
     for ids, px, valid in requests:
         b.submit(ids, px, valid)
@@ -1452,15 +1647,201 @@ def run_fixed_batch_quant(model, cfg, seed: int, bf16: dict, card: str, int8=Non
     return logits
 
 
-def run_profile(model, cfg, seed: int, card: str, label: str = "profile") -> None:
-    """One batched decode step at B=32: wall (host clock around steps that end
-    in a synchronize), device-busy time and the largest device items
+# -- speculative decoding (--lookahead) -------------------------------------------------
+
+SPEC_LOOKAHEAD = 4
+# Questions that repeat themselves, so that prompt lookup finds n-grams to copy.
+SPEC_QUESTIONS = ("what is the man with the red hat doing and what is the man with the red hat "
+                  "holding", "count the cars on the street and say which of the cars on the "
+                  "street is the largest of the cars")
+
+
+def first_divergence(a, b) -> int:
+    """How many leading tokens two streams share."""
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def run_spec_dense(model, cfg, seed: int, max_new_tokens: int, card: str) -> dict:
+    """The dense path with `lookahead` 4 and 0 in one call: two /chat requests
+    each (two sessions, one anyres image each) through the port's server.
+    Exact counts: K1 once per layer per request; K2 once per layer per verify
+    call (lookahead 4) or per decode step (lookahead 0). Prints how far the
+    two streams agree (bf16: a verify's S-row append and a decode step round
+    differently, so greedy ties may break apart), proposals and acceptance,
+    tokens per verify call, TTFT and tokens/s."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.serve import generate as gen
+    from vis_zephyr_tpu_torch.serve.engine import ChatEngine
+
+    L = cfg.decoder.num_layers
+    side = cfg.vision.image_size
+    rng = np.random.default_rng(seed + 3)
+    images = [session_pixels(rng, side, 3) for _ in SPEC_QUESTIONS]
+    out = {}
+    for lookahead in (SPEC_LOOKAHEAD, 0):
+        engine = ChatEngine(model, cfg, WordTokenizer(cfg.decoder.vocab_size),
+                            max_new_tokens=max_new_tokens, lookahead=lookahead)
+        for i, (px, valid) in enumerate(images):
+            engine.attach_pixels(f"d{i}", px, valid, (2 * side, side))
+        server, thread = start_server(engine)
+        try:
+            fa.launches = kv_cache.launches = 0
+            gen.verify_calls = gen.proposed = gen.accepted = 0
+            results = [post_chat(server.server_address[1], {
+                "session_id": f"d{i}", "question": f"{DEFAULT_IMAGE_TOKEN}\n{q}"})
+                for i, q in enumerate(SPEC_QUESTIONS)]
+            counts = dict(k1=fa.launches, k2=kv_cache.launches, verify_calls=gen.verify_calls,
+                          proposed=gen.proposed, accepted=gen.accepted)
+        finally:
+            stop_server(server, thread)
+        streams = []
+        for status, text, ttft, total in results:
+            words = text.split()
+            if status != 200 or len(words) != max_new_tokens:
+                raise AssertionError(f"spec dense, lookahead {lookahead}: HTTP {status}, "
+                                     f"{len(words)} tokens (want {max_new_tokens})")
+            streams.append([int(w[1:]) for w in words])
+        n = len(results)
+        decode = n * (max_new_tokens - 1)
+        passes = counts["verify_calls"] if lookahead else decode
+        if counts["k1"] != L * n or counts["k2"] != L * passes or (lookahead and passes == 0):
+            raise AssertionError(f"spec dense, lookahead {lookahead}: counts {counts} (want K1 "
+                                 f"{L * n}, K2 {L} x {passes} decoder passes, verify calls > 0)")
+        ttfts = [r[2] for r in results]
+        rates = [(max_new_tokens - 1) / (r[3] - r[2]) for r in results]
+        line = (f"spec dense, lookahead {lookahead}: {n} requests, {max_new_tokens} tokens each; "
+                f"K1 {counts['k1']} (want {L * n}), K2 {counts['k2']} (want {L} x {passes} "
+                f"{'verify calls' if lookahead else 'decode steps'}); TTFT "
+                f"{', '.join(f'{t * 1e3:.1f}' for t in ttfts)} ms, decode "
+                f"{', '.join(f'{r:.2f}' for r in rates)} tokens/s")
+        if lookahead:
+            line += (f"; {counts['proposed']} tokens proposed, {counts['accepted']} accepted, "
+                     f"{decode / passes:.3f} tokens per verify call")
+        print(line + f" [{card}]")
+        out[lookahead] = dict(counts, streams=streams, ttft=ttfts, rates=rates)
+    agree = [first_divergence(a, b) for a, b in zip(out[SPEC_LOOKAHEAD]["streams"], out[0]["streams"])]
+    print(f"spec dense: the lookahead {SPEC_LOOKAHEAD} and lookahead 0 streams agree on their first "
+          f"{agree} of {max_new_tokens} tokens")
+    return {"k1": out[SPEC_LOOKAHEAD]["k1"], "k2": out[SPEC_LOOKAHEAD]["k2"],
+            "agree": agree, **{k: out[SPEC_LOOKAHEAD][k] for k in ("verify_calls", "proposed",
+                                                                   "accepted")}}
+
+
+def fixed_proposals(b, S: int) -> torch.Tensor:
+    """toks [B, S]: each slot's pending token, then the S - 1 tokens that
+    followed an earlier occurrence of it in the slot's prompt (prompt lookup
+    on one token; the prompt's own next tokens when it has none)."""
+    import numpy as np
+
+    toks = np.zeros((b.max_slots, S), np.int64)
+    for slot in range(b.max_slots):
+        hist = np.asarray(b.slot_hist[slot])
+        hits = np.flatnonzero(hist[:-1] == hist[-1])
+        start = int(hits[-1]) + 1 if len(hits) else 0
+        cont = hist[start:start + S - 1]
+        toks[slot, 0] = hist[-1]
+        toks[slot, 1:1 + len(cont)] = cont
+    return torch.as_tensor(toks, device=b.device)
+
+
+def run_spec_batch(model, cfg, seed: int) -> dict:
+    """One verify step (S = 5, fixed proposals) of 16 slots admitted whole, on
+    clones of the pools, over int8 fused and bf16 split pools: the kernel
+    path against the plain path (cosine >= 0.999 on every column), and column
+    0 against `_paged_step`'s logits from the same pool state (>= 0.999 over
+    bf16 pools; >= 0.99 over int8, where the verify attends its own row
+    quantized and the decode step folds it in unquantized). Counts exact: K3
+    once per layer, `paged_kv_update` S times per layer, no all-layer write."""
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+    from vis_zephyr_tpu_torch.serve.paged import _paged_step, _paged_verify_step
+
+    L = cfg.decoder.num_layers
+    S = SPEC_LOOKAHEAD + 1
+    requests = direct_requests(cfg, seed, 16)
+    out = {}
+    for quant, fused, label, floor in ((True, True, "int8 fused", 0.99),
+                                       (False, False, "bf16 split", 0.999)):
+        b = admitted_batcher(model, cfg, requests, 16, kv_quant=quant, kv_fused=fused)
+        toks = fixed_proposals(b, S)
+        active = torch.ones(16, dtype=torch.bool, device=b.device)
+
+        def pools():
+            return [None if t is None else t.clone() for t in (b.kp, b.vp, b.ksp, b.vsp)]
+
+        kp, vp, ksp, vsp = pools()
+        pa.attn_launches = pa.rows_launches = pa.update_launches = 0
+        _, logits_k = _paged_verify_step(model, kp, vp, (ksp, vsp), b.page_table,
+                                         b.lengths.clone(), toks, active, cfg)
+        counts = (pa.attn_launches, pa.rows_launches, pa.update_launches)
+        kp, vp, ksp, vsp = pools()
+        with _kernels.plain_versions():
+            _, logits_p = _paged_verify_step(model, kp, vp, (ksp, vsp), b.page_table,
+                                             b.lengths.clone(), toks, active, cfg)
+        kp, vp, ksp, vsp = pools()
+        _, logits_d = _paged_step(model, kp, vp, (ksp, vsp), b.page_table, b.lengths.clone(),
+                                  toks[:, 0].clone(), active, None, cfg, b.sampling)
+        torch.cuda.synchronize()
+        cols = [float(slot_cosines(logits_k[:, j], logits_p[:, j]).min()) for j in range(S)]
+        col0 = slot_cosines(logits_k[:, 0], logits_d)
+        same_top1 = float((logits_k[:, 0].argmax(-1) == logits_d.argmax(-1)).float().mean())
+        print(f"spec batch, {label} pools, 16 slots, one verify step of S={S}: logits cosine, "
+              f"minimum over slots, kernel vs plain path per column "
+              f"{', '.join(f'{c:.6f}' for c in cols)} (>= 0.999); column 0 vs the decode step "
+              f"min {float(col0.min()):.6f} median {float(col0.median()):.6f} (>= {floor}), same "
+              f"top-1 on {same_top1:.3f} of slots; launches K3 {counts[0]} (want {L}), "
+              f"paged_kv_rows {counts[1]} (want 0), paged_kv_update {counts[2]} (want {L * S})")
+        if not (min(cols) >= 0.999 and float(col0.min()) >= floor
+                and bool(torch.isfinite(logits_k).all()) and counts == (L, 0, L * S)):
+            raise AssertionError(f"spec batch {label}: the verify step disagrees or miscounted")
+        out[label] = dict(cols=cols, col0=float(col0.min()))
+        del b, kp, vp, ksp, vsp, logits_k, logits_p, logits_d
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_verify_routes(model, cfg, seed: int, card: str) -> None:
+    """One verify step of 32 slots (S = 5: 160 rows) on quantized weights:
+    every decoder projection takes the dequantize route (over the kernels'
+    128-row gate), counted exactly; the step's wall."""
+    S = SPEC_LOOKAHEAD + 1
+    b = admitted_batcher(model, cfg, direct_requests(cfg, seed, 32), 32, kv_quant=True,
+                         kv_fused=True, lookahead=SPEC_LOOKAHEAD)
+    torch.cuda.synchronize()
+    reset_routes()
+    t0 = time.perf_counter()
+    if b.step() != 32:
+        raise AssertionError("a slot finished early")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    got, want = read_routes(), expected_routes(model, (0, 0), decoder_routes(cfg, 32 * S))
+    print(f"int{weight_bits(model)} verify step, 32 slots x S={S} = {32 * S} rows: "
+          f"{show_routes(got, want)}; wall {wall:.2f} ms (one step, first of its shape) [{card}]")
+    if got != want or b.verify_steps != 1:
+        raise AssertionError("the quantized verify step did not route as counted")
+
+
+def run_profile(model, cfg, seed: int, card: str, label: str = "profile",
+                lookahead: int = 0) -> None:
+    """One batched decode step at B=32 (a verify step of S = lookahead + 1
+    rows per slot when `lookahead` > 0): wall (host clock around steps that
+    end in a synchronize), device-busy time and the largest device items
     (torch.profiler kernel sums; one stream, so kernels do not overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # Verify steps emit up to S tokens a slot: a longer budget (and the pages
+    # for it) keeps all 32 slots active through the 28 steps.
+    extra = dict(lookahead=lookahead, max_new_tokens=512, num_pages=1 + 32 * 16) if lookahead else {}
     b = admitted_batcher(model, cfg, direct_requests(cfg, seed, 32), 32, kv_quant=True,
-                         kv_fused=True)
+                         kv_fused=True, **extra)
     for _ in range(4):
         b.step()
     torch.cuda.synchronize()
@@ -1484,7 +1865,10 @@ def run_profile(model, cfg, seed: int, card: str, label: str = "profile") -> Non
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     wall = statistics.median(walls)
-    print(f"{label}: batched decode step, B=32 active slots, lengths about "
+    if int(b.active.sum()) != 32:
+        raise AssertionError(f"{label}: a slot finished inside the profiled steps")
+    kind = f"verify step (S={lookahead + 1})" if lookahead else "decode step"
+    print(f"{label}: batched {kind}, B=32 active slots, lengths about "
           f"{int(b.slot_len.mean())}: wall median {wall:.2f} ms (16 steps, min {min(walls):.2f}, "
           f"max {max(walls):.2f}), device busy {busy:.2f} ms per step, idle share "
           f"{1 - busy / wall:.2f} [{card}]")
@@ -1494,7 +1878,7 @@ def run_profile(model, cfg, seed: int, card: str, label: str = "profile") -> Non
         print(f"{label}: the profiler reported no device time")
 
 
-PHASES = ("kernels", "slice1", "paged", "batch", "profile", "precision", "int8", "int4")
+PHASES = ("kernels", "slice1", "paged", "batch", "spec", "profile", "precision", "int8", "int4")
 
 
 def main(argv=None) -> None:
@@ -1502,7 +1886,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-new-tokens", type=int, default=32)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one batched decode step (torch.profiler)")
+                    help="also profile one batched decode step and one verify step "
+                         "(torch.profiler)")
     ap.add_argument("--phases", default=None,
                     help=f"comma-separated subset of {', '.join(PHASES)}; prints no result line")
     args = ap.parse_args(argv)
@@ -1541,6 +1926,8 @@ def main(argv=None) -> None:
         k2 = check_cache_append(gen)
         k3 = check_paged_attention(gen)
         k4 = check_paged_rows(gen)
+        k3_rows = check_paged_attention_rows(gen)
+        k4_update = check_paged_update(gen)
         done("kernels K1-K4")
         k5 = check_quant_matmul(gen)
         done("kernels K5")
@@ -1557,8 +1944,26 @@ def main(argv=None) -> None:
     if "batch" in phases:
         batch = run_fixed_batch(model, cfg, args.seed)
         done("batch")
+    if "spec" in phases:
+        spec_dense = run_spec_dense(model, cfg, args.seed, args.max_new_tokens, card)
+        # The same burst without speculation first, for the comparison only.
+        unspec = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card, n=16,
+                                  label="spec paged, lookahead 0", repeat=True)
+        spec_paged = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card, n=16,
+                                      label="spec paged", lookahead=SPEC_LOOKAHEAD, repeat=True)
+        agree = sorted(first_divergence(spec_paged["streams"][sid], words)
+                       for sid, words in unspec["streams"].items())
+        print(f"spec paged: the burst of 16 with --lookahead {SPEC_LOOKAHEAD}: "
+              f"{spec_paged['tokens_per_s']:.1f} tokens/s, TTFT median "
+              f"{spec_paged['ttft_median'] * 1e3:.1f} ms; without: {unspec['tokens_per_s']:.1f} "
+              f"tokens/s, {unspec['ttft_median'] * 1e3:.1f} ms; the two replies of a session agree "
+              f"on their first {agree} of {args.max_new_tokens} tokens (other steps share other "
+              f"batches: bf16 ties may break apart) [{card}]")
+        run_spec_batch(model, cfg, args.seed)
+        done("spec")
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
+        run_profile(model, cfg, args.seed, card, label="spec profile", lookahead=SPEC_LOOKAHEAD)
         done("profile")
     if "precision" in phases:
         if "slice1" not in phases:
@@ -1581,9 +1986,12 @@ def main(argv=None) -> None:
         paged8 = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card, n=16,
                                   label="int8 paged")
         int8_logits = run_fixed_batch_quant(model, cfg, args.seed, batch, card)
+        run_verify_routes(model, cfg, args.seed, card)
         done("int8")
         if "profile" in phases:
             run_profile(model, cfg, args.seed, card, label="int8 profile")
+            run_profile(model, cfg, args.seed, card, label="int8 spec profile",
+                        lookahead=SPEC_LOOKAHEAD)
             done("int8 profile")
     if "int4" in phases:
         # --load-4bit on both served paths: int4 decoder, int8 Q-Former, again a
@@ -1609,15 +2017,18 @@ def main(argv=None) -> None:
         print(f"partial run of phases {phases}: no result line")
         return
 
-    # The counts of the six served runs (bf16, int8 and int4 weights on each
-    # path), each set to 0 just before its run and read just after it.
-    # `launches` is their sum and `launches_by_path` says which run gave what.
+    # The counts of the eight served runs (bf16, int8 and int4 weights on each
+    # path, and speculation on each path), each set to 0 just before its run
+    # and read just after it. `launches` is their sum and `launches_by_path`
+    # says which run gave what.
     runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
-            "dense_int4": dense4, "paged_int4": paged4}
+            "dense_int4": dense4, "paged_int4": paged4, "spec_dense": spec_dense,
+            "spec_paged": spec_paged}
     by_path = {name: {path: run.get(key, 0) for path, run in runs.items()}
                for name, key in (("flash_fwd", "k1"), ("dense_cache_append", "k2"),
                                  ("paged_attn_decode", "k3"), ("paged_kv_rows", "k4"),
-                                 ("quant_matmul_int8", "k5"), ("quant_matmul_int4", "k6"))}
+                                 ("quant_matmul_int8", "k5"), ("quant_matmul_int4", "k6"),
+                                 ("paged_kv_update", "kvu"))}
     # Each path must have gone through its own kernels (chunked admission
     # attends its scratch cache with plain attention, so K1 is the dense path's).
     dense_kernels = ("flash_fwd", "dense_cache_append")
@@ -1626,7 +2037,9 @@ def main(argv=None) -> None:
     on_path = {"dense": dense_kernels, "paged": paged_kernels,
                "dense_int8": dense_kernels + ("quant_matmul_int8",),
                "paged_int8": paged_kernels + ("quant_matmul_int8",),
-               "dense_int4": dense_kernels + both, "paged_int4": paged_kernels + both}
+               "dense_int4": dense_kernels + both, "paged_int4": paged_kernels + both,
+               "spec_dense": dense_kernels,
+               "spec_paged": ("dense_cache_append", "paged_attn_decode", "paged_kv_update")}
     if not all(by_path[name][path] > 0 for path, names in on_path.items() for name in names):
         raise AssertionError(f"a kernel was never launched on its served path: {by_path}")
     paged_py = "vis_zephyr_tpu/ops/paged_attention.py"
@@ -1639,7 +2052,8 @@ def main(argv=None) -> None:
              max_abs_err=k2["max_abs_err"], **k2["times"]),
         dict(name="paged_attn_decode", source="vis_zephyr_tpu_torch/csrc/paged_attn_decode.cu",
              replaces=f"{paged_py}:604 and {paged_py}:911",
-             max_abs_err=k3["max_abs_err"], **k3["times"]),
+             max_abs_err=max(k3["max_abs_err"], k3_rows["max_abs_err"]), **k3["times"],
+             by_rows=k3_rows["by_rows"]),
         dict(name="paged_kv_rows", source="vis_zephyr_tpu_torch/csrc/paged_kv_rows.cu",
              replaces=f"{paged_py}:1691", max_abs_err=k4["max_abs_err"], **k4["times"]),
         dict(name="quant_matmul_int8", source="vis_zephyr_tpu_torch/csrc/quant_matmul_int8.cu",
@@ -1648,6 +2062,9 @@ def main(argv=None) -> None:
         dict(name="quant_matmul_int4", source="vis_zephyr_tpu_torch/csrc/quant_matmul_int4.cu",
              replaces="vis_zephyr_tpu/ops/quant_matmul.py:116", max_abs_err=k6["max_abs_err"],
              **k6["times"]),
+        dict(name="paged_kv_update", source="vis_zephyr_tpu_torch/csrc/paged_kv_rows.cu",
+             replaces=f"{paged_py}:1482 and {paged_py}:1574",
+             max_abs_err=k4_update["max_abs_err"], **k4_update["times"]),
     ]
     for kernel in kernels:
         counts = by_path[kernel["name"]]

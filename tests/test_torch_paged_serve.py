@@ -343,13 +343,14 @@ def test_sampled_decoding_is_seeded_and_in_range(models):
 def test_left_out_options_raise_not_implemented(models):
     port = models[1]
     kw = dict(GEOMETRY, sampling=tgen.SamplingConfig(max_new_tokens=2))
-    for option in (dict(mesh=object()), dict(metrics=object()), dict(lookahead=2),
-                   dict(draft=object()), dict(multi_step=4), dict(prefix_cache=True),
+    for option in (dict(mesh=object()), dict(metrics=object()), dict(draft=object()),
+                   dict(draft=object(), lookahead=2), dict(multi_step=4), dict(prefix_cache=True),
                    dict(mlora=object()), dict(adapter_names={"a": 1}), dict(lazy_alloc=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpaged.PagedBatcher(port, TCFG, **kw, **option)
-    with pytest.raises(NotImplementedError, match="dense"):
-        tbatching.ContinuousBatcher(port, TCFG)
+    for option in ({}, dict(lookahead=2)):
+        with pytest.raises(NotImplementedError, match="dense"):
+            tbatching.ContinuousBatcher(port, TCFG, **option)
     b = tpaged.PagedBatcher(port, TCFG, **kw)
     ids = np.array([5, 6, 7])
     for option in (dict(adapter="lora-a"), dict(temperature=0.5), dict(top_p=0.5),
@@ -364,7 +365,9 @@ def test_left_out_options_raise_not_implemented(models):
                    dict(grammar=(1, 1)), dict(want_logprobs=True), dict(penalties=(1, 1, 1))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpaged._paged_step(*step, **option)
-    for option in (dict(continuous_batching=True, kv_cache="dense"), dict(lookahead=2),
+    for option in (dict(continuous_batching=True, kv_cache="dense"),
+                   dict(continuous_batching=True, kv_cache="dense", lookahead=2),
+                   dict(draft_params=object(), lookahead=2),
                    dict(mesh=object()), dict(multi_step=2), dict(metrics=object()),
                    dict(continuous_batching=True, kv_cache="paged", draft_params=object()),
                    dict(continuous_batching=True, kv_cache="paged", prefix_cache=True)):

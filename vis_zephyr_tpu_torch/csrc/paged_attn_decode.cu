@@ -1,4 +1,4 @@
-// K3 paged_attn_decode: attention of a few query rows per slot over a KV cache
+// K3 paged_attn_decode: attention of S query rows per slot over a KV cache
 // kept as fixed-size pages in shared pools (bf16 or int8 with per-row scales,
 // K and V in two pools or fused in one), with the current token folded in as
 // a last online-softmax term.
@@ -26,14 +26,21 @@
 // What bounds it on the H100: bytes. A decode step reads every valid K and V
 // row of every slot once per layer and does 4 * G multiply-adds per byte of
 // int8 KV, far under the card's operations-per-byte line. This first version
-// walks a slot's pages one after the other in one block per (slot, kv head),
-// with plain loads and CUDA-core FMAs; it does not overlap a page's load with
-// the previous page's arithmetic, so it sits well under the memory rate
-// (PERF.md has the times). cp.async/TMA pipelines, mma and a split of long
+// walks a slot's pages one after the other in one block per (slot, kv head,
+// row tile), with plain loads and CUDA-core FMAs; it does not overlap a page's
+// load with the previous page's arithmetic, so it sits well under the memory
+// rate, and a tile of 32 rows (the verify step) does 8 times the decode
+// step's arithmetic per byte on CUDA cores (PERF.md has the times).
+// cp.async/TMA pipelines, mma for the multi-row tiles and a split of long
 // sequences over several blocks are later work.
 //
 // What the design does about it:
-// - grid (kv head, slot): 128 threads per block. The loop over pages inside
+// - grid (kv head, slot, row tile): 128 threads per block. A (slot, kv head)
+//   has S * G query rows (G = Hq / Hkv); a block takes a tile of R of them,
+//   R the least of 4, 8, 16 and 32 that holds them all, and rows beyond 32
+//   go to further tiles, each its own block over the slot's pages (the
+//   verify step's S = lookahead + 1 rows: 20 at lookahead 4 and G = 4).
+//   Each tile skips the pages that lie wholly after its last query row. The loop over pages inside
 //   the block takes the place of the TPU's sequential grid, so m, l (shared
 //   memory, one value per query row) and the output accumulator (registers:
 //   thread d owns head-dim column d of all R rows) never touch device memory.
@@ -115,6 +122,8 @@ __global__ void __launch_bounds__(kThreads) paged_attn_decode_kernel(const Param
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
+  const int row0 = blockIdx.z * R;  // the tile's first query row of this (slot, kv head)
+  const int n_rows = p.S * p.G;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -135,9 +144,13 @@ __global__ void __launch_bounds__(kThreads) paged_attn_decode_kernel(const Param
   const int q_off = p.q_offs[b];
 
   for (int idx = tid; idx < R * kHeadDim; idx += kThreads) {
-    const int r = idx / kHeadDim, d = idx % kHeadDim;
-    const long row = ((long)b * p.S + r / p.G) * p.Hq + h * p.G + r % p.G;
-    q_s[idx] = __bfloat162float(p.q[row * kHeadDim + d]);
+    const int r = row0 + idx / kHeadDim, d = idx % kHeadDim;
+    float x = 0.0f;  // rows past n_rows: computed, never written
+    if (r < n_rows) {
+      const long row = ((long)b * p.S + r / p.G) * p.Hq + h * p.G + r % p.G;
+      x = __bfloat162float(p.q[row * kHeadDim + d]);
+    }
+    q_s[idx] = x;
   }
   if (tid < R) {
     m_s[tid] = -INFINITY;
@@ -150,9 +163,12 @@ __global__ void __launch_bounds__(kThreads) paged_attn_decode_kernel(const Param
 
   int n_pages = (length + ps - 1) / ps;
   if (n_pages > p.pps) n_pages = p.pps;
+  // Pages wholly after the tile's last query row are masked for all its rows.
+  const int last_pos = q_off + (min(n_rows, row0 + R) - 1) / p.G;
+  n_pages = min(n_pages, last_pos < 0 ? 0 : last_pos / ps + 1);
   int first_page = 0;
   if (p.window > 0) {
-    const int lo = q_off - (p.window - 1);
+    const int lo = q_off + row0 / p.G - (p.window - 1);
     first_page = lo > 0 ? lo / ps : 0;
   }
 
@@ -201,7 +217,7 @@ __global__ void __launch_bounds__(kThreads) paged_attn_decode_kernel(const Param
       if (quant && t < n_tok) k_mul = p.k_scales[page_row0 + t] * kInvQuantMax;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const int qpos = q_off + r / p.G;
+        const int qpos = q_off + (row0 + r) / p.G;
         bool ok = t < n_tok && slot <= qpos;
         if (p.window > 0) ok = ok && slot > qpos - p.window;
         float s = dot[r] * p.scale;
@@ -283,9 +299,11 @@ __global__ void __launch_bounds__(kThreads) paged_attn_decode_kernel(const Param
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
+    const int gr = row0 + r;
+    if (gr >= n_rows) break;
     const float l = l_s[r];
     const float l_inv = l == 0.0f ? 0.0f : 1.0f / l;
-    const long row = ((long)b * p.S + r / p.G) * p.Hq + h * p.G + r % p.G;
+    const long row = ((long)b * p.S + gr / p.G) * p.Hq + h * p.G + gr % p.G;
     p.out[row * kHeadDim + tid] = __float2bfloat16_rn(acc[r] * l_inv);
   }
 }
@@ -299,25 +317,28 @@ int launch(const Params& p, int B, cudaStream_t stream) {
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  paged_attn_decode_kernel<KV, R><<<dim3(p.Hkv, B), kThreads, smem, stream>>>(p);
+  const int tiles = (p.S * p.G + R - 1) / R;
+  paged_attn_decode_kernel<KV, R><<<dim3(p.Hkv, B, tiles), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tile: the least of 4, 8, 16 and 32 rows that holds all S * G rows of a
+// (slot, kv head), else tiles of 32 (decode with G = 4 is R = 4).
 template <typename KV>
 int dispatch_rows(const Params& p, int B, cudaStream_t stream) {
-  switch (p.S * p.G) {
-    case 4: return launch<KV, 4>(p, B, stream);  // decode: S = 1, four q heads per kv head
-    case 8: return launch<KV, 8>(p, B, stream);  // two query rows per slot
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int rows = p.S * p.G;
+  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 4) return launch<KV, 4>(p, B, stream);
+  if (rows <= 8) return launch<KV, 8>(p, B, stream);
+  if (rows <= 16) return launch<KV, 16>(p, B, stream);
+  return launch<KV, 32>(p, B, stream);
 }
 
 }  // namespace
 
 // kv_int8: 1 for int8 pools (scales given), 0 for bf16 pools. v_pool/v_scales
 // null: fused pools (V rows follow the K rows inside each page). Head dim 128
-// and S * (Hq / Hkv) in {4, 8} (other row counts are one more case in
-// `dispatch_rows`); the wrapper checks both.
+// (the wrapper checks it); any S >= 1.
 extern "C" int vzt_paged_attn_decode(const void* q, void* out, const void* k_pool,
                                      const void* v_pool, const void* k_scales,
                                      const void* v_scales, const void* page_table,

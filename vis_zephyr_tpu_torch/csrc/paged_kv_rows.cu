@@ -1,30 +1,37 @@
-// K4 paged_kv_rows: write one decode step's K/V rows of every layer into the
-// page pools, in place, quantizing to int8 with a per-row absmax scale when
-// the pools are int8.
-//
-// Replaces the TPU kernel
-// `vis_zephyr_tpu/ops/paged_attention.py::_kv_update_rows_kernel` (wrappers
-// `paged_kv_update_rows` and `paged_kv_update_rows_q`). Same contract: rows
-// ks/vs [L, B, Hkv, D]; slot b's row of layer l lands at page
-// `l * P + pages[b]`, row `offsets[b]` (K) and, in a fused pool, row
-// `ps + offsets[b]` (V) of the same page. int8 pools: scale = max |x| of the
-// row (f32), value = rint(x * (127.5 / max(scale, 1e-9))) clamped to
+// K4 paged_kv_rows: write K/V rows into the page pools, in place, quantizing
+// to int8 with a per-row absmax scale when the pools are int8. Two entries on
+// one kernel:
+// - `vzt_paged_kv_rows` replaces the TPU kernel
+//   `vis_zephyr_tpu/ops/paged_attention.py::_kv_update_rows_kernel` (wrappers
+//   `paged_kv_update_rows{,_q}`): one decode step's rows of every layer; slot
+//   b's row of layer l lands at page `l * P + pages[b]` (within-layer ids
+//   [B]);
+// - `vzt_paged_kv_update` replaces `::_kv_update_kernel` and
+//   `::_kv_update_quant_kernel` (wrappers `paged_kv_update{,_q}`): row (l, b)
+//   lands at the ABSOLUTE page `page_ids[l, b]` ([L, B]). The speculative
+//   verify step calls it with L = 1, once per candidate row and layer.
+// Both: rows ks/vs [L, B, Hkv, D]; row `offsets[b]` (K) and, in a fused
+// pool, row `ps + offsets[b]` (V) of the page. int8 pools: scale = max |x|
+// of the row (f32), value = rint(x * (127.5 / max(scale, 1e-9))) clamped to
 // [-128, 127] (the row's largest positive element rounds to 128 and
-// saturates to 127), scale stored beside it. With L = 1 it is the single
-// layer write of `_kv_update_kernel` / `_kv_update_quant_kernel`.
+// saturates to 127), scale stored beside it.
 //
 // Port layout: pools [L * P, Hkv, rows, D], scales [L * P, Hkv, rows] f32
 // (rows = ps, or 2 * ps when fused).
 //
 // What bounds it on the H100: launch latency. A step at B = 32 writes
-// 2 * 32 * 32 * 8 rows of 128 int8 (2 MB) plus scales.
+// 2 * 32 * 32 * 8 rows of 128 int8 (2 MB) plus scales; a verify write at
+// L = 1, B = 32 writes 512 rows (64 KB).
 //
 // What the design does about it: one block per (kv head, layer, slot) row
 // pair, thread d owning element d of the K row and of the V row; the absmax
 // is a warp shuffle plus one shared-memory exchange. A GPU writes single
 // rows, so the TPU kernel's read-modify-write of an aligned 32-row tile and
-// its slots-per-cell grouping have no counterpart. Inactive slots all write
-// row 0 of trash page 0 at once: a race among rows nothing reads.
+// its slots-per-cell grouping have no counterpart, and rows that share a
+// page need no ordering. The page of (l, b) is
+// `l * layer_pages + pages[l * pid_layer_stride + b]`: (P, 0) for the
+// within-layer form, (0, B) for the absolute one. Inactive slots all write
+// the trash page 0 at once: a race among rows that no active slot reads.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -63,7 +70,8 @@ __global__ void paged_kv_rows_kernel(void* __restrict__ k_pool, void* __restrict
                                      const __nv_bfloat16* __restrict__ vs,
                                      const int32_t* __restrict__ pages,
                                      const int32_t* __restrict__ offsets, int B, int Hkv, int D,
-                                     int P, int rows, int v_row0) {
+                                     int layer_pages, int pid_layer_stride, int rows,
+                                     int v_row0) {
   __shared__ float scratch[32];
   const int h = blockIdx.x, l = blockIdx.y, b = blockIdx.z;
   const int d = threadIdx.x;
@@ -71,7 +79,7 @@ __global__ void paged_kv_rows_kernel(void* __restrict__ k_pool, void* __restrict
   const long src = (((long)l * B + b) * Hkv + h) * D + d;
   const float kx = live ? __bfloat162float(ks[src]) : 0.0f;
   const float vx = live ? __bfloat162float(vs[src]) : 0.0f;
-  const long page = (long)l * P + pages[b];
+  const long page = (long)l * layer_pages + pages[l * pid_layer_stride + b];
   const long k_row = (page * Hkv + h) * rows + offsets[b];
   const long v_row = k_row + v_row0;
   if (kQuant) {
@@ -91,13 +99,9 @@ __global__ void paged_kv_rows_kernel(void* __restrict__ k_pool, void* __restrict
   }
 }
 
-}  // namespace
-
-// v_pool (and v_scales) null: fused pools. k_scales null: bf16 pools.
-extern "C" int vzt_paged_kv_rows(void* k_pool, void* v_pool, void* k_scales, void* v_scales,
-                                 const void* ks, const void* vs, const void* pages,
-                                 const void* offsets, int L, int B, int Hkv, int D, int P,
-                                 int ps, void* stream) {
+int launch_rows(void* k_pool, void* v_pool, void* k_scales, void* v_scales, const void* ks,
+                const void* vs, const void* pages, const void* offsets, int L, int B, int Hkv,
+                int D, int layer_pages, int pid_layer_stride, int ps, void* stream) {
   if (L == 0 || B == 0) return 0;
   const bool fused = v_pool == nullptr;
   const bool quant = k_scales != nullptr;
@@ -116,6 +120,28 @@ extern "C" int vzt_paged_kv_rows(void* k_pool, void* v_pool, void* k_scales, voi
                                   static_cast<const __nv_bfloat16*>(ks),
                                   static_cast<const __nv_bfloat16*>(vs),
                                   static_cast<const int32_t*>(pages),
-                                  static_cast<const int32_t*>(offsets), B, Hkv, D, P, rows, v_row0);
+                                  static_cast<const int32_t*>(offsets), B, Hkv, D, layer_pages,
+                                  pid_layer_stride, rows, v_row0);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// v_pool (and v_scales) null: fused pools. k_scales null: bf16 pools.
+// pages [B] within-layer ids; P pages per layer.
+extern "C" int vzt_paged_kv_rows(void* k_pool, void* v_pool, void* k_scales, void* v_scales,
+                                 const void* ks, const void* vs, const void* pages,
+                                 const void* offsets, int L, int B, int Hkv, int D, int P,
+                                 int ps, void* stream) {
+  return launch_rows(k_pool, v_pool, k_scales, v_scales, ks, vs, pages, offsets, L, B, Hkv, D,
+                     P, 0, ps, stream);
+}
+
+// The same with page_ids [L, B] absolute pool pages.
+extern "C" int vzt_paged_kv_update(void* k_pool, void* v_pool, void* k_scales, void* v_scales,
+                                   const void* ks, const void* vs, const void* page_ids,
+                                   const void* offsets, int L, int B, int Hkv, int D, int ps,
+                                   void* stream) {
+  return launch_rows(k_pool, v_pool, k_scales, v_scales, ks, vs, page_ids, offsets, L, B, Hkv,
+                     D, 0, B, ps, stream);
 }

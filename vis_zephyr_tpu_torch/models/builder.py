@@ -95,13 +95,21 @@ def load_pretrained_model(
         raise NotImplementedError(
             f"{model_path} is a native orbax checkpoint; the PyTorch port loads only "
             "HF weights (--model-base, --vision-tower, mm_projector.bin) so far")
+    cfg = _read_config(model_path)
+    if cfg.mm_use_im_start_end or cfg.mm_use_im_patch_token:
+        # The JAX builder adds <im_patch> / <im_start> / <im_end> to the
+        # tokenizer and mean-extends the embeddings; refuse before any weight
+        # is read rather than serve a misaligned vocabulary.
+        raise NotImplementedError(
+            "mm_use_im_start_end / mm_use_im_patch_token (the image-token alignment, "
+            "initialize_vision_tokenizer) is not ported to PyTorch yet (ROADMAP.md, "
+            "Queue A step 11)")
     proj_bin = os.path.join(model_path, "mm_projector.bin")
     missing = [name for name, ok in (("--model-base", model_base),
                                      ("--vision-tower", vision_tower_path),
                                      (proj_bin, os.path.exists(proj_bin))) if not ok]
     if missing:
         raise FileNotFoundError(f"the HF load path needs {', '.join(missing)}")
-    cfg = _read_config(model_path)
 
     model = VisZephyr(cfg, device="meta")
     parts = (

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "vzt_dense_cache_append": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vzt_paged_attn_decode": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
     "vzt_paged_kv_rows": [_P] * 8 + [_I] * 6 + [_P],
+    "vzt_paged_kv_update": [_P] * 8 + [_I] * 5 + [_P],
     "vzt_quant_matmul_int8": [_P] * 5 + [_I] * 6 + [_P],
     "vzt_quant_matmul_int4": [_P] * 5 + [_I] * 7 + [_P],
 }

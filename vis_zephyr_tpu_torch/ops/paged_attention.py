@@ -1,11 +1,14 @@
 """Paged KV pools: decode attention over pages (kernel K3,
-`csrc/paged_attn_decode.cu`), the per-step row write (kernel K4,
+`csrc/paged_attn_decode.cu`), the row writes (kernel K4,
 `csrc/paged_kv_rows.cu`), int8 KV quantization, and the plain PyTorch version
 of each.
 
 Port of `vis_zephyr_tpu/ops/paged_attention.py`: `paged_attention_fa` (the
-flash-structure kernel with the self-term), `paged_kv_update_rows{,_q}`,
-`quantize_kv`/`dequant_kv` and the pool forms, `paged_attention_reference`.
+flash-structure kernel, with or without the self-term, any number of query
+rows), `paged_kv_update_rows{,_q}` (one decode step's rows of every layer),
+`paged_kv_update{,_q}` (rows at absolute page ids: the verify step's
+single-layer writes), `quantize_kv`/`dequant_kv` and the pool forms,
+`paged_attention_reference`.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises (outside `_kernels.plain_versions()`, the comparison runs'
 switch).
@@ -48,7 +51,8 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 KV_QUANT_MAX = 127.5
 
 attn_launches = 0  # K3 launches in this process (reset by callers that count)
-rows_launches = 0  # K4 launches
+rows_launches = 0  # K4 launches through `paged_kv_update_rows{,_q}`
+update_launches = 0  # K4 launches through `paged_kv_update{,_q}`
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -207,9 +211,6 @@ def _launch_attention(q, k_pages, v_pages, page_table, lengths, q_offs, scale, s
     if D != HEAD_DIM or k_pages.shape[3] != D or Hq % Hkv:
         raise ValueError(f"paged_attention_fa: head_dim must be {HEAD_DIM} and Hq a multiple "
                          f"of Hkv; q={tuple(q.shape)}, pool={tuple(k_pages.shape)}")
-    if S * (Hq // Hkv) not in (4, 8):
-        raise ValueError(f"paged_attention_fa: S * (Hq / Hkv) = {S * (Hq // Hkv)} query rows "
-                         "per kv head; the kernel is built for 4 and 8")
     pool_dtype = torch.int8 if quant else torch.bfloat16
     _check_cuda("q", q, dev, torch.bfloat16)
     _check_cuda("k_pages", k_pages, dev, pool_dtype)
@@ -264,6 +265,11 @@ def paged_attention_fa(
     below `lengths[b]`; S = 1 with `q_offs = lengths − 1` is single-token
     decode over a pool that already holds the token.
 
+    Any S ≥ 1: the kernel takes the S·(Hq/Hkv) query rows of a kv head in
+    tiles of at most 32 rows. S > 1 without the self-term is the verify
+    step's shape: the rows are already in the pool and `q_offs` is the
+    position of the first.
+
     `k_new`/`v_new` (S = 1): the current token's K/V as a final
     online-softmax self-term. The pool then holds `[0, lengths)`, the query
     sits at `lengths` (`q_offs = lengths`), and the decode step can attend
@@ -283,18 +289,20 @@ def paged_attention_fa(
     return _launch_attention(*args)
 
 
-# -- K4: one step's rows of every layer into the pools ------------------------------
+# -- K4: rows into the pools -------------------------------------------------------
 
 
-def _kv_update_rows_plain(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets) -> None:
+def _kv_write_plain(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets) -> None:
+    """Rows [L, B, Hkv, D] to absolute pool pages `pages` [L, B] (long), row
+    `offsets[b]` (its V row `ps` further in a fused pool). Rows that land on
+    one page row in one call must be equal (the trash page's): which write
+    wins is not defined, here as on the card."""
     fused = v_pages is None
     quant = k_scales is not None
-    L, B, Hkv, D = ks.shape
-    P = k_pages.shape[0] // L
+    Hkv = ks.shape[2]
     ps = _page_size(k_pages, fused)
-    dev = k_pages.device
-    page = (torch.arange(L, device=dev)[:, None] * P + pages.long()[None, :])[:, :, None]
-    head = torch.arange(Hkv, device=dev)[None, None, :]
+    page = pages[:, :, None]
+    head = torch.arange(Hkv, device=k_pages.device)[None, None, :]
     k_row = offsets.long()[None, :, None]
     v_row = k_row + (ps if fused else 0)
     v_pool = k_pages if fused else v_pages
@@ -311,8 +319,12 @@ def _kv_update_rows_plain(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, o
         v_pool[page, head, v_row] = vs.to(v_pool.dtype)
 
 
-def _launch_rows(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets) -> None:
-    global rows_launches
+def _launch_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets,
+                  absolute: bool) -> None:
+    """One K4 launch: `vzt_paged_kv_update` for absolute page ids [L, B],
+    `vzt_paged_kv_rows` for within-layer ids [B]."""
+    global rows_launches, update_launches
+    name = "paged_kv_update" if absolute else "paged_kv_update_rows"
     fused = v_pages is None
     quant = k_scales is not None
     L, B, Hkv, D = ks.shape
@@ -325,33 +337,47 @@ def _launch_rows(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets) -
     if quant:
         _check_cuda("k_scales", k_scales, dev, torch.float32, (N, Hkv, rows))
         if fused != (v_scales is None):
-            raise ValueError("paged_kv_update_rows_q: v_scales go with split pools only")
+            raise ValueError(f"{name}_q: v_scales go with split pools only")
         if not fused:
             _check_cuda("v_scales", v_scales, dev, torch.float32, (N, Hkv, rows))
     _check_cuda("ks", ks, dev, torch.bfloat16)
     _check_cuda("vs", vs, dev, torch.bfloat16, ks.shape)
-    _check_cuda("pages", pages, dev, torch.int32, (B,))
+    _check_cuda("pages", pages, dev, torch.int32, (L, B) if absolute else (B,))
     _check_cuda("offsets", offsets, dev, torch.int32, (B,))
-    if N % L or D > 1024:
-        raise ValueError(f"paged_kv_update_rows: {N} pool pages are not {L} layers of pages, "
-                         f"or head_dim {D} > 1024")
-    code = _kernels.lib().vzt_paged_kv_rows(
-        k_pages.data_ptr(), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales), ks.data_ptr(),
-        vs.data_ptr(), pages.data_ptr(), offsets.data_ptr(), L, B, Hkv, D, N // L,
-        _page_size(k_pages, fused), _kernels.stream_ptr(dev))
-    _kernels.check(code, "vzt_paged_kv_rows")
-    rows_launches += 1
-
-
-def _kv_update_rows(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets) -> None:
-    if vs.shape != ks.shape or k_pages.shape[1] != ks.shape[2] or k_pages.shape[3] != ks.shape[3]:
-        raise ValueError(f"paged_kv_update_rows: rows {tuple(ks.shape)} / {tuple(vs.shape)} do "
-                         f"not fit pool {tuple(k_pages.shape)}")
-    args = (k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets)
-    if not _kernels.use_kernel(k_pages):
-        _kv_update_rows_plain(*args)
+    if D > 1024 or (not absolute and N % L):
+        raise ValueError(f"{name}: head_dim {D} > 1024, or {N} pool pages are not {L} layers "
+                         "of pages")
+    ps = _page_size(k_pages, fused)
+    lib = _kernels.lib()
+    if absolute:
+        code = lib.vzt_paged_kv_update(
+            k_pages.data_ptr(), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales), ks.data_ptr(),
+            vs.data_ptr(), pages.data_ptr(), offsets.data_ptr(), L, B, Hkv, D, ps,
+            _kernels.stream_ptr(dev))
+        _kernels.check(code, "vzt_paged_kv_update")
+        update_launches += 1
     else:
-        _launch_rows(*args)
+        code = lib.vzt_paged_kv_rows(
+            k_pages.data_ptr(), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales), ks.data_ptr(),
+            vs.data_ptr(), pages.data_ptr(), offsets.data_ptr(), L, B, Hkv, D, N // L, ps,
+            _kernels.stream_ptr(dev))
+        _kernels.check(code, "vzt_paged_kv_rows")
+        rows_launches += 1
+
+
+def _kv_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets,
+              absolute: bool) -> None:
+    if vs.shape != ks.shape or k_pages.shape[1] != ks.shape[2] or k_pages.shape[3] != ks.shape[3]:
+        raise ValueError(f"paged_kv_update: rows {tuple(ks.shape)} / {tuple(vs.shape)} do not "
+                         f"fit pool {tuple(k_pages.shape)}")
+    if _kernels.use_kernel(k_pages):
+        _launch_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets, absolute)
+        return
+    pages = pages.long()
+    if not absolute:  # within-layer ids [B] → absolute [L, B]
+        L = ks.shape[0]
+        pages = torch.arange(L, device=pages.device)[:, None] * (k_pages.shape[0] // L) + pages
+    _kv_write_plain(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets)
 
 
 def paged_kv_update_rows(
@@ -365,7 +391,7 @@ def paged_kv_update_rows(
     """Write one decode step's K/V rows of every layer: slot b's row of layer
     l lands at page `l·P + pages[b]`, row `offsets[b]` (its V row at
     `ps + offsets[b]` of the same page in a fused pool). Returns the pools."""
-    _kv_update_rows(k_pages, v_pages, None, None, ks, vs, pages, offsets)
+    _kv_write(k_pages, v_pages, None, None, ks, vs, pages, offsets, absolute=False)
     return k_pages, v_pages
 
 
@@ -381,7 +407,39 @@ def paged_kv_update_rows_q(
 ):
     """`paged_kv_update_rows` for int8 pools: each row is absmax-quantized
     (`quantize_kv`) and written with its scale."""
-    _kv_update_rows(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets)
+    _kv_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets, absolute=False)
+    return k_pages, v_pages, k_scales, v_scales
+
+
+def paged_kv_update(
+    k_pages: torch.Tensor,            # [N, Hkv, ps, D] (2·ps fused), written in place
+    v_pages: Optional[torch.Tensor],  # None: KV-fused pool
+    ks: torch.Tensor,                 # [L, B, Hkv, D] new K rows
+    vs: torch.Tensor,
+    page_ids: torch.Tensor,           # [L, B] int32 ABSOLUTE pool page per (layer, slot)
+    offsets: torch.Tensor,            # [B] int32 row within the page
+):
+    """The JAX package's `paged_kv_update` contract: row (l, b) lands at pool
+    page `page_ids[l, b]`, row `offsets[b]` (its V row at `ps + offsets[b]`
+    in a fused pool). The verify step calls it with L = 1, once per candidate
+    row and layer. Inactive slots pass the trash page 0. Returns the pools."""
+    _kv_write(k_pages, v_pages, None, None, ks, vs, page_ids, offsets, absolute=True)
+    return k_pages, v_pages
+
+
+def paged_kv_update_q(
+    k_pages: torch.Tensor,            # int8, written in place
+    v_pages: Optional[torch.Tensor],
+    k_scales: torch.Tensor,           # [N, Hkv, rows] f32, written in place
+    v_scales: Optional[torch.Tensor],
+    ks: torch.Tensor,                 # [L, B, Hkv, D] float
+    vs: torch.Tensor,
+    page_ids: torch.Tensor,           # [L, B] int32 absolute
+    offsets: torch.Tensor,
+):
+    """`paged_kv_update` for int8 pools: each row is absmax-quantized
+    (`quantize_kv`, in the kernel on the card) and written with its scale."""
+    _kv_write(k_pages, v_pages, k_scales, v_scales, ks, vs, page_ids, offsets, absolute=True)
     return k_pages, v_pages, k_scales, v_scales
 
 

@@ -128,6 +128,9 @@ def add_engine_args(p) -> None:
     p.add_argument("--kv-fused", action=argparse.BooleanOptionalAction, default=True,
                    help="fused KV pool layout (paged only): a page holds its K rows then "
                         "its V rows; --no-kv-fused for split pools")
+    p.add_argument("--lookahead", type=int, default=0,
+                   help="prompt-lookup speculative decoding span (greedy only; 0 disables): "
+                        "the serialized path and the paged continuous batcher")
 
 
 def engine_from_args(model, cfg, tokenizer, a) -> ChatEngine:
@@ -137,7 +140,7 @@ def engine_from_args(model, cfg, tokenizer, a) -> ChatEngine:
                       continuous_batching=a.continuous_batching, max_slots=a.max_slots,
                       kv_cache=a.kv_cache, kv_quant=a.kv_quant, num_pages=a.num_pages,
                       prefill_chunk=a.prefill_chunk or None, kv_fused=a.kv_fused,
-                      page_size=a.page_size)
+                      page_size=a.page_size, lookahead=a.lookahead)
 
 
 def main(args=None):

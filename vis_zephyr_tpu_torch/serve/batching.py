@@ -3,7 +3,9 @@
 Port of `vis_zephyr_tpu/serve/batching.py` as far as the paged batcher
 (`serve/paged.py::PagedBatcher`) inherits it: requests, the pending queue,
 whole-prompt and chunked prefill admission, first-token sampling on
-activation, emit / finish / cancel.
+activation, emit / finish / cancel, and the host side of prompt-lookup
+speculation (`lookahead`: per-slot lookup histories and `_step_verify`, the
+acceptance loop around the subclass's `_verify_device`).
 
 - a fixed pool of `max_slots` sequence slots shares one batched KV store,
 - new requests prefill individually (B = 1) between decode steps, whole or in
@@ -19,7 +21,7 @@ the device state is updated in place, so exactly one thread may call `step`.
 Not ported yet, each raising `NotImplementedError` when asked for: the dense
 batcher's own device step (`ContinuousBatcher` itself), meshes, metrics,
 multi-LoRA adapters, per-request sampling overrides, grammars, logprobs,
-penalties, speculation (`lookahead`, `draft`) and multi-step bursts.
+penalties, a draft model and multi-step bursts.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 from ..config import VisZephyrConfig
 from ..models.mistral import embed, init_cache, mistral_forward
 from ..models.vis_zephyr import VisZephyr, prepare_multimodal, vis_zephyr_forward
-from .generate import SamplingConfig, _sample
+from .generate import SamplingConfig, _propose_lookup, _sample
 
 
 def not_ported(what: str, step: str):
@@ -127,9 +129,9 @@ class ContinuousBatcher:
         for value, what, step in (
                 (mesh, "a device mesh (tensor-parallel serving)", "Queue A step 13"),
                 (metrics, "ServingMetrics", "Queue A step 10"),
-                (lookahead, "speculative decoding (lookahead)", "Queue A step 9"),
                 (draft, "a draft model", "Queue A step 9"),
-                (multi_step > 1, "multi-step bursts", "Queue A step 7, to do"),
+                (multi_step > 1 and not (lookahead > 0 and sampling.temperature <= 0.0),
+                 "multi-step bursts", "Queue A step 7, to do"),
                 (mlora, "multi-LoRA serving", "Queue A step 10"),
                 (adapter_names, "multi-LoRA serving", "Queue A step 10")):
             if value:
@@ -141,6 +143,9 @@ class ContinuousBatcher:
         self.cache_len = cache_len
         self.sampling = sampling
         self.prefill_chunk = prefill_chunk
+        # Speculation is greedy only: silently off when sampling (and
+        # multi-step is ignored while it is on), as in the JAX batcher.
+        self.lookahead = lookahead if sampling.temperature <= 0.0 else 0
         self._prefilling = None
         self._reserved_slot = None
         self.token = torch.full((max_slots,), cfg.decoder.pad_token_id, dtype=torch.int64,
@@ -149,6 +154,11 @@ class ContinuousBatcher:
         self.budget = np.zeros(max_slots, np.int64)
         self.slot_req: List[Optional[_Request]] = [None] * max_slots
         self.slot_len = np.zeros(max_slots, np.int64)
+        # Per-slot token history for n-gram lookup (vocabulary tokens only).
+        self.slot_hist: List[list] = [[] for _ in range(max_slots)]
+        self.verify_steps = 0  # speculative scheduler steps run
+        self.proposed = 0      # tokens proposed over those steps
+        self.accepted = 0      # proposals accepted
         self.pending: "queue.Queue[_Request]" = queue.Queue()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._next_id = 0
@@ -249,6 +259,9 @@ class ContinuousBatcher:
         self.active[slot] = True
         self.budget[slot] = req.max_new_tokens - 1
         self.token[slot] = tok
+        # Lookup history: image sentinels (< 0) are placeholders, and an
+        # n-gram crossing one is meaningless.
+        self.slot_hist[slot] = [int(t) for t in req.input_ids if t >= 0] + [tok]
         if req.max_new_tokens <= 0:
             # Explicit zero-token request: prefill ran (and sampled), but
             # nothing is emitted, as on the serialized path.
@@ -352,6 +365,90 @@ class ContinuousBatcher:
 
     def step(self) -> int:
         raise NotImplementedError
+
+    # -- speculation ------------------------------------------------------------
+
+    def _step_verify(self) -> int:
+        """One speculative scheduler step: column 0 of the verify batch is
+        every slot's pending token (what a decode step would have decoded),
+        later columns that slot's prompt-lookup proposals, capped by its
+        budget and the cache. All slots verify in one multi-token append;
+        each commits its accepted prefix and carries the first mismatching
+        greedy token as its next pending token, so the tokens equal plain
+        greedy decoding's. Returns the number of active slots stepped."""
+        S = self.lookahead + 1
+        B = self.max_slots
+        toks = np.full((B, S), self.cfg.decoder.pad_token_id, np.int64)
+        # Column 0 is valid for EVERY slot (active or not); the host's
+        # lengths overwrite below roll the inactive slots' rows back.
+        valid = np.zeros((B, S), bool)
+        valid[:, 0] = True
+        token_host = self.token.cpu().numpy().copy()
+        props: List[Optional[np.ndarray]] = [None] * B
+        for slot in range(B):
+            if not self.active[slot]:
+                continue
+            toks[slot, 0] = token_host[slot]
+            cap = max(0, min(self.lookahead, int(self.budget[slot]) - 1,
+                             self.cache_len - int(self.slot_len[slot]) - 1))
+            if cap <= 0:
+                continue
+            prop = _propose_lookup(np.asarray(self.slot_hist[slot]), span=cap)
+            if prop is None or not len(prop):
+                continue
+            prop = np.asarray(prop[:cap], np.int64)
+            toks[slot, 1 : 1 + len(prop)] = prop
+            valid[slot, 1 : 1 + len(prop)] = True
+            props[slot] = prop
+
+        greedy = self._verify_device(toks, valid)
+
+        stepped = 0
+        for slot in range(B):
+            if not self.active[slot]:
+                continue
+            stepped += 1
+            prop = props[slot] if props[slot] is not None else np.zeros(0, np.int64)
+            n_ok = 0
+            while n_ok < len(prop) and greedy[slot, n_ok] == prop[n_ok]:
+                n_ok += 1
+            self.proposed += len(prop)
+            self.accepted += n_ok
+            emitted = [int(t) for t in prop[:n_ok]] + [int(greedy[slot, n_ok])]
+            # The pools now hold pending + accepted proposals; the last
+            # emitted token is the NEW pending one (not yet written).
+            self.slot_len[slot] += 1 + n_ok
+            finished = False
+            for t in emitted:
+                if t == self.sampling.eos_token_id:
+                    finished = True
+                    break
+                self._emit(self.slot_req[slot], t)
+                self.slot_hist[slot].append(t)
+                self.budget[slot] -= 1
+                if self.budget[slot] <= 0:
+                    finished = True
+                    break
+            if finished:
+                self._finish(slot)
+            else:
+                token_host[slot] = emitted[-1]
+        # The host is the source of truth for lengths: every slot rolls back
+        # to its accepted prefix (and the inactive slots' dummy rows go).
+        self._verify_rollback()
+        self.token.copy_(torch.as_tensor(token_host, device=self.device))
+        self.verify_steps += 1
+        return stepped
+
+    def _verify_device(self, toks: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """Append and verify `toks` [B, S] (`valid` marks real proposals);
+        returns the greedy token of every position [B, S] on the host. The
+        dense batcher's form is step 7b; `PagedBatcher` overrides it."""
+        raise not_ported("the dense batcher's verify step", "Queue A step 7b")
+
+    def _verify_rollback(self) -> None:
+        """Set the device lengths to the host's committed `slot_len`."""
+        raise not_ported("the dense batcher's verify step", "Queue A step 7b")
 
     def run_until_drained(self, max_steps: int = 100000) -> None:
         for _ in range(max_steps):

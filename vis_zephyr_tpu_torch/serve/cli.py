@@ -30,6 +30,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load-8bit", action="store_true", help="int8 weight-only decoder and Q-Former")
     p.add_argument("--load-4bit", action="store_true",
                    help="int4 weight-only decoder (group-128 scales), int8 Q-Former")
+    p.add_argument("--lookahead", type=int, default=0,
+                   help="prompt-lookup speculative decoding span (greedy only; 0 disables)")
     return p
 
 
@@ -43,7 +45,8 @@ def main(args=None):
         raise SystemExit("could not load a tokenizer; pass --model-base or a "
                          "--model-path with tokenizer files")
     engine = ChatEngine(model, cfg, tokenizer, conv_mode=args.conv_mode,
-                        temperature=args.temperature, max_new_tokens=args.max_new_tokens)
+                        temperature=args.temperature, max_new_tokens=args.max_new_tokens,
+                        lookahead=args.lookahead)
     image = load_image(args.image_file)
     first = True
     print("Loaded. Type your message (ctrl-d to exit).")

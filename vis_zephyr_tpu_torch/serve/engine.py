@@ -9,9 +9,10 @@ Port of `vis_zephyr_tpu/serve/engine.py`. Two modes:
   sessions share decode steps in a `PagedBatcher`, advanced by one
   background pump thread.
 
-A session's image is preprocessed once and kept on the device. Not ported
+`lookahead` (prompt-lookup speculation, greedy only) reaches both. A
+session's image is preprocessed once and kept on the device. Not ported
 yet, each raising `NotImplementedError` when asked for: the dense batcher
-(`kv_cache="dense"` under continuous batching), speculation, multi-step
+(`kv_cache="dense"` under continuous batching), a draft model, multi-step
 bursts, meshes, adapters, metrics, the prefix cache and lazy allocation;
 draining and the OpenAI endpoints are not ported either.
 """
@@ -80,6 +81,8 @@ class ChatEngine:
             temperature=temperature,
             eos_token_id=cfg.decoder.eos_token_id if eos is None else int(eos),
         )
+        # Prompt-lookup speculation: the serialized path and the paged batcher.
+        self.lookahead = lookahead
         self.sessions: Dict[str, Dict] = {}
         self._sessions_lock = threading.Lock()
         self._lock = threading.Lock()  # one generation at a time
@@ -94,9 +97,9 @@ class ChatEngine:
             raise ValueError(f"kv_cache must be 'dense' or 'paged', got {kv_cache!r}")
         if lazy_alloc and (not continuous_batching or kv_cache != "paged"):
             raise ValueError("lazy_alloc requires continuous batching with kv_cache='paged'")
+        if draft_params is not None or draft_cfg is not None:
+            raise not_ported("a draft model", "Queue A step 9")
         if continuous_batching:
-            if draft_params is not None or draft_cfg is not None:
-                raise not_ported("a draft model", "Queue A step 9")
             if kv_cache == "paged":
                 from .paged import PagedBatcher
 
@@ -118,9 +121,8 @@ class ChatEngine:
             for value, what, step in (
                     (mesh, "a device mesh", "Queue A step 13"),
                     (metrics, "ServingMetrics", "Queue A step 10"),
-                    (lookahead, "speculative decoding (lookahead)", "Queue A step 9"),
-                    (draft_params, "a draft model", "Queue A step 9"),
-                    (multi_step > 1, "multi-step bursts", "Queue A step 7, to do"),
+                    (multi_step > 1 and not (lookahead > 0 and temperature <= 0.0),
+                     "multi-step bursts", "Queue A step 7, to do"),
                     (mlora, "multi-LoRA serving", "Queue A step 10")):
                 if value:
                     raise not_ported(what, step)
@@ -256,7 +258,8 @@ class ChatEngine:
         else:
             self._lock.acquire()
             stream = generate_stream(self.model, input_ids, sess["images"],
-                                     sess["patch_valid"], self.cfg, self.sampling)
+                                     sess["patch_valid"], self.cfg, self.sampling,
+                                     lookahead=self.lookahead)
         try:
             for tok in stream:
                 produced.append(tok)

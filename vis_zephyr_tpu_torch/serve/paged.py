@@ -2,8 +2,9 @@
 high-slot-count serving.
 
 Port of `vis_zephyr_tpu/serve/paged.py`: `PageAllocator`, `_admit_paged`,
-`_admit_paged_q`, `_clear_row`, `_paged_step` (mode "selfterm") and
-`PagedBatcher` with eager full-span page allocation.
+`_admit_paged_q`, `_clear_row`, `_paged_step` (mode "selfterm"),
+`_paged_verify_step` (prompt-lookup speculation) and `PagedBatcher` with
+eager full-span page allocation.
 
 A dense per-slot cache pays for `cache_len` tokens per slot whether used or
 not. Here K/V live as fixed-size pages in pools shared by all slots and are
@@ -22,6 +23,10 @@ addressed through per-slot page tables, so a request occupies only
   paged-attention kernel over the read-only pools with the current token's
   K/V as an online-softmax self-term, and after the layer loop all layers'
   rows are written by one launch (`paged_kv_update_rows{,_q}`).
+- the speculative verify step (`lookahead`) writes its S = lookahead + 1
+  candidate rows first, one single-layer row write per row and layer
+  (`paged_kv_update{,_q}`), then attends all S rows at once without a
+  self-term; the host then rolls `lengths` back to the accepted prefix.
 - int8 KV (`kv_quant=True`): pools hold int8 rows with per-row absmax scales
   (row ≈ int8 · scale / 127.5). Admission quantizes on write, the decode
   write quantizes in the kernel, and the attention kernel folds the scales
@@ -37,9 +42,8 @@ The JAX programs return new pools and rely on donation. Here pools,
 
 Not ported yet, each raising `NotImplementedError` when asked for: meshes and
 the TP wrappers, multi-LoRA, grammars, logprobs, penalties, per-slot sampling
-overrides, speculation (`lookahead`, `draft`, the verify step), multi-step
-bursts, the prefix cache, lazy allocation with host swap, metrics, and mode
-"writefirst".
+overrides, a draft model, multi-step bursts, the prefix cache, lazy
+allocation with host swap, metrics, and mode "writefirst".
 """
 
 from __future__ import annotations
@@ -55,8 +59,8 @@ import torch
 from ..config import VisZephyrConfig
 from ..models.mistral import _project_qkv, embed, rms_norm, rope_cos_sin
 from ..models.vis_zephyr import VisZephyr
-from ..ops.paged_attention import (paged_attention_fa, paged_kv_update_rows,
-                                   paged_kv_update_rows_q, quantize_kv)
+from ..ops.paged_attention import (paged_attention_fa, paged_kv_update, paged_kv_update_q,
+                                   paged_kv_update_rows, paged_kv_update_rows_q, quantize_kv)
 from .batching import ContinuousBatcher, _prefill_kv, _Request, not_ported
 from .generate import SamplingConfig, _sample
 
@@ -262,6 +266,78 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
     return next_token, logits
 
 
+@torch.no_grad()
+def _paged_verify_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, toks,
+                       active, cfg: VisZephyrConfig):
+    """Batched speculative verify over the paged pools: append S candidate
+    rows per slot (column 0 the slot's pending token, later columns its
+    proposals) in ONE cached forward and return the greedy token of every
+    position.
+
+    Per layer, each candidate row's K/V is written into the pools first (S
+    single-layer row writes, `paged_kv_update{,_q}`: int8 pools quantize
+    them), then all S rows attend at once (`paged_attention_fa` with S rows
+    and no self-term: row j at position `lengths + j` attends causally
+    through the pool, rows j' ≤ j included).
+
+    Rows past a slot's allocated span land on the trash page (unallocated
+    table entries are 0), and rows past `cache_len` are FORCED there:
+    clamping their page index would overwrite the slot's last committed
+    page. Inactive slots write their S pad rows to page 0 and attend them.
+    The caller overwrites `lengths` with the accepted prefix. The pools are
+    updated IN PLACE; `lengths` is not. Returns (greedy [B, S], logits
+    [B, S, V] f32). (The JAX step's mesh and multi-LoRA arguments come with
+    those features, Queue A steps 13 and 10.)"""
+    dec = cfg.decoder
+    decoder = model.decoder
+    L = dec.num_layers
+    P = kp.shape[0] // L
+    ps = kp.shape[2] // 2 if vp is None else kp.shape[2]
+    B, S = toks.shape
+    dev = toks.device
+    pps = page_table.shape[1]
+
+    lengths_eff = torch.where(active, lengths, torch.zeros_like(lengths))
+    pos = lengths_eff[:, None] + torch.arange(S, dtype=lengths.dtype, device=dev)[None, :]
+    cos, sin = rope_cos_sin(pos, dec.head_dim, dec.rope_theta)
+    h = embed(decoder, toks)
+
+    cache_len = pps * ps
+    row_idx = pos // ps
+    in_range = row_idx < pps
+    pages = torch.gather(page_table, 1, torch.clamp(row_idx, max=pps - 1).long())
+    pages = torch.where(active[:, None] & in_range, pages, torch.zeros_like(pages))
+    pages = pages.T.contiguous()                     # [S, B] within-layer ids
+    offsets = (pos % ps).T.contiguous()              # [S, B]
+    # Clamp so the page walk never runs past the table (padding rows of a
+    # nearly full slot would otherwise push it over).
+    lengths_attn = torch.clamp(lengths_eff + S, max=cache_len)
+    sw = dec.sliding_window
+    window = sw if (sw is not None and cache_len > sw) else None
+
+    ksp, vsp = scales
+    for i, layer in enumerate(decoder.model.layers):
+        hn = rms_norm(h, layer.input_layernorm.weight, dec.rms_norm_eps)
+        q, k, v = _project_qkv(hn, layer.self_attn, dec, cos, sin)
+        for s in range(S):
+            page_ids = (pages[s] + i * P)[None]         # [1, B] absolute
+            k_s, v_s = k[:, s][None].contiguous(), v[:, s][None].contiguous()
+            if ksp is None:
+                paged_kv_update(kp, vp, k_s, v_s, page_ids, offsets[s])
+            else:
+                paged_kv_update_q(kp, vp, ksp, vsp, k_s, v_s, page_ids, offsets[s])
+        attn = paged_attention_fa(q, kp, vp, page_table, lengths_attn, lengths_eff,
+                                  sliding_window=window, k_scales=ksp, v_scales=vsp,
+                                  page_offset=i * P)
+        h = h + layer.self_attn.o_proj(attn.reshape(B, S, -1))
+        hn = rms_norm(h, layer.post_attention_layernorm.weight, dec.rms_norm_eps)
+        h = h + layer.mlp(hn)
+
+    h = rms_norm(h, decoder.model.norm.weight, dec.rms_norm_eps)
+    logits = decoder.lm_head(h).float()
+    return torch.argmax(logits, dim=-1), logits
+
+
 class PagedBatcher(ContinuousBatcher):
     """Continuous batcher on paged KV pools.
 
@@ -273,7 +349,9 @@ class PagedBatcher(ContinuousBatcher):
     decode step reads). `kv_fused`: ONE pool array holding each page's K rows
     then its V rows; token-exact with the split layout. `prefill_chunk`:
     admit prompts in chunks of this many tokens, one chunk per scheduler
-    step; None prefills a whole prompt at admission."""
+    step; None prefills a whole prompt at admission. `lookahead`:
+    prompt-lookup speculation, greedy only (`_paged_verify_step` each
+    scheduler step)."""
 
     def __init__(self, model: VisZephyr, cfg: VisZephyrConfig, max_slots: int = 32,
                  cache_len: int = 2048, sampling: SamplingConfig = SamplingConfig(),
@@ -319,14 +397,25 @@ class PagedBatcher(ContinuousBatcher):
         self.lengths = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         self.slot_pages: List[List[int]] = [[] for _ in range(max_slots)]
         self._requeued: deque = deque()  # head-of-queue retries (no pages free)
-        self.last_logits: Optional[torch.Tensor] = None  # [max_slots, V] of the last step
-        self.steps = 0          # decode steps run
-        self.slots_stepped = 0  # active slots summed over those steps
+        # [max_slots, V] of the last decode step; [max_slots, S, V] of the
+        # last verify step.
+        self.last_logits: Optional[torch.Tensor] = None
+        self.steps = 0          # decode steps run (verify steps: `verify_steps`)
+        self.slots_stepped = 0  # active slots summed over decode and verify steps
 
     @property
     def has_work(self) -> bool:
         return (self.active.any() or not self.pending.empty()
                 or bool(self._requeued) or self._prefilling is not None)
+
+    @property
+    def _headroom(self) -> int:
+        """Rows a slot can append in ONE scheduler step (a decode step, or a
+        `lookahead + 1`-row verify): the growth that lazy allocation (Queue A
+        step 10) must have page-backed before a step. Eager allocation
+        claims the whole span at admission, and proposals are capped by the
+        budget, so every valid row lies inside it."""
+        return self.lookahead + 1
 
     def _next_request(self) -> Optional[_Request]:
         if self._requeued:
@@ -403,6 +492,10 @@ class PagedBatcher(ContinuousBatcher):
             self._admit_pending()
         if not self.active.any():
             return 0
+        if self.lookahead > 0:
+            stepped = self._step_verify()
+            self.slots_stepped += stepped
+            return stepped
         active = torch.as_tensor(self.active, device=self.device)
         _, self.last_logits = _paged_step(
             self.model, self.kp, self.vp, (self.ksp, self.vsp), self.page_table, self.lengths,
@@ -425,3 +518,16 @@ class PagedBatcher(ContinuousBatcher):
         self.steps += 1
         self.slots_stepped += stepped
         return stepped
+
+    def _verify_device(self, toks: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """The paged verify: all S rows of every slot are written (rows past
+        the accepted prefix are rolled back by `_verify_rollback`); `valid`
+        only drives the host's acceptance loop."""
+        greedy, self.last_logits = _paged_verify_step(
+            self.model, self.kp, self.vp, (self.ksp, self.vsp), self.page_table, self.lengths,
+            torch.as_tensor(toks, device=self.device),
+            torch.as_tensor(self.active, device=self.device), self.cfg)
+        return greedy.cpu().numpy()
+
+    def _verify_rollback(self) -> None:
+        self.lengths.copy_(torch.as_tensor(self.slot_len.astype(np.int32), device=self.device))
