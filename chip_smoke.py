@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch port's serving paths: one request at a time
 over a dense cache, and continuous batching over int8 KV-fused page pools,
 each with bf16 weights, int8 weights (`--load-8bit`) and int4 weights
-(`--load-4bit`), and each with prompt-lookup speculation (`--lookahead`).
+(`--load-4bit`), and each with prompt-lookup speculation (`--lookahead`);
+and of its trainer, stage 1 and stage 2.
 
     python3 chip_smoke.py [--seed N] [--max-new-tokens N] [--profile] [--phases a,b]
 
@@ -14,7 +15,13 @@ toolkit; exits non-zero on a machine without a card. Phases:
 3. K1      — flash_fwd against its plain version (f32 from the same bf16
              inputs): causal T=S 256 and 2048, non-causal, and B=2 with
              right-padded keys plus a row that has no valid key;
-             output max-abs <= 2e-2, logsumexp max-abs <= 1e-2;
+             output max-abs <= 2e-2, logsumexp max-abs <= 1e-2; then K7
+             (dK, dV) and K8 (dQ) in the same four cases against
+             `flash_attention_bwd_plain` in f32 on the same bf16 inputs and
+             K1's m and l: per tensor max-abs <= 1e-2 of its largest value
+             and cosine >= 0.9999, dQ exactly 0 on the row without a key and
+             dK = dV = 0 on invalid keys; kernel, plain, bound and the
+             backward of `scaled_dot_product_attention` at T=S 256 and 2048;
 4. K2      — dense_cache_append against its plain version, bit-exact, at the
              decode step's shape (T=1), a clamped tail, and chunked admission's
              (B=1, T=256 into a scratch cache, one chunk ending at the cache's
@@ -108,10 +115,23 @@ toolkit; exits non-zero on a machine without a card. Phases:
              printed, not gated: random weights say nothing of int4's
              quality); K6 (224 per decoder pass of at most 128 rows), its
              dequantize route (224 per longer pass) and K5 (the Q-Former's
-             rows) counted exactly.
+             rows) counted exactly;
+17. train  — the served model freed, stage 1 through the trainer's entry
+             point `train/train.py::train` at full width with random bf16
+             weights from the seed: 3 steps of 8 `<image>` captions (4 anyres
+             crops each, seeded pixels through the `dataset` seam, captions
+             long enough that `model_max_length` 2048 truncates the splice),
+             remat on; loss, grad_norm, step time and tokens/s per step, peak
+             memory, the final saves' seconds and bytes (into a temporary
+             directory, removed); one more step under torch.profiler for the
+             device's idle share; one stage-1 step of 2 rows on the kernel
+             path and on the plain path (loss within 1e-3 relative, projector
+             gradient cosine >= 0.999); stage 2 (LoRA r=128, alpha=256,
+             dropout 0.05) through `make_train_step` for 2 steps; K1 = 64,
+             K7 = K8 = 32 launches per micro-step, exactly.
 
 `--phases` runs a subset (kernels, slice1, paged, batch, spec, profile,
-precision, int8, int4) and then prints no result line. After a full run the line before
+precision, int8, int4, train) and then prints no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
 """
@@ -122,6 +142,7 @@ import argparse
 import gc
 import http.client
 import json
+import math
 import statistics
 import subprocess
 import threading
@@ -281,6 +302,93 @@ def check_flash(gen) -> dict:
                   f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
                   f"bound {least:.5f} ms by {by}, median of 20")
     return {"max_abs_err": worst, "times": times}
+
+
+def check_flash_bwd(gen) -> dict:
+    """K7 (dK, dV) and K8 (dQ) against `flash_attention_bwd_plain` run in f32
+    on the same bf16 inputs and K1's m and l, in K1's four cases. Gate per
+    tensor: max-abs error <= 1e-2 of the tensor's largest |value| and cosine
+    >= 0.9999; the q row with no valid key gives dQ = 0 and invalid keys dK =
+    dV = 0, exactly. Timed at causal B=1, T=S=256 and 2048 against the plain
+    versions, the bound and the backward of `scaled_dot_product_attention`."""
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+
+    dev = "cuda"
+    Hq, Hkv, D = 32, 8, 128
+    S_row = torch.arange(256, device=dev)
+    padded = torch.stack([S_row < 200, (S_row >= 1) & (S_row < 230)])  # b=1, q row 0: no key
+    cases = [
+        ("causal T=S=256", 1, 256, 256, True, None),
+        ("causal T=S=2048", 1, 2048, 2048, True, None),
+        ("non-causal T=256 S=512", 1, 256, 512, False, None),
+        ("causal B=2 padded kv_valid", 2, 256, 256, True, padded),
+    ]
+    out = {"dkv": {"max_abs_err": 0.0, "times": {}}, "dq": {"max_abs_err": 0.0, "times": {}}}
+    for name, B, T, S, causal, kv_valid in cases:
+        q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+        do = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+        if kv_valid is None:
+            kv_valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+        scale = D ** -0.5
+        o, m, l = fa.flash_attention_fwd(q, k, v, kv_valid, causal, scale)
+        di = fa.row_dot(o, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, kv_valid, do, m, l, di, causal, scale)
+        dq = fa.flash_attention_bwd_dq(q, k, v, kv_valid, do, m, l, di, causal, scale)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), kv_valid, o.float(),
+                                           m, l, do.float(), causal, scale)
+        parts = []
+        for tname, kernel, got, want in (("dQ", "dq", dq, ref[0]), ("dK", "dkv", dk, ref[1]),
+                                         ("dV", "dkv", dv, ref[2])):
+            err = float((got.float() - want).abs().max())
+            top = float(want.abs().max())
+            cos = cosine(got, want)
+            parts.append(f"{tname} max-abs {err:.3e} (<= {1e-2 * top:.3e}) cosine {cos:.6f}")
+            if not (err <= 1e-2 * top and cos >= 0.9999):
+                raise AssertionError(f"K7/K8 {name}: {tname} disagrees with the plain version "
+                                     f"(max-abs {err:.3e} of {top:.3e}, cosine {cos:.6f})")
+            out[kernel]["max_abs_err"] = max(out[kernel]["max_abs_err"], err)
+        empty = ~fa._mask(kv_valid, T, S, causal)[:, 0].any(dim=-1)          # [B, T]
+        if bool(empty.any()) and float(dq[empty].abs().max()) != 0.0:
+            raise AssertionError(f"K8 {name}: dQ is not 0 on a row with no valid key")
+        if bool((~kv_valid).any()) and (float(dk[~kv_valid].abs().max()) != 0.0
+                                        or float(dv[~kv_valid].abs().max()) != 0.0):
+            raise AssertionError(f"K7 {name}: dK or dV is not 0 on an invalid key")
+        print(f"K7/K8 {name}: {'; '.join(parts)}; rows without a key: {int(empty.sum())}, "
+              f"invalid keys: {int((~kv_valid).sum())}")
+        if causal and B == 1:
+            args = (q, k, v, kv_valid, do, m, l, di, causal, scale)
+            dkv_ms = median_ms(lambda: fa.flash_attention_bwd_dkv(*args))
+            dq_ms = median_ms(lambda: fa.flash_attention_bwd_dq(*args))
+            dkv_plain = median_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args))
+            dq_plain = median_ms(lambda: fa.flash_attention_bwd_dq_plain(*args))
+            # The yardstick (never on the port's path): the library's fused
+            # attention backward alone, its forward taken once outside the timing.
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            o_lib = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+            g_lib = do.transpose(1, 2)
+            library_ms = median_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib,
+                                                               retain_graph=True))
+            del o_lib
+            rows = 4 * 3 * B * Hq * T  # m, l, di in f32
+            pairs = 2 * B * Hq * T * S * D / 2  # one product's FLOPs, half the pairs
+            dkv_bound = bound_ms(2 * (q.numel() + do.numel() + 2 * k.numel() + 2 * v.numel())
+                                 + rows, 4 * pairs)
+            dq_bound = bound_ms(2 * (2 * q.numel() + do.numel() + k.numel() + v.numel())
+                                + rows, 3 * pairs)
+            for kernel, ms, plain, (least, by) in (("dkv", dkv_ms, dkv_plain, dkv_bound),
+                                                  ("dq", dq_ms, dq_plain, dq_bound)):
+                out[kernel]["times"][T] = dict(ms=ms, plain_ms=plain, library_ms=library_ms,
+                                               bound_ms=least, bound_by=by)
+            print(f"K7/K8 {name}: K7 {dkv_ms:.4f} ms, plain {dkv_plain:.4f} ms, bound "
+                  f"{dkv_bound[0]:.5f} ms by {dkv_bound[1]}; K8 {dq_ms:.4f} ms, plain "
+                  f"{dq_plain:.4f} ms, bound {dq_bound[0]:.5f} ms by {dq_bound[1]}; "
+                  f"scaled_dot_product_attention backward (dQ, dK, dV together) "
+                  f"{library_ms:.4f} ms; median of 20")
+    return out
 
 
 def check_cache_append(gen) -> dict:
@@ -1878,7 +1986,242 @@ def run_profile(model, cfg, seed: int, card: str, label: str = "profile",
         print(f"{label}: the profiler reported no device time")
 
 
-PHASES = ("kernels", "slice1", "paged", "batch", "spec", "profile", "precision", "int8", "int4")
+# -- training ------------------------------------------------------------------------
+
+TRAIN_BATCH = 8        # bench.py's stage-1 batch
+TRAIN_STEPS = 3        # stage-1 optimizer steps through train()
+LORA_STEPS = 2         # stage-2 steps through make_train_step
+CAPTION_WORDS = 2100   # over 2048 - 4 * 32 text tokens: the splice is truncated at 2048
+
+
+class CaptionDataset:
+    """Stage-1 records in memory for `train(dataset=...)`: `<image>` and a
+    caption of CAPTION_WORDS words, through the port's `preprocess` (the
+    plain template) and WordTokenizer, with seeded pixels of 4 anyres crops
+    in place of an image file (the card's machine has no PIL). Long enough
+    that `model_max_length` 2048 truncates the spliced sequence, as
+    `bench.py`'s train cell does: only then is the length a multiple of 128
+    and the flash kernels run."""
+
+    def __init__(self, tokenizer, n: int, seed: int, side: int = 336, crops: int = 4):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.tokenizer, self.n, self.seed, self.side, self.crops = tokenizer, n, seed, side, crops
+        self.captions = [make_question(rng, CAPTION_WORDS) for _ in range(n)]
+        self.lengths = [CAPTION_WORDS + 128] * n
+        self.modality_lengths = [CAPTION_WORDS] * n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> dict:
+        import numpy as np
+
+        from vis_zephyr_tpu_torch.conversation import templates
+        from vis_zephyr_tpu_torch.data.tokenization import preprocess
+
+        turns = [{"from": "human", "value": "<image>\n"}, {"from": "gpt", "value": self.captions[i]}]
+        out = preprocess([turns], self.tokenizer, has_image=True, conv=templates["plain"])
+        pixels = np.random.default_rng((self.seed, i)).standard_normal(
+            (self.crops, self.side, self.side, 3), dtype=np.float32) * 0.5
+        return {"input_ids": out["input_ids"][0], "labels": out["labels"][0], "images": pixels,
+                "patch_valid": np.ones(self.crops, bool)}
+
+
+def reset_flash() -> None:
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+
+    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+
+
+def read_flash() -> dict:
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+
+    return dict(k1=fa.launches, k7=fa.bwd_dkv_launches, k8=fa.bwd_dq_launches)
+
+
+def expect_flash(got: dict, micro_steps: int, cfg, label: str) -> None:
+    """With remat, a micro-step runs K1 twice a layer (forward and recompute)
+    and K7 and K8 once a layer."""
+    L = cfg.decoder.num_layers
+    want = dict(k1=2 * L * micro_steps, k7=L * micro_steps, k8=L * micro_steps)
+    print(f"{label}: launches K1 flash_fwd {got['k1']} (want {want['k1']}), K7 flash_bwd_dkv "
+          f"{got['k7']} (want {want['k7']}), K8 flash_bwd_dq {got['k8']} (want {want['k8']})")
+    if got != want:
+        raise AssertionError(f"{label}: flash launch counts {got} != {want}")
+
+
+def profile_step(step, state, batch, card: str, label: str) -> None:
+    """One train step under torch.profiler: its wall (host clock, ending in a
+    synchronize), device busy time (kernel sums on one stream), idle share
+    and largest device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):  # the attribute's name changed between PyTorch releases
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    rows = sorted(((e.key, device_us(e) / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"{label}: one step under the profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+          f"idle share {1 - busy / wall:.3f} [{card}]")
+    for key, ms, count in rows[:8]:
+        print(f"{label}:   {ms:9.2f} ms  {count:6d} launches  {key[:90]}")
+    if busy <= 0:
+        print(f"{label}: the profiler reported no device time")
+
+
+def grad_cosine(xs, ys) -> float:
+    """Cosine of two gradient lists taken as one vector each, summed tensor by
+    tensor in f64 (a 1.68 B-element f64 copy would not fit beside the model)."""
+    dot = na = nb = 0.0
+    for a, b in zip(xs, ys):
+        a, b = a.double(), b.double()
+        dot += float((a * b).sum())
+        na += float(a.square().sum())
+        nb += float(b.square().sum())
+    return dot / math.sqrt(na * nb)
+
+
+def run_train(seed: int, card: str) -> dict:
+    """(a) stage 1 through `train()` at full width, bf16, random weights from
+    the seed, TRAIN_STEPS steps of TRAIN_BATCH with remat; (c) one stage-1
+    step of 2 rows on the kernel path and on the plain path; (b) stage 2 (LoRA
+    r=128, α=256, dropout 0.05) through `make_train_step`, LORA_STEPS steps of
+    the same batch shape. Flash launch counts are checked exactly."""
+    import os
+    import shutil
+    import tempfile
+
+    from vis_zephyr_tpu_torch.config import VisZephyrConfig
+    from vis_zephyr_tpu_torch.data.dataset import Collator
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.train import train as ttrain
+    from vis_zephyr_tpu_torch.train.lora import LoraConfig, add_lora
+    from vis_zephyr_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
+    from vis_zephyr_tpu_torch.train.steps import init_train_state, loss_fn, make_train_step
+
+    cfg = VisZephyrConfig()
+    T = cfg.tokenizer_model_max_length
+    tok = WordTokenizer(cfg.decoder.vocab_size)
+    data = CaptionDataset(tok, TRAIN_BATCH * TRAIN_STEPS, seed)
+    collate = Collator(pad_token_id=cfg.decoder.pad_token_id, max_length=T)
+
+    def batch_of(indices):
+        return {k: torch.from_numpy(v).cuda() for k, v in collate([data[i] for i in indices]).items()}
+
+    # (a) stage 1 through the trainer's entry point; its saves timed.
+    out = tempfile.mkdtemp(prefix="vzt_train_")
+    saves = []
+    real_save = ttrain.save_checkpoint
+
+    def timed_save(output_dir, state, step, projector_only=False, metadata=None):
+        t0 = time.perf_counter()
+        path = real_save(output_dir, state, step, projector_only=projector_only, metadata=metadata)
+        n_bytes = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+        saves.append(("projector" if projector_only else "full state", time.perf_counter() - t0,
+                      n_bytes))
+        return path
+
+    args = ttrain.TrainArguments(stage="1", output_dir=out, per_device_batch_size=TRAIN_BATCH,
+                                 max_steps=TRAIN_STEPS, save_steps=10 ** 6, logging_steps=1,
+                                 remat=True, resume=False, dtype="bfloat16", seed=seed,
+                                 model_max_length=T, device="cuda")
+    ttrain.save_checkpoint = timed_save
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash()
+        t0 = time.perf_counter()
+        state = ttrain.train(args, tok, cfg=cfg, dataset=data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stage1 = read_flash()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(os.path.join(out, "benchmark.csv")) as f:
+            bench_csv = f.read().strip().splitlines()[-1]
+    finally:
+        ttrain.save_checkpoint = real_save
+        shutil.rmtree(out, ignore_errors=True)
+    if len(rows) != TRAIN_STEPS or not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                                           for r in rows):
+        raise AssertionError(f"train stage 1: metrics {rows}")
+    for r in rows:
+        print(f"train stage 1 (train(), B={TRAIN_BATCH}, T={T}, remat): step {r['step']} loss "
+              f"{r['loss']:.4f} grad_norm {r['grad_norm']:.4f} step {r['step_time_s']:.3f} s, "
+              f"{TRAIN_BATCH * T / r['step_time_s']:.0f} tokens/s "
+              f"({r['tokens'] / r['step_time_s']:.0f} target tokens/s) [{card}]")
+    print(f"train stage 1: {wall:.1f} s in train() for {TRAIN_STEPS} steps and the final saves; "
+          f"peak torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; benchmark.csv row "
+          f"{bench_csv}")
+    for kind, seconds, n_bytes in saves:
+        print(f"train stage 1: final {kind} save {seconds:.2f} s, {n_bytes / 2**30:.3f} GiB")
+    expect_flash(stage1, TRAIN_STEPS, cfg, "train stage 1")
+
+    model = state["params"]
+    big = batch_of(range(TRAIN_BATCH))
+    # The device's idle share in a stage-1 step (an extra update).
+    step = make_train_step(model, cfg, state["opt_state"], remat=True)
+    profile_step(step, state, big, card, "train stage 1")
+
+    # (c) one stage-1 step, kernels against their plain versions: the loss
+    # and the projector's gradients on the same weights and batch.
+    small = batch_of(range(2))
+    proj = list(model.projector.parameters())
+
+    def loss_and_grads():
+        loss, _ = loss_fn(model, small, cfg, remat=True)
+        return float(loss.detach()), torch.autograd.grad(loss, proj)
+
+    reset_flash()
+    k_loss, k_grads = loss_and_grads()
+    expect_flash(read_flash(), 1, cfg, "train kernel vs plain (B=2), kernel path")
+    with _kernels.plain_versions():
+        p_loss, p_grads = loss_and_grads()
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    cos = grad_cosine(k_grads, p_grads)
+    print(f"train kernel vs plain (B=2, stage 1): loss {k_loss:.6f} vs {p_loss:.6f} (relative "
+          f"{rel:.2e}, <= 1e-3), projector gradient cosine {cos:.6f} (>= 0.999)")
+    if not (rel <= 1e-3 and cos >= 0.999):
+        raise AssertionError("train: the kernel path disagrees with the plain path")
+    del k_grads, p_grads, state, big, step
+
+    # (b) stage 2: LoRA adapters on the same model through make_train_step.
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_lora(model, LoraConfig(r=128, alpha=256), torch.Generator("cuda").manual_seed(seed + 1))
+    opt = build_optimizer(model, OptimizerConfig(total_steps=LORA_STEPS), stage="2")
+    n_lora = sum(p.numel() for p in opt.params)
+    step = make_train_step(model, cfg, opt, remat=True, lora_dropout=0.05, dropout_seed=seed)
+    state = init_train_state(model, opt)
+    reset_flash()
+    for i in range(LORA_STEPS):
+        batch = batch_of(range(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH))
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        seconds = time.perf_counter() - t0
+        print(f"train stage 2 (LoRA r=128, alpha=256, dropout 0.05, {n_lora / 1e6:.1f} M adapter "
+              f"params, B={TRAIN_BATCH}, T={T}): step {i + 1} loss {loss:.4f} grad_norm "
+              f"{norm:.4f} {seconds:.3f} s [{card}]")
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError("train stage 2: a non-finite loss or grad_norm")
+    stage2 = read_flash()
+    expect_flash(stage2, LORA_STEPS, cfg, "train stage 2")
+    return {"train": stage1, "train_lora": stage2}
+
+
+PHASES = ("kernels", "slice1", "paged", "batch", "spec", "profile", "precision", "int8", "int4", "train")
 
 
 def main(argv=None) -> None:
@@ -1923,6 +2266,8 @@ def main(argv=None) -> None:
     dense, dense8, int8_logits = {}, {}, None
     if "kernels" in phases:
         k1 = check_flash(gen)
+        k78 = check_flash_bwd(gen)
+        done("kernels K1, K7, K8")
         k2 = check_cache_append(gen)
         k3 = check_paged_attention(gen)
         k4 = check_paged_rows(gen)
@@ -1933,7 +2278,8 @@ def main(argv=None) -> None:
         done("kernels K5")
         k6 = check_quant_matmul_int4(gen)
         done("kernels K6")
-    if set(phases) - {"kernels"}:
+    model = None
+    if set(phases) - {"kernels", "train"}:
         model, cfg = build_model(args.seed)
     if "slice1" in phases:
         dense = run_slice(model, cfg, args.seed, args.max_new_tokens, card)
@@ -2013,6 +2359,16 @@ def main(argv=None) -> None:
         if "profile" in phases:
             run_profile(model, cfg, args.seed, card, label="int4 profile")
             done("int4 profile")
+    if "train" in phases:
+        # The trainer builds its own full-width model from the seed: the
+        # served one goes first.
+        del model
+        for run in (dense, dense8):
+            run.pop("precision_inputs", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        trained = run_train(args.seed, card)
+        done("train")
     if phases != full:
         print(f"partial run of phases {phases}: no result line")
         return
@@ -2023,12 +2379,14 @@ def main(argv=None) -> None:
     # says which run gave what.
     runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
             "dense_int4": dense4, "paged_int4": paged4, "spec_dense": spec_dense,
-            "spec_paged": spec_paged}
+            "spec_paged": spec_paged, "train": trained["train"],
+            "train_lora": trained["train_lora"]}
     by_path = {name: {path: run.get(key, 0) for path, run in runs.items()}
                for name, key in (("flash_fwd", "k1"), ("dense_cache_append", "k2"),
                                  ("paged_attn_decode", "k3"), ("paged_kv_rows", "k4"),
                                  ("quant_matmul_int8", "k5"), ("quant_matmul_int4", "k6"),
-                                 ("paged_kv_update", "kvu"))}
+                                 ("paged_kv_update", "kvu"), ("flash_bwd_dkv", "k7"),
+                                 ("flash_bwd_dq", "k8"))}
     # Each path must have gone through its own kernels (chunked admission
     # attends its scratch cache with plain attention, so K1 is the dense path's).
     dense_kernels = ("flash_fwd", "dense_cache_append")
@@ -2039,7 +2397,9 @@ def main(argv=None) -> None:
                "paged_int8": paged_kernels + ("quant_matmul_int8",),
                "dense_int4": dense_kernels + both, "paged_int4": paged_kernels + both,
                "spec_dense": dense_kernels,
-               "spec_paged": ("dense_cache_append", "paged_attn_decode", "paged_kv_update")}
+               "spec_paged": ("dense_cache_append", "paged_attn_decode", "paged_kv_update"),
+               "train": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+               "train_lora": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
     if not all(by_path[name][path] > 0 for path, names in on_path.items() for name in names):
         raise AssertionError(f"a kernel was never launched on its served path: {by_path}")
     paged_py = "vis_zephyr_tpu/ops/paged_attention.py"
@@ -2065,6 +2425,15 @@ def main(argv=None) -> None:
         dict(name="paged_kv_update", source="vis_zephyr_tpu_torch/csrc/paged_kv_rows.cu",
              replaces=f"{paged_py}:1482 and {paged_py}:1574",
              max_abs_err=k4_update["max_abs_err"], **k4_update["times"]),
+        # Timed at T=S=2048, the training shape (B=1); `by_T` holds 256 too.
+        dict(name="flash_bwd_dkv", source="vis_zephyr_tpu_torch/csrc/flash_bwd.cu",
+             replaces="vis_zephyr_tpu/ops/flash_attention.py:200",
+             max_abs_err=k78["dkv"]["max_abs_err"], **k78["dkv"]["times"][2048],
+             by_T=k78["dkv"]["times"]),
+        dict(name="flash_bwd_dq", source="vis_zephyr_tpu_torch/csrc/flash_bwd.cu",
+             replaces="vis_zephyr_tpu/ops/flash_attention.py:262",
+             max_abs_err=k78["dq"]["max_abs_err"], **k78["dq"]["times"][2048],
+             by_T=k78["dq"]["times"]),
     ]
     for kernel in kernels:
         counts = by_path[kernel["name"]]

@@ -2,10 +2,12 @@
 
 A fresh interpreter, with both blocked by an import hook, imports every module
 of `vis_zephyr_tpu_torch` and serves a chat through a serialized and a paged
-`ChatEngine` on the CPU, with float and with int8 weights; a source scan finds no such import in the port or in
-`chip_smoke.py`. The modules the port copied instead of importing (`config`,
-`constants`, `conversation`, `data/anyres`, `data/tokenization`) give what the
-JAX package's give on the same inputs.
+`ChatEngine` on the CPU, with float and with int8 weights, and takes one
+stage-1 and one stage-2 train step; a source scan finds no such import in the
+port or in `chip_smoke.py`. The modules the port copied instead of importing
+(`config`, `constants`, `conversation`, `data/anyres`, `data/tokenization`,
+the sampler of `data/dataset`) give what the JAX package's give on the same
+inputs.
 """
 
 import dataclasses
@@ -20,11 +22,13 @@ import vis_zephyr_tpu.config as jconfig
 import vis_zephyr_tpu.constants as jconstants
 import vis_zephyr_tpu.conversation as jconversation
 import vis_zephyr_tpu.data.anyres as janyres
+import vis_zephyr_tpu.data.dataset as jdataset
 import vis_zephyr_tpu.data.tokenization as jtokenization
 import vis_zephyr_tpu_torch.config as tconfig
 import vis_zephyr_tpu_torch.constants as tconstants
 import vis_zephyr_tpu_torch.conversation as tconversation
 import vis_zephyr_tpu_torch.data.anyres as tanyres
+import vis_zephyr_tpu_torch.data.dataset as tdataset
 import vis_zephyr_tpu_torch.data.tokenization as ttokenization
 from conftest import MockTokenizer
 
@@ -85,6 +89,25 @@ for load_8bit in (False, True):
         replies.append(engine.chat_text("s", "<image>\nwhat is this"))
         engine.close()
 assert len(replies) == 4 and all(len(r.split()) == 3 for r in replies), replies
+
+# One stage-1 and one stage-2 train step on the CPU.
+from vis_zephyr_tpu_torch.constants import IMAGE_TOKEN_INDEX
+from vis_zephyr_tpu_torch.train.lora import LoraConfig, add_lora
+from vis_zephyr_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
+from vis_zephyr_tpu_torch.train.steps import init_train_state, make_train_step
+
+ids = torch.randint(5, cfg.decoder.vocab_size, (2, 12), generator=torch.Generator().manual_seed(0))
+ids[:, 1] = IMAGE_TOKEN_INDEX
+batch = {"input_ids": ids, "labels": ids.clone(), "images": torch.zeros(2, 4, 56, 56, 3),
+         "patch_valid": torch.tensor([[True, True, False, False]] * 2)}
+model = init_vis_zephyr(cfg, torch.Generator().manual_seed(0))
+for stage in ("1", "2"):
+    if stage == "2":
+        add_lora(model, LoraConfig(r=4, alpha=8), torch.Generator().manual_seed(1))
+    opt = build_optimizer(model, OptimizerConfig(total_steps=2), stage=stage)
+    step = make_train_step(model, cfg, opt, remat=True, lora_dropout=0.05 if stage == "2" else 0.0)
+    state, metrics = step(init_train_state(model, opt), batch)
+    assert state["step"] == 1 and bool(torch.isfinite(metrics["loss"])), metrics
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "vis_zephyr_tpu")]
 print("ok", len(names))
 """
@@ -97,6 +120,54 @@ def test_every_port_module_imports_and_serves_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("has_image,template", [
+    (True, "zephyr_v1"), (False, "zephyr_v1"), (True, "plain")])
+def test_training_tokenization_matches(has_image, template):
+    tok = MockTokenizer()
+    sources = [[{"from": "human", "value": "<image>\nwhat is in the picture"},
+                {"from": "gpt", "value": "a cat on a mat"}]]
+    if template != "plain":
+        sources.append([{"from": "human", "value": "hello there"},
+                        {"from": "gpt", "value": "hi"},
+                        {"from": "human", "value": "how are you"},
+                        {"from": "gpt", "value": "fine thanks"}])
+    want = jtokenization.preprocess(sources, tok, has_image=has_image,
+                                    conv=jconversation.templates[template])
+    got = ttokenization.preprocess(sources, tok, has_image=has_image,
+                                   conv=tconversation.templates[template])
+    for key in ("input_ids", "labels"):
+        assert [x.tolist() for x in got[key]] == [x.tolist() for x in want[key]]
+    if template == "plain":
+        assert (ttokenization.preprocess_pretrain(sources, tok)["labels"][0].tolist()
+                == jtokenization.preprocess_pretrain(sources, tok)["labels"][0].tolist())
+    else:  # a mismatch masks everything, in both
+        text = "<|user|>\nhi</s>\n<|assistant|>\nyo</s>\n"
+        ids = [1, 5, 6, 7]
+        assert (ttokenization.mask_labels_zephyr(text, ids, tok, has_image=False).tolist()
+                == jtokenization.mask_labels_zephyr(text, ids, tok, has_image=False).tolist())
+
+
+@pytest.mark.parametrize("group_by_modality,world_size", [(True, 1), (True, 4), (False, 2)])
+def test_sampler_order_matches(group_by_modality, world_size):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lengths = [int(n) * (1 if i % 3 else -1) for i, n in enumerate(rng.integers(1, 400, 53))]
+    if not group_by_modality:
+        lengths = [abs(n) for n in lengths]
+    for epoch in range(2):
+        samplers = [mod.LengthGroupedSampler(lengths, batch_size=3, world_size=world_size,
+                                             group_by_modality=group_by_modality, seed=7)
+                    for mod in (jdataset, tdataset)]
+        for s in samplers:
+            s.set_epoch(epoch)
+        want, got = (list(iter(s)) for s in samplers)
+        assert got == want and sorted(got) == list(range(53))
+    chunks = [mod.split_to_even_chunks(list(range(12)), [abs(n) for n in lengths], 4)
+              for mod in (jdataset, tdataset)]
+    assert chunks[0] == chunks[1]
 
 
 def port_sources():

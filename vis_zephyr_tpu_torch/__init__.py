@@ -4,8 +4,9 @@ NVIDIA H100.
 The JAX package `vis_zephyr_tpu` stays the reference. This package mirrors
 its module names (`models/mistral.py` ↔ `models/mistral.py`), imports
 `torch`, never `jax` and nothing of `vis_zephyr_tpu`: it keeps its own copy of
-that package's framework-free modules (`config`, `constants`,
-`conversation`, `data/anyres`, `data/tokenization`).
+what it needs of that package's framework-free modules (`config`,
+`constants`, `conversation`, `data/anyres`, `data/tokenization`,
+`data/dataset`, `data/prefetch`, `utils/metrics`).
 Parameters carry HF state-dict names, so `vis_zephyr_tpu/models/hf_convert.py`
 reads the port's `state_dict()` as it is.
 

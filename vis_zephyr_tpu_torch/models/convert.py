@@ -10,7 +10,11 @@ quantized by the JAX package's `quantize_decoder_layers(bits=8)` and
 `weight_q` int8 [out, in] and `scale` [out] entries; one quantized by
 `quantize_decoder_layers(bits=4)` (`{"kernel_q4" [in/2, out], "scale4"
 [G, out]}`) gives `weight_q4` [out, in/2] and `scale4` [out, G]. Either
-loads into a model quantized by the port's `ops.quant` the same way.
+loads into a model quantized by the port's `ops.quant` the same way. A
+stage-2 tree's LoRA leaves (`lora_a` [in, r], `lora_b` [r, out],
+`lora_scale`, stacked per layer) give `{name}.lora_a`, `.lora_b` and
+`.lora_scale` in the same orientation; they load into a model whose
+projections `train/lora.py::add_lora` wrapped.
 """
 
 from __future__ import annotations
@@ -52,6 +56,9 @@ def _linear(out: Dict, prefix: str, p: Mapping, i=None) -> None:
     _weight(out, f"{prefix}.weight", p, i)
     if "bias" in p:
         out[f"{prefix}.bias"] = _t(_pick(p["bias"], i))
+    for leaf in ("lora_a", "lora_b", "lora_scale"):
+        if leaf in p:
+            out[f"{prefix}.{leaf}"] = _t(_pick(p[leaf], i))
 
 
 def _norm(out: Dict, prefix: str, p: Mapping, i=None, bias: bool = True) -> None:

@@ -1,6 +1,6 @@
 """Mistral / Zephyr-7B-β decoder with a static-shape dense KV cache, PyTorch.
 
-Port of `vis_zephyr_tpu/models/mistral.py` for the serving path: RMSNorm in
+Port of `vis_zephyr_tpu/models/mistral.py`, for serving and training: RMSNorm in
 f32 → GQA attention with rotate-half RoPE (θ from the config) and an
 optional sliding window → SiLU-gated MLP, final RMSNorm and an untied
 lm_head. Parameters carry the HF `MistralForCausalLM` names
@@ -12,17 +12,26 @@ The KV cache is a dict `{"k": [L,B,S,Hkv,D], "v": ..., "length": [B] int32}`.
 `length[b]` is the number of valid slots of row b; decode writes at slot
 `length[b]` and increments. The cache tensors are updated in place.
 
-Not ported: LoRA dropout, multi-LoRA, remat and the fused qkv / gate_up
-layout (`load_pretrained_model` does not fuse).
+Training (`cache=None`): each decoder layer may run under
+`torch.utils.checkpoint` (`remat`, the JAX `jax.checkpoint` of the scan
+body), and LoRA adapters (`train/lora.py::LoraLinear` in place of a
+projection) may drop their branch's input (`lora_dropout`, peft semantics).
+Each dropout mask is drawn from a generator seeded from (dropout_rng, layer,
+projection), as the JAX package folds keys in, never from a generator that
+advances: the recompute in the backward pass then draws the same masks.
+
+Not ported: multi-LoRA and the fused qkv / gate_up layout
+(`load_pretrained_model` does not fuse).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import DecoderConfig
 
@@ -142,12 +151,58 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat1
     }
 
 
-def _project_qkv(h, attn: MistralAttention, cfg: DecoderConfig, cos, sin):
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, *data: int) -> int:
+    """A 63-bit seed mixed from `seed` and `data` (splitmix64 per item): the
+    port's `jax.random.fold_in`. Equal inputs give equal seeds, so a mask
+    drawn from `torch.Generator().manual_seed(fold_seed(...))` is the same
+    in a layer's forward and in its recompute under `checkpoint`."""
+    x = seed & _MASK64
+    for d in data:
+        x = (x + 0x9E3779B97F4A7C15 + (d & _MASK64)) & _MASK64
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+        x ^= x >> 31
+    return x >> 1
+
+
+def _plain_proj(module: nn.Module, x: torch.Tensor, index: int) -> torch.Tensor:
+    return module(x)
+
+
+def _dropout_proj(layer_seed: int, rate: float) -> Callable:
+    """Projection `index` (q, k, v, o, gate, up, down = 0..6) of a layer whose
+    dropout seed is `layer_seed`: a LoRA projection drops its branch's input
+    with a mask from its own seed; any other is applied as it is."""
+    def proj(module: nn.Module, x: torch.Tensor, index: int) -> torch.Tensor:
+        if getattr(module, "lora_a", None) is None:
+            return module(x)
+        return module(x, dropout=(fold_seed(layer_seed, index), rate))
+    return proj
+
+
+def _project_qkv(h, attn: MistralAttention, cfg: DecoderConfig, cos, sin,
+                 proj: Callable = _plain_proj):
     B, T, _ = h.shape
-    q = attn.q_proj(h).reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = attn.k_proj(h).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = attn.v_proj(h).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = proj(attn.q_proj, h, 0).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = proj(attn.k_proj, h, 1).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = proj(attn.v_proj, h, 2).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _decoder_layer(layer: MistralDecoderLayer, h, cfg: DecoderConfig, cos, sin,
+                   attend: Callable, proj: Callable = _plain_proj):
+    """One layer of the `cache=None` forward: (h_out, k, v)."""
+    B, T, _ = h.shape
+    hn = rms_norm(h, layer.input_layernorm.weight, cfg.rms_norm_eps)
+    q, k, v = _project_qkv(hn, layer.self_attn, cfg, cos, sin, proj)
+    h = h + proj(layer.self_attn.o_proj, attend(q, k, v).reshape(B, T, -1), 3)
+    hn = rms_norm(h, layer.post_attention_layernorm.weight, cfg.rms_norm_eps)
+    mlp = layer.mlp
+    inter = F.silu(proj(mlp.gate_proj, hn, 4)) * proj(mlp.up_proj, hn, 5)
+    return h + proj(mlp.down_proj, inter, 6), k, v
 
 
 def mistral_forward(
@@ -159,6 +214,9 @@ def mistral_forward(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     logits_slice: str = "all",  # "all" | "last"
     return_kv: bool = False,
+    remat: bool = False,
+    lora_dropout: float = 0.0,
+    dropout_rng: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[object]]:
     """Run the decoder stack.
 
@@ -166,8 +224,13 @@ def mistral_forward(
       - cache=None: self-contained forward over [B, T] (prefill). Mask =
         causal ∧ sliding-window ∧ attn_valid. Attention runs through the
         flash kernel K1 on a CUDA device when T % 128 == 0, head_dim % 128
-        == 0 and T fits the sliding window, the masked plain op otherwise. With `return_kv=True` the per-layer K/V are
-        returned too, stacked [L, B, T, Hkv, D].
+        == 0 and T fits the sliding window, the masked plain op otherwise
+        (flash is differentiable: K7 and K8 in the backward pass). With
+        `return_kv=True` the per-layer K/V are returned too, stacked
+        [L, B, T, Hkv, D]. Training: `remat` checkpoints each layer while
+        gradients are on; `lora_dropout` > 0 with an integer `dropout_rng`
+        drops each LoRA branch's input (mask seeds fold in the layer and the
+        projection).
       - cache given: appends T tokens at slots `cache.length[b] + arange(T)`
         (`dense_cache_update`, kernel K2) and attends against the
         whole cache buffer with plain attention.
@@ -194,14 +257,18 @@ def mistral_forward(
             def attend(q, k, v):
                 return dot_product_attention(q, k, v, mask=mask)
 
+        use_dropout = lora_dropout > 0.0 and dropout_rng is not None
         ks, vs = [], []
-        for layer in layers:
-            hn = rms_norm(h, layer.input_layernorm.weight, cfg.rms_norm_eps)
-            q, k, v = _project_qkv(hn, layer.self_attn, cfg, cos, sin)
-            attn = attend(q, k, v)
-            h = h + layer.self_attn.o_proj(attn.reshape(B, T, -1))
-            hn = rms_norm(h, layer.post_attention_layernorm.weight, cfg.rms_norm_eps)
-            h = h + layer.mlp(hn)
+        for i, layer in enumerate(layers):
+            proj = (_dropout_proj(fold_seed(dropout_rng, i), lora_dropout) if use_dropout
+                    else _plain_proj)
+            if remat and torch.is_grad_enabled():
+                # Masks come from seeds, not from the default generators, so
+                # the recompute needs no RNG state stashed.
+                h, k, v = checkpoint(_decoder_layer, layer, h, cfg, cos, sin, attend, proj,
+                                     use_reentrant=False, preserve_rng_state=False)
+            else:
+                h, k, v = _decoder_layer(layer, h, cfg, cos, sin, attend, proj)
             if return_kv:
                 ks.append(k)
                 vs.append(v)

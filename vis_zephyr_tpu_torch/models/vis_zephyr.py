@@ -51,8 +51,8 @@ class VisZephyr(nn.Module):
 def init_vis_zephyr(cfg: VisZephyrConfig, generator: torch.Generator, device=None,
                     dtype=torch.float32) -> VisZephyr:
     """A model with random weights drawn from `generator` (which must live on
-    `device`), at each submodule's `init_random` scales; inference only (no
-    gradients)."""
+    `device`), at each submodule's `init_random` scales, every parameter
+    frozen (a trainer sets `requires_grad` from its trainable mask)."""
     model = VisZephyr(cfg, device=device, dtype=dtype)
     model.vision.init_random(generator)
     model.projector.init_random(generator)
@@ -73,10 +73,15 @@ def encode_images(
     dtypes in a matmul, so a bf16 model runs its vision stack, Q-Former and
     decoder prefill in bf16. The JAX engine's f32 pixels promote all of that
     to f32 over the same bf16 weights; `chip_smoke.py` measures the gap at
-    full width against an f32 run of the same weights."""
-    hidden = model.vision(images.to(model.dtype))
-    stacked = select_and_stack(hidden, cfg.vision)          # [S, N, T, C]
-    fused = dense_channel_fusion(stacked, cfg.vision.num_fusion_groups)
+    full width against an f32 run of the same weights.
+
+    The tower and the fusion run without autograd: the JAX package stops the
+    gradient after the fusion (frozen tower), and so no ViT activation of
+    the crops is kept for a backward pass."""
+    with torch.no_grad():
+        hidden = model.vision(images.to(model.dtype))
+        stacked = select_and_stack(hidden, cfg.vision)      # [S, N, T, C]
+        fused = dense_channel_fusion(stacked, cfg.vision.num_fusion_groups)
     return model.projector(fused, text_embeddings=text_embeddings, text_mask=text_mask)
 
 
@@ -87,10 +92,12 @@ def prepare_multimodal(
     patch_valid: torch.Tensor,
     cfg: VisZephyrConfig,
     text_valid: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
     pad_to_multiple: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Encode images with Q-Former text conditioning, merge patch tokens
-    flat, splice embeddings. Returns the `splice_image_tokens` dict."""
+    flat, splice embeddings (and labels). Returns the `splice_image_tokens`
+    dict."""
     if cfg.mm_patch_merge_type != "flat":
         raise NotImplementedError(
             f"mm_patch_merge_type={cfg.mm_patch_merge_type!r} is not ported yet (flat only)")
@@ -119,6 +126,7 @@ def prepare_multimodal(
         image_embeds,
         num_image_tokens,
         text_valid=text_valid,
+        labels=labels,
         max_length=cfg.tokenizer_model_max_length,
         pad_to_multiple=pad_to_multiple,
     )
@@ -131,12 +139,17 @@ def vis_zephyr_forward(
     patch_valid: Optional[torch.Tensor],
     cfg: VisZephyrConfig,
     text_valid: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
     return_kv: bool = False,
     pad_to_multiple: Optional[int] = None,
+    remat: bool = False,
+    lora_dropout: float = 0.0,
+    dropout_rng: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict]:
-    """Full multimodal forward (prefill). Returns (logits, aux) where aux
-    carries valid/positions/lengths and, with `return_kv`, the per-layer
-    "kv"."""
+    """Full multimodal forward (prefill or training step). Returns (logits,
+    aux) where aux carries the spliced labels (when `labels` is given) and
+    valid/positions/lengths and, with `return_kv`, the per-layer "kv".
+    `remat`, `lora_dropout` and `dropout_rng` go to `mistral_forward`."""
     if images is None:
         B, T = input_ids.shape
         valid = (torch.ones((B, T), dtype=torch.bool, device=input_ids.device)
@@ -148,13 +161,17 @@ def vis_zephyr_forward(
             "positions": positions,
             "lengths": valid.sum(dim=1).to(torch.int32),
         }
+        if labels is not None:
+            prepared["labels"] = labels
     else:
         prepared = prepare_multimodal(model, input_ids, images, patch_valid, cfg,
-                                      text_valid=text_valid, pad_to_multiple=pad_to_multiple)
+                                      text_valid=text_valid, labels=labels,
+                                      pad_to_multiple=pad_to_multiple)
 
     logits, extra = mistral_forward(
         model.decoder, prepared["embeds"], cfg.decoder, prepared["positions"],
-        attn_valid=prepared["valid"], return_kv=return_kv,
+        attn_valid=prepared["valid"], return_kv=return_kv, remat=remat,
+        lora_dropout=lora_dropout, dropout_rng=dropout_rng,
     )
     aux = {k: v for k, v in prepared.items() if k != "embeds"}
     if extra is not None:

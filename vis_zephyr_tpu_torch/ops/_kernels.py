@@ -46,6 +46,8 @@ _SIGNATURES = {
     "vzt_paged_kv_update": [_P] * 8 + [_I] * 5 + [_P],
     "vzt_quant_matmul_int8": [_P] * 5 + [_I] * 6 + [_P],
     "vzt_quant_matmul_int4": [_P] * 5 + [_I] * 7 + [_P],
+    "vzt_flash_bwd_dkv": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
+    "vzt_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
 }
 
 _lib = None

@@ -6,7 +6,8 @@ tokens, giving embeddings, validity, positions and lengths of a static
 output length. Every input position gets an expansion size (1 for text, the
 image's token count for a sentinel, 0 for padding); exclusive cumsums give
 each input token its output offset, and each output slot finds its source
-token with a batched `searchsorted`.
+token with a batched `searchsorted`. Differentiable in `image_embeds` (and
+`text_embeds`): stage-1 training reaches the projector only through it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..constants import IMAGE_TOKEN_INDEX
+from ..constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 
 
 def splice_image_tokens(
@@ -24,6 +25,7 @@ def splice_image_tokens(
     image_embeds: torch.Tensor,
     num_image_tokens: torch.Tensor,
     text_valid: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
     max_length: Optional[int] = None,
     pad_to_multiple: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
@@ -31,13 +33,15 @@ def splice_image_tokens(
 
     input_ids [B, T]; text_embeds [B, T, D]; image_embeds [B, N, D];
     num_image_tokens [B] (the real rows of image_embeds); text_valid [B, T]
-    bool. `max_length` truncates the output, `pad_to_multiple` rounds its
-    length up (the validity mask covers the rest). Serving has one image per
-    row and no labels: the JAX version's multi-image `[B, K]` counts and
-    `labels` output belong to training and are not ported.
+    bool; labels [B, T] (optional): image rows and padding become
+    IGNORE_INDEX. `max_length` truncates the output, `pad_to_multiple` rounds
+    its length up (the validity mask covers the rest). One image per row: the
+    JAX version's multi-image `[B, K]` counts are not ported, since no caller
+    passes them (training passes `[B]`, as serving does).
 
     Returns embeds [B, T_out, D], valid [B, T_out], positions [B, T_out]
-    int32, lengths [B] int32; T_out = T - 1 + N.
+    int32, lengths [B] int32 and, with `labels`, labels [B, T_out];
+    T_out = T - 1 + N.
     """
     B, T = input_ids.shape
     N = image_embeds.shape[1]
@@ -73,12 +77,16 @@ def splice_image_tokens(
     txt_rows = text_embeds[batch, src]
     embeds = torch.where((src_is_img & valid)[..., None], img_rows, txt_rows)
     embeds = torch.where(valid[..., None], embeds, torch.zeros((), dtype=embeds.dtype, device=dev))
-    return {
+    out = {
         "embeds": embeds,
         "valid": valid,
         "positions": torch.where(valid, out_idx[None, :], 0).to(torch.int32),
         "lengths": torch.clamp(lengths, max=T_out).to(torch.int32),
     }
+    if labels is not None:
+        lab = torch.gather(labels, 1, src)
+        out["labels"] = torch.where(src_is_img | ~valid, torch.full_like(lab, IGNORE_INDEX), lab)
+    return out
 
 
 def compact_text_ids(input_ids: torch.Tensor, pad_id: int,
