@@ -2,7 +2,8 @@
 over a dense cache, and continuous batching over int8 KV-fused page pools,
 each with bf16 weights, int8 weights (`--load-8bit`) and int4 weights
 (`--load-4bit`), and each with prompt-lookup speculation (`--lookahead`);
-and of its trainer, stage 1 and stage 2.
+the writefirst paged decode step; the fused int8 MLP probe; and the
+trainer, stage 1 and stage 2.
 
     python3 chip_smoke.py [--seed N] [--max-new-tokens N] [--profile] [--phases a,b]
 
@@ -36,7 +37,12 @@ toolkit; exits non-zero on a machine without a card. Phases:
              edge told from 511 and 513; then without the self-term at
              S = 1 to 9 query rows per slot (the verify shape; S = 9 is two
              row tiles) over int8 fused pools of 60 to 800 tokens, times
-             and bound per S, bf16 split pools at S = 5 with a window;
+             and bound per S, bf16 split pools at S = 5 with a window; then
+             rows 7 and 8's contracts: the single-row entry `paged_attention`
+             over bf16 and int8 split pools with and without the self-term,
+             with and without a window of 512, and
+             `paged_attention_fa(fold_heads=False)` at S = 1 and 5, each per
+             slot against the plain version; times at served lengths;
 6. K4      — paged_kv_rows against its plain version at L=32, B=32 with
              inactive slots on the trash page: bf16 and int8, split and
              fused; whole pools and scales bit-exact; the same for its
@@ -57,6 +63,12 @@ toolkit; exits non-zero on a machine without a card. Phases:
              group, each also with f32 x; the same check and readings as K5's
              (library: `torch._weight_int4pack_mm` where it runs, else
              dequantize + matmul);
+8b. K9     — fused_mlp_matvec against its plain version at D = 4096,
+             I = 14336, M = 1 and 8, both tilings (block_i 64 and 128),
+             random int8 weights from the seed: max-abs error over max |plain|
+             <= 1e-2, cosine >= 0.9999; kernel (events and device-only),
+             plain, the K5 route (K5 gate and up, F.silu(g) * u, K5 down),
+             `torch._weight_int8pack_mm` x 3 + F.silu where it runs, bound;
 9. slice1  — full-width Zephyr-7B + CLIP-L/336 + Q-Former with random bf16
              weights, the port's /chat server on 127.0.0.1 with no flags, 3
              sessions and 4 requests; checks the launch counters and the
@@ -78,6 +90,15 @@ toolkit; exits non-zero on a machine without a card. Phases:
              pools >= 0.99); the two int8 runs' pools against each other
              (dequantized rows cosine >= 0.999, int8 values within 1 for
              >= 95 %, scales within 5 %);
+11b. writefirst — the fixed batch of 16 (bf16 weights) stepped 16 times by
+             `_paged_step(mode="writefirst")` and by mode "selfterm" on copies
+             of its state, over bf16 split and int8 fused pools, both fed the
+             selfterm step's tokens: logits cosine per slot >= 0.999 at every
+             step, exactly 32 K3 and 32 paged_kv_update launches per
+             writefirst step and no paged_kv_rows; greedy agreement printed;
+             then one 32-slot step in each mode profiled side by side (wall,
+             device busy, idle share, largest device items, K4's device time
+             per launch);
 12. spec   — speculation (`--lookahead 4`): two dense /chat requests with
              lookahead 4 and the same two with lookahead 0 (K1 and K2 counts
              exact, verify calls > 0; the streams' agreement printed); a
@@ -108,6 +129,12 @@ toolkit; exits non-zero on a machine without a card. Phases:
              counters predict, the Q-Former's projections counted by rows;
              one verify step of 32 slots (160 rows: the dequantize route on
              every projection) counted;
+15b. mlp_probe — `python -m vis_zephyr_tpu_torch.experiments.fused_mlp_matvec_probe`'s
+             `main()` (numerics, then 32 chained calls in one CUDA graph for K9
+             at each tiling and for the K5 route: us per layer, weight GB/s,
+             speedup), and K9 on layer 0's MLP of phase 15's int8 model (a
+             full-width MLP quantized alike when phase 15 does not run) at M = 1
+             against `layer.mlp(hn)`: cosine >= 0.999;
 16. int4   — the same on a model rebuilt from the seed and quantized by
              `load_4bit`'s step (int4 decoder with group-128 scales, int8
              Q-Former): 2 dense requests, a paged burst of 16, the fixed batch
@@ -130,8 +157,9 @@ toolkit; exits non-zero on a machine without a card. Phases:
              dropout 0.05) through `make_train_step` for 2 steps; K1 = 64,
              K7 = K8 = 32 launches per micro-step, exactly.
 
-`--phases` runs a subset (kernels, slice1, paged, batch, spec, profile,
-precision, int8, int4, train) and then prints no result line. After a full run the line before
+`--phases` runs a subset (kernels, slice1, paged, batch, writefirst, spec,
+profile, precision, int8, mlp_probe, int4, train) and then prints no result
+line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
 """
@@ -650,6 +678,115 @@ def check_paged_attention_rows(gen) -> dict:
     return {"max_abs_err": worst, "by_rows": by_rows}
 
 
+def check_paged_single(gen) -> dict:
+    """K3 on rows 7 and 8's contracts. Row 7: the single-row entry
+    `paged_attention` (`lengths` tokens in the pool; with the self-term the
+    query sits at `lengths`, without it at `lengths - 1`) over bf16 and int8
+    split pools, each with and without the self-term and with a window of
+    512, at B=32 and the edge lengths of `check_paged_attention`. Row 8:
+    `paged_attention_fa(fold_heads=False)` over bf16 and int8 split pools at
+    S = 1 and 5, and its refusal of fused pools. Each held against its plain
+    version per slot (max-abs error <= 1e-2 of the slot's largest value);
+    then times at served lengths (60 to 800 tokens), int8 split pools."""
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    dev = "cuda"
+    Hq, Hkv, D, B = 32, 8, 128, 32
+    edge = [0, 1, 128, 129, 2048, 2047, 127, 1025]
+    lengths = edge + torch.randint(1, 2049, (B - len(edge),), generator=gen, device=dev).tolist()
+    q = torch.randn(B, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    k_new = torch.randn(B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    v_new = torch.randn(B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    worst = 0.0
+
+    def single(case, selfterm, window=None):
+        new = dict(k_new=k_new, v_new=v_new) if selfterm else {}
+        return pa.paged_attention(q, case["kp"], case["vp"], case["table"], case["lengths"],
+                                  sliding_window=window, k_scales=case["ksc"],
+                                  v_scales=case["vsc"], page_offset=case["P"], **new)
+
+    def unfolded(case, qq):
+        S = qq.shape[1]
+        return pa.paged_attention_fa(qq, case["kp"], case["vp"], case["table"], case["lengths"],
+                                     (case["lengths"] - S).contiguous(), k_scales=case["ksc"],
+                                     v_scales=case["vsc"], page_offset=case["P"],
+                                     fold_heads=False)
+
+    def compare(name, fn):
+        # Each slot held to its own largest value, as in check_paged_attention.
+        nonlocal worst
+        got = fn()
+        torch.cuda.synchronize()
+        with _kernels.plain_versions():
+            want = fn()
+        err = (got.float() - want.float()).abs().flatten(1).amax(dim=1)
+        top = want.float().abs().flatten(1).amax(dim=1)
+        rel = float(torch.where(top > 0, err / top.clamp_min(1e-30), err).max())
+        print(f"K3 {name}: out max-abs {float(err.max()):.3e}, per slot relative {rel:.3e} "
+              f"(<= 1e-2)")
+        if not (rel <= 1e-2 and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"K3 {name}: kernel disagrees with the plain version")
+        worst = max(worst, float(err.max()))
+        return got
+
+    launched = pa.attn_launches
+    for quant, label in ((False, "bf16 split"), (True, "int8 split")):
+        case = paged_case(gen, lengths, quant, False)
+        for selfterm in (False, True):
+            for window in (None, 512):
+                what = (f"row 7 paged_attention, {label}, "
+                        f"{'self-term' if selfterm else 'token in the pool'}"
+                        f"{', window 512' if window else ''}")
+                got = compare(what, lambda: single(case, selfterm, window))
+                if not selfterm and float(got[0].float().abs().max()) != 0.0:
+                    raise AssertionError(f"K3 {what}: the slot with no key is not exactly 0")
+        for S in (1, 5):
+            rows = dict(case, lengths=torch.clamp(case["lengths"], min=S))
+            qS = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+            compare(f"row 8 paged_attention_fa(fold_heads=False), {label}, S={S}",
+                    lambda: unfolded(rows, qS))
+    fused = paged_case(gen, [5] * B, True, True)
+    try:
+        unfolded(fused, q[:, None])
+    except ValueError as e:
+        print(f"K3 row 8 over fused pools refused: {e}")
+    else:
+        raise AssertionError("K3 row 8: fused pools with fold_heads=False were not refused")
+    print(f"K3 rows 7 and 8: {pa.attn_launches - launched} kernel launches in the checks")
+
+    # Times at served lengths, int8 split pools: what the writefirst step's
+    # layers call (row 7, the token in the pool), row 7 with the self-term
+    # (the TPU's `_make_kernel` case), and row 8 at S = 1 and 5.
+    served = torch.randint(60, 801, (B,), generator=gen, device=dev).tolist()
+    case = paged_case(gen, served, True, False)
+    tokens = sum(served)
+    q5 = torch.randn(B, 5, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    times = {}
+    for key, fn, S, selfterm in (
+            ("row 7, token in the pool", lambda: single(case, False), 1, False),
+            ("row 7, self-term", lambda: single(case, True), 1, True),
+            ("row 8, S=1", lambda: unfolded(case, q[:, None]), 1, False),
+            ("row 8, S=5", lambda: unfolded(case, q5), 5, False)):
+        ms, device_ms = median_ms(fn), graph_ms(fn)
+        with _kernels.plain_versions():
+            plain_ms = median_ms(fn, 10)
+        # Each valid K and V row read once with its scale, q, the self-term,
+        # the table and lengths read once, the output written once; 4·Hq·D
+        # flops per (query row, key) pair the causal mask keeps.
+        pairs = sum(S * (n - S) + S * (S + 1) // 2 for n in served) + (B if selfterm else 0)
+        n_bytes = (tokens * Hkv * 2 * (D + 4) + 2 * 2 * B * S * Hq * D
+                   + (2 * 2 * k_new.numel() if selfterm else 0)
+                   + 4 * case["table"].numel() + 8 * B)
+        least, by = bound_ms(n_bytes, 4 * Hq * D * pairs)
+        times[key] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=least, bound_by=by)
+        print(f"K3 {key}, B={B}, {tokens} tokens (60 to 800 per slot), int8 split: kernel "
+              f"{ms:.4f} ms per call, {show(device_ms)} on the device; plain {plain_ms:.4f} ms; "
+              f"bound {least:.5f} ms by {by}; median of 20")
+    return {"max_abs_err": worst, "times": times}
+
+
 def check_paged_update(gen) -> dict:
     """K4's absolute-page entry (`paged_kv_update{,_q}`) against its plain
     version: bf16 and int8 pools, split and fused, L = 1 (the verify step's
@@ -1010,6 +1147,108 @@ def check_quant_matmul_int4(gen) -> dict:
     return {"max_abs_err": worst, "library": library,
             "times": {key: headline[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                      "bound_by", "device_ms", "issue_ms")}}
+
+
+def int8_mlp_library_call(x, weights):
+    """A yardstick for K9: `torch._weight_int8pack_mm` for gate, up and down
+    with `F.silu` between them, where this PyTorch runs it on CUDA and it
+    agrees with the plain version, else None. Used nowhere in the port.
+    Returns (name, fn) or (reason, None)."""
+    from vis_zephyr_tpu_torch.experiments import fused_mlp_matvec_probe as probe
+
+    gate_q, gate_s, up_q, up_s, down_q, down_s = weights
+    want = probe.fused_mlp_matvec_plain(x, *weights).float()
+
+    def fn(cast):
+        g = torch._weight_int8pack_mm(x, gate_q, gate_s.to(cast))
+        u = torch._weight_int8pack_mm(x, up_q, up_s.to(cast))
+        return torch._weight_int8pack_mm(torch.nn.functional.silu(g) * u, down_q, down_s.to(cast))
+
+    why = "torch._weight_int8pack_mm does not run"
+    for cast in (torch.float32, x.dtype):
+        try:
+            err = float((fn(cast).float() - want).abs().max())
+        except (RuntimeError, NotImplementedError, AttributeError, TypeError) as e:
+            why = f"torch._weight_int8pack_mm does not run: {str(e).splitlines()[0][:100]}"
+            continue
+        if err <= 2e-2 * float(want.abs().max()):
+            return f"torch._weight_int8pack_mm x 3 + F.silu (scales {cast})", lambda: fn(cast)
+        why = f"torch._weight_int8pack_mm disagrees, max-abs {err:.3e}"
+    return why, None
+
+
+MLP_ROWS = (1, 8)
+
+
+def check_fused_mlp(gen) -> dict:
+    """K9 against `fused_mlp_matvec_plain` at Zephyr-7B's widths (D = 4096,
+    I = 14336) with random int8 weights and scales from the seed, at M = 1
+    and 8 and both tilings (block_i 64 and 128): max-abs error over max
+    |plain| <= 1e-2 (a bf16 ulp is at most 0.78 % of a value; h and y round
+    once on both sides, in other orders) and cosine >= 0.9999. Times per
+    call (events around one call and the device alone from a CUDA-graph
+    replay) beside the plain version, the K5 route a `--load-8bit` layer
+    takes (K5 gate, up, `F.silu(g) · u`, K5 down) and the int8-pack yardstick."""
+    from vis_zephyr_tpu_torch.experiments import fused_mlp_matvec_probe as probe
+    from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
+
+    dev = "cuda"
+    hidden, inter = probe.D, probe.I
+
+    def codes(n, k):
+        return torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+
+    def scales(n, k):
+        return (torch.rand(n, generator=gen, device=dev) + 0.5) * (2.0 / (127 * k ** 0.5))
+
+    weights = (codes(inter, hidden), scales(inter, hidden), codes(inter, hidden),
+               scales(inter, hidden), codes(hidden, inter), scales(hidden, inter))
+    worst, times = 0.0, {}
+    library = None
+    for M in MLP_ROWS:
+        x = torch.randn(M, hidden, generator=gen, device=dev).to(torch.bfloat16)
+        want = probe.fused_mlp_matvec_plain(x, *weights)
+        for bi in probe.BLOCK_I:
+            got = probe.fused_mlp_matvec(x, *weights, block_i=bi)
+            torch.cuda.synchronize()
+            a = probe.agreement(got, want)
+            print(f"K9 fused_mlp_matvec M={M}, block_i {bi}: max-abs over max |plain| "
+                  f"{a['rel_err']:.3e} (<= 1e-2), cosine {a['cosine']:.7f} (>= 0.9999)")
+            if not (got.shape == (M, hidden) and a["rel_err"] <= 1e-2 and a["cosine"] >= 0.9999
+                    and bool(torch.isfinite(got.float()).all())):
+                raise AssertionError(f"K9 M={M} block_i {bi}: kernel disagrees with the plain "
+                                     "version")
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+        # x and the three int8 weights with their scales read once, y written
+        # once; 2·M multiply-adds per weight byte.
+        least, by = bound_ms(3 * hidden * inter + 4 * (2 * inter + hidden) + 4 * M * hidden,
+                             2 * 3 * M * hidden * inter)
+        t = {}
+        for bi in probe.BLOCK_I:
+            fn = lambda bi=bi: probe.fused_mlp_matvec(x, *weights, block_i=bi)  # noqa: E731
+            t[bi] = dict(ms=median_ms(fn), device_ms=graph_ms(fn))
+        k5 = lambda: probe.k5_route(x, *weights)  # noqa: E731
+        k5_ms, k5_device = median_ms(k5), graph_ms(k5)
+        plain_ms = median_ms(lambda: probe.fused_mlp_matvec_plain(x, *weights), 10)
+        name, lib_fn = int8_mlp_library_call(x, weights)
+        if library is None:
+            library = name
+            print(f"K9 yardstick: {library}")
+        lib_ms = None if lib_fn is None else median_ms(lib_fn, 10)
+        best = min(probe.BLOCK_I, key=lambda bi: t[bi]["device_ms"] or t[bi]["ms"])
+        times[M] = dict(ms=t[probe.DEFAULT_BLOCK_I]["ms"],
+                        device_ms=t[probe.DEFAULT_BLOCK_I]["device_ms"],
+                        by_block_i={bi: t[bi] for bi in probe.BLOCK_I}, plain_ms=plain_ms,
+                        library_ms=None, k5_route_ms=k5_ms, k5_route_device_ms=k5_device,
+                        int8pack_route_ms=lib_ms, bound_ms=least, bound_by=by)
+        for bi in probe.BLOCK_I:
+            print(f"K9 M={M}, block_i {bi}: {t[bi]['ms']:.4f} ms per call, "
+                  f"{show(t[bi]['device_ms'])} on the device")
+        print(f"K9 M={M}: the K5 route {k5_ms:.4f} ms per call, {show(k5_device)} on the device; "
+              f"plain (f32 matmuls) {plain_ms:.4f}; {library}: {show(lib_ms)}; bound {least:.5f} "
+              f"ms by {by} ({3 * hidden * inter / 1e6:.1f} MB of int8 weights); fastest tiling "
+              f"on the device: block_i {best}")
+    return {"max_abs_err": worst, "times": times}
 
 
 class WordTokenizer:
@@ -1647,6 +1886,192 @@ def run_fixed_batch(model, cfg, seed: int) -> dict:
     return {"k2": k2, "fed": fed, "logits": logits}
 
 
+# -- the writefirst decode step ------------------------------------------------------
+
+
+def run_writefirst(model, cfg, seed: int) -> dict:
+    """The fixed batch of 16, admitted whole, stepped 16 times by
+    `_paged_step(mode="writefirst")` and by `mode="selfterm"` on two copies
+    of its state, over bf16 split and int8 fused pools; both steps are fed
+    the selfterm step's tokens, so that every step compares one sequence.
+    Gates: logits cosine >= 0.999 per slot at every step; exactly 32 K3 and
+    32 `paged_kv_update` launches per writefirst step and no all-layer row
+    write. The greedy tokens' agreement is printed, not gated: on random
+    full-width weights the top logits of a slot lie closer together than two
+    bf16 arithmetic orders' difference (PERF.md, Findings), so a different
+    token there is a tie broken apart; for each such flip the selfterm
+    step's margin between the two tokens is printed beside the slot's
+    largest logit difference. The CPU test holds the tokens equal (f32, tiny
+    model).
+    Returns the writefirst steps' launch counts."""
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+    from vis_zephyr_tpu_torch.serve.paged import _paged_step
+
+    L = cfg.decoder.num_layers
+    requests = direct_requests(cfg, seed, 16)
+    counts = {"k3": 0, "kvu": 0}
+    for quant, fused, label in ((False, False, "bf16 split"), (True, True, "int8 fused")):
+        b = admitted_batcher(model, cfg, requests, 16, kv_quant=quant, kv_fused=fused)
+        active = torch.ones(16, dtype=torch.bool, device=b.device)
+        state = {mode: [None if t is None else t.clone()
+                        for t in (b.kp, b.vp, b.ksp, b.vsp, b.lengths, b.token)]
+                 for mode in ("writefirst", "selfterm")}
+        agree, cos_min, flips = [], 1.0, []
+        for step in range(1, 17):
+            state["writefirst"][5].copy_(state["selfterm"][5])
+            out = {}
+            for mode in ("writefirst", "selfterm"):
+                kp, vp, ksp, vsp, lengths, token = state[mode]
+                before = (pa.attn_launches, pa.update_launches, pa.rows_launches)
+                _, logits = _paged_step(model, kp, vp, (ksp, vsp), b.page_table, lengths, token,
+                                        active, None, cfg, b.sampling, mode=mode)
+                got = (pa.attn_launches - before[0], pa.update_launches - before[1],
+                       pa.rows_launches - before[2])
+                if mode == "writefirst":
+                    if got != (L, L, 0):
+                        raise AssertionError(f"writefirst {label} step {step}: launches K3, "
+                                             f"paged_kv_update, paged_kv_rows {got}, want "
+                                             f"({L}, {L}, 0)")
+                    counts["k3"] += got[0]
+                    counts["kvu"] += got[1]
+                out[mode] = (token.clone(), logits)
+            cos = slot_cosines(out["writefirst"][1], out["selfterm"][1])
+            cos_min = min(cos_min, float(cos.min()))
+            (tok_w, log_w), (tok_s, log_s) = out["writefirst"], out["selfterm"]
+            agree.append(int((tok_w == tok_s).sum()))
+            for slot in torch.nonzero(tok_w != tok_s)[:, 0].tolist():
+                margin = float(log_s[slot, tok_s[slot]] - log_s[slot, tok_w[slot]])
+                flips.append((margin, float((log_w[slot] - log_s[slot]).abs().max())))
+            if step in (1, 16):
+                print(f"writefirst {label} step {step}: logits cosine against the selfterm step, "
+                      f"minimum over the 16 slots {float(cos.min()):.6f} median "
+                      f"{float(cos.median()):.6f} (>= 0.999); same greedy token on "
+                      f"{agree[-1]} of 16 slots")
+            if not (float(cos.min()) >= 0.999
+                    and bool(torch.isfinite(out["writefirst"][1]).all())):
+                raise AssertionError(f"writefirst {label} step {step}: disagrees with selfterm")
+        same_lengths = torch.equal(state["writefirst"][4], state["selfterm"][4])
+        print(f"writefirst {label}, 16 steps fed the selfterm step's tokens: logits cosine min "
+              f"{cos_min:.6f} (>= 0.999 every step); same greedy token on {sum(agree)} of 256 "
+              f"(per step {agree}); lengths equal {same_lengths}; launches per step K3 {L}, "
+              f"paged_kv_update {L}, paged_kv_rows 0")
+        if flips:
+            print(f"writefirst {label}: the {len(flips)} different tokens, the selfterm step's "
+                  f"margin between its token and writefirst's against the slot's largest logit "
+                  f"difference: " + ", ".join(f"{m:.4f}/{d:.4f}" for m, d in flips))
+        if not same_lengths:
+            raise AssertionError(f"writefirst {label}: lengths differ from the selfterm step's")
+        del b, state, out
+        torch.cuda.empty_cache()
+    return counts
+
+
+def device_items(prof, n: int):
+    """Kernel rows of a torch.profiler run of `n` steps: [(name, ms per step,
+    launches per step)], largest first, and their sum (device busy per step;
+    one stream, so kernels do not overlap)."""
+    from torch.autograd import DeviceType
+
+    def device_us(e):  # the attribute's name changed between PyTorch releases
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    # Kernel rows only: an operator's row repeats the time of the kernels it launched.
+    rows = [(e.key, device_us(e) / 1e3 / n, e.count / n) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    return rows, sum(r[1] for r in rows)
+
+
+def run_step_profile(model, cfg, seed: int, card: str) -> None:
+    """One 32-slot decode step (int8 fused pools) in each mode, side by side
+    on one batch: wall (host clock around steps that end in a synchronize,
+    the modes taken in turns), device busy, idle share and the largest device
+    items (torch.profiler), and `paged_kv_update`'s device time per launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vis_zephyr_tpu_torch.serve.paged import _paged_step
+
+    b = admitted_batcher(model, cfg, direct_requests(cfg, seed, 32), 32, kv_quant=True,
+                         kv_fused=True)
+    active = torch.ones(32, dtype=torch.bool, device=b.device)
+    modes = ("writefirst", "selfterm")
+
+    def step(mode):
+        _paged_step(model, b.kp, b.vp, (b.ksp, b.vsp), b.page_table, b.lengths, b.token, active,
+                    None, cfg, b.sampling, mode=mode)
+
+    for mode in modes * 2:
+        step(mode)
+    torch.cuda.synchronize()
+    walls = {mode: [] for mode in modes}
+    for _ in range(8):
+        for mode in modes:
+            t0 = time.perf_counter()
+            step(mode)
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t0) * 1e3)
+    n = 4
+    for mode in modes:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step(mode)
+            torch.cuda.synchronize()
+        rows, busy = device_items(prof, n)
+        wall = statistics.median(walls[mode])
+        print(f"writefirst profile: {mode} decode step, B=32 active slots, int8 fused pools, "
+              f"lengths about {int(b.lengths.float().mean())}: wall median {wall:.2f} ms (8 steps, "
+              f"min {min(walls[mode]):.2f}, max {max(walls[mode]):.2f}), device busy {busy:.2f} "
+              f"ms per step, idle share {1 - busy / wall:.2f} [{card}]")
+        for key, ms, count in rows[:8]:
+            print(f"writefirst profile:   {ms:8.3f} ms  {count:6.1f} launches/step  {key[:90]}")
+        for key, ms, count in rows:
+            if "paged_kv_rows_kernel" in key:
+                print(f"writefirst profile: {mode}: K4 (`paged_kv_rows_kernel`) {ms:.4f} ms per "
+                      f"step over {count:.1f} launches: {ms / count * 1e3:.2f} us per launch on "
+                      f"the device [{card}]")
+        if busy <= 0:
+            print("writefirst profile: the profiler reported no device time")
+
+
+# -- the fused int8 MLP matvec probe (K9) -------------------------------------------------
+
+
+def run_mlp_layer(mlp, hidden: int, norm_weight, eps: float, label: str, card: str) -> None:
+    """K9 on one int8 decoder layer's MLP, as `--load-8bit` leaves it, at M = 1
+    against `mlp(hn)` (the K5 route, which rounds g, u and their product to
+    bf16 each, where K9 rounds h once): cosine >= 0.999."""
+    from vis_zephyr_tpu_torch.experiments import fused_mlp_matvec_probe as probe
+    from vis_zephyr_tpu_torch.models.mistral import rms_norm
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    h = torch.randn(1, hidden, generator=gen, device="cuda").to(torch.bfloat16)
+    hn = rms_norm(h, norm_weight, eps)
+    got = probe.fused_mlp_matvec(hn, *probe.quantized_mlp_weights(mlp))
+    want = mlp(hn)
+    torch.cuda.synchronize()
+    a = probe.agreement(got, want)
+    print(f"mlp_probe: K9 on {label} at M=1 against layer.mlp(hn): cosine {a['cosine']:.6f} "
+          f"(>= 0.999), max-abs over max |mlp(hn)| {a['rel_err']:.3e} [{card}]")
+    if not (a["cosine"] >= 0.999 and bool(torch.isfinite(got.float()).all())):
+        raise AssertionError(f"mlp_probe: K9 disagrees with {label}'s mlp")
+
+
+def standalone_int8_mlp(seed: int):
+    """A full-width decoder MLP with random bf16 weights from `seed`
+    (PyTorch's fan-in init), quantized as `load_8bit` quantizes a layer."""
+    from vis_zephyr_tpu_torch.config import VisZephyrConfig
+    from vis_zephyr_tpu_torch.models.mistral import MistralMLP
+    from vis_zephyr_tpu_torch.ops.quant import quantize_linear
+
+    dec = VisZephyrConfig().decoder
+    torch.manual_seed(seed)
+    mlp = MistralMLP(dec, device="cuda", dtype=torch.bfloat16)
+    for name in ("gate_proj", "up_proj", "down_proj"):
+        setattr(mlp, name, quantize_linear(getattr(mlp, name)))
+    return mlp, dec.hidden_size, torch.ones(dec.hidden_size, device="cuda",
+                                            dtype=torch.bfloat16), dec.rms_norm_eps
+
+
 def quantize_model(seed: int, card: str, bits: int = 8):
     """The full-width model with random bf16 weights from `seed` (the same as
     the bf16 phases'), quantized in place by `load_8bit`'s (`bits` 8) or
@@ -1942,7 +2367,6 @@ def run_profile(model, cfg, seed: int, card: str, label: str = "profile",
     rows per slot when `lookahead` > 0): wall (host clock around steps that
     end in a synchronize), device-busy time and the largest device items
     (torch.profiler kernel sums; one stream, so kernels do not overlap)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # Verify steps emit up to S tokens a slot: a longer budget (and the pages
@@ -1964,14 +2388,7 @@ def run_profile(model, cfg, seed: int, card: str, label: str = "profile",
         for _ in range(n):
             b.step()
         torch.cuda.synchronize()
-    def device_us(e):  # the attribute's name changed between PyTorch releases
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-
-    # Kernel rows only: an operator's row repeats the time of the kernels it launched.
-    rows = [(e.key, device_us(e) / 1e3 / n, e.count / n) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+    rows, busy = device_items(prof, n)
     wall = statistics.median(walls)
     if int(b.active.sum()) != 32:
         raise AssertionError(f"{label}: a slot finished inside the profiled steps")
@@ -2221,7 +2638,8 @@ def run_train(seed: int, card: str) -> dict:
     return {"train": stage1, "train_lora": stage2}
 
 
-PHASES = ("kernels", "slice1", "paged", "batch", "spec", "profile", "precision", "int8", "int4", "train")
+PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "profile", "precision",
+          "int8", "mlp_probe", "int4", "train")
 
 
 def main(argv=None) -> None:
@@ -2272,12 +2690,15 @@ def main(argv=None) -> None:
         k3 = check_paged_attention(gen)
         k4 = check_paged_rows(gen)
         k3_rows = check_paged_attention_rows(gen)
+        k3_single = check_paged_single(gen)
         k4_update = check_paged_update(gen)
         done("kernels K1-K4")
         k5 = check_quant_matmul(gen)
         done("kernels K5")
         k6 = check_quant_matmul_int4(gen)
         done("kernels K6")
+        k9 = check_fused_mlp(gen)
+        done("kernels K9")
     model = None
     if set(phases) - {"kernels", "train"}:
         model, cfg = build_model(args.seed)
@@ -2290,6 +2711,13 @@ def main(argv=None) -> None:
     if "batch" in phases:
         batch = run_fixed_batch(model, cfg, args.seed)
         done("batch")
+    if "writefirst" in phases:
+        from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+        pa.attn_launches = pa.update_launches = 0
+        writefirst = run_writefirst(model, cfg, args.seed)
+        run_step_profile(model, cfg, args.seed, card)
+        done("writefirst")
     if "spec" in phases:
         spec_dense = run_spec_dense(model, cfg, args.seed, args.max_new_tokens, card)
         # The same burst without speculation first, for the comparison only.
@@ -2339,6 +2767,28 @@ def main(argv=None) -> None:
             run_profile(model, cfg, args.seed, card, label="int8 spec profile",
                         lookahead=SPEC_LOOKAHEAD)
             done("int8 profile")
+    if "mlp_probe" in phases:
+        # The port's probe run (numerics, then K9 at both tilings and the K5
+        # route in CUDA graphs of 32 chained calls), and K9 on a real int8
+        # layer's MLP: layer 0 of the int8 phase's model, else a full-width
+        # MLP quantized alike.
+        from vis_zephyr_tpu_torch.experiments import fused_mlp_matvec_probe as probe
+
+        probe.launches = 0
+        probe_run = probe.main(["--seed", str(args.seed)])
+        if "int8" in phases:
+            layer = model.decoder.model.layers[0]
+            run_mlp_layer(layer.mlp, cfg.decoder.hidden_size, layer.post_attention_layernorm.weight,
+                          cfg.decoder.rms_norm_eps, "layer 0 of the int8 model", card)
+        else:
+            mlp, hidden, norm, eps = standalone_int8_mlp(args.seed)
+            run_mlp_layer(mlp, hidden, norm, eps, "a full-width MLP quantized as load_8bit does",
+                          card)
+            del mlp
+        mlp_probe = {"k9": probe.launches}
+        print(f"mlp_probe: K9 launches {probe.launches} (the probe's eager warm-ups and graph "
+              f"captures, and the layer check)")
+        done("mlp_probe")
     if "int4" in phases:
         # --load-4bit on both served paths: int4 decoder, int8 Q-Former, again a
         # fresh model from the same seed once the one before is gone.
@@ -2379,14 +2829,14 @@ def main(argv=None) -> None:
     # says which run gave what.
     runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
             "dense_int4": dense4, "paged_int4": paged4, "spec_dense": spec_dense,
-            "spec_paged": spec_paged, "train": trained["train"],
-            "train_lora": trained["train_lora"]}
+            "spec_paged": spec_paged, "writefirst": writefirst, "mlp_probe": mlp_probe,
+            "train": trained["train"], "train_lora": trained["train_lora"]}
     by_path = {name: {path: run.get(key, 0) for path, run in runs.items()}
                for name, key in (("flash_fwd", "k1"), ("dense_cache_append", "k2"),
                                  ("paged_attn_decode", "k3"), ("paged_kv_rows", "k4"),
                                  ("quant_matmul_int8", "k5"), ("quant_matmul_int4", "k6"),
                                  ("paged_kv_update", "kvu"), ("flash_bwd_dkv", "k7"),
-                                 ("flash_bwd_dq", "k8"))}
+                                 ("flash_bwd_dq", "k8"), ("fused_mlp_matvec", "k9"))}
     # Each path must have gone through its own kernels (chunked admission
     # attends its scratch cache with plain attention, so K1 is the dense path's).
     dense_kernels = ("flash_fwd", "dense_cache_append")
@@ -2398,6 +2848,8 @@ def main(argv=None) -> None:
                "dense_int4": dense_kernels + both, "paged_int4": paged_kernels + both,
                "spec_dense": dense_kernels,
                "spec_paged": ("dense_cache_append", "paged_attn_decode", "paged_kv_update"),
+               "writefirst": ("paged_attn_decode", "paged_kv_update"),
+               "mlp_probe": ("fused_mlp_matvec",),
                "train": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
                "train_lora": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
     if not all(by_path[name][path] > 0 for path, names in on_path.items() for name in names):
@@ -2411,9 +2863,9 @@ def main(argv=None) -> None:
              replaces="vis_zephyr_tpu/ops/kv_cache.py:37",
              max_abs_err=k2["max_abs_err"], **k2["times"]),
         dict(name="paged_attn_decode", source="vis_zephyr_tpu_torch/csrc/paged_attn_decode.cu",
-             replaces=f"{paged_py}:604 and {paged_py}:911",
-             max_abs_err=max(k3["max_abs_err"], k3_rows["max_abs_err"]), **k3["times"],
-             by_rows=k3_rows["by_rows"]),
+             replaces=f"{paged_py}:109, {paged_py}:417, {paged_py}:604 and {paged_py}:911",
+             max_abs_err=max(k3["max_abs_err"], k3_rows["max_abs_err"], k3_single["max_abs_err"]),
+             **k3["times"], by_rows=k3_rows["by_rows"], rows_7_8=k3_single["times"]),
         dict(name="paged_kv_rows", source="vis_zephyr_tpu_torch/csrc/paged_kv_rows.cu",
              replaces=f"{paged_py}:1691", max_abs_err=k4["max_abs_err"], **k4["times"]),
         dict(name="quant_matmul_int8", source="vis_zephyr_tpu_torch/csrc/quant_matmul_int8.cu",
@@ -2434,6 +2886,14 @@ def main(argv=None) -> None:
              replaces="vis_zephyr_tpu/ops/flash_attention.py:262",
              max_abs_err=k78["dq"]["max_abs_err"], **k78["dq"]["times"][2048],
              by_T=k78["dq"]["times"]),
+        # Timed at M = 1 (single-stream decode) at the default block_i; `by_M` holds
+        # M = 8 and both tilings, the K5 route and the int8-pack yardstick.
+        dict(name="fused_mlp_matvec", source="vis_zephyr_tpu_torch/csrc/fused_mlp_matvec.cu",
+             replaces="experiments/fused_mlp_matvec_probe.py:38", max_abs_err=k9["max_abs_err"],
+             **{key: k9["times"][1][key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                                     "bound_ms", "bound_by", "k5_route_ms",
+                                                     "k5_route_device_ms", "int8pack_route_ms")},
+             by_M=k9["times"], probe_us_per_layer=probe_run.get("us_per_layer")),
     ]
     for kernel in kernels:
         counts = by_path[kernel["name"]]

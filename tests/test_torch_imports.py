@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither `jax` nor the JAX package.
 
 A fresh interpreter, with both blocked by an import hook, imports every module
-of `vis_zephyr_tpu_torch` and serves a chat through a serialized and a paged
+of `vis_zephyr_tpu_torch` (the ported experiment probe among them, whose
+numerics check it runs) and serves a chat through a serialized and a paged
 `ChatEngine` on the CPU, with float and with int8 weights, and takes one
 stage-1 and one stage-2 train step; a source scan finds no such import in the
 port or in `chip_smoke.py`. The modules the port copied instead of importing
@@ -56,6 +57,15 @@ names = [m.name for m in pkgutil.walk_packages(vis_zephyr_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 25, names
+assert "vis_zephyr_tpu_torch.experiments.fused_mlp_matvec_probe" in names, names
+
+# The fused int8 MLP probe's numerics check, at small widths on the CPU.
+import contextlib, io
+from vis_zephyr_tpu_torch.experiments.fused_mlp_matvec_probe import main as probe_main
+
+with contextlib.redirect_stdout(io.StringIO()):
+    probe = probe_main(["--device", "cpu", "--hidden", "128", "--intermediate", "256"])
+assert probe["vs_plain"]["rel_err"] == 0.0, probe
 
 from vis_zephyr_tpu_torch.config import tiny_config
 from vis_zephyr_tpu_torch.models.vis_zephyr import init_vis_zephyr
@@ -181,6 +191,8 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|vis_zephyr_tpu)(\.|\s|$)")
     files = port_sources()
     assert len(files) >= 25
+    assert os.path.join(REPO, "vis_zephyr_tpu_torch", "experiments",
+                        "fused_mlp_matvec_probe.py") in files
     hits = [f"{os.path.relpath(path, REPO)}:{n}: {line.strip()}"
             for path in files
             for n, line in enumerate(open(path, encoding="utf-8"), 1) if pattern.match(line)]

@@ -360,11 +360,15 @@ def test_left_out_options_raise_not_implemented(models):
             b.submit(ids, **option)
     step = (port, b.kp, b.vp, (b.ksp, b.vsp), b.page_table, b.lengths, b.token,
             torch.zeros(4, dtype=torch.bool), None, TCFG, kw["sampling"])
-    for option in (dict(mesh=object()), dict(mode="writefirst"), dict(mlora=object()),
+    for option in (dict(mesh=object()), dict(mlora=object()),
                    dict(adapter_idx=object()), dict(sample_overrides=(1, 1)),
                    dict(grammar=(1, 1)), dict(want_logprobs=True), dict(penalties=(1, 1, 1))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpaged._paged_step(*step, **option)
+    # Two modes exist (writefirst is held in test_torch_paged_single.py); an
+    # unknown one is refused, where the JAX step would take it as writefirst.
+    with pytest.raises(ValueError, match="selfterm"):
+        tpaged._paged_step(*step, mode="write-first")
     for option in (dict(continuous_batching=True, kv_cache="dense"),
                    dict(continuous_batching=True, kv_cache="dense", lookahead=2),
                    dict(draft_params=object(), lookahead=2),

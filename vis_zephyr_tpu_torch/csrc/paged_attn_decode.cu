@@ -4,8 +4,15 @@
 // a last online-softmax term.
 //
 // Replaces the TPU kernels `vis_zephyr_tpu/ops/paged_attention.py::_fa_mh_kernel`
-// and `::_fa_gmh_kernel` (one function, `paged_attention_fa`, under two TPU
-// schedules). Same arithmetic:
+// (:604) and `::_fa_gmh_kernel` (:911), one function, `paged_attention_fa`, under
+// two TPU schedules; `::_fa_kernel` (:417), the same function on the TPU's
+// (slot, kv head) grid (`fold_heads=False`); and `::_make_kernel` (:109), the
+// single-row entry `paged_attention` over split pools with the self-term (the
+// block-spec page walk). All four are this kernel with S = 1 or more rows: the
+// TPU folded the kv heads into one grid cell to divide a fixed cost per cell
+// (`paged_attention.py:1286-1305`), which a CUDA block does not pay in the same
+// way, so this grid (kv head, slot, row tile) serves every schedule. Same
+// arithmetic:
 // - scores s = (q . kq) * scale * (k_scale / 127.5) with f32 accumulation (the
 //   int8 -> float convert is exact); mask slot <= qpos, slot < length and
 //   slot > qpos - window; a masked score is -0.7 * FLT_MAX; m starts at -inf

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "vzt_quant_matmul_int4": [_P] * 5 + [_I] * 7 + [_P],
     "vzt_flash_bwd_dkv": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
     "vzt_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
+    "vzt_fused_mlp_matvec": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -5,10 +5,11 @@ of each.
 
 Port of `vis_zephyr_tpu/ops/paged_attention.py`: `paged_attention_fa` (the
 flash-structure kernel, with or without the self-term, any number of query
-rows), `paged_kv_update_rows{,_q}` (one decode step's rows of every layer),
-`paged_kv_update{,_q}` (rows at absolute page ids: the verify step's
-single-layer writes), `quantize_kv`/`dequant_kv` and the pool forms,
-`paged_attention_reference`.
+rows, either grid), `paged_attention` (the single-row entry the writefirst
+decode step attends with), `paged_kv_update_rows{,_q}` (one decode step's
+rows of every layer), `paged_kv_update{,_q}` (rows at absolute page ids: the
+verify step's and the writefirst step's single-layer writes),
+`quantize_kv`/`dequant_kv` and the pool forms, `paged_attention_reference`.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises (outside `_kernels.plain_versions()`, the comparison runs'
 switch).
@@ -125,9 +126,12 @@ def paged_attention_fa_plain(q, k_pages, v_pages, page_table, lengths, q_offs, s
                              sliding_window=None, k_scales=None, v_scales=None,
                              k_new=None, v_new=None, page_offset: int = 0) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: gather every page of the
-    table, f32 scores with the K scales folded in, the mask, one softmax with
-    the self-term as a last column, probabilities times the V scales rounded
-    to the working dtype, f32 P·V. A row with no key is 0."""
+    table, f32 scores with the K scales folded in, the mask, the softmax over
+    the pool, probabilities times the V scales rounded to the working dtype,
+    f32 P·V, and the self-term folded in last as one more online-softmax
+    step (so the pool's probabilities are rounded against the pool's
+    maximum, as the kernel and the JAX package's kernels round them). A row
+    with no key is 0."""
     B, S, Hq, D = q.shape
     fused = v_pages is None
     quant = k_scales is not None
@@ -162,11 +166,6 @@ def paged_attention_fa_plain(q, k_pages, v_pages, page_table, lengths, q_offs, s
     mask = mask[:, None, :, None, :]                            # [B, 1, S, 1, T]
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
-    if k_new is not None:
-        kn = k_new.to(q.dtype).float()                          # [B, Hkv, D]
-        vn = v_new.to(q.dtype).float()
-        s_self = torch.einsum("bshgd,bhd->bhsg", qg, kn)[..., None] * scale
-        m = torch.maximum(m, s_self)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     if quant:
@@ -176,9 +175,14 @@ def paged_attention_fa_plain(q, k_pages, v_pages, page_table, lengths, q_offs, s
     work = q.dtype if quant else k_pages.dtype  # the P·V operand's dtype
     acc = torch.einsum("bhsgt,bhtd->bhsgd", p.to(work).float(), v)
     if k_new is not None:
-        p_self = torch.exp(s_self - m)
-        l = l + p_self
-        acc = acc + p_self * vn[:, :, None, None, :]
+        kn = k_new.to(q.dtype).float()                          # [B, Hkv, D]
+        vn = v_new.to(q.dtype).float()
+        s_self = torch.einsum("bshgd,bhd->bhsg", qg, kn)[..., None] * scale
+        m_next = torch.maximum(m, s_self)
+        alpha = torch.exp(m - m_next)
+        p_self = torch.exp(s_self - m_next)
+        l = alpha * l + p_self
+        acc = acc * alpha + p_self * vn[:, :, None, None, :]
     l_inv = torch.where(l == 0.0, torch.zeros_like(l), 1.0 / l)
     out = (acc * l_inv).to(q.dtype)                             # [B, Hkv, S, G, D]
     return out.permute(0, 2, 1, 3, 4).reshape(B, S, Hq, D)
@@ -259,6 +263,7 @@ def paged_attention_fa(
     k_new: Optional[torch.Tensor] = None,     # [B, Hkv, D] self-term (S = 1)
     v_new: Optional[torch.Tensor] = None,
     page_offset: int = 0,
+    fold_heads: Optional[bool] = None,
 ) -> torch.Tensor:
     """Flash-structure paged attention. Query row j of slot b sits at position
     `q_offs[b] + j` and attends pool slots `[max(0, pos − window + 1), pos]`
@@ -277,16 +282,62 @@ def paged_attention_fa(
     self-term stays unquantized even over int8 pools.
 
     `page_offset` is added to every table entry (the layer's pool segment).
+
+    `fold_heads` names the JAX package's two TPU grids: one cell per slot
+    over all kv heads (None or True, `_fa_mh_kernel` / `_fa_gmh_kernel`) or
+    one per (slot, kv head) (False, `_fa_kernel`,
+    `vis_zephyr_tpu/ops/paged_attention.py:1286-1305`). False keeps the JAX
+    package's refusals: no self-term and no fused pools. Every value
+    launches the same K3, whose grid (kv head, slot, row tile) is already
+    the (slot, kv head) grid: the TPU folded the heads to divide a fixed
+    cost per grid cell over more work, and a CUDA block pays no such cost
+    in the same way. The TPU tilings `pages_per_block` and `slot_block` are
+    not taken (ROADMAP Queue B).
     Returns [B, S, Hq, D]."""
     B, S, Hq, D = q.shape
     scale = D ** -0.5 if scale is None else scale
-    if k_new is not None and S != 1:
-        raise ValueError("k_new/v_new self-term requires S == 1")
+    if k_new is not None and (S != 1 or fold_heads is False):
+        raise ValueError("k_new/v_new self-term requires S == 1 and the folded grid")
+    if v_pages is None and fold_heads is False:
+        raise ValueError("KV-fused pools require the folded grid")
     args = (q, k_pages, v_pages, page_table, lengths, q_offs, scale, sliding_window,
             k_scales, v_scales, k_new, v_new, page_offset)
     if not _kernels.use_kernel(q):
         return paged_attention_fa_plain(*args)
     return _launch_attention(*args)
+
+
+def paged_attention(
+    q: torch.Tensor,                # [B, Hq, D]
+    k_pages: torch.Tensor,          # [N, Hkv, ps, D] bf16 or int8; [N, Hkv, 2·ps, D] fused
+    v_pages: Optional[torch.Tensor],  # None: KV-fused pool
+    page_table: torch.Tensor,       # [B, pages_per_seq] int32, within-layer page ids
+    lengths: torch.Tensor,          # [B] int32 tokens already in the pool
+    k_new: Optional[torch.Tensor] = None,  # [B, Hkv, D] the current token's K/V
+    v_new: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,  # [N, Hkv, rows] f32 (int8 pools)
+    v_scales: Optional[torch.Tensor] = None,
+    page_offset: int = 0,
+) -> torch.Tensor:
+    """One query row per slot against the pools: the JAX package's
+    `paged_attention` (its split-pool self-term case is the TPU kernel
+    `_make_kernel`). `lengths` counts the tokens already in the pool. With
+    `k_new`/`v_new` the query sits at `lengths` and the current token is a
+    final self-term; without them the token is already in the pool and the
+    query sits at `lengths − 1` (the writefirst decode step). Split and
+    fused pools alike; returns [B, Hq, D].
+
+    K3 with S = 1 on a CUDA tensor, its plain version on a CPU tensor. The
+    JAX function's `interpret` and `use_lib` choose among TPU routes (the
+    library kernel is JAX's, not a kernel of this repository) and are not
+    taken."""
+    q_offs = lengths if k_new is not None else lengths - 1
+    return paged_attention_fa(
+        q[:, None], k_pages, v_pages, page_table, lengths, q_offs, scale=scale,
+        sliding_window=sliding_window, k_scales=k_scales, v_scales=v_scales, k_new=k_new,
+        v_new=v_new, page_offset=page_offset)[:, 0]
 
 
 # -- K4: rows into the pools -------------------------------------------------------

@@ -2,7 +2,8 @@
 high-slot-count serving.
 
 Port of `vis_zephyr_tpu/serve/paged.py`: `PageAllocator`, `_admit_paged`,
-`_admit_paged_q`, `_clear_row`, `_paged_step` (mode "selfterm"),
+`_admit_paged_q`, `_clear_row`, `_paged_step` (modes "selfterm" and
+"writefirst"),
 `_paged_verify_step` (prompt-lookup speculation) and `PagedBatcher` with
 eager full-span page allocation.
 
@@ -22,7 +23,10 @@ addressed through per-slot page tables, so a request occupies only
 - the decode step attends FIRST and writes ONCE: each layer runs the
   paged-attention kernel over the read-only pools with the current token's
   K/V as an online-softmax self-term, and after the layer loop all layers'
-  rows are written by one launch (`paged_kv_update_rows{,_q}`).
+  rows are written by one launch (`paged_kv_update_rows{,_q}`). The older
+  "writefirst" step (the JAX package's measured fallback) writes each
+  layer's row first (`paged_kv_update{,_q}`) and attends over the pool with
+  the token in it (`paged_attention`); no batcher takes it by default.
 - the speculative verify step (`lookahead`) writes its S = lookahead + 1
   candidate rows first, one single-layer row write per row and layer
   (`paged_kv_update{,_q}`), then attends all S rows at once without a
@@ -43,7 +47,7 @@ The JAX programs return new pools and rely on donation. Here pools,
 Not ported yet, each raising `NotImplementedError` when asked for: meshes and
 the TP wrappers, multi-LoRA, grammars, logprobs, penalties, per-slot sampling
 overrides, a draft model, multi-step bursts, the prefix cache, lazy
-allocation with host swap, metrics, and mode "writefirst".
+allocation with host swap, and metrics.
 """
 
 from __future__ import annotations
@@ -59,8 +63,9 @@ import torch
 from ..config import VisZephyrConfig
 from ..models.mistral import _project_qkv, embed, rms_norm, rope_cos_sin
 from ..models.vis_zephyr import VisZephyr
-from ..ops.paged_attention import (paged_attention_fa, paged_kv_update, paged_kv_update_q,
-                                   paged_kv_update_rows, paged_kv_update_rows_q, quantize_kv)
+from ..ops.paged_attention import (paged_attention, paged_attention_fa, paged_kv_update,
+                                   paged_kv_update_q, paged_kv_update_rows,
+                                   paged_kv_update_rows_q, quantize_kv)
 from .batching import ContinuousBatcher, _prefill_kv, _Request, not_ported
 from .generate import SamplingConfig, _sample
 
@@ -191,14 +196,23 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
 
     `scales`: `(None, None)` for bf16 pools, or `(k_scales, v_scales)`
     [L·P, Hkv, rows] f32 for int8 pools (`v_scales` None when fused).
-    `active`: bool [B] on the device. Each layer attends the READ-ONLY pools
-    with the current token's K/V folded in as the attention kernel's
-    self-term; after the layer loop ALL layers' rows are written by one
-    launch (every layer of a slot shares one page id and offset).
+    `active`: bool [B] on the device.
+
+    `mode`:
+    - "selfterm" (the default): each layer attends the READ-ONLY pools with
+      the current token's K/V folded in as the attention kernel's
+      self-term; after the layer loop ALL layers' rows are written by one
+      launch (every layer of a slot shares one page id and offset).
+    - "writefirst": each layer writes its row first (`paged_kv_update{,_q}`
+      at absolute page `l·P + page`, one launch a layer) and attends over
+      the pool with the token in it (`paged_attention`, lengths + 1).
+    Any other value raises `ValueError` (the JAX step takes every other
+    string as "writefirst").
 
     Inactive slots decode too: length 0, the trash page at offset 0, so
-    their attention is the self-term alone; their token becomes
-    `pad_token_id` and their length does not grow.
+    their attention is the self-term alone (writefirst: the one trash-page
+    row they just wrote); their token becomes `pad_token_id` and their
+    length does not grow.
 
     The pools, `lengths` and `token` are updated IN PLACE. Returns
     (next_token [B], logits [B, V] f32)."""
@@ -212,8 +226,8 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
             (penalties, "frequency / presence penalties", "Queue A step 10")):
         if value:
             raise not_ported(what, step)
-    if mode != "selfterm":
-        raise not_ported(f"_paged_step mode {mode!r}", "Queue B item 5")
+    if mode not in ("selfterm", "writefirst"):
+        raise ValueError(f"_paged_step: mode must be 'selfterm' or 'writefirst', got {mode!r}")
     dec = cfg.decoder
     decoder = model.decoder
     L = dec.num_layers
@@ -238,24 +252,40 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
     window = sw if (sw is not None and cache_len > sw) else None
 
     ksp, vsp = scales
+    # writefirst: attention spans the pool plus the row just written, so
+    # inactive slots attend one trash-page row (finite; their token is
+    # replaced below), never zero rows.
+    lengths_next = lengths_eff + 1 if mode == "writefirst" else None
     ks_rows, vs_rows = [], []
     for i, layer in enumerate(decoder.model.layers):
         hn = rms_norm(h, layer.input_layernorm.weight, dec.rms_norm_eps)
         q, k, v = _project_qkv(hn, layer.self_attn, dec, cos, sin)
         k_new, v_new = k[:, 0], v[:, 0]
-        attn = paged_attention_fa(q, kp, vp, page_table, lengths_eff, lengths_eff,
-                                  sliding_window=window, k_scales=ksp, v_scales=vsp,
-                                  k_new=k_new, v_new=v_new, page_offset=i * P)
+        if mode == "selfterm":
+            attn = paged_attention_fa(q, kp, vp, page_table, lengths_eff, lengths_eff,
+                                      sliding_window=window, k_scales=ksp, v_scales=vsp,
+                                      k_new=k_new, v_new=v_new, page_offset=i * P)
+            ks_rows.append(k_new)
+            vs_rows.append(v_new)
+        else:
+            page_ids = (cur_page + i * P)[None]                     # [1, B] absolute
+            k_row, v_row = k_new[None].contiguous(), v_new[None].contiguous()
+            if ksp is None:
+                paged_kv_update(kp, vp, k_row, v_row, page_ids, offset)
+            else:
+                paged_kv_update_q(kp, vp, ksp, vsp, k_row, v_row, page_ids, offset)
+            attn = paged_attention(q[:, 0], kp, vp, page_table, lengths_next,
+                                   sliding_window=window, k_scales=ksp, v_scales=vsp,
+                                   page_offset=i * P)
         h = h + layer.self_attn.o_proj(attn.reshape(B, 1, -1))
         hn = rms_norm(h, layer.post_attention_layernorm.weight, dec.rms_norm_eps)
         h = h + layer.mlp(hn)
-        ks_rows.append(k_new)
-        vs_rows.append(v_new)
-    ks_rows, vs_rows = torch.stack(ks_rows), torch.stack(vs_rows)   # [L, B, Hkv, D]
-    if ksp is None:
-        paged_kv_update_rows(kp, vp, ks_rows, vs_rows, cur_page, offset)
-    else:
-        paged_kv_update_rows_q(kp, vp, ksp, vsp, ks_rows, vs_rows, cur_page, offset)
+    if mode == "selfterm":
+        ks_rows, vs_rows = torch.stack(ks_rows), torch.stack(vs_rows)   # [L, B, Hkv, D]
+        if ksp is None:
+            paged_kv_update_rows(kp, vp, ks_rows, vs_rows, cur_page, offset)
+        else:
+            paged_kv_update_rows_q(kp, vp, ksp, vsp, ks_rows, vs_rows, cur_page, offset)
 
     h = rms_norm(h, decoder.model.norm.weight, dec.rms_norm_eps)
     logits = decoder.lm_head(h[:, -1:]).float()[:, 0]
