@@ -2,8 +2,9 @@
 over a dense cache, and continuous batching over int8 KV-fused page pools,
 each with bf16 weights, int8 weights (`--load-8bit`) and int4 weights
 (`--load-4bit`), and each with prompt-lookup speculation (`--lookahead`);
-the writefirst paged decode step; the fused int8 MLP probe; and the
-trainer, stage 1 and stage 2.
+the writefirst paged decode step; the fused int8 MLP probe; the trainer,
+stage 1 and stage 2; and the batched-head and slot-grouped attention
+probes.
 
     python3 chip_smoke.py [--seed N] [--max-new-tokens N] [--profile] [--phases a,b]
 
@@ -155,11 +156,29 @@ toolkit; exits non-zero on a machine without a card. Phases:
              path and on the plain path (loss within 1e-3 relative, projector
              gradient cosine >= 0.999); stage 2 (LoRA r=128, alpha=256,
              dropout 0.05) through `make_train_step` for 2 steps; K1 = 64,
-             K7 = K8 = 32 launches per micro-step, exactly.
+             K7 = K8 = 32 launches per micro-step, exactly;
+18. attn_probes — last, after every served phase: K10 and K11 must not
+             have launched yet. The two attention probes' `main()`
+             (`vis_zephyr_tpu_torch/experiments/batched_paged_attention_probe.py`
+             and `paired_slot_attention_probe.py`: numerics against the plain
+             version and K3, gated at 1e-2 per slot and cosine 0.9999; then
+             K3, K10 at pages_per_block 1, 5, 8 and K11 at P = 2, 4, 8 in CUDA
+             graphs of 32 layer calls at 128 slots of 640 tokens and at 32
+             slots of 60-800, each route's layer-0 output at both shapes
+             gated against the plain version the same way), their launches
+             counted from 0; then K10 and K11 at B=32 (lengths 0 to 2048,
+             int8 fused pools, self-term) against their plain version and K3
+             per slot (<= 1e-2, cosine >= 0.9999) at P = 1, 2, 4, 8,
+             pages_per_block 1, 5, 6, 8, with and without a window of 512;
+             the slot of length 0 exactly its v_new; NaN scales past length
+             bit for bit harmless; `paged_attention_fa(slot_block=2)` routed
+             to K11 on fused int8 pools and to K3 on split bf16 ones,
+             counted; times at the bench shape for the result line, each
+             timed call's output gated against the plain version.
 
 `--phases` runs a subset (kernels, slice1, paged, batch, writefirst, spec,
-profile, precision, int8, mlp_probe, int4, train) and then prints no result
-line. After a full run the line before
+profile, precision, int8, mlp_probe, int4, train, attn_probes) and then
+prints no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
 """
@@ -2638,8 +2657,214 @@ def run_train(seed: int, card: str) -> dict:
     return {"train": stage1, "train_lora": stage2}
 
 
+GROUPED_PAIRS = (1, 2, 4, 8)  # slots a block owns: 1 is K10, more K11
+GROUPED_PAGES = (1, 5, 6, 8)  # pages_per_block: the probes' timed steps
+
+
+def grouped_call(pa, case, q, k_new, v_new, pair, ppcb, window=None, **over):
+    """K10 (pair 1) or K11 over a `paged_case`'s int8 fused pools, layer 1."""
+    c = dict(case, **over)
+    args = (q, c["kp"], c["table"], case["lengths"], case["lengths"], k_new, v_new, c["ksc"],
+            ppcb, window)
+    if pair == 1:
+        return pa.paged_attention_batched(*args, page_offset=case["P"])
+    return pa.paged_attention_paired(*args, page_offset=case["P"], pair=pair)
+
+
+def check_grouped(gen) -> dict:
+    """K10 and K11 against their plain version and against K3 at B=32, Hq=32,
+    Hkv=8, D=128, page 128, 16 pages a slot, int8 fused pools with the
+    self-term, lengths that include 0, 1, 128, 129 and 2048: P = 1, 2, 4 and
+    8 with `pages_per_block` 1, 5, 6 and 8 (every tiling the probes time),
+    with and without a window of 512; per
+    slot max-abs error <= 1e-2 of the slot's largest value and cosine >=
+    0.9999; the slot of length 0 exactly its v_new; NaN in the scales past
+    every slot's length leaves the output unchanged bit for bit. Then
+    `paged_attention_fa` with an explicit `slot_block` of 2 (B = 31: one
+    empty slot of padding) launches K11 on fused int8 pools and K3 on split
+    bf16 ones."""
+    from vis_zephyr_tpu_torch.experiments.probe_common import agreement
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    dev = "cuda"
+    Hq, Hkv, D, ps, B = 32, 8, 128, 128, 32
+    edge = [0, 1, 128, 129, 2048, 2047, 127, 1025]
+    lengths = edge + torch.randint(1, 2049, (B - len(edge),), generator=gen, device=dev).tolist()
+    case = paged_case(gen, lengths, True, True)
+    q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    k_new = torch.randn(B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    v_new = torch.randn(B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    k3 = paged_call(pa, case, q, True, k_new, v_new)
+    k3_window = paged_call(pa, case, q, True, k_new, v_new, 512)
+    worst = {"k10": 0.0, "k11": 0.0}
+
+    def gate(name, got, want, what):
+        a = agreement(got, want, per_slot=True)
+        ok = a["rel_err"] <= 1e-2 and a["cosine"] >= 0.9999 and bool(torch.isfinite(got.float()).all())
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with {what} ({a})")
+        return a
+
+    for pair in GROUPED_PAIRS:
+        name = "K10" if pair == 1 else f"K11 P={pair}"
+        for ppcb in GROUPED_PAGES:
+            for window in (None, 512):
+                got = grouped_call(pa, case, q, k_new, v_new, pair, ppcb, window)
+                torch.cuda.synchronize()
+                with _kernels.plain_versions():
+                    want = grouped_call(pa, case, q, k_new, v_new, pair, ppcb, window)
+                label = f"{name}, pages_per_block {ppcb}, window {window}"
+                a = gate(label, got, want, "its plain version")
+                b = gate(label, got, k3 if window is None else k3_window, "K3")
+                key = "k10" if pair == 1 else "k11"
+                worst[key] = max(worst[key], float((got.float() - want.float()).abs().max()))
+                print(f"{label}: against the plain version per slot {a['rel_err']:.3e} (<= 1e-2), "
+                      f"cosine {a['cosine']:.7f}; against K3 {b['rel_err']:.3e}, "
+                      f"{b['cosine']:.7f} (>= 0.9999)")
+                want0 = v_new[0].repeat_interleave(Hq // Hkv, dim=0)
+                if not torch.equal(got[0, 0], want0):
+                    raise AssertionError(f"{label}: the slot of length 0 is not its v_new")
+        # Whatever a recycled page holds at or past `length` must not reach the
+        # output: NaN in the K and V scales there, the same result bit for bit.
+        clean = grouped_call(pa, case, q, k_new, v_new, pair, 5)
+        dirty_scales = case["ksc"].clone()
+        for b, n in enumerate(lengths):
+            for j in range(16):
+                lo = max(n - j * ps, 0)
+                if lo < ps:
+                    page = int(case["table"][b, j]) + case["P"]
+                    dirty_scales[page, :, lo:ps] = float("nan")
+                    dirty_scales[page, :, ps + lo:] = float("nan")
+        dirty = grouped_call(pa, case, q, k_new, v_new, pair, 5, ksc=dirty_scales)
+        torch.cuda.synchronize()
+        same = torch.equal(clean, dirty)
+        print(f"{name}: NaN scales past length leave the output unchanged: {same}")
+        if not same:
+            raise AssertionError(f"{name}: rows past length reached the output")
+
+    # paged_attention_fa with an explicit slot_block: K11 on the probes'
+    # configuration (31 slots, padded to 32 by an empty slot), K3 on split bf16.
+    def fa(c, **kw):
+        return pa.paged_attention_fa(q[:31], c["kp"], c["vp"], c["table"][:31],
+                                     c["lengths"][:31], c["lengths"][:31], k_scales=c["ksc"],
+                                     v_scales=c["vsc"], k_new=k_new[:31], v_new=v_new[:31],
+                                     page_offset=c["P"], **kw)
+
+    split = paged_case(gen, lengths, False, False)
+    before = (pa.attn_launches, pa.paired_launches)
+    routed = fa(case, slot_block=2, pages_per_block=5)
+    counts = (pa.attn_launches - before[0], pa.paired_launches - before[1])
+    with _kernels.plain_versions():
+        gate("paged_attention_fa(slot_block=2), int8 fused", routed, fa(case, slot_block=2,
+             pages_per_block=5), "its plain version")
+    before_split = (pa.attn_launches, pa.paired_launches)
+    routed_split = fa(split, slot_block=2, pages_per_block=5)
+    counts_split = (pa.attn_launches - before_split[0], pa.paired_launches - before_split[1])
+    torch.cuda.synchronize()
+    if not torch.equal(routed_split, fa(split)):
+        raise AssertionError("paged_attention_fa(slot_block=2) on split bf16 pools is not K3's")
+    print(f"paged_attention_fa(slot_block=2, pages_per_block=5), 31 slots: int8 fused pools -> "
+          f"K3 {counts[0]}, K11 {counts[1]} launches (want 0, 1); split bf16 pools -> K3 "
+          f"{counts_split[0]}, K11 {counts_split[1]} (want 1, 0)")
+    if counts != (0, 1) or counts_split != (1, 0):
+        raise AssertionError("paged_attention_fa's tilings did not route as documented")
+    return worst
+
+
+def time_grouped(seed: int, batched_times: dict, paired_times: dict) -> dict:
+    """K10 (pages_per_block 8, the JAX probe's) and K11 (P = 2, pages_per_block
+    6, the paired probe's first) at the bench shape, one layer: the timed
+    call's output held against the plain version's on the same inputs (per
+    slot max-abs error <= 1e-2 of the slot's largest value, cosine >=
+    0.9999), CUDA events around one wrapper call (median of 20), the plain
+    version, the bound from this run's inputs; the device time a layer from
+    the probes' CUDA graphs of 32 layer calls."""
+    from vis_zephyr_tpu_torch.experiments import batched_paged_attention_probe as bprobe
+    from vis_zephyr_tpu_torch.experiments.probe_common import agreement
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    c = bprobe.bench_case("cuda", seed + 1, bprobe.BENCH_SLOTS,
+                          [bprobe.BENCH_PROMPT] * bprobe.BENCH_SLOTS, 1)
+    least, by, _ = bprobe.layer_bound(c)
+    args = (c["q"], c["k_pages"], c["page_table"], c["lengths"], c["q_offs"], c["k_new"],
+            c["v_new"], c["k_scales"])
+    out = {}
+    for name, tag, probe, fn in (
+            ("paged_attn_batched", "k10_ppcb8", batched_times,
+             lambda: pa.paged_attention_batched(*args, 8)),
+            ("paged_attn_paired", "k11_P2_ppcb6", paired_times,
+             lambda: pa.paged_attention_paired(*args, 6, pair=2))):
+        got = fn()
+        torch.cuda.synchronize()
+        with _kernels.plain_versions():
+            a = agreement(got, fn(), per_slot=True)
+        print(f"{name} ({tag}) at the bench shape against its plain version: per slot "
+              f"{a['rel_err']:.3e} (<= 1e-2), cosine {a['cosine']:.7f} (>= 0.9999)")
+        if not (a["rel_err"] <= 1e-2 and a["cosine"] >= 0.9999
+                and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"{name} ({tag}) disagrees with its plain version at the bench "
+                                 f"shape: {a}")
+        ms = median_ms(fn)
+        with _kernels.plain_versions():
+            plain_ms = median_ms(fn, 5)
+        device_ms = probe["B128"]["step_ms"][tag] / probe["B128"]["layers"]
+        out[name] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=least, bound_by=by, config=tag,
+                         probe_step_ms={shape: t["step_ms"] for shape, t in probe.items()})
+        print(f"{name} ({tag}) at the bench shape (128 slots of 640 tokens): {ms:.4f} ms per "
+              f"call, {device_ms:.4f} on the device (a layer of the probe's graph); plain "
+              f"{plain_ms:.4f} ms; bound {least:.5f} ms by {by}; no library call computes it")
+    del c, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_attn_probes(seed: int, gen, card: str) -> dict:
+    """The two attention probes' `main()`, their launches counted from 0
+    (numerics, then K3, K10 and K11 in CUDA graphs of 32 layer calls at
+    128 slots of 640 tokens and at 32 slots of 60-800), their numerics
+    and every timed route's output at both timed shapes gated; then K10
+    and K11 held against their plain version and K3
+    (`check_grouped`) and timed for the kernels line (`time_grouped`)."""
+    from vis_zephyr_tpu_torch.experiments import batched_paged_attention_probe as bprobe
+    from vis_zephyr_tpu_torch.experiments import paired_slot_attention_probe as pprobe
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    # Every served phase ran before this one: neither kernel may have launched.
+    if pa.batched_launches or pa.paired_launches:
+        raise AssertionError(f"K10 or K11 launched on a served path: {pa.batched_launches}, "
+                             f"{pa.paired_launches}")
+    pa.batched_launches = pa.paired_launches = 0
+    batched = bprobe.main(["--seed", str(seed)])
+    paired = pprobe.main(["--seed", str(seed)])
+    counts = {"k10": pa.batched_launches, "k11": pa.paired_launches}
+    checks = {"batched": batched["vs_plain"], "batched vs K3": batched["vs_k3"]}
+    for key, value in paired.items():
+        if key.startswith("P"):
+            checks[f"paired {key}"] = value["vs_plain"]
+            checks[f"paired {key} vs K3"] = value["vs_k3"]
+    # Every timed route's layer-0 output at both timed shapes against the
+    # plain version on the same inputs (`time_routes`).
+    for probe, res in (("batched", batched), ("paired", paired)):
+        for shape, timed in res["times"].items():
+            for tag, value in timed["checks"].items():
+                checks[f"{probe} {shape} {tag}"] = value
+    bad = {k: v for k, v in checks.items() if not (v["rel_err"] <= 1e-2 and v["cosine"] >= 0.9999)}
+    if bad:
+        raise AssertionError(f"attn_probes: a probe's numerics check failed: {bad}")
+    print(f"attn_probes: {len(checks)} probe checks within per slot 1e-2 and cosine 0.9999, "
+          f"every timed route at both timed shapes among them")
+    print(f"attn_probes: launches in the probes' runs K10 {counts['k10']}, K11 {counts['k11']}")
+    grouped = check_grouped(gen)
+    times = time_grouped(seed, batched["times"], paired["times"])
+    return dict(counts, max_abs_err=grouped, times=times,
+                probes={"batched": batched["times"], "paired": paired["times"]})
+
+
 PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "profile", "precision",
-          "int8", "mlp_probe", "int4", "train")
+          "int8", "mlp_probe", "int4", "train", "attn_probes")
 
 
 def main(argv=None) -> None:
@@ -2700,7 +2925,7 @@ def main(argv=None) -> None:
         k9 = check_fused_mlp(gen)
         done("kernels K9")
     model = None
-    if set(phases) - {"kernels", "train"}:
+    if set(phases) - {"kernels", "train", "attn_probes"}:
         model, cfg = build_model(args.seed)
     if "slice1" in phases:
         dense = run_slice(model, cfg, args.seed, args.max_new_tokens, card)
@@ -2819,6 +3044,14 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
         trained = run_train(args.seed, card)
         done("train")
+    if "attn_probes" in phases:
+        # Last, so that the K10 and K11 counters, still 0 when it starts, show
+        # that no served phase launched either kernel.
+        model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        attn = run_attn_probes(args.seed, gen, card)
+        done("attn_probes")
     if phases != full:
         print(f"partial run of phases {phases}: no result line")
         return
@@ -2830,13 +3063,15 @@ def main(argv=None) -> None:
     runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
             "dense_int4": dense4, "paged_int4": paged4, "spec_dense": spec_dense,
             "spec_paged": spec_paged, "writefirst": writefirst, "mlp_probe": mlp_probe,
-            "train": trained["train"], "train_lora": trained["train_lora"]}
+            "train": trained["train"], "train_lora": trained["train_lora"],
+            "attn_probes": attn}
     by_path = {name: {path: run.get(key, 0) for path, run in runs.items()}
                for name, key in (("flash_fwd", "k1"), ("dense_cache_append", "k2"),
                                  ("paged_attn_decode", "k3"), ("paged_kv_rows", "k4"),
                                  ("quant_matmul_int8", "k5"), ("quant_matmul_int4", "k6"),
                                  ("paged_kv_update", "kvu"), ("flash_bwd_dkv", "k7"),
-                                 ("flash_bwd_dq", "k8"), ("fused_mlp_matvec", "k9"))}
+                                 ("flash_bwd_dq", "k8"), ("fused_mlp_matvec", "k9"),
+                                 ("paged_attn_batched", "k10"), ("paged_attn_paired", "k11"))}
     # Each path must have gone through its own kernels (chunked admission
     # attends its scratch cache with plain attention, so K1 is the dense path's).
     dense_kernels = ("flash_fwd", "dense_cache_append")
@@ -2851,9 +3086,13 @@ def main(argv=None) -> None:
                "writefirst": ("paged_attn_decode", "paged_kv_update"),
                "mlp_probe": ("fused_mlp_matvec",),
                "train": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
-               "train_lora": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+               "train_lora": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+               "attn_probes": ("paged_attn_batched", "paged_attn_paired")}
     if not all(by_path[name][path] > 0 for path, names in on_path.items() for name in names):
         raise AssertionError(f"a kernel was never launched on its served path: {by_path}")
+    if any(n for name in ("paged_attn_batched", "paged_attn_paired")
+           for path, n in by_path[name].items() if path != "attn_probes"):
+        raise AssertionError(f"K10 or K11 launched outside the attention probes: {by_path}")
     paged_py = "vis_zephyr_tpu/ops/paged_attention.py"
     kernels = [
         dict(name="flash_fwd", source="vis_zephyr_tpu_torch/csrc/flash_fwd.cu",
@@ -2894,6 +3133,15 @@ def main(argv=None) -> None:
                                                      "bound_ms", "bound_by", "k5_route_ms",
                                                      "k5_route_device_ms", "int8pack_route_ms")},
              by_M=k9["times"], probe_us_per_layer=probe_run.get("us_per_layer")),
+        # At the probes' bench shape (128 slots of 640 tokens, one layer);
+        # `probe_step_ms` holds each probe's routes per 32-layer step at 128
+        # and at 32 slots.
+        dict(name="paged_attn_batched", source="vis_zephyr_tpu_torch/csrc/paged_attn_grouped.cu",
+             replaces="experiments/batched_paged_attention_probe.py:19",
+             max_abs_err=attn["max_abs_err"]["k10"], **attn["times"]["paged_attn_batched"]),
+        dict(name="paged_attn_paired", source="vis_zephyr_tpu_torch/csrc/paged_attn_grouped.cu",
+             replaces="experiments/paired_slot_attention_probe.py:28",
+             max_abs_err=attn["max_abs_err"]["k11"], **attn["times"]["paged_attn_paired"]),
     ]
     for kernel in kernels:
         counts = by_path[kernel["name"]]

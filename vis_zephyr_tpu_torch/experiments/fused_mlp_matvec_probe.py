@@ -29,15 +29,14 @@ it runs the check alone: a time is a card's.
 from __future__ import annotations
 
 import argparse
-import statistics
-import subprocess
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops import _kernels
+from .probe_common import agreement, card_name, graph_replay_ms
 
 D, I = 4096, 14336   # Zephyr-7B's hidden and intermediate widths, the probe's shapes
 CALLS = 32           # chained layer-equivalents per timed graph, as the probe's scan
@@ -173,13 +172,6 @@ def random_weights(hidden: int, inter: int, device, seed: int) -> Tuple[torch.Te
             codes(hidden, inter), scales(hidden))
 
 
-def agreement(got: torch.Tensor, want: torch.Tensor) -> Dict[str, float]:
-    """max-abs error over max |want|, and cosine, in f64."""
-    g, w = got.double().flatten(), want.double().flatten()
-    return {"rel_err": float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)),
-            "cosine": float(F.cosine_similarity(g, w, dim=0))}
-
-
 def k5_route(x, gate_q, gate_scale, up_q, up_scale, down_q, down_scale):
     """What `layer.mlp(hn)` runs on a `--load-8bit` layer today: `qlinear`'s
     K5 for gate and up, `F.silu(g) · u` in bf16, K5 for down."""
@@ -199,33 +191,9 @@ def chain(fn, x, calls: int = CALLS):
 
 
 def graph_us_per_call(fn, x, calls: int = CALLS, replays: int = 20) -> float:
-    """Device time of one chained call: `calls` calls run once eagerly
-    (warm-up), captured in one CUDA graph, the graph replayed `replays`
-    times; median CUDA-event time of a replay over `calls`, in µs."""
-    chain(fn, x, calls)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        chain(fn, x, calls)
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    del graph
-    return statistics.median(times) * 1e3 / calls
-
-
-def card_name() -> str:
-    """nvidia-smi's name and power limit of the card."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi unavailable"
+    """Device time of one chained call: `calls` calls in one CUDA graph
+    (`graph_replay_ms`), the median replay over `calls`, in µs."""
+    return graph_replay_ms(lambda: chain(fn, x, calls), replays) * 1e3 / calls
 
 
 def main(argv=None) -> dict:

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "vzt_flash_bwd_dkv": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
     "vzt_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
     "vzt_fused_mlp_matvec": [_P] * 9 + [_I] * 4 + [_P],
+    "vzt_paged_attn_batched": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
+    "vzt_paged_attn_paired": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
 }
 
 _lib = None

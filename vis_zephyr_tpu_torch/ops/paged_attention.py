@@ -1,7 +1,8 @@
 """Paged KV pools: decode attention over pages (kernel K3,
-`csrc/paged_attn_decode.cu`), the row writes (kernel K4,
-`csrc/paged_kv_rows.cu`), int8 KV quantization, and the plain PyTorch version
-of each.
+`csrc/paged_attn_decode.cu`, and its served configuration one block a slot or
+a group of slots, kernels K10 and K11, `csrc/paged_attn_grouped.cu`), the row
+writes (kernel K4, `csrc/paged_kv_rows.cu`), int8 KV quantization, and the
+plain PyTorch version of each.
 
 Port of `vis_zephyr_tpu/ops/paged_attention.py`: `paged_attention_fa` (the
 flash-structure kernel, with or without the self-term, any number of query
@@ -9,7 +10,12 @@ rows, either grid), `paged_attention` (the single-row entry the writefirst
 decode step attends with), `paged_kv_update_rows{,_q}` (one decode step's
 rows of every layer), `paged_kv_update{,_q}` (rows at absolute page ids: the
 verify step's and the writefirst step's single-layer writes),
-`quantize_kv`/`dequant_kv` and the pool forms, `paged_attention_reference`.
+`quantize_kv`/`dequant_kv` and the pool forms, `paged_attention_reference`;
+`paged_attention_batched` / `paged_attention_paired` are the kernels of the
+probes `experiments/batched_paged_attention_probe.py` and
+`experiments/paired_slot_attention_probe.py` (`fa_batched`, `fa_paired`),
+which `paged_attention_fa` runs when it is given `pages_per_block` or
+`slot_block`.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises (outside `_kernels.plain_versions()`, the comparison runs'
 switch).
@@ -52,6 +58,8 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 KV_QUANT_MAX = 127.5
 
 attn_launches = 0  # K3 launches in this process (reset by callers that count)
+batched_launches = 0  # K10 launches (`paged_attention_batched`)
+paired_launches = 0  # K11 launches (`paged_attention_paired`)
 rows_launches = 0  # K4 launches through `paged_kv_update_rows{,_q}`
 update_launches = 0  # K4 launches through `paged_kv_update{,_q}`
 
@@ -264,6 +272,8 @@ def paged_attention_fa(
     v_new: Optional[torch.Tensor] = None,
     page_offset: int = 0,
     fold_heads: Optional[bool] = None,
+    pages_per_block: Optional[int] = None,
+    slot_block: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash-structure paged attention. Query row j of slot b sits at position
     `q_offs[b] + j` and attends pool slots `[max(0, pos − window + 1), pos]`
@@ -287,19 +297,58 @@ def paged_attention_fa(
     over all kv heads (None or True, `_fa_mh_kernel` / `_fa_gmh_kernel`) or
     one per (slot, kv head) (False, `_fa_kernel`,
     `vis_zephyr_tpu/ops/paged_attention.py:1286-1305`). False keeps the JAX
-    package's refusals: no self-term and no fused pools. Every value
-    launches the same K3, whose grid (kv head, slot, row tile) is already
-    the (slot, kv head) grid: the TPU folded the heads to divide a fixed
-    cost per grid cell over more work, and a CUDA block pays no such cost
-    in the same way. The TPU tilings `pages_per_block` and `slot_block` are
-    not taken (ROADMAP Queue B).
+    package's refusals: no self-term and no fused pools, and no
+    `slot_block` above 1. Every value launches K3, whose grid (kv head,
+    slot, row tile) is already the (slot, kv head) grid: the TPU folded the
+    heads to divide a fixed cost per grid cell over more work, and a CUDA
+    block pays no such cost in the same way.
+
+    `pages_per_block` (the online softmax's step, in pages) and `slot_block`
+    (slots a grid cell owns) are the JAX package's TPU tilings. With both
+    None the call runs K3, which steps one page at a time; the served steps
+    pass neither. Given either, in the configuration the probes' kernels
+    take (KV-fused int8 pools, the self-term, S = 1, head_dim 128, at most
+    4 query heads a kv head, a block's scores within a block's shared
+    memory: `grouped_fits`) the call runs K10 (`paged_attention_batched`)
+    when `slot_block` is None or 1 and K11 (`paged_attention_paired`, P =
+    `slot_block`) above 1, with B padded to a multiple of `slot_block` by
+    empty slots as in the JAX package; `pages_per_block` None then takes
+    the JAX default, the pages of 768 tokens, at most 6. In any other
+    configuration they run K3, which computes the same function: the step
+    only moves where the probabilities round to bf16. The launch counters
+    say which ran.
     Returns [B, S, Hq, D]."""
     B, S, Hq, D = q.shape
     scale = D ** -0.5 if scale is None else scale
+    if slot_block is not None and slot_block > 1 and fold_heads is False:
+        raise ValueError("slot_block requires the folded grid")
     if k_new is not None and (S != 1 or fold_heads is False):
         raise ValueError("k_new/v_new self-term requires S == 1 and the folded grid")
     if v_pages is None and fold_heads is False:
         raise ValueError("KV-fused pools require the folded grid")
+    tiled = pages_per_block is not None or slot_block is not None
+    if tiled and pages_per_block is None:
+        pages_per_block = min(max(DEFAULT_BLOCK_TOKENS // _page_size(k_pages, v_pages is None), 1),
+                              6, page_table.shape[1])
+    if (tiled and v_pages is None and k_scales is not None and k_new is not None and S == 1
+            and grouped_fits(Hq, k_pages.shape[1], D, k_pages.shape[3], k_pages.shape[2] // 2,
+                             page_table.shape[1], pages_per_block)):
+        sb = max(1, min(slot_block or 1, B))
+        if sb == 1:
+            return paged_attention_batched(q, k_pages, page_table, lengths, q_offs, k_new, v_new,
+                                           k_scales, pages_per_block, sliding_window, scale,
+                                           page_offset)
+        pad = (-B) % sb
+        if pad:  # empty slots: length 0, table row 0; sliced off below
+            def padded(t):
+                return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+
+            q, page_table, lengths, q_offs, k_new, v_new = map(
+                padded, (q, page_table, lengths, q_offs, k_new, v_new))
+        out = paged_attention_paired(q, k_pages, page_table, lengths, q_offs, k_new, v_new,
+                                     k_scales, pages_per_block, sliding_window, scale,
+                                     page_offset, pair=sb)
+        return out[:B]
     args = (q, k_pages, v_pages, page_table, lengths, q_offs, scale, sliding_window,
             k_scales, v_scales, k_new, v_new, page_offset)
     if not _kernels.use_kernel(q):
@@ -338,6 +387,181 @@ def paged_attention(
         q[:, None], k_pages, v_pages, page_table, lengths, q_offs, scale=scale,
         sliding_window=sliding_window, k_scales=k_scales, v_scales=v_scales, k_new=k_new,
         v_new=v_new, page_offset=page_offset)[:, 0]
+
+
+# -- K10, K11: the served configuration a slot or a group of slots a block ------------
+
+DEFAULT_BLOCK_TOKENS = 768  # the JAX package's default online-softmax step, in tokens
+GROUPED_MAX_G = 4           # K10 / K11 hold at most 4 query heads per kv head
+GROUPED_SMEM_BYTES = 232448  # a block's shared memory on the H100 (227 KB)
+
+
+def grouped_fits(Hq: int, Hkv: int, D: int, pool_d: int, ps: int, pps: int,
+                 pages_per_block: int) -> bool:
+    """Whether K10 / K11 take this shape: head_dim 128, Hq a multiple of Hkv
+    by at most 4, and one warp's scores of a block (4 rows and the V scales
+    of `min(pages_per_block, pps) · ps` tokens, 4 floats of padding a row)
+    within a block's shared memory, as `csrc/paged_attn_grouped.cu` lays
+    them out."""
+    bk = min(pages_per_block, pps) * ps
+    return (D == HEAD_DIM and pool_d == D and Hkv > 0 and Hq % Hkv == 0
+            and Hq // Hkv <= GROUPED_MAX_G
+            and (GROUPED_MAX_G + 1) * (bk + 4) * 4 <= GROUPED_SMEM_BYTES)
+
+
+def paged_attention_grouped_plain(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales,
+                                  pages_per_block: int, sliding_window=None, scale=None,
+                                  page_offset: int = 0) -> torch.Tensor:
+    """K10's and K11's arithmetic in plain PyTorch (the slots a block owns do
+    not change a slot's): KV-fused int8 pools, S = 1, the self-term. Scores
+    in f32 with the K scales, then an online softmax over blocks of
+    `bk = min(pages_per_block, pps) · ps` tokens numbered from token 0: a
+    block's probabilities are exp(s − m) of the running maximum after the
+    block, times the V scales, rounded to q's dtype before P·V. The
+    self-term last, unquantized. Rows at or past `length` never reach the
+    output. Returns [B, 1, Hq, D]."""
+    B, S, Hq, D = q.shape
+    Hkv = k_pages.shape[1]
+    ps = _page_size(k_pages, True)
+    G = Hq // Hkv
+    pps = page_table.shape[1]
+    T = pps * ps
+    bk = min(pages_per_block, pps) * ps
+    scale = D ** -0.5 if scale is None else scale
+    idx = page_table.long() + page_offset                       # [B, pps]
+
+    def rows(pool, lo):  # → [B, Hkv, T, ...]
+        r = pool[idx][:, :, :, lo:lo + ps].transpose(1, 2)
+        return r.reshape((B, Hkv, T) + tuple(r.shape[4:]))
+
+    slot = torch.arange(T, device=q.device)[None, :]
+    qpos = q_offs.long()[:, None]
+    mask = (slot <= qpos) & (slot < lengths.long()[:, None])    # [B, T]
+    if sliding_window is not None:
+        mask = mask & (slot > qpos - sliding_window)
+    k = rows(k_pages, 0).float()                                # [B, Hkv, T, D]
+    v = torch.where(mask[:, None, :, None], rows(k_pages, ps).float(), 0.0)
+    qg = q.float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bhtd->bhgt", qg, k) * scale
+    s = s * (rows(k_scales, 0) * (1.0 / KV_QUANT_MAX))[:, :, None, :]
+    mask4 = mask[:, None, None, :]
+    s = torch.where(mask4, s, NEG_INF)
+    v_mul = (rows(k_scales, ps) * (1.0 / KV_QUANT_MAX))[:, :, None, :]
+    m = torch.full((B, Hkv, G, 1), -float("inf"), device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, G, D), device=q.device)
+    for lo in range(0, T, bk):
+        blk = slice(lo, lo + bk)
+        sb, mb = s[..., blk], mask4[..., blk]
+        m_next = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.where(mb, torch.exp(sb - m_next), 0.0)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        p = torch.where(mb, p * v_mul[..., blk], 0.0).to(q.dtype).float()
+        acc = acc * alpha + torch.einsum("bhgt,bhtd->bhgd", p, v[:, :, blk])
+        m = m_next
+    kn = k_new.to(q.dtype).float()                              # [B, Hkv, D]
+    vn = v_new.to(q.dtype).float()
+    s_self = torch.einsum("bhgd,bhd->bhg", qg, kn)[..., None] * scale
+    m_next = torch.maximum(m, s_self)
+    alpha = torch.exp(m - m_next)
+    p_self = torch.exp(s_self - m_next)
+    l = alpha * l + p_self
+    acc = acc * alpha + p_self * vn[:, :, None, :]
+    l_inv = torch.where(l == 0.0, torch.zeros_like(l), 1.0 / l)
+    return (acc * l_inv).to(q.dtype).reshape(B, 1, Hq, D)
+
+
+def _launch_grouped(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales,
+                    pages_per_block, sliding_window, scale, page_offset, pair) -> torch.Tensor:
+    """One K10 launch (pair None) or K11 launch (pair >= 2)."""
+    global batched_launches, paired_launches
+    name = "paged_attention_batched" if pair is None else "paged_attention_paired"
+    B, _, Hq, D = q.shape
+    N, Hkv, rows, _ = k_pages.shape
+    dev = q.device
+    if not grouped_fits(Hq, Hkv, D, k_pages.shape[3], rows // 2, page_table.shape[1],
+                        pages_per_block):
+        raise ValueError(f"{name}: head_dim must be {HEAD_DIM}, Hq a multiple of Hkv by at most "
+                         f"{GROUPED_MAX_G} and a block's scores within {GROUPED_SMEM_BYTES} bytes "
+                         f"of shared memory; q={tuple(q.shape)}, pool={tuple(k_pages.shape)}, "
+                         f"pages_per_block={pages_per_block}")
+    _check_cuda("q", q, dev, torch.bfloat16)
+    _check_cuda("k_pages", k_pages, dev, torch.int8)
+    _check_cuda("k_scales", k_scales, dev, torch.float32, (N, Hkv, rows))
+    _check_cuda("page_table", page_table, dev, torch.int32, (B, page_table.shape[1]))
+    _check_cuda("lengths", lengths, dev, torch.int32, (B,))
+    _check_cuda("q_offs", q_offs, dev, torch.int32, (B,))
+    _check_cuda("k_new", k_new, dev, torch.bfloat16, (B, Hkv, D))
+    _check_cuda("v_new", v_new, dev, torch.bfloat16, (B, Hkv, D))
+    if any(t.data_ptr() % 16 for t in (q, k_pages, k_new, v_new)):
+        raise ValueError(f"{name}: q, the pool and k_new / v_new must be 16-byte aligned")
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), out.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), q_offs.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), B, Hq, Hkv, rows // 2, page_table.shape[1], int(pages_per_block),
+            int(page_offset), int(sliding_window or 0))
+    if pair is None:
+        code = _kernels.lib().vzt_paged_attn_batched(*args, float(scale), _kernels.stream_ptr(dev))
+        _kernels.check(code, "vzt_paged_attn_batched")
+        batched_launches += 1
+    else:
+        code = _kernels.lib().vzt_paged_attn_paired(*args, int(pair), float(scale),
+                                                     _kernels.stream_ptr(dev))
+        _kernels.check(code, "vzt_paged_attn_paired")
+        paired_launches += 1
+    return out
+
+
+def _grouped(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales, pages_per_block,
+             sliding_window, scale, page_offset, pair) -> torch.Tensor:
+    name = "paged_attention_batched" if pair is None else "paged_attention_paired"
+    if q.dim() != 4 or q.shape[1] != 1 or k_pages.dim() != 4 or k_pages.shape[2] % 2:
+        raise ValueError(f"{name}: q must be [B, 1, Hq, D] and the pool KV-fused "
+                         f"[N, Hkv, 2·ps, D]; q={tuple(q.shape)}, pool={tuple(k_pages.shape)}")
+    if pages_per_block < 1 or (pair is not None and pair < 2):
+        raise ValueError(f"{name}: pages_per_block must be >= 1 and pair >= 2, got "
+                         f"{pages_per_block}, {pair}")
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if not _kernels.use_kernel(q):
+        return paged_attention_grouped_plain(q, k_pages, page_table, lengths, q_offs, k_new,
+                                             v_new, k_scales, pages_per_block, sliding_window,
+                                             scale, page_offset)
+    return _launch_grouped(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales,
+                           pages_per_block, sliding_window, scale, page_offset, pair)
+
+
+def paged_attention_batched(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales,
+                            pages_per_block: int = 8, sliding_window: Optional[int] = None,
+                            scale: Optional[float] = None, page_offset: int = 0) -> torch.Tensor:
+    """Decode attention over a KV-fused int8 pool with the self-term, one
+    block a slot over all its kv heads (K10, the TPU kernel
+    `experiments/batched_paged_attention_probe.py::_batched_kernel`).
+
+    q [B, 1, Hq, D] bf16; k_pages [N, Hkv, 2·ps, D] int8 (a page's K rows,
+    then its V rows); k_scales [N, Hkv, 2·ps] f32; page_table [B, pps] int32
+    within-layer ids, `page_offset` added to each; lengths [B] tokens in the
+    pool; q_offs [B] the query's position (the pool holds [0, lengths) and
+    the query sits at `q_offs = lengths` in a decode step); k_new, v_new
+    [B, Hkv, D] the current token, folded in last. The online softmax steps
+    over blocks of `min(pages_per_block, pps) · ps` tokens. On a CUDA tensor
+    K10 (head_dim 128, Hq / Hkv ≤ 4); on a CPU tensor its plain version.
+    Returns [B, 1, Hq, D]."""
+    return _grouped(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales,
+                    pages_per_block, sliding_window, scale, page_offset, None)
+
+
+def paged_attention_paired(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales,
+                           pages_per_block: int = 6, sliding_window: Optional[int] = None,
+                           scale: Optional[float] = None, page_offset: int = 0,
+                           pair: int = 2) -> torch.Tensor:
+    """`paged_attention_batched`'s function, one block per `pair` consecutive
+    slots (K11, the TPU kernel
+    `experiments/paired_slot_attention_probe.py::_paired_kernel`); the last
+    group may be short. The same arithmetic slot for slot, so the same plain
+    version on a CPU tensor."""
+    return _grouped(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales,
+                    pages_per_block, sliding_window, scale, page_offset, pair)
 
 
 # -- K4: rows into the pools -------------------------------------------------------
