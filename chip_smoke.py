@@ -14,10 +14,15 @@ toolkit; exits non-zero on a machine without a card. Phases:
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds `vis_zephyr_tpu_torch/csrc/*.cu` into the ignored
              `vis_zephyr_tpu_torch/build/`;
-3. K1      — flash_fwd against its plain version (f32 from the same bf16
-             inputs): causal T=S 256 and 2048, non-causal, and B=2 with
-             right-padded keys plus a row that has no valid key;
-             output max-abs <= 2e-2, logsumexp max-abs <= 1e-2; then K7
+3. K1      — flash_fwd (wgmma + TMA: its SASS must hold HGMMA and UTMALDG)
+             against its plain version (f32 from the same bf16 inputs, one
+             batch row at a time): causal T=S 256 and 2048, non-causal, B=2
+             with right-padded keys plus a row that has no valid key, the
+             trainer's B=8, T=S=2048 with each row's keys padded to another
+             length, a 64-row half tile (T=S=192), non-causal T=128 S=320 and
+             GQA group 1; output max-abs <= 2e-2, logsumexp max-abs <= 1e-2,
+             keyless rows exactly 0 with l = 0 and m = NEG_INF; timed at B=1,
+             T=S 256 and 2048 and at the trainer's shape; then K7
              (dK, dV) and K8 (dQ) in the same four cases against
              `flash_attention_bwd_plain` in f32 on the same bf16 inputs and
              K1's m and l: per tensor max-abs <= 1e-2 of its largest value
@@ -112,9 +117,10 @@ toolkit; exits non-zero on a machine without a card. Phases:
              vs the decode step >= 0.99 (int8) and >= 0.999 (bf16);
 13. profile — only with --profile: wall, device-busy and idle share of one
              batched decode step at B=32, and of one verify step (S = 5), and
-             the largest device items (torch.profiler); the decode step again
-             on int8 and int4 weights after phases 15 and 16, the verify step
-             on int8 weights;
+             the largest device items (torch.profiler); a text-only prefill
+             of 2048 tokens (K1's share of its device time, one K1 launch a
+             layer); the decode step again on int8 and int4 weights after
+             phases 15 and 16, the verify step on int8 weights;
 14. precision — (it widens the model in place): the bf16 prefill logits
              against an f32 run of the same weights (the JAX engine's
              arithmetic for f32 pixels; cosine >= 0.999);
@@ -190,6 +196,8 @@ import gc
 import http.client
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import threading
@@ -288,67 +296,159 @@ def masked_lse(q, k, kv_valid, causal, scale):
     return torch.logsumexp(s, dim=-1).reshape(B, Hq, T)
 
 
+def k1_sass_counts() -> dict:
+    """HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store) instructions
+    in K1's function of the built library, read with `cuobjdump -sass`."""
+    from vis_zephyr_tpu_torch.ops import _kernels
+
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    dump = subprocess.run([tool, "-sass", _kernels.LIB], capture_output=True, text=True,
+                          timeout=300)
+    if dump.returncode != 0:
+        raise AssertionError(f"cuobjdump -sass failed ({dump.returncode}): {dump.stderr[-500:]}")
+    sections = re.split(r"\n\s*Function : ", dump.stdout)[1:]
+    body = "".join(sec for sec in sections if "flash_fwd_kernel" in sec.split("\n", 1)[0])
+    if not body:
+        raise AssertionError("cuobjdump -sass shows no flash_fwd_kernel function")
+    return {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+
+
+def flash_pairs(kv_valid, T: int, causal: bool) -> int:
+    """The (row, key) pairs attention needs on these inputs: valid keys, and
+    col <= row under `causal` (each costs 4 * Hq * D FLOPs for the two products)."""
+    S = kv_valid.shape[1]
+    if not causal:
+        return int(kv_valid.sum()) * T
+    seen = kv_valid.long().cumsum(dim=1)          # valid keys at or before each column
+    rows = torch.arange(T, device=kv_valid.device).clamp(max=S - 1)
+    return int(seen[:, rows].sum())
+
+
 def check_flash(gen) -> dict:
+    """K1 against its plain version run in f32 on the same bf16 inputs, one
+    batch row at a time: output max-abs <= 2e-2 and logsumexp (m + log l)
+    max-abs <= 1e-2 on rows with a key; on a row without one the output is
+    exactly 0, l = 0 and m = NEG_INF. The first four cases are the phase's
+    oldest (their inputs come first from `gen`); the rest (the trainer's B=8, T=2048 with
+    right-padded keys, a 64-row half tile, S != T with S not a multiple of
+    128, GQA group 1) draw from a generator of their own, so later phases see
+    the inputs they saw before. Timed, B=1 at T=S 256 and 2048 and the
+    trainer's shape: kernel (CUDA events around one call, and on the device
+    alone from a CUDA-graph replay), plain, `scaled_dot_product_attention`
+    (with the padding as a boolean mask where there is one; the same two
+    readings) and the bound from this run's valid pairs. Fails if K1's SASS
+    has no HGMMA or no UTMALDG."""
     from vis_zephyr_tpu_torch.ops import flash_attention as fa
 
     dev = "cuda"
-    Hq, Hkv, D = 32, 8, 128
+    D = 128
+    sass = k1_sass_counts()
+    print(f"K1 SASS (cuobjdump -sass, flash_fwd_kernel): {sass}")
+    if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+        raise AssertionError(f"K1 does not run on wgmma fed by TMA: {sass}")
     S_row = torch.arange(256, device=dev)
     padded = torch.stack([S_row < 200, (S_row >= 1) & (S_row < 230)])  # b=1, q row 0: no key
+    rows_2048 = torch.arange(2048, device=dev)
+    lengths = torch.tensor([2048, 1900, 1664, 1537, 1280, 1029, 700, 333], device=dev)
+    ragged = rows_2048[None, :] < lengths[:, None]   # each row's keys right-padded
+    extra = torch.Generator(dev).manual_seed(gen.initial_seed() + 1)
     cases = [
-        ("causal T=S=256", 1, 256, 256, True, None),
-        ("causal T=S=2048", 1, 2048, 2048, True, None),
-        ("non-causal T=256 S=512", 1, 256, 512, False, None),
-        ("causal B=2 padded kv_valid", 2, 256, 256, True, padded),
+        # name, B, T, S, Hq, Hkv, causal, kv_valid, generator, timed as
+        ("causal T=S=256", 1, 256, 256, 32, 8, True, None, gen, 256),
+        ("causal T=S=2048", 1, 2048, 2048, 32, 8, True, None, gen, 2048),
+        ("non-causal T=256 S=512", 1, 256, 512, 32, 8, False, None, gen, None),
+        ("causal B=2 padded kv_valid", 2, 256, 256, 32, 8, True, padded, gen, None),
+        ("causal B=8 T=S=2048 right-padded keys", 8, 2048, 2048, 32, 8, True, ragged, extra,
+         "B8_2048"),
+        ("causal T=S=192 (a 64-row half tile)", 1, 192, 192, 32, 8, True, None, extra, None),
+        ("non-causal T=128 S=320", 1, 128, 320, 32, 8, False, None, extra, None),
+        ("causal T=S=256 GQA group 1 (Hq=Hkv=8)", 1, 256, 256, 8, 8, True, None, extra, None),
     ]
     worst = 0.0
     times = {}
-    for name, B, T, S, causal, kv_valid in cases:
-        q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+    for name, B, T, S, Hq, Hkv, causal, kv_valid, g, timed in cases:
+        q = torch.randn(B, T, Hq, D, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
         if kv_valid is None:
             kv_valid = torch.ones(B, S, dtype=torch.bool, device=dev)
         scale = D ** -0.5
         out, m, l = fa.flash_attention_fwd(q, k, v, kv_valid, causal, scale)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), kv_valid, causal, scale)
-        ref_lse = masked_lse(q, k, kv_valid, causal, scale)
-        has_key = torch.isfinite(ref_lse)
-        err = (out.float() - ref).abs()
-        # Rows without a valid key must be exactly 0 (the plain version's
-        # uniform softmax over -1e30 scores is no reference there).
-        err = err.masked_fill(~has_key.transpose(1, 2)[..., None], 0.0)
-        out_err = float(err.max())
-        empty_rows = ~has_key.transpose(1, 2)
-        if bool(empty_rows.any()):
-            if float(out.float()[empty_rows].abs().max()) != 0.0:
-                raise AssertionError(f"K1 {name}: a row with no valid key is not 0")
-            if bool((l[~has_key] != 0).any()):
-                raise AssertionError(f"K1 {name}: l is not 0 on a row with no valid key")
-        lse = m + torch.log(l)
-        lse_err = float((lse - ref_lse)[has_key].abs().max())
+        out_err = lse_err = 0.0
+        n_empty = 0
+        for b in range(B):  # the f32 reference one batch row at a time
+            row = slice(b, b + 1)
+            ref = fa.flash_attention_plain(q[row].float(), k[row].float(), v[row].float(),
+                                           kv_valid[row], causal, scale)
+            ref_lse = masked_lse(q[row], k[row], kv_valid[row], causal, scale)
+            has_key = torch.isfinite(ref_lse)
+            err = (out[row].float() - ref).abs()
+            # Rows without a valid key must be exactly 0 (the plain version's
+            # uniform softmax over -1e30 scores is no reference there).
+            err = err.masked_fill(~has_key.transpose(1, 2)[..., None], 0.0)
+            out_err = max(out_err, float(err.max()))
+            empty_rows = ~has_key.transpose(1, 2)
+            if bool(empty_rows.any()):
+                n_empty += int(empty_rows.sum())
+                if float(out[row].float()[empty_rows].abs().max()) != 0.0:
+                    raise AssertionError(f"K1 {name}: a row with no valid key is not 0")
+                if bool((l[row][~has_key] != 0).any()):
+                    raise AssertionError(f"K1 {name}: l is not 0 on a row with no valid key")
+                if bool((m[row][~has_key] != fa.NEG_INF).any()):
+                    raise AssertionError(f"K1 {name}: m is not NEG_INF on a row with no valid key")
+            lse = m[row] + torch.log(l[row])
+            lse_err = max(lse_err, float((lse - ref_lse)[has_key].abs().max()))
+            del ref, ref_lse, err
         print(f"K1 {name}: out max-abs {out_err:.3e} (<= 2e-2), lse max-abs "
-              f"{lse_err:.3e} (<= 1e-2), rows without a key: {int(empty_rows.sum())}")
+              f"{lse_err:.3e} (<= 1e-2), rows without a key: {n_empty}")
         if not (out_err <= 2e-2 and lse_err <= 1e-2):
             raise AssertionError(f"K1 {name}: kernel disagrees with the plain version")
         worst = max(worst, out_err)
-        if causal and B == 1:
-            kernel_ms = median_ms(lambda: fa.flash_attention_fwd(q, k, v, kv_valid, causal, scale))
+        if timed is not None:
+            def kernel():
+                fa.flash_attention_fwd(q, k, v, kv_valid, causal, scale)
+
+            kernel_ms = median_ms(kernel)
+            device_ms = graph_ms(kernel)   # without the wrapper's host path
             plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, kv_valid, causal, scale))
-            # The yardstick: one library call for the same function (never on a served path).
+            # The yardstick: one library call for the same function (never on a
+            # served path); padded keys go in as a boolean mask with the causal rule.
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            library_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True))
-            # q and out once, k and v once; 4·Hq·D flops per (row, key) pair, half the pairs.
-            n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-            least, by = bound_ms(n_bytes, 4 * B * Hq * D * T * S / 2)
-            times[T] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                            bound_ms=least, bound_by=by)
-            print(f"K1 {name}: kernel {kernel_ms:.4f} ms, plain (bf16 matmul + f32 softmax) "
-                  f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
-                  f"bound {least:.5f} ms by {by}, median of 20")
-    return {"max_abs_err": worst, "times": times}
+            if bool(kv_valid.all()):
+                def library():
+                    torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+            else:
+                keep = (kv_valid[:, None, None, :]
+                        & (torch.arange(S, device=dev)[None, :]
+                           <= torch.arange(T, device=dev)[:, None])[None, None])
+
+                def library():
+                    torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=keep, scale=scale, enable_gqa=True)
+            try:
+                library_ms = median_ms(library)
+                library_device_ms = graph_ms(library)
+            except RuntimeError as e:  # no backend takes this mask with GQA
+                print(f"K1 {name}: scaled_dot_product_attention failed "
+                      f"({str(e).splitlines()[0][:120]}): library time not measured")
+                library_ms = library_device_ms = None
+            # q, k, v and out once, kv_valid, m and l; 4·Hq·D FLOPs per valid pair.
+            n_bytes = (2 * (2 * q.numel() + k.numel() + v.numel()) + kv_valid.numel()
+                       + 2 * 4 * B * Hq * T)
+            least, by = bound_ms(n_bytes, 4 * Hq * D * flash_pairs(kv_valid, T, causal))
+            times[timed] = dict(ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+                                library_ms=library_ms, library_device_ms=library_device_ms,
+                                bound_ms=least, bound_by=by)
+            print(f"K1 {name}: kernel {kernel_ms:.4f} ms per call, {show(device_ms)} on the "
+                  f"device; plain (bf16 matmul + f32 softmax) {plain_ms:.4f} ms; "
+                  f"scaled_dot_product_attention {show(library_ms)} ms per call, "
+                  f"{show(library_device_ms)} on the device; bound {least:.5f} ms by {by}; "
+                  f"median of 20")
+        del q, k, v, out, m, l
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "times": times, "sass": sass}
 
 
 def check_flash_bwd(gen) -> dict:
@@ -2422,6 +2522,57 @@ def run_profile(model, cfg, seed: int, card: str, label: str = "profile",
         print(f"{label}: the profiler reported no device time")
 
 
+PREFILL_TOKENS = 2048  # a long text prompt: K1 in each of the 32 layers at T = S = 2048
+
+
+def run_prefill_profile(model, cfg, seed: int, card: str) -> None:
+    """A text-only dense prefill of 2048 tokens on bf16 weights: wall (host
+    clock around calls that end in a synchronize, median of 5), device busy,
+    idle share, K1's device time and launches, and the largest device items
+    (torch.profiler over 2 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.serve.generate import prefill
+
+    rng = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, cfg.decoder.vocab_size, (1, PREFILL_TOKENS), generator=rng).cuda()
+
+    def call():
+        prefill(model, ids, None, None, cfg, PREFILL_TOKENS + 128)
+
+    call()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n = 2
+    before = fa.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    launches = (fa.launches - before) / n
+    rows, busy = device_items(prof, n)
+    k1_ms = sum(ms for key, ms, _ in rows if "flash_fwd_kernel" in key)
+    wall = statistics.median(walls)
+    share = f"{k1_ms / busy:.1%}" if busy > 0 else "not measured"
+    print(f"prefill profile: text-only prefill, T={PREFILL_TOKENS}, bf16 weights: wall median "
+          f"{wall:.2f} ms (5 calls, min {min(walls):.2f}, max {max(walls):.2f}), device busy "
+          f"{busy:.2f} ms per call, idle share {1 - busy / wall:.2f}; K1 {k1_ms:.3f} ms "
+          f"({share} of the device time), {launches:.0f} launches per call [{card}]")
+    for key, ms, count in rows[:8]:
+        print(f"prefill profile:   {ms:8.3f} ms  {count:6.1f} launches/call  {key[:90]}")
+    if busy <= 0:
+        print("prefill profile: the profiler reported no device time")
+    if launches != cfg.decoder.num_layers:
+        raise AssertionError(f"prefill profile: {launches} K1 launches per call, expected one "
+                             f"per layer ({cfg.decoder.num_layers})")
+
+
 # -- training ------------------------------------------------------------------------
 
 TRAIN_BATCH = 8        # bench.py's stage-1 batch
@@ -2963,6 +3114,7 @@ def main(argv=None) -> None:
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
         run_profile(model, cfg, args.seed, card, label="spec profile", lookahead=SPEC_LOOKAHEAD)
+        run_prefill_profile(model, cfg, args.seed, card)
         done("profile")
     if "precision" in phases:
         if "slice1" not in phases:
@@ -3097,7 +3249,8 @@ def main(argv=None) -> None:
     kernels = [
         dict(name="flash_fwd", source="vis_zephyr_tpu_torch/csrc/flash_fwd.cu",
              replaces="vis_zephyr_tpu/ops/flash_attention.py:42",
-             max_abs_err=k1["max_abs_err"], **k1["times"][256]),
+             max_abs_err=k1["max_abs_err"], **k1["times"][256], by_shape=k1["times"],
+             sass=k1["sass"]),
         dict(name="dense_cache_append", source="vis_zephyr_tpu_torch/csrc/dense_cache_append.cu",
              replaces="vis_zephyr_tpu/ops/kv_cache.py:37",
              max_abs_err=k2["max_abs_err"], **k2["times"]),

@@ -136,17 +136,27 @@ def test_autograd_matches_jax_grad(name, B, T, Hq, Hkv, causal, valid_case):
 
 
 def test_gradcheck_f64():
+    """Full f64 `gradcheck` of the autograd Function behind `flash_attention`
+    (the public function's T % 128 rule would force 16 times the Jacobian;
+    its gradient routing is covered by `test_autograd_matches_jax_grad`).
+    One intra-op thread: its thousands of tiny ops only contend for cores
+    with the other test processes otherwise."""
     rng = np.random.default_rng(3)
-    B, T, Hq, Hkv, d = 1, 128, 2, 1, 4
+    B, T, Hq, Hkv, d = 1, 32, 2, 1, 4
     q, k, v = (torch.from_numpy(rng.standard_normal((B, T, h, d))).requires_grad_(True)
                for h in (Hq, Hkv, Hkv))
     valid = torch.ones(B, T, dtype=torch.bool)
-    valid[0, 100:] = False
+    valid[0, 25:] = False
 
     def fn(q, k, v):
-        return tflash.flash_attention(q, k, v, kv_valid=valid, causal=True)
+        return tflash.FlashAttention.apply(q, k, v, valid, True, d ** -0.5)
 
-    assert torch.autograd.gradcheck(fn, (q, k, v), eps=1e-6, atol=1e-5, rtol=1e-4)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert torch.autograd.gradcheck(fn, (q, k, v), eps=1e-6, atol=1e-5, rtol=1e-4)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_no_grad_forward_is_the_serving_forward():

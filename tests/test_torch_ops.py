@@ -73,6 +73,17 @@ def test_flash_kernel_wrapper_refuses_cpu_tensors():
         tflash.flash_attention_fwd(q, q, q, valid, True, 128 ** -0.5)
 
 
+def test_flash_fwd_forms_are_edits_of_the_committed_kernel():
+    """Each form `experiments/flash_fwd_forms.py` builds on the card is a text
+    edit of `csrc/flash_fwd.cu` that still applies (the committed form is the
+    source itself)."""
+    from vis_zephyr_tpu_torch.experiments import flash_fwd_forms
+
+    committed = flash_fwd_forms.form_source([])
+    for name, edits in flash_fwd_forms.FORMS.items():
+        assert (flash_fwd_forms.form_source(edits) == committed) == (not edits), name
+
+
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 3), (False, None)])
 def test_dot_product_attention_matches_jax(causal, window):
     rng = np.random.default_rng(1)

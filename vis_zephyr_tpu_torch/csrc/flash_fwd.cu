@@ -1,218 +1,394 @@
-// K1 flash_fwd: blockwise online-softmax attention forward (bf16 in/out).
+// K1 flash_fwd: blockwise online-softmax attention forward (bf16 in/out) on
+// Hopper's wgmma tensor cores, its K and V tiles brought by TMA into a ring
+// in shared memory.
 //
 // Replaces the TPU kernel `vis_zephyr_tpu/ops/flash_attention.py::_fwd_kernel`
 // (grid and block specs in `_flash_forward`). Same contract: q [B,T,Hq,D],
-// k/v [B,S,Hkv,D] (the public layout, read in place through strides), kv_valid
-// [B,S] bool, causal masking on row indices (col <= row) with whole-tile
-// skipping, GQA (q head h reads kv head h / (Hq/Hkv)), f32 online softmax and
-// accumulation, a row with no valid key writes 0, and the per-row softmax
-// residuals m and l (f32, [B,Hq,T]) for a later backward kernel.
+// k/v [B,S,Hkv,D] bf16 (the public layout, read in place by tensor maps),
+// kv_valid [B,S] bool, D = 128, T and S multiples of 64; causal masking on row
+// indices (col <= row) with the tiles wholly above the diagonal skipped; GQA
+// (q head h reads kv head h / (Hq/Hkv)); f32 online softmax and accumulation,
+// P rounded to bf16 before P.V as the TPU kernel does (`p.astype(v.dtype)`)
+// while l sums the f32 probabilities; a row with no valid key writes 0, with
+// l = 0 and m = NEG_INF; m (the row max of the scaled scores, natural-log
+// units) and l (the sum of exp(s*scale - m)), f32 [B,Hq,T], are what K7 and K8
+// recompute the probabilities from.
 //
-// What bounds it on the H100: arithmetic. Per (64-row, 64-column) tile the
-// block does 2 * 64*64*128 multiply-adds and reads 16 KB of K and 16 KB of V,
-// so attention at T=2048 is far above the card's bytes-per-operation line. This
-// first version runs the products on the CUDA cores in f32 (plain FMA), not on
-// the tensor cores, so it is bounded by FMA issue and shared-memory reads, well
-// below the bf16 tensor-core peak: 21.0 TFLOP/s at T=S=2048, Hq=32 (H100 80GB
-// HBM3 at 700 W, PERF.md). mma.sync/wgmma, TMA and a K/V pipeline are later work.
+// What bounds it on the H100: operations. A causal T=S=2048 call at Hq=32 is
+// 34.4 GFLOP against 42 MB of q, k, v and out, about 800 FLOP a byte, far
+// above the card's 295 (bf16). The card's bf16 rate (989 TFLOP/s) comes
+// only from wgmma, so both products run there, fed without register traffic.
 //
 // What the design does about it:
-// - One block per (64-row q tile, q head, batch row); the loop over 64-column
-//   K/V tiles inside the block takes the place of the TPU's sequential grid
-//   axis, so m, l and the output accumulator live in registers for the whole
-//   row tile and never touch device memory.
-// - 256 threads; thread (tr, tc) = (tid / 16, tid % 16) owns q rows
-//   4*tr .. 4*tr+3. For the score tile it owns columns tc + 16*j; for the
-//   output it owns head-dim pairs 2*tc + 32*j. The 16 lanes that share a row
-//   sit in one half-warp, so row max and row sum are 4 xor-shuffles.
-// - Q, then K, then V tiles are staged in shared memory with 16-byte global
-//   loads. K and V share one buffer (K is dead once the scores exist), which
-//   keeps static shared memory at 42 KB, under the 48 KB static limit. Rows are
-//   padded to 132 bf16 (66 words) so the 16 lanes reading 16 different K rows
-//   hit 16 different banks.
-// - P is rounded to bf16 before the P.V product, as the TPU kernel does
-//   (`p.astype(v.dtype)`), while l sums the f32 probabilities.
+// - One block per (q head, batch row, 128-row q tile): two consumer
+//   warpgroups of 64 q rows and one producer warpgroup (384 threads). The
+//   producer hands its registers to the consumers (setmaxnreg: 24 and 240 a
+//   thread), and its first warp issues every copy. Grid z walks the q tiles
+//   from the last, so under `causal` the longest tiles of every head start
+//   first.
+// - Shared memory (dynamic, 225 KB): the Q tile (32 KB, loaded once) and a
+//   three-stage ring of 128-key K and V tiles (32 KB each), all as TMA writes
+//   them with the 128-byte swizzle that wgmma's descriptors read: a 256-byte
+//   row of D = 128 is two 64-column halves. Each stage has "full" mbarriers
+//   for K and for V (an expected byte count each) and "empty" ones on which
+//   every consumer thread arrives when it is done with the stage's K or V,
+//   so a K slot is refilled while the V beside it is still in use.
+// - The tensor maps see each tensor as (column, head, row, batch): a ragged
+//   last tile reads zeros at its own batch row's end, never the next row's.
+// - S = Q.K^T: wgmma m64n128k16 with both operands in shared memory, 8 steps
+//   over D. O += P.V: P is rounded to bf16 in registers, where the score
+//   fragment is already the A fragment of the register-A wgmma m64n128k16; V
+//   is the MN-major B operand (transpose bit), so no transposed copy of V is
+//   made. O, 64 x 128 f32 a warpgroup, stays in registers for the row tile.
+// - The two products of a warpgroup overlap its softmax (FA3's schedule):
+//   S_j = Q.K_j^T and O += P_{j-1}.V_{j-1} are issued together, the softmax
+//   of S_j runs while P_{j-1}.V_{j-1} is on the tensor cores, and O is
+//   rescaled once that product is done.
+// - The softmax runs on the accumulator fragment in registers (row max and
+//   sum over a quad: two shuffles), in base 2 with scale*log2(e) folded into
+//   the exponent; m goes back to natural-log units when it is stored. Masks
+//   apply only on the diagonal tile and on tiles holding an invalid or
+//   out-of-range key: the producer packs each tile's kv_valid into four
+//   ballot words beside the stage, and interior tiles take no mask.
+// - Epilogue: O / l (0 where l = 0) rounded to bf16 into the warpgroup's own
+//   rows of the Q tile, swizzled, then one TMA store per half. m and l from
+//   one thread of each quad.
+// - T a multiple of 64 but not 128 leaves a 64-row last tile: its second
+//   warpgroup has no rows and returns at once (the empty barriers count only
+//   the active warpgroups' threads).
+//
+// Why three stages and a producer warpgroup: the forms that undo either
+// (`experiments/flash_fwd_forms.py`; on 288 threads ptxas caps a thread at
+// 168 registers, serializes the wgmmas and spills) are timed in PERF.md.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kHeadDim = 128;
-constexpr int kRowStride = kHeadDim + 4;  // bf16 elements per shared row (264 B)
-constexpr int kThreads = 256;
-constexpr float kNegInf = -0.7f * FLT_MAX;  // the TPU kernel's NEG_INF
+constexpr int kBlockM = 128;                    // q rows a block
+constexpr int kBlockN = 128;                    // keys a tile
+constexpr int kStages = 3;                      // K/V ring depth
+constexpr int kConsumers = 256;                 // two warpgroups of 64 q rows
+constexpr int kThreads = kConsumers + 128;      // + the producer warpgroup
+constexpr int kQHalf = kBlockM * 128;           // bytes of one 64-column half of Q
+constexpr int kKVHalf = kBlockN * 128;
+constexpr int kKVBytes = 2 * kKVHalf;           // one K (or V) tile
+constexpr int kOffK = 2 * kQHalf;
+constexpr int kOffV = kOffK + kStages * kKVBytes;
+constexpr int kOffMask = kOffV + kStages * kKVBytes;   // 4 ballot words a stage
+constexpr int kOffBar = kOffMask + kStages * 16;       // q_full, then 4 barriers a stage
+constexpr int kSmemBytes = kOffBar + 8 * (1 + 4 * kStages) + 1024;  // + alignment slack
+constexpr float kNegInf = -0.7f * FLT_MAX;      // the TPU kernel's NEG_INF
+constexpr float kLn2 = 0.693147180559945309f;
 
-// Copies a [64, 128] bf16 tile whose rows are `row_stride` elements apart in
-// global memory into a padded shared tile: 16-byte loads, two 8-byte stores.
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kRowStride],
-                                          const __nv_bfloat16* src,
-                                          long row_stride) {
-  constexpr int kVecPerRow = kHeadDim / 8;  // uint4 per row
-  for (int idx = threadIdx.x; idx < kBlockK * kVecPerRow; idx += kThreads) {
-    const int row = idx / kVecPerRow;
-    const int col = (idx % kVecPerRow) * 8;
-    const uint4 val = *reinterpret_cast<const uint4*>(src + row * row_stride + col);
-    uint2* out = reinterpret_cast<uint2*>(&dst[row][col]);
-    out[0] = make_uint2(val.x, val.y);
-    out[1] = make_uint2(val.z, val.w);
+// S = Q K^T for one warpgroup's 64 rows against a 128-key tile: 8 steps of
+// 16 over D, 4 in each 64-column half, both operands K-major in shared memory.
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_wg, uint32_t kst) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t koff = (kk % 4) * 32;   // bytes into the swizzled 128-byte row
+    const uint64_t da = vzt::desc_sw128(q_wg + (kk / 4) * kQHalf + koff, 16, 1024);
+    const uint64_t db = vzt::desc_sw128(kst + (kk / 4) * kKVHalf + koff, 16, 1024);
+    vzt::wgmma_m64n128k16_ss(sc, da, db, kk > 0);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
+// O += P V over a tile's 128 keys: 8 steps of 16 rows of V, P from registers,
+// V the MN-major operand (its two 64-column halves kKVHalf apart).
+__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&pa)[8][4],
+                                         uint32_t vst) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    vzt::wgmma_m64n128k16_rs_tb(o, pa[kk], vzt::desc_sw128(vst + kk * 16 * 128, kKVHalf, 1024),
+                                1);
+}
+
+// The online-softmax step of a tile on the thread's two rows (row_a and
+// row_a + 8), in base 2: masks where `mask` says (causal rule on rows, ballot
+// words for kv_valid and the keys past S), turns sc into probabilities, moves
+// m2 and lsum on, and returns in alpha what O must be scaled by.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], const uint32_t (&words)[4],
+                                             bool mask, int causal, int kv0, int row_a, int quad,
+                                             float scale_log2, float (&m2)[2], float (&lsum)[2],
+                                             float (&alpha)[2]) {
+  if (mask) {
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = kv0 + 8 * jj + 2 * quad + c;
+        const bool valid = (words[jj / 4] >> (8 * (jj % 4) + 2 * quad + c)) & 1u;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (!(valid && (!causal || col <= row_a + 8 * i))) sc[4 * jj + 2 * i + c] = -INFINITY;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+      mx = fmaxf(mx, fmaxf(sc[4 * jj + 2 * i], sc[4 * jj + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m2[i], mx * scale_log2);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;   // no valid key yet
+    alpha[i] = vzt::ex2(m2[i] - m_use);
+    m2[i] = m_new;
+    float rs = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float p = vzt::ex2(fmaf(sc[4 * jj + 2 * i + c], scale_log2, -m_use));
+        sc[4 * jj + 2 * i + c] = p;
+        rs += p;
+      }
+    }
+    lsum[i] = lsum[i] * alpha[i] + rs;
+  }
+}
+
+// P rounded to bf16: the score fragment of keys 16kk .. 16kk+15 is the A
+// fragment of P.V step kk.
+__device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = vzt::pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_o,
                  const uint8_t* __restrict__ kv_valid,
-                 __nv_bfloat16* __restrict__ out,
                  float* __restrict__ m_out,
                  float* __restrict__ l_out,
-                 int T, int S, int Hq, int Hkv, int causal, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBlockQ][kRowStride];
-  __shared__ __align__(16) __nv_bfloat16 kv_s[kBlockK][kRowStride];
-  __shared__ __align__(16) __nv_bfloat16 p_s[kBlockQ][kBlockK + 2];
-  __shared__ uint8_t valid_s[kBlockK];
+                 int T, int S, int Hq, int Hkv, int causal, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = vzt::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;     // swizzled tiles need 1024-byte alignment
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + kOffK;
+  const uint32_t v_s = base + kOffV;
+  uint32_t* mask_s = reinterpret_cast<uint32_t*>(smem_raw + (base - raw) + kOffMask);
+  const uint32_t q_full = base + kOffBar;
+  // Stage s: K landed, V landed, K free again, V free again.
+  auto full_k = [&](int s) { return base + kOffBar + 8u * (1 + s); };
+  auto full_v = [&](int s) { return base + kOffBar + 8u * (1 + kStages + s); };
+  auto empty_k = [&](int s) { return base + kOffBar + 8u * (1 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return base + kOffBar + 8u * (1 + 3 * kStages + s); };
 
-  const int qi = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int row0 = (gridDim.z - 1 - blockIdx.z) * kBlockM;  // longest causal tiles first
   const int hk = h / (Hq / Hkv);
+  const int n_active = min(2, (T - row0) / 64);              // warpgroups with rows
+  int n_tiles = (S + kBlockN - 1) / kBlockN;
+  if (causal) n_tiles = min(n_tiles, (row0 + 64 * n_active - 1) / kBlockN + 1);
   const int tid = threadIdx.x;
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  const int row0 = qi * kBlockQ + tr * 4;  // first q row (sequence index) owned
 
-  const long q_row_stride = (long)Hq * kHeadDim;
-  const long kv_row_stride = (long)Hkv * kHeadDim;
-  const __nv_bfloat16* q_base = q + ((long)b * T + qi * kBlockQ) * q_row_stride + (long)h * kHeadDim;
-  const __nv_bfloat16* k_base = k + (long)b * S * kv_row_stride + (long)hk * kHeadDim;
-  const __nv_bfloat16* v_base = v + (long)b * S * kv_row_stride + (long)hk * kHeadDim;
-
-  load_tile(q_s, q_base, q_row_stride);
-
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  int n_k = S / kBlockK;
-  if (causal) {
-    // A tile runs only if (qi+1)*bq - 1 >= ki*bk (whole tiles above the
-    // diagonal contribute nothing).
-    const int last = ((qi + 1) * kBlockQ - 1) / kBlockK;
-    n_k = min(n_k, last + 1);
-  }
-
-  for (int ki = 0; ki < n_k; ++ki) {
-    __syncthreads();  // previous tile's P.V reads of kv_s and p_s are done
-    load_tile(kv_s, k_base + (long)ki * kBlockK * kv_row_stride, kv_row_stride);
-    if (tid < kBlockK) valid_s[tid] = kv_valid[(long)b * S + ki * kBlockK + tid];
-    __syncthreads();
-
-    // Scores: s[i][j] = q[row0+i] . k[ki*64 + tc + 16j].
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < kHeadDim; d += 2) {
-      float2 qf[4], kf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qf[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q_s[tr * 4 + i][d]));
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kf[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kv_s[tc + 16 * j][d]));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] = fmaf(qf[i].y, kf[j].y, fmaf(qf[i].x, kf[j].x, s[i][j]));
+  if (tid == 0) {
+    vzt::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      vzt::mbar_init(full_k(s), 1);
+      vzt::mbar_init(full_v(s), 1);
+      vzt::mbar_init(empty_k(s), 128 * n_active);
+      vzt::mbar_init(empty_v(s), 128 * n_active);
     }
+    vzt::fence_barrier_init();
+  }
+  __syncthreads();
 
-    // Mask, then the online-softmax update per row.
-    bool ok[4][4];
+  if (tid >= kConsumers) {
+    // Producer warpgroup: it gives its registers to the consumers, and its
+    // first warp brings Q once, then the K/V ring. Lane 0 issues the
+    // copies; the warp packs each tile's kv_valid into four ballot words.
+    vzt::setmaxnreg_dec<24>();
+    if (tid >= kConsumers + 32) return;
+    const int lane = tid & 31;
+    if (lane == 0) {
+      vzt::tma_prefetch(&tm_q);
+      vzt::tma_prefetch(&tm_k);
+      vzt::tma_prefetch(&tm_v);
+      vzt::mbar_expect_tx(q_full, 2 * kQHalf);
+      vzt::tma_load_4d(q_s, &tm_q, q_full, 0, h, row0, b);
+      vzt::tma_load_4d(q_s + kQHalf, &tm_q, q_full, 64, h, row0, b);
+    }
+    const uint8_t* valid_row = kv_valid + static_cast<long>(b) * S;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const uint32_t freed = ((j / kStages) - 1) & 1;   // the phase that freed stage s
+      const int kv0 = j * kBlockN;
+      uint32_t words[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = ki * kBlockK + tc + 16 * j;
-      const bool valid = valid_s[tc + 16 * j] != 0;
+      for (int g = 0; g < 4; ++g) {
+        const int col = kv0 + 32 * g + lane;
+        words[g] = __ballot_sync(0xffffffffu, col < S && valid_row[col] != 0);
+      }
+      if (j >= kStages) vzt::mbar_wait(empty_k(s), freed);
+      if (lane == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ok[i][j] = valid && (!causal || col <= row0 + i);
-        s[i][j] = ok[i][j] ? s[i][j] * scale : kNegInf;
+        for (int g = 0; g < 4; ++g) mask_s[4 * s + g] = words[g];
+        const uint32_t kd = k_s + s * kKVBytes;
+        vzt::mbar_expect_tx(full_k(s), kKVBytes);
+        vzt::tma_load_4d(kd, &tm_k, full_k(s), 0, hk, kv0, b);
+        vzt::tma_load_4d(kd + kKVHalf, &tm_k, full_k(s), 64, hk, kv0, b);
+      }
+      if (j >= kStages) vzt::mbar_wait(empty_v(s), freed);
+      if (lane == 0) {
+        const uint32_t vd = v_s + s * kKVBytes;
+        vzt::mbar_expect_tx(full_v(s), kKVBytes);
+        vzt::tma_load_4d(vd, &tm_v, full_v(s), 0, hk, kv0, b);
+        vzt::tma_load_4d(vd + kKVHalf, &tm_v, full_v(s), 64, hk, kv0, b);
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // Consumer warpgroup `wg`: q rows wrow0 .. wrow0 + 63 of the tile.
+  vzt::setmaxnreg_inc<240>();
+  const int wg = tid / 128;
+  if (wg >= n_active) return;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid & 31;
+  const int quad = lane & 3;
+  const int wrow0 = row0 + 64 * wg;
+  const int row_a = wrow0 + 16 * warp + (lane >> 2);   // rows row_a and row_a + 8
+  const uint32_t q_wg = q_s + wg * 64 * 128;
+
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float sc[64];
+  uint32_t pa[8][4];
+  float m2[2] = {-INFINITY, -INFINITY};   // running max of s * scale * log2(e)
+  float lsum[2] = {0.f, 0.f};             // this thread's part of l
+  float alpha[2];
+
+  // Reads tile j's ballot words, frees its K slot and runs its softmax. A
+  // tile takes a mask only on the diagonal or with an invalid or
+  // out-of-range key (a zero bit in the words).
+  auto scores_to_p = [&](int j) {
+    const int s = j % kStages;
+    uint32_t words[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) words[g] = mask_s[4 * s + g];
+    vzt::mbar_arrive(empty_k(s));
+    const int kv0 = j * kBlockN;
+    const bool mask = (words[0] & words[1] & words[2] & words[3]) != 0xffffffffu ||
+                      (causal && kv0 + kBlockN - 1 > wrow0);
+    softmax_tile(sc, words, mask, causal, kv0, row_a, quad, scale_log2, m2, lsum, alpha);
+  };
+
+  vzt::mbar_wait(q_full, 0);
+
+  // Tile 0: S alone.
+  vzt::mbar_wait(full_k(0), 0);
+  vzt::wgmma_fence();
+  issue_qk(sc, q_wg, k_s);
+  vzt::wgmma_commit();
+  vzt::wgmma_wait<0>();
+  vzt::fence_regs(sc);
+  scores_to_p(0);
+  pack_p(sc, pa);
+
+  // Tile j: S_j = Q K_j^T and O += P_{j-1} V_{j-1} go to the tensor cores
+  // together; the softmax of S_j runs while P_{j-1} V_{j-1} is in flight.
+  for (int j = 1; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int sp = (j - 1) % kStages;
+    vzt::mbar_wait(full_k(s), (j / kStages) & 1);
+    vzt::mbar_wait(full_v(sp), ((j - 1) / kStages) & 1);
+    vzt::fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) vzt::fence_regs(pa[kk]);
+    vzt::wgmma_fence();
+    issue_qk(sc, q_wg, k_s + s * kKVBytes);
+    vzt::wgmma_commit();
+    issue_pv(o, pa, v_s + sp * kKVBytes);
+    vzt::wgmma_commit();
+    vzt::wgmma_wait<1>();          // S_j is done; P_{j-1} V_{j-1} may still run
+    vzt::fence_regs(sc);
+    scores_to_p(j);
+    vzt::wgmma_wait<0>();
+    vzt::fence_regs(o);
+    vzt::mbar_arrive(empty_v(sp));
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[4 * jj + 2 * i] *= alpha[i];
+        o[4 * jj + 2 * i + 1] *= alpha[i];
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float m_cur = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, off));
-      const float m_next = fmaxf(m[i], m_cur);
-      const float alpha = expf(m[i] - m_next);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[i][j] ? expf(s[i][j] - m_next) : 0.f;
-        row_sum += p;
-        p_s[tr * 4 + i][tc + 16 * j] = __float2bfloat16(p);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      m[i] = m_next;
-      l[i] = alpha * l[i] + row_sum;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
-    }
-
-    __syncthreads();  // every warp is done reading K out of kv_s
-    load_tile(kv_s, v_base + (long)ki * kBlockK * kv_row_stride, kv_row_stride);
-    __syncthreads();
-
-    // acc[i][2jj + e] += sum_c p[row0+i][c] * v[c][2tc + 32jj + e].
-#pragma unroll 4
-    for (int c = 0; c < kBlockK; ++c) {
-      float pf[4];
-      float2 vf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pf[i] = __bfloat162float(p_s[tr * 4 + i][c]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        vf[jj] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&kv_s[c][2 * tc + 32 * jj]));
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          acc[i][2 * jj] = fmaf(pf[i], vf[jj].x, acc[i][2 * jj]);
-          acc[i][2 * jj + 1] = fmaf(pf[i], vf[jj].y, acc[i][2 * jj + 1]);
-        }
-    }
+    pack_p(sc, pa);
   }
 
+  // The last tile's P.V.
+  {
+    const int sl = (n_tiles - 1) % kStages;
+    vzt::mbar_wait(full_v(sl), ((n_tiles - 1) / kStages) & 1);
+    vzt::fence_regs(o);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l_inv = l[i] == 0.f ? 0.f : 1.f / l[i];
-    __nv_bfloat16* o_row = out + ((long)b * T + row0 + i) * q_row_stride + (long)h * kHeadDim;
+    for (int kk = 0; kk < 8; ++kk) vzt::fence_regs(pa[kk]);
+    vzt::wgmma_fence();
+    issue_pv(o, pa, v_s + sl * kKVBytes);
+    vzt::wgmma_commit();
+    vzt::wgmma_wait<0>();
+    vzt::fence_regs(o);
+    vzt::mbar_arrive(empty_v(sl));
+  }
+
+  // Epilogue: l over the quad, O / l into this warpgroup's rows of the Q tile
+  // (swizzled as TMA reads it), then one TMA store per 64-column half.
+  float inv[2];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      *reinterpret_cast<__nv_bfloat162*>(o_row + 2 * tc + 32 * jj) =
-          __floats2bfloat162_rn(acc[i][2 * jj] * l_inv, acc[i][2 * jj + 1] * l_inv);
+  for (int i = 0; i < 2; ++i) {
+    lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 1);
+    lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 2);
+    inv[i] = lsum[i] == 0.f ? 0.f : 1.f / lsum[i];
+  }
+  uint8_t* q_gen = smem_raw + (q_wg - raw);
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * warp + (lane >> 2) + 8 * i;      // row within the warpgroup
+      const int chunk = (jj % 8) ^ (r % 8);
+      const uint32_t word = vzt::pack_bf16x2(o[4 * jj + 2 * i] * inv[i],
+                                             o[4 * jj + 2 * i + 1] * inv[i]);
+      *reinterpret_cast<uint32_t*>(q_gen + (jj / 8) * kQHalf + r * 128 + chunk * 16 +
+                                   quad * 4) = word;
     }
-    if (tc == 0) {
-      const long r = ((long)b * Hq + h) * T + row0 + i;
-      m_out[r] = m[i];
-      l_out[r] = l[i];
+  }
+  vzt::fence_proxy_async();
+  vzt::named_barrier(1 + wg, 128);
+  if (tid % 128 == 0) {
+    vzt::tma_store_4d(&tm_o, q_wg, 0, h, wrow0, b);
+    vzt::tma_store_4d(&tm_o, q_wg + kQHalf, 64, h, wrow0, b);
+    vzt::tma_store_wait_read();
+  }
+  if (quad == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long r = (static_cast<long>(b) * Hq + h) * T + row_a + 8 * i;
+      m_out[r] = lsum[i] == 0.f ? kNegInf : m2[i] * kLn2;
+      l_out[r] = lsum[i];
     }
   }
 }
@@ -223,15 +399,29 @@ extern "C" int vzt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* kv_valid, void* out, void* m_out,
                              void* l_out, int B, int T, int S, int Hq, int Hkv,
                              int causal, float scale, void* stream) {
-  const dim3 grid(T / kBlockQ, Hq, B);
-  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kv_valid),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(m_out),
-      static_cast<float*>(l_out), T, S, Hq, Hkv, causal, scale);
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  int code = vzt::make_map_bf16_bthd(&tm_q, q, B, T, Hq, kBlockM);
+  if (code == 0) code = vzt::make_map_bf16_bthd(&tm_k, k, B, S, Hkv, kBlockN);
+  if (code == 0) code = vzt::make_map_bf16_bthd(&tm_v, v, B, S, Hkv, kBlockN);
+  if (code == 0) code = vzt::make_map_bf16_bthd(&tm_o, out, B, T, Hq, 64);
+  if (code != 0) return code;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(Hq, B, (T + kBlockM - 1) / kBlockM);
+  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, tm_o, static_cast<const uint8_t*>(kv_valid),
+      static_cast<float*>(m_out), static_cast<float*>(l_out), T, S, Hq, Hkv, causal,
+      scale * 1.44269504088896341f);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* vzt_error_string(int code) {
+  if (code >= vzt::kTensorMapErrorBase) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof(msg), "cuTensorMapEncodeTiled refused a tensor map (CUresult %d)",
+             code - vzt::kTensorMapErrorBase);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -7,9 +7,12 @@ with a plain C interface, loaded with `ctypes`. Sources include no PyTorch
 header, so the build takes seconds. It runs at first use and is cached in
 `vis_zephyr_tpu_torch/build/` until a source is newer than the library.
 
-Every C entry point returns `cudaGetLastError()` right after its launch;
-`check` turns a non-zero code into an exception, because a refused launch
-never runs and a later synchronize does not report it.
+Every C entry point returns `cudaGetLastError()` right after its launch, or
+the code of whatever failed before it (a shared-memory grant, or a TMA
+tensor map that `cuTensorMapEncodeTiled` refused, whose message
+`vzt_error_string` spells out); `check` turns a non-zero code into an
+exception, because a refused launch never runs and a later synchronize does
+not report it.
 
 A wrapper launches its kernel on a CUDA tensor and takes the plain PyTorch
 version on a CPU tensor. `plain_versions()` is the one switch that asks for
