@@ -23,12 +23,17 @@ toolkit; exits non-zero on a machine without a card. Phases:
              GQA group 1; output max-abs <= 2e-2, logsumexp max-abs <= 1e-2,
              keyless rows exactly 0 with l = 0 and m = NEG_INF; timed at B=1,
              T=S 256 and 2048 and at the trainer's shape; then K7
-             (dK, dV) and K8 (dQ) in the same four cases against
+             (dK, dV) and K8 (dQ) (wgmma + TMA: each one's SASS must hold
+             HGMMA and UTMALDG; registers and spills from cuobjdump
+             -res-usage) in K1's first four cases, at the trainer's B=8,
+             T=S=2048 with right-padded keys, at B=16 T=S=320 and at
+             non-causal T=128 S=320, against
              `flash_attention_bwd_plain` in f32 on the same bf16 inputs and
-             K1's m and l: per tensor max-abs <= 1e-2 of its largest value
-             and cosine >= 0.9999, dQ exactly 0 on the row without a key and
-             dK = dV = 0 on invalid keys; kernel, plain, bound and the
-             backward of `scaled_dot_product_attention` at T=S 256 and 2048;
+             K1's m and l, one batch row at a time: per tensor max-abs <=
+             1e-2 of its largest value and cosine >= 0.9999, dQ exactly 0 on
+             rows without a key and dK = dV = 0 on invalid keys; kernel (per
+             call and on the device alone), plain, bound and the backward of
+             `scaled_dot_product_attention` at T=S 256 and 2048 and at B=8;
 4. K2      — dense_cache_append against its plain version, bit-exact, at the
              decode step's shape (T=1), a clamped tail, and chunked admission's
              (B=1, T=256 into a scratch cache, one chunk ending at the cache's
@@ -192,6 +197,7 @@ last is a JSON object with one entry per kernel; the last line is
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import http.client
 import json
@@ -296,21 +302,45 @@ def masked_lse(q, k, kv_valid, causal, scale):
     return torch.logsumexp(s, dim=-1).reshape(B, Hq, T)
 
 
-def k1_sass_counts() -> dict:
-    """HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store) instructions
-    in K1's function of the built library, read with `cuobjdump -sass`."""
+@functools.lru_cache(maxsize=None)
+def _cuobjdump(flag: str) -> str:
+    """`cuobjdump <flag>` of the built kernel library (nvcc's own tool)."""
     from vis_zephyr_tpu_torch.ops import _kernels
 
     tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
-    dump = subprocess.run([tool, "-sass", _kernels.LIB], capture_output=True, text=True,
+    dump = subprocess.run([tool, flag, _kernels.LIB], capture_output=True, text=True,
                           timeout=300)
     if dump.returncode != 0:
-        raise AssertionError(f"cuobjdump -sass failed ({dump.returncode}): {dump.stderr[-500:]}")
-    sections = re.split(r"\n\s*Function : ", dump.stdout)[1:]
-    body = "".join(sec for sec in sections if "flash_fwd_kernel" in sec.split("\n", 1)[0])
+        raise AssertionError(f"cuobjdump {flag} failed ({dump.returncode}): {dump.stderr[-500:]}")
+    return dump.stdout
+
+
+def sass_counts(function: str) -> dict:
+    """HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store) instructions
+    in the built library's function whose name holds `function`, read with
+    `cuobjdump -sass`."""
+    sections = re.split(r"\n\s*Function : ", _cuobjdump("-sass"))[1:]
+    body = "".join(sec for sec in sections if function in sec.split("\n", 1)[0])
     if not body:
-        raise AssertionError("cuobjdump -sass shows no flash_fwd_kernel function")
+        raise AssertionError(f"cuobjdump -sass shows no {function} function")
     return {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+
+
+def resource_usage(function: str) -> dict:
+    """Registers at entry, stack-frame bytes (where ptxas puts spills) and
+    local-memory bytes of the functions whose names hold `function` (the
+    largest over a template's instantiations), from `cuobjdump -res-usage`;
+    None where the dump does not say."""
+    lines = _cuobjdump("-res-usage").splitlines()
+    usage = {"reg": None, "local": None, "stack": None}
+    for i, line in enumerate(lines):
+        if "Function" in line and function in line:
+            text = " ".join(lines[i:i + 2])
+            for key in usage:
+                m = re.search(rf"\b{key.upper()}:(\d+)", text)
+                if m:
+                    usage[key] = max(usage[key] or 0, int(m.group(1)))
+    return usage
 
 
 def flash_pairs(kv_valid, T: int, causal: bool) -> int:
@@ -342,7 +372,7 @@ def check_flash(gen) -> dict:
 
     dev = "cuda"
     D = 128
-    sass = k1_sass_counts()
+    sass = sass_counts("flash_fwd_kernel")
     print(f"K1 SASS (cuobjdump -sass, flash_fwd_kernel): {sass}")
     if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
         raise AssertionError(f"K1 does not run on wgmma fed by TMA: {sass}")
@@ -453,29 +483,55 @@ def check_flash(gen) -> dict:
 
 def check_flash_bwd(gen) -> dict:
     """K7 (dK, dV) and K8 (dQ) against `flash_attention_bwd_plain` run in f32
-    on the same bf16 inputs and K1's m and l, in K1's four cases. Gate per
-    tensor: max-abs error <= 1e-2 of the tensor's largest |value| and cosine
-    >= 0.9999; the q row with no valid key gives dQ = 0 and invalid keys dK =
-    dV = 0, exactly. Timed at causal B=1, T=S=256 and 2048 against the plain
-    versions, the bound and the backward of `scaled_dot_product_attention`."""
+    on the same bf16 inputs and K1's m and l, one batch row at a time, in
+    K1's first four cases, at the trainer's B=8, T=S=2048 with each row's
+    keys right-padded to another length, at B=16, T=S=320 (K7's 128-key
+    blocks with a 64-key last tile) and non-causal T=128 S=320 (the last
+    three draw from a generator of their own, so later phases see the
+    inputs they saw before). Gate per tensor: max-abs error <= 1e-2 of the
+    tensor's largest |value| and cosine >= 0.9999; q rows with no valid key
+    give dQ = 0 and invalid keys dK = dV = 0, exactly. Fails unless both
+    kernels' SASS holds HGMMA and UTMALDG.
+    Timed at causal B=1, T=S 256 and 2048 and at the B=8 shape: each kernel
+    (CUDA events around one call, and on the device alone from a CUDA-graph
+    replay), its plain version, the bound from this run's valid pairs, and
+    the backward of `scaled_dot_product_attention` (the padding as a boolean
+    mask at B=8; the same two readings)."""
     from vis_zephyr_tpu_torch.ops import flash_attention as fa
 
     dev = "cuda"
     Hq, Hkv, D = 32, 8, 128
+    out = {"dkv": {"max_abs_err": 0.0, "times": {}}, "dq": {"max_abs_err": 0.0, "times": {}}}
+    for kernel, function in (("dkv", "flash_bwd_dkv_kernel"), ("dq", "flash_bwd_dq_kernel")):
+        sass, res = sass_counts(function), resource_usage(function)
+        print(f"K7/K8 SASS (cuobjdump -sass, {function}): {sass}; cuobjdump -res-usage: "
+              f"{res['reg']} registers at entry, a stack frame of {res['stack']} bytes (spills "
+              f"land there), {res['local']} bytes of local memory")
+        if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+            raise AssertionError(f"{function} does not run on wgmma fed by TMA: {sass}")
+        out[kernel].update(sass=sass, resources=res)
     S_row = torch.arange(256, device=dev)
     padded = torch.stack([S_row < 200, (S_row >= 1) & (S_row < 230)])  # b=1, q row 0: no key
+    lengths = torch.tensor([2048, 1900, 1664, 1537, 1280, 1029, 700, 333], device=dev)
+    ragged = torch.arange(2048, device=dev)[None, :] < lengths[:, None]
+    extra = torch.Generator(dev).manual_seed(gen.initial_seed() + 2)
     cases = [
-        ("causal T=S=256", 1, 256, 256, True, None),
-        ("causal T=S=2048", 1, 2048, 2048, True, None),
-        ("non-causal T=256 S=512", 1, 256, 512, False, None),
-        ("causal B=2 padded kv_valid", 2, 256, 256, True, padded),
+        # name, B, T, S, causal, kv_valid, generator, timed as
+        ("causal T=S=256", 1, 256, 256, True, None, gen, 256),
+        ("causal T=S=2048", 1, 2048, 2048, True, None, gen, 2048),
+        ("non-causal T=256 S=512", 1, 256, 512, False, None, gen, None),
+        ("causal B=2 padded kv_valid", 2, 256, 256, True, padded, gen, None),
+        ("causal B=8 T=S=2048 right-padded keys", 8, 2048, 2048, True, ragged, extra, "B8_2048"),
+        # K7 on 128-key blocks (a grid as large as the card) with a 64-key
+        # last tile, and on split 64-key blocks with S != T.
+        ("causal B=16 T=S=320", 16, 320, 320, True, None, extra, None),
+        ("non-causal T=128 S=320", 1, 128, 320, False, None, extra, None),
     ]
-    out = {"dkv": {"max_abs_err": 0.0, "times": {}}, "dq": {"max_abs_err": 0.0, "times": {}}}
-    for name, B, T, S, causal, kv_valid in cases:
-        q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
-        do = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    for name, B, T, S, causal, kv_valid, g, timed in cases:
+        q = torch.randn(B, T, Hq, D, generator=g, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(torch.bfloat16)
+        do = torch.randn(B, T, Hq, D, generator=g, device=dev).to(torch.bfloat16)
         if kv_valid is None:
             kv_valid = torch.ones(B, S, dtype=torch.bool, device=dev)
         scale = D ** -0.5
@@ -484,8 +540,13 @@ def check_flash_bwd(gen) -> dict:
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, kv_valid, do, m, l, di, causal, scale)
         dq = fa.flash_attention_bwd_dq(q, k, v, kv_valid, do, m, l, di, causal, scale)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), kv_valid, o.float(),
-                                           m, l, do.float(), causal, scale)
+        rows = [fa.flash_attention_bwd_plain(q[b:b + 1].float(), k[b:b + 1].float(),
+                                             v[b:b + 1].float(), kv_valid[b:b + 1],
+                                             o[b:b + 1].float(), m[b:b + 1], l[b:b + 1],
+                                             do[b:b + 1].float(), causal, scale)
+                for b in range(B)]
+        ref = [torch.cat(parts) for parts in zip(*rows)]
+        del rows
         parts = []
         for tname, kernel, got, want in (("dQ", "dq", dq, ref[0]), ("dK", "dkv", dk, ref[1]),
                                          ("dV", "dkv", dv, ref[2])):
@@ -497,6 +558,7 @@ def check_flash_bwd(gen) -> dict:
                 raise AssertionError(f"K7/K8 {name}: {tname} disagrees with the plain version "
                                      f"(max-abs {err:.3e} of {top:.3e}, cosine {cos:.6f})")
             out[kernel]["max_abs_err"] = max(out[kernel]["max_abs_err"], err)
+        del ref
         empty = ~fa._mask(kv_valid, T, S, causal)[:, 0].any(dim=-1)          # [B, T]
         if bool(empty.any()) and float(dq[empty].abs().max()) != 0.0:
             raise AssertionError(f"K8 {name}: dQ is not 0 on a row with no valid key")
@@ -505,36 +567,64 @@ def check_flash_bwd(gen) -> dict:
             raise AssertionError(f"K7 {name}: dK or dV is not 0 on an invalid key")
         print(f"K7/K8 {name}: {'; '.join(parts)}; rows without a key: {int(empty.sum())}, "
               f"invalid keys: {int((~kv_valid).sum())}")
-        if causal and B == 1:
+        if timed is not None:
             args = (q, k, v, kv_valid, do, m, l, di, causal, scale)
-            dkv_ms = median_ms(lambda: fa.flash_attention_bwd_dkv(*args))
-            dq_ms = median_ms(lambda: fa.flash_attention_bwd_dq(*args))
-            dkv_plain = median_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args))
-            dq_plain = median_ms(lambda: fa.flash_attention_bwd_dq_plain(*args))
+            readings = {}
+            for kernel, launch, plain in (
+                    ("dkv", fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain),
+                    ("dq", fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain)):
+                readings[kernel] = dict(ms=median_ms(lambda: launch(*args)),
+                                        device_ms=graph_ms(lambda: launch(*args)),
+                                        plain_ms=median_ms(lambda: plain(*args)))
             # The yardstick (never on the port's path): the library's fused
-            # attention backward alone, its forward taken once outside the timing.
+            # attention backward alone, its forward taken once outside the
+            # timing; padded keys go in as a boolean mask with the causal rule.
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-            o_lib = torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
-            g_lib = do.transpose(1, 2)
-            library_ms = median_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), g_lib,
-                                                               retain_graph=True))
-            del o_lib
-            rows = 4 * 3 * B * Hq * T  # m, l, di in f32
-            pairs = 2 * B * Hq * T * S * D / 2  # one product's FLOPs, half the pairs
-            dkv_bound = bound_ms(2 * (q.numel() + do.numel() + 2 * k.numel() + 2 * v.numel())
-                                 + rows, 4 * pairs)
-            dq_bound = bound_ms(2 * (2 * q.numel() + do.numel() + k.numel() + v.numel())
-                                + rows, 3 * pairs)
-            for kernel, ms, plain, (least, by) in (("dkv", dkv_ms, dkv_plain, dkv_bound),
-                                                  ("dq", dq_ms, dq_plain, dq_bound)):
-                out[kernel]["times"][T] = dict(ms=ms, plain_ms=plain, library_ms=library_ms,
-                                               bound_ms=least, bound_by=by)
-            print(f"K7/K8 {name}: K7 {dkv_ms:.4f} ms, plain {dkv_plain:.4f} ms, bound "
-                  f"{dkv_bound[0]:.5f} ms by {dkv_bound[1]}; K8 {dq_ms:.4f} ms, plain "
-                  f"{dq_plain:.4f} ms, bound {dq_bound[0]:.5f} ms by {dq_bound[1]}; "
-                  f"scaled_dot_product_attention backward (dQ, dK, dV together) "
-                  f"{library_ms:.4f} ms; median of 20")
+            if bool(kv_valid.all()):
+                sdpa = dict(is_causal=True)
+            else:
+                sdpa = dict(attn_mask=kv_valid[:, None, None, :]
+                            & (torch.arange(S, device=dev)[None, :]
+                               <= torch.arange(T, device=dev)[:, None])[None, None])
+            try:
+                o_lib = torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, scale=scale, enable_gqa=True, **sdpa)
+                g_lib = do.transpose(1, 2)
+
+                def library():
+                    torch.autograd.grad(o_lib, (qt, kt, vt), g_lib, retain_graph=True)
+
+                library_ms = median_ms(library)
+                library_device_ms = graph_ms(library)
+                del o_lib
+            except RuntimeError as e:  # no backend takes this mask with GQA
+                print(f"K7/K8 {name}: scaled_dot_product_attention backward failed "
+                      f"({str(e).splitlines()[0][:120]}): library time not measured")
+                library_ms = library_device_ms = None
+            # Each product is 2·Hq·D FLOPs per valid (row, key) pair: K7 does
+            # four (S, dP, dV, dK), K8 three (S, dP, dQ). Bytes: every input
+            # read once, every output written once.
+            pair_flops = 2 * Hq * D * flash_pairs(kv_valid, T, causal)
+            rows_bytes = 4 * 3 * B * Hq * T + kv_valid.numel()  # m, l, di in f32
+            bounds = {"dkv": bound_ms(2 * (q.numel() + do.numel() + 2 * k.numel() + 2 * v.numel())
+                                      + rows_bytes, 4 * pair_flops),
+                      "dq": bound_ms(2 * (2 * q.numel() + do.numel() + k.numel() + v.numel())
+                                     + rows_bytes, 3 * pair_flops)}
+            for kernel, (least, by) in bounds.items():
+                out[kernel]["times"][timed] = dict(
+                    **readings[kernel], library_ms=library_ms,
+                    library_device_ms=library_device_ms, bound_ms=least, bound_by=by)
+            r7, r8 = readings["dkv"], readings["dq"]
+            print(f"K7/K8 {name}: K7 {r7['ms']:.4f} ms per call, {show(r7['device_ms'])} on the "
+                  f"device, plain {r7['plain_ms']:.4f} ms, bound {bounds['dkv'][0]:.5f} ms by "
+                  f"{bounds['dkv'][1]}; K8 {r8['ms']:.4f} ms per call, {show(r8['device_ms'])} on "
+                  f"the device, plain {r8['plain_ms']:.4f} ms, bound {bounds['dq'][0]:.5f} ms by "
+                  f"{bounds['dq'][1]}; scaled_dot_product_attention backward (dQ, dK, dV "
+                  f"together) {show(library_ms)} ms per call, {show(library_device_ms)} on the "
+                  f"device; median of 20")
+            del qt, kt, vt
+        del q, k, v, do, o, m, l, di, dq, dk, dv
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3269,15 +3359,18 @@ def main(argv=None) -> None:
         dict(name="paged_kv_update", source="vis_zephyr_tpu_torch/csrc/paged_kv_rows.cu",
              replaces=f"{paged_py}:1482 and {paged_py}:1574",
              max_abs_err=k4_update["max_abs_err"], **k4_update["times"]),
-        # Timed at T=S=2048, the training shape (B=1); `by_T` holds 256 too.
+        # Timed at causal B=1, T=S=2048; `by_shape` holds T=S=256 and the
+        # trainer's B=8 with padded keys too.
         dict(name="flash_bwd_dkv", source="vis_zephyr_tpu_torch/csrc/flash_bwd.cu",
              replaces="vis_zephyr_tpu/ops/flash_attention.py:200",
              max_abs_err=k78["dkv"]["max_abs_err"], **k78["dkv"]["times"][2048],
-             by_T=k78["dkv"]["times"]),
+             by_shape=k78["dkv"]["times"], sass=k78["dkv"]["sass"],
+             resources=k78["dkv"]["resources"]),
         dict(name="flash_bwd_dq", source="vis_zephyr_tpu_torch/csrc/flash_bwd.cu",
              replaces="vis_zephyr_tpu/ops/flash_attention.py:262",
              max_abs_err=k78["dq"]["max_abs_err"], **k78["dq"]["times"][2048],
-             by_T=k78["dq"]["times"]),
+             by_shape=k78["dq"]["times"], sass=k78["dq"]["sass"],
+             resources=k78["dq"]["resources"]),
         # Timed at M = 1 (single-stream decode) at the default block_i; `by_M` holds
         # M = 8 and both tilings, the K5 route and the int8-pack yardstick.
         dict(name="fused_mlp_matvec", source="vis_zephyr_tpu_torch/csrc/fused_mlp_matvec.cu",

@@ -10,11 +10,19 @@
   B <= 2, T = S in {128, 256}, D = 128. The JAX dK and dV per q head are
   summed over each group first. Tolerance 2e-4 in f32, as the JAX package's
   own flash gradient tests (`tests/test_flash_attention.py`).
+- The arithmetic K7 and K8 run on the tensor cores (a test-local copy of
+  the backward that rounds p, then p (dp - di), to bf16 before the dV, dK
+  and dQ products, as the kernels do; the plain versions stay f32) against the
+  same JAX results, at `chip_smoke.py`'s gates for the kernels: per tensor
+  max-abs <= 1e-2 of its largest value and cosine >= 0.9999. The inputs of
+  these comparisons are bf16 values (held in f32), as the kernels read them.
 - The autograd Function behind `flash_attention` against `jax.grad` of the
   JAX `flash_attention`; `torch.autograd.gradcheck` in f64.
 - A row with no valid key gives dQ = 0 and an invalid key dK = dV = 0,
   exactly; the kernel wrappers refuse CPU tensors.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -81,11 +89,29 @@ def _t(x):
     return torch.from_numpy(np.array(x))  # a writable copy
 
 
+def _bf16(x):
+    """f32 values rounded to bf16 (held in f32): what the kernels read."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case(name):
+    """A case's bf16-rounded inputs (q, k, v, dO, kv_valid), the JAX forward's
+    (o, m, l) and the JAX backward's (dq, dk, dv) on them, computed once for
+    the tests that share them (never modified: `_t` copies)."""
+    _, B, T, Hq, Hkv, causal, valid_case = next(c for c in CASES if c[0] == name)
+    q, k, v, do, valid = _inputs(B, T, Hq, Hkv, valid_case)
+    q, k, v, do = (_bf16(x) for x in (q, k, v, do))
+    scale = D ** -0.5
+    o, m, l = _jax_forward(q, k, v, valid, causal, scale, 128)
+    want = _jax_backward(q, k, v, valid, o, m, l, do, causal, scale, 128)
+    return (q, k, v, do, valid), (o, m, l), want
+
+
 @pytest.mark.parametrize("name,B,T,Hq,Hkv,causal,valid_case", CASES, ids=[c[0] for c in CASES])
 def test_forward_plain_matches_jax_residuals(name, B, T, Hq, Hkv, causal, valid_case):
-    q, k, v, _, valid = _inputs(B, T, Hq, Hkv, valid_case)
+    (q, k, v, _, valid), (o_j, m_j, l_j), _ = _jax_case(name)
     scale = D ** -0.5
-    o_j, m_j, l_j = _jax_forward(q, k, v, valid, causal, scale, 128)
     o, m, l = tflash.flash_attention_fwd_plain(_t(q), _t(k), _t(v), _t(valid), causal, scale)
     np.testing.assert_allclose(o.numpy(), o_j, **TOL)
     np.testing.assert_allclose(l.numpy(), l_j, **TOL)
@@ -97,10 +123,8 @@ def test_forward_plain_matches_jax_residuals(name, B, T, Hq, Hkv, causal, valid_
 
 @pytest.mark.parametrize("name,B,T,Hq,Hkv,causal,valid_case", CASES, ids=[c[0] for c in CASES])
 def test_backward_plain_matches_jax(name, B, T, Hq, Hkv, causal, valid_case):
-    q, k, v, do, valid = _inputs(B, T, Hq, Hkv, valid_case)
+    (q, k, v, do, valid), (o, m, l), want = _jax_case(name)
     scale = D ** -0.5
-    o, m, l = _jax_forward(q, k, v, valid, causal, scale, 128)
-    want = _jax_backward(q, k, v, valid, o, m, l, do, causal, scale, 128)
     args = [_t(x) for x in (q, k, v, valid)]
     got = tflash.flash_attention_bwd_plain(*args, _t(o), _t(m), _t(l), _t(do), causal, scale)
     for g, w in zip(got, want):
@@ -111,6 +135,50 @@ def test_backward_plain_matches_jax(name, B, T, Hq, Hkv, causal, valid_case):
     dq = tflash.flash_attention_bwd_dq_plain(*args, _t(do), _t(m), _t(l), di, causal, scale)
     for g, w in zip((dq, dk, dv), want):
         np.testing.assert_allclose(g.numpy(), w, **TOL)
+    if valid_case == "padded":
+        assert dq[1, 0].eq(0).all()                       # the row with no valid key
+        assert dk[0, 200:].eq(0).all() and dv[0, 200:].eq(0).all()   # invalid keys
+        assert dk[1, 0].eq(0).all() and dk[1, 131:].eq(0).all() and dv[1, 131:].eq(0).all()
+
+
+def _tensor_core_backward(q, k, v, valid, o, m, l, do, causal, scale):
+    """(dq, dk, dv) as K7 and K8 compute them: f32 scores and probabilities
+    from m and l, p rounded to bf16, then p (dp - di) from that p rounded to
+    bf16, before the dV, dK and dQ products (f32 sums); scale applied to dK
+    and dQ after, outputs rounded to bf16 once."""
+    T, Hq = q.shape[1], q.shape[2]
+    S, Hkv = k.shape[1], k.shape[2]
+    k_g = tflash._grouped(k, Hq // Hkv, torch.float32)
+    v_g = tflash._grouped(v, Hq // Hkv, torch.float32)
+    mask = tflash._mask(valid, T, S, causal)
+    s = torch.einsum("bthd,bshd->bhts", q, k_g) * scale
+    l_inv = torch.where(l == 0, torch.zeros_like(l), 1.0 / l)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros(())) * l_inv[..., None]
+    dp = torch.einsum("bthd,bshd->bhts", do, v_g)
+    p = p.to(torch.bfloat16).float()
+    ds = (p * (dp - tflash.row_dot(o, do)[..., None])).to(torch.bfloat16).float()
+    dq = torch.einsum("bhts,bshd->bthd", ds, k_g) * scale
+    dk = tflash._group_sum(torch.einsum("bhts,bthd->bshd", ds, q), Hkv) * scale
+    dv = tflash._group_sum(torch.einsum("bhts,bthd->bshd", p, do), Hkv)
+    return tuple(x.to(torch.bfloat16).float() for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("name,B,T,Hq,Hkv,causal,valid_case", CASES, ids=[c[0] for c in CASES])
+def test_tensor_core_rounding_fits_the_chip_gates(name, B, T, Hq, Hkv, causal, valid_case):
+    """The CPU's evidence that rounding p and ds to bf16 for the tensor cores
+    (a departure from the TPU kernels' f32 products) fits the smoke's K7/K8
+    gates: against the JAX backward, per tensor max-abs <= 1e-2 of its
+    largest value and cosine >= 0.9999; exact zeros stay exact."""
+    (q, k, v, do, valid), (o, m, l), want = _jax_case(name)
+    got = _tensor_core_backward(*(_t(x) for x in (q, k, v, valid, o, m, l, do)), causal,
+                                D ** -0.5)
+    for g, w in zip(got, want):
+        w = _t(w).double()
+        err, top = float((g.double() - w).abs().max()), float(w.abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(g.double().flatten(), w.flatten(),
+                                                          dim=0))
+        assert 0 < err <= 1e-2 * top and cos >= 0.9999, (err, top, cos)
+    dq, dk, dv = got
     if valid_case == "padded":
         assert dq[1, 0].eq(0).all()                       # the row with no valid key
         assert dk[0, 200:].eq(0).all() and dv[0, 200:].eq(0).all()   # invalid keys

@@ -217,6 +217,31 @@ def test_vis_zephyr_forward(models):
         np.testing.assert_array_equal(_np(gaux[key]), np.asarray(waux[key]), err_msg=key)
 
 
+@pytest.mark.parametrize("form", ["port", "orbax"])
+def test_builder_names_the_checkpoint_form(form, tmp_path):
+    """A model directory with a `state/` is refused under its true form:
+    the port trainer's own `state/state.pt` (written here by
+    `train/checkpoints.py::save_checkpoint`) by that name, pointing to the
+    roadmap steps that will load it; a directory orbax wrote as orbax."""
+    from vis_zephyr_tpu_torch.models.builder import load_pretrained_model
+    from vis_zephyr_tpu_torch.train import checkpoints as tckpt
+
+    if form == "port":
+        layer = torch.nn.Linear(2, 2)
+        model_dir = tckpt.save_checkpoint(
+            str(tmp_path), {"params": layer, "step": 1,
+                            "opt_state": torch.optim.SGD(layer.parameters(), lr=0.1)}, step=1)
+        match = r"the port trainer's own checkpoint .*state\.pt.*Queue A steps 1 and 5"
+    else:
+        (tmp_path / "model" / "state").mkdir(parents=True)
+        (tmp_path / "model" / "state" / "_CHECKPOINT_METADATA").write_text("{}")
+        model_dir = str(tmp_path / "model")
+        match = "is a native orbax checkpoint"
+    with pytest.raises(NotImplementedError, match=match) as refused:
+        load_pretrained_model(model_dir, device="cpu")
+    assert ("orbax" in str(refused.value)) == (form == "orbax")
+
+
 def test_builder_loads_hf_layout(models, tmp_path):
     """`load_pretrained_model`'s HF path: a safetensors decoder, a torch .bin
     CLIP tower with HF's prefix and unused keys, and a prefixed

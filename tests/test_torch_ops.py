@@ -84,6 +84,29 @@ def test_flash_fwd_forms_are_edits_of_the_committed_kernel():
         assert (flash_fwd_forms.form_source(edits) == committed) == (not edits), name
 
 
+def test_flash_bwd_forms_are_edits_of_the_committed_kernels():
+    """Each form `experiments/flash_bwd_forms.py` builds on the card is a text
+    edit of `csrc/flash_bwd.cu` that still applies, and its ptxas reading
+    tells K7's and K8's registers, spills and serialized wgmmas apart."""
+    from vis_zephyr_tpu_torch.experiments import flash_bwd_forms
+
+    committed = flash_bwd_forms.form_source([])
+    for name, edits in flash_bwd_forms.FORMS.items():
+        assert (flash_bwd_forms.form_source(edits) == committed) == (not edits), name
+    log = ("ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions "
+           "are serialized due to insufficient register resources for the function "
+           "'_ZN_flash_bwd_dkv_kernelE'\n"
+           "ptxas info    : Compiling entry function '_ZN_flash_bwd_dq_kernelE' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n"
+           "ptxas info    : Compiling entry function '_ZN_flash_bwd_dkv_kernelE' for 'sm_90a'\n"
+           "    464 bytes stack frame, 920 bytes spill stores, 732 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n")
+    assert flash_bwd_forms.ptxas_report(log) == {
+        "dkv": {"registers": 168, "spill_bytes": 920, "wgmma_serialized": True},
+        "dq": {"registers": 168, "spill_bytes": 0, "wgmma_serialized": False}}
+
+
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 3), (False, None)])
 def test_dot_product_attention_matches_jax(causal, window):
     rng = np.random.default_rng(1)

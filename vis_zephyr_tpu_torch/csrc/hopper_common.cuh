@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's hand-written kernels:
 // mbarriers, TMA loads and stores, wgmma shared-memory descriptors and the
-// m64n128k16 bf16 products, and the host-side tensor-map encoder.
+// m64n128k16 and m64n64k16 bf16 products, and the host-side tensor-map
+// encoder.
 //
 // Hand PTX through `asm volatile`; no CUTLASS or CuTe. Everything here is
 // header-only and `static`/`inline`, so several sources may include it.
@@ -110,6 +111,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Copies `bytes` (a multiple of 16) of global memory at `src` (16-byte
+// aligned) into shared memory at `dst`; they complete a transaction on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Copies shared memory at `src` to the box at (c0, c1, c2, c3); rows outside
 // the tensor are not written.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src,
@@ -194,6 +205,37 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
   "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define VZT_WGMMA_D32_TEXT                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                 \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "            \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "          \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+
+#define VZT_WGMMA_D32_OPERANDS(d)                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+  "+f"(d[30]), "+f"(d[31])
+
+// d[64x64] (+)= A[64x16] * B[16x64], both operands K-major in shared memory
+// (B stored as [N][K]); d is the m64n64k16 fragment (j = 0..7 above).
+// `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      VZT_WGMMA_D32_TEXT ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : VZT_WGMMA_D32_OPERANDS(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 
 // d[64x128] (+)= A[64x16] * B[16x128], both operands in shared memory, A
 // K-major and B K-major (B stored as [N][K]). `accumulate` 0 overwrites d.

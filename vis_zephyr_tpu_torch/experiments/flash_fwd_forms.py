@@ -49,39 +49,55 @@ LENGTHS = (2048, 1900, 1664, 1537, 1280, 1029, 700, 333)  # chip_smoke.py's B=8 
 CALLS = 10  # calls in the timed graph
 
 
-def form_source(edits) -> str:
-    text = open(os.path.join(_kernels.CSRC, "flash_fwd.cu")).read()
+def form_source(edits, source: str = "flash_fwd.cu") -> str:
+    """`csrc/<source>` with each (old, new) text edit applied."""
+    text = open(os.path.join(_kernels.CSRC, source)).read()
     for old, new in edits:
         if old not in text:
-            raise RuntimeError(f"flash_fwd.cu no longer holds {old!r}: update FORMS")
+            raise RuntimeError(f"{source} no longer holds {old!r}: update FORMS")
         text = text.replace(old, new)
     return text
 
 
-def build_forms(out_dir: str) -> dict:
-    """name -> (the form's `vzt_flash_fwd`, ptxas registers and spill bytes);
-    one nvcc process a form, all at once."""
+def build_libraries(out_dir: str, forms: dict, source: str, entries) -> dict:
+    """name -> ({entry: the form's C entry point}, ptxas's `-v` output): each
+    form of `csrc/<source>` built as a library of its own, one nvcc process
+    a form, all at once."""
+    stem = os.path.splitext(source)[0]
     jobs = {}
-    for name, edits in FORMS.items():
-        src = os.path.join(out_dir, f"flash_fwd_{name}.cu")
+    for name, edits in forms.items():
+        src = os.path.join(out_dir, f"{stem}_{name}.cu")
         with open(src, "w") as f:
-            f.write(form_source(edits))
-        lib = os.path.join(out_dir, f"flash_fwd_{name}.so")
+            f.write(form_source(edits, source))
+        lib = os.path.join(out_dir, f"{stem}_{name}.so")
         cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
                "-I", _kernels.CSRC, "-o", lib, src]
         jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                             text=True))
-    forms = {}
+    built = {}
     for name, (lib, proc) in jobs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on form {name}:\n{out}{err}")
         handle = ctypes.CDLL(lib)
-        handle.vzt_flash_fwd.argtypes = _kernels._SIGNATURES["vzt_flash_fwd"]
-        handle.vzt_flash_fwd.restype = ctypes.c_int
-        regs = re.findall(r"Used (\d+) registers", err)
-        spills = re.findall(r"(\d+) bytes spill stores", err)
-        forms[name] = (handle.vzt_flash_fwd, {"registers": int(regs[0]) if regs else None,
+        fns = {}
+        for entry in entries:
+            fn = getattr(handle, entry)
+            fn.argtypes = _kernels._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
+        built[name] = (fns, out + err)
+    return built
+
+
+def build_forms(out_dir: str) -> dict:
+    """name -> (the form's `vzt_flash_fwd`, ptxas registers and spill bytes)."""
+    forms = {}
+    for name, (fns, log) in build_libraries(out_dir, FORMS, "flash_fwd.cu",
+                                            ["vzt_flash_fwd"]).items():
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        forms[name] = (fns["vzt_flash_fwd"], {"registers": int(regs[0]) if regs else None,
                                               "spill_bytes": int(spills[0]) if spills else None})
     return forms
 

@@ -14,8 +14,9 @@ Q-Former's int8 (`ops/quant.py`, the reference's bitsandbytes options
 mapped as in the JAX builder). Both run after the float weights are on the
 device, one layer at a time.
 
-Not ported yet: the native orbax checkpoint (needs orbax), LoRA artifacts
-and the consolidated single-dir checkpoint.
+Not ported yet: the port trainer's own checkpoint (`state/state.pt`), the
+native orbax checkpoint (needs orbax), LoRA artifacts and the consolidated
+single-dir checkpoint; a `state/` directory is refused under its form.
 
 Returns `(tokenizer, model, cfg, context_len)`.
 """
@@ -32,6 +33,7 @@ import torch
 from ..config import VisZephyrConfig
 
 from ..ops.quant import quantize_decoder_layers, quantize_qformer
+from ..train.checkpoints import state_form
 from .vis_zephyr import VisZephyr
 
 # HF CLIPVisionModel keys the tower does not use (it returns raw hidden states).
@@ -91,9 +93,20 @@ def load_pretrained_model(
     load_8bit: bool = False,
     load_4bit: bool = False,
 ) -> Tuple[object, VisZephyr, VisZephyrConfig, int]:
-    if os.path.isdir(os.path.join(model_path, "state")):
+    state = os.path.join(model_path, "state")
+    if os.path.isdir(state):
+        form = state_form(state)
+        if form == "torch":
+            raise NotImplementedError(
+                f"{model_path} holds the port trainer's own checkpoint ({state}/state.pt, "
+                "train/checkpoints.py); serving it is not ported yet (ROADMAP.md, Queue A "
+                "steps 1 and 5). The PyTorch port loads only HF weights (--model-base, "
+                "--vision-tower, mm_projector.bin) so far")
+        kind = ("a native orbax checkpoint" if form == "orbax" else
+                "a checkpoint of another form (its state/ holds neither state.pt nor "
+                "orbax's metadata)")
         raise NotImplementedError(
-            f"{model_path} is a native orbax checkpoint; the PyTorch port loads only "
+            f"{model_path} is {kind}; the PyTorch port loads only "
             "HF weights (--model-base, --vision-tower, mm_projector.bin) so far")
     cfg = _read_config(model_path)
     if cfg.mm_use_im_start_end or cfg.mm_use_im_patch_token:

@@ -72,12 +72,22 @@ def latest_checkpoint(output_dir: str, full_state: bool = False) -> Optional[str
     return None
 
 
+def state_form(folder: str) -> Optional[str]:
+    """"torch" for a folder this module wrote (`<name>.pt` inside, named
+    after the folder), "orbax" for one orbax wrote, None otherwise."""
+    name = os.path.basename(os.path.normpath(folder))
+    if os.path.exists(os.path.join(folder, f"{name}.pt")):
+        return "torch"
+    if any(os.path.exists(os.path.join(folder, marker)) for marker in _ORBAX_MARKERS):
+        return "orbax"
+    return None
+
+
 def _file(path: str, part: str) -> str:
     """`path/part/part.pt`, or a refusal of a directory orbax wrote."""
     folder = os.path.join(path, part)
     found = os.path.join(folder, f"{part}.pt")
-    if not os.path.exists(found) and any(os.path.exists(os.path.join(folder, marker))
-                                         for marker in _ORBAX_MARKERS):
+    if state_form(folder) == "orbax":
         raise NotImplementedError(
             f"{folder} is an orbax checkpoint; the PyTorch port reads only the "
             f"torch.save layout ({part}/{part}.pt) it writes itself")
