@@ -59,7 +59,9 @@ toolkit; exits non-zero on a machine without a card. Phases:
              fused; whole pools and scales bit-exact; the same for its
              absolute-page entry paged_kv_update at L = 1 and 2, timed at
              the verify step's L = 1, B = 32;
-7. K5      — quant_matmul_int8 against its plain version at every (K, N) of
+7. K5      — quant_matmul_int8 (wgmma, weights by TMA: its SASS must hold
+             HGMMA and UTMALDG; its PRMT, LOP3 and I2F counts, registers and
+             stack printed) against its plain version at every (K, N) of
              an int8 projection (decoder q/o, k/v, gate/up, down; Q-Former
              packed in_proj, cross k/v, ffn.0, ffn.2) with M = 1, 7, 32, 128,
              plus a K % 64 tail with ragged N and K = 16, each also with f32
@@ -67,13 +69,16 @@ toolkit; exits non-zero on a machine without a card. Phases:
              value; kernel (per call, on the device alone from a CUDA-graph
              replay, and issued back to back), plain, library
              (`torch._weight_int8pack_mm` where it runs, else dequantize +
-             matmul) and bound per shape and per decoder pass;
+             matmul; by events and on the device), the bf16 weights'
+             `F.linear` on the device and bound, per shape and summed per
+             decoder pass;
 8. K6      — quant_matmul_int4 against its plain version at every (K, N) of
              an int4 projection (decoder q/o, k/v, gate/up, down; group 128)
              with M = 1, 7, 32, 128, plus one group (K = 128) and a 256-wide
              group, each also with f32 x; the same check and readings as K5's
              (library: `torch._weight_int4pack_mm` where it runs, else
-             dequantize + matmul);
+             dequantize + matmul), and its SASS must hold no I2F (nibbles
+             convert by lop3);
 8b. K9     — fused_mlp_matvec against its plain version at D = 4096,
              I = 14336, M = 1 and 8, both tilings (block_i 64 and 128),
              random int8 weights from the seed: max-abs error over max |plain|
@@ -315,15 +320,16 @@ def _cuobjdump(flag: str) -> str:
     return dump.stdout
 
 
-def sass_counts(function: str) -> dict:
-    """HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store) instructions
-    in the built library's function whose name holds `function`, read with
-    `cuobjdump -sass`."""
+def sass_counts(function: str, ops=("HGMMA", "UTMALDG", "UTMASTG")) -> dict:
+    """Instructions of each kind in `ops` (by default HGMMA (wgmma), UTMALDG
+    (TMA load) and UTMASTG (TMA store)) in the built library's functions whose
+    names hold `function` (summed over a template's instantiations), read
+    with `cuobjdump -sass`."""
     sections = re.split(r"\n\s*Function : ", _cuobjdump("-sass"))[1:]
     body = "".join(sec for sec in sections if function in sec.split("\n", 1)[0])
     if not body:
         raise AssertionError(f"cuobjdump -sass shows no {function} function")
-    return {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    return {op: len(re.findall(rf"\b{op}\b", body)) for op in ops}
 
 
 def resource_usage(function: str) -> dict:
@@ -1181,13 +1187,67 @@ def int8_library_call(x, weight_q, scale):
     return "dequantize + torch.matmul", lambda: x @ qmm.dequantize(weight_q, scale, x.dtype).T
 
 
+QMM_SASS_OPS = ("HGMMA", "UTMALDG", "PRMT", "LOP3", "I2F")
+# One decoder pass at M rows runs q, k, v, o, gate, up, down in 32 layers.
+QMM_PASS = (("decoder q, o", 2), ("decoder k, v", 2), ("decoder gate, up", 2), ("decoder down", 1))
+
+
+def qmm_sass(label: str, function: str, no_i2f: bool):
+    """K5's or K6's SASS (every n instantiation) and resources: it must hold
+    HGMMA and UTMALDG, and K6 no I2F (its nibbles convert by lop3)."""
+    sass, res = sass_counts(function, QMM_SASS_OPS), resource_usage(function)
+    print(f"{label} SASS ({function}, its five n): {sass}; registers at entry {res['reg']}, stack "
+          f"frame {res['stack']} bytes, local {res['local']}")
+    if not (sass["HGMMA"] and sass["UTMALDG"]):
+        raise AssertionError(f"{label}: no HGMMA or UTMALDG in its SASS: {sass}")
+    if no_i2f and sass["I2F"]:
+        raise AssertionError(f"{label}: its SASS converts with I2F: {sass}")
+    return sass, res
+
+
+def time_qmm(kernel, plain, library, bf16) -> dict:
+    """The kernel three ways: CUDA events around one call (the host's launch
+    path included, as K1 to K4 are timed), the device time alone (CUDA-graph
+    replay), and the host's issue time when calls go back to back; the plain
+    version by events; the library call by events and on the device; the
+    bf16 weights' `F.linear` (cuBLAS) on the device."""
+    return dict(ms=median_ms(kernel), device_ms=graph_ms(kernel), issue_ms=issue_ms(kernel),
+                plain_ms=median_ms(plain, 10), library_ms=median_ms(library, 10),
+                library_device_ms=graph_ms(library), bf16_device_ms=graph_ms(bf16))
+
+
+def pass_totals(label: str, times: dict) -> dict:
+    """Each timing summed over one decoder pass, per M."""
+    passes = {}
+    for M in QMM_ROWS:
+        total = {}
+        for key, value in times[(QMM_PASS[0][0], M)].items():
+            if isinstance(value, str):
+                continue
+            vals = [times[(name, M)][key] for name, _ in QMM_PASS]
+            total[key] = (None if None in vals
+                          else 32 * sum(n * v for (_, n), v in zip(QMM_PASS, vals)))
+        passes[M] = total
+        share = ("not measured" if total["device_ms"] is None
+                 else f"{100 * total['bound_ms'] / total['device_ms']:.1f} %")
+        print(f"{label} one decoder pass at M={M} (224 launches): kernel {show(total['ms'])} ms per "
+              f"call summed, {show(total['device_ms'])} on the device ({share} of the bound), "
+              f"issued back to back {show(total['issue_ms'])}; library {show(total['library_ms'])} "
+              f"by events, {show(total['library_device_ms'])} on the device; bf16 weights "
+              f"(F.linear) {show(total['bf16_device_ms'])} on the device; plain "
+              f"{show(total['plain_ms'])}; bound {total['bound_ms']:.3f} ms")
+    return passes
+
+
 def check_quant_matmul(gen) -> dict:
     from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
 
     dev = "cuda"
+    sass, res = qmm_sass("K5", "qmm_kernelILi8E", no_i2f=False)
     worst = 0.0
     times = {}
     library = None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(name, K, N, M) for name, (K, N) in QMM_SHAPES.items() for M in QMM_ROWS]
     # Edges the served shapes do not reach: a K % 64 tail, ragged N, f32 output.
     cases += [("edge: K % 64 = 48, ragged N", 4144, 1000, 33), ("edge: K = 16", 16, 72, 5)]
@@ -1216,42 +1276,30 @@ def check_quant_matmul(gen) -> dict:
         if library is None:
             library = name_of_library
             print(f"K5 library yardstick: {library}")
-        kernel = lambda: qmm.quantized_matmul(x, wq, scale)  # noqa: E731
-        # The kernel three ways: CUDA events around one call (the host's
-        # launch path included, as K1 to K4 are timed), the device time alone
-        # (CUDA graph replay), and the host's issue time when calls go back to
-        # back. Plain and library: events around one call.
-        t = dict(ms=median_ms(kernel), device_ms=graph_ms(kernel), issue_ms=issue_ms(kernel),
-                 plain_ms=median_ms(lambda: qmm.quantized_matmul_plain(x, wq, scale), 10),
-                 library_ms=median_ms(lib_fn, 10))
+        dense = qmm.dequantize(wq, scale, torch.bfloat16)
+        t = time_qmm(lambda: qmm.quantized_matmul(x, wq, scale),
+                     lambda: qmm.quantized_matmul_plain(x, wq, scale), lib_fn,
+                     lambda: torch.nn.functional.linear(x, dense))
+        del dense
         # x, the int8 weight and the scales read once, the bf16 output written
         # once; 2·M·N·K tensor-core operations.
         least, by = bound_ms(2 * M * K + N * K + 4 * N + 2 * M * N, 2 * M * N * K)
-        splits = qmm.k_splits(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)[0]
+        plan = qmm.schedule(M, N, K, sms)
         times[(name, M)] = dict(t, bound_ms=least, bound_by=by)
-
         print(f"K5 {name} (K={K}, N={N}) M={M}: kernel {t['ms']:.4f} ms per call, "
-              f"{show(t['device_ms'])} on the device ({splits} K splits), issued back to back "
-              f"{t['issue_ms']:.4f}; plain (f32 matmul) {t['plain_ms']:.4f}; library "
-              f"{t['library_ms']:.4f}; bound {least:.5f} ms by {by} "
+              f"{show(t['device_ms'])} on the device ({plan.tiles} tiles x {plan.splits} K "
+              f"splits), issued back to back {t['issue_ms']:.4f}; plain (f32 matmul) "
+              f"{t['plain_ms']:.4f}; library {t['library_ms']:.4f} by events, "
+              f"{show(t['library_device_ms'])} on the device; bf16 F.linear "
+              f"{show(t['bf16_device_ms'])} on the device; bound {least:.5f} ms by {by} "
               f"({(N * K) / 1e6:.1f} MB of weights); per-row error {rel:.2e}")
-    # One decoder pass at M rows runs q, k, v, o, gate, up, down in 32 layers.
-    per_layer = [("decoder q, o", 2), ("decoder k, v", 2), ("decoder gate, up", 2),
-                 ("decoder down", 1)]
-    for M in QMM_ROWS:
-        total = {}
-        for key in ("ms", "device_ms", "issue_ms", "plain_ms", "library_ms", "bound_ms"):
-            vals = [times[(name, M)][key] for name, _ in per_layer]
-            total[key] = (None if None in vals
-                          else 32 * sum(n * v for (_, n), v in zip(per_layer, vals)))
-        print(f"K5 one decoder pass at M={M} (224 launches): kernel {show(total['ms'])} ms per "
-              f"call summed, {show(total['device_ms'])} on the device, issued back to back "
-              f"{show(total['issue_ms'])}; plain {show(total['plain_ms'])}; library "
-              f"{show(total['library_ms'])}; bound {total['bound_ms']:.3f} ms")
+    passes = pass_totals("K5", times)
     headline = times[("decoder gate, up", 32)]
-    return {"max_abs_err": worst, "library": library,
+    return {"max_abs_err": worst, "library": library, "passes": passes, "sass": sass,
+            "resources": res,
             "times": {key: headline[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                     "bound_by", "device_ms", "issue_ms")}}
+                                                     "bound_by", "device_ms", "issue_ms",
+                                                     "library_device_ms", "bf16_device_ms")}}
 
 
 # (K, N) of every int4 projection: the decoder's q/o, k/v, gate/up and down (the
@@ -1293,9 +1341,11 @@ def check_quant_matmul_int4(gen) -> dict:
     from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
 
     dev = "cuda"
+    sass, res = qmm_sass("K6", "qmm_kernelILi4E", no_i2f=True)
     worst = 0.0
     times = {}
     library = None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [(name, K, N, M, 128) for name, (K, N) in QMM4_SHAPES.items() for M in QMM_ROWS]
     # Edges the served shapes do not reach: one group, a 256-wide group, f32 x.
     cases += [("edge: one group, K = 128", 128, 384, 5, 128), ("edge: group 256", 1024, 256, 33, 256)]
@@ -1325,37 +1375,34 @@ def check_quant_matmul_int4(gen) -> dict:
         if library is None:
             library = name_of_library
             print(f"K6 library yardstick: {library}")
-        kernel = lambda: qmm.quantized_matmul_int4(x, wq4, scale4)  # noqa: E731
-        t = dict(ms=median_ms(kernel), device_ms=graph_ms(kernel), issue_ms=issue_ms(kernel),
-                 plain_ms=median_ms(lambda: qmm.quantized_matmul_int4_plain(x, wq4, scale4), 10),
-                 library_ms=median_ms(lib_fn, 10))
+        dense = qmm.dequant_int4(wq4, scale4, torch.bfloat16)
+        t = time_qmm(lambda: qmm.quantized_matmul_int4(x, wq4, scale4),
+                     lambda: qmm.quantized_matmul_int4_plain(x, wq4, scale4), lib_fn,
+                     lambda: torch.nn.functional.linear(x, dense))
+        del dense
         # The nibbles, the f32 group scales and x read once, the bf16 output
         # written once; 2·M·N·K tensor-core operations.
         G = K // group
         least, by = bound_ms(N * K // 2 + 4 * N * G + 2 * M * K + 2 * M * N, 2 * M * N * K)
-        splits = qmm.group_splits(M, N, G, torch.cuda.get_device_properties(0).multi_processor_count)[0]
+        plan = qmm.schedule(M, N, K, sms, group)
         times[(name, M)] = dict(t, bound_ms=least, bound_by=by)
         print(f"K6 {name} (K={K}, N={N}) M={M}: kernel {t['ms']:.4f} ms per call, "
-              f"{show(t['device_ms'])} on the device ({splits} K splits), issued back to back "
-              f"{t['issue_ms']:.4f}; plain (f32 group matmuls) {t['plain_ms']:.4f}; library "
-              f"{t['library_ms']:.4f}; bound {least:.5f} ms by {by} "
+              f"{show(t['device_ms'])} on the device ({plan.tiles} tiles x {plan.splits} K "
+              f"splits), issued back to back {t['issue_ms']:.4f}; plain (f32 group matmuls) "
+              f"{t['plain_ms']:.4f}; library {t['library_ms']:.4f} by events, "
+              f"{show(t['library_device_ms'])} on the device; bf16 F.linear "
+              f"{show(t['bf16_device_ms'])} on the device; bound {least:.5f} ms by {by} "
               f"({N * K / 2e6:.1f} MB of nibbles); per-row error {rel:.2e}")
-    per_layer = [("decoder q, o", 2), ("decoder k, v", 2), ("decoder gate, up", 2),
-                 ("decoder down", 1)]
-    for M in QMM_ROWS:
-        total = {}
-        for key in ("ms", "device_ms", "issue_ms", "plain_ms", "library_ms", "bound_ms"):
-            vals = [times[(name, M)][key] for name, _ in per_layer]
-            total[key] = (None if None in vals
-                          else 32 * sum(n * v for (_, n), v in zip(per_layer, vals)))
-        print(f"K6 one decoder pass at M={M} (224 launches): kernel {show(total['ms'])} ms per "
-              f"call summed, {show(total['device_ms'])} on the device, issued back to back "
-              f"{show(total['issue_ms'])}; plain {show(total['plain_ms'])}; library "
-              f"{show(total['library_ms'])}; bound {total['bound_ms']:.3f} ms")
+    passes = pass_totals("K6", times)
+    m1 = times[("decoder gate, up", 1)]
+    print(f"K6 gate/up at M=1 on the device: {show(m1['device_ms'])} ms against the library call's "
+          f"{show(m1['library_device_ms'])}")
     headline = times[("decoder gate, up", 32)]
-    return {"max_abs_err": worst, "library": library,
+    return {"max_abs_err": worst, "library": library, "passes": passes, "sass": sass,
+            "resources": res,
             "times": {key: headline[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                     "bound_by", "device_ms", "issue_ms")}}
+                                                     "bound_by", "device_ms", "issue_ms",
+                                                     "library_device_ms", "bf16_device_ms")}}
 
 
 def int8_mlp_library_call(x, weights):
@@ -3350,12 +3397,13 @@ def main(argv=None) -> None:
              **k3["times"], by_rows=k3_rows["by_rows"], rows_7_8=k3_single["times"]),
         dict(name="paged_kv_rows", source="vis_zephyr_tpu_torch/csrc/paged_kv_rows.cu",
              replaces=f"{paged_py}:1691", max_abs_err=k4["max_abs_err"], **k4["times"]),
+        # Timed at gate/up, M = 32; `passes` holds a decoder pass at each M.
         dict(name="quant_matmul_int8", source="vis_zephyr_tpu_torch/csrc/quant_matmul_int8.cu",
              replaces="vis_zephyr_tpu/ops/quant_matmul.py:34", max_abs_err=k5["max_abs_err"],
-             **k5["times"]),
+             **k5["times"], passes=k5["passes"], sass=k5["sass"], resources=k5["resources"]),
         dict(name="quant_matmul_int4", source="vis_zephyr_tpu_torch/csrc/quant_matmul_int4.cu",
              replaces="vis_zephyr_tpu/ops/quant_matmul.py:116", max_abs_err=k6["max_abs_err"],
-             **k6["times"]),
+             **k6["times"], passes=k6["passes"], sass=k6["sass"], resources=k6["resources"]),
         dict(name="paged_kv_update", source="vis_zephyr_tpu_torch/csrc/paged_kv_rows.cu",
              replaces=f"{paged_py}:1482 and {paged_py}:1574",
              max_abs_err=k4_update["max_abs_err"], **k4_update["times"]),

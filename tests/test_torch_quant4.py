@@ -29,6 +29,7 @@
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,6 +71,8 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 EOS = 2
 DECODER_PROJ = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj",
                 "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
+j_mistral = jax.jit(jmistral.mistral_forward, static_argnums=(2,),
+                    static_argnames=("logits_slice", "return_kv"))
 
 
 def _t(x):
@@ -83,8 +86,6 @@ def _bf16_values(a):
 
 def jax_quantized(params):
     """The JAX package's `load_4bit` tree: int4 decoder layers, int8 Q-Former."""
-    import jax
-
     out = dict(params)
     out["decoder"] = jax.tree_util.tree_map(
         np.asarray, jquant.quantize_decoder_layers(params["decoder"], bits=4))
@@ -277,8 +278,6 @@ def test_port_int4_quantization_equals_the_bridged_jax_tree(models, part):
 def test_int4_decoder_matches_jax(models, T, k6, monkeypatch):
     """Two rows of T tokens: up to 128 rows every projection takes K6 (its
     plain version on the CPU), above it the dequantize route."""
-    import jax
-
     _, qparams, port = models
     rng = np.random.default_rng(5)
     B = 2
@@ -287,10 +286,9 @@ def test_int4_decoder_matches_jax(models, T, k6, monkeypatch):
     valid[1, T - 3:] = False
     positions = np.where(valid, np.cumsum(valid, 1) - 1, 0).astype(np.int32)
     emb = np.asarray(jmistral.embed(qparams["decoder"], jnp.asarray(ids)))
-    forward = jax.jit(jmistral.mistral_forward, static_argnums=(2,),
-                      static_argnames=("logits_slice", "return_kv"))
-    want, (wk, _) = forward(qparams["decoder"], jnp.asarray(emb), CFG.decoder,
-                            jnp.asarray(positions), attn_valid=jnp.asarray(valid), return_kv=True)
+    want, (wk, _) = j_mistral(qparams["decoder"], jnp.asarray(emb), CFG.decoder,
+                              jnp.asarray(positions), attn_valid=jnp.asarray(valid),
+                              return_kv=True)
     calls = _PlainCalls(monkeypatch)
     before = tqmm.dequant4_calls
     got, (gk, _) = tmistral.mistral_forward(port.decoder, _t(emb), TCFG.decoder, _t(positions),

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's hand-written kernels:
-// mbarriers, TMA loads and stores, wgmma shared-memory descriptors and the
-// m64n128k16 and m64n64k16 bf16 products, and the host-side tensor-map
-// encoder.
+// mbarriers, TMA loads and stores, wgmma shared-memory descriptors, the
+// m64n128k16 and m64n64k16 bf16 products with A in shared memory, the
+// m64nNk16 ones with A in registers, and the host-side tensor-map encoders.
 //
 // Hand PTX through `asm volatile`; no CUTLASS or CuTe. Everything here is
 // header-only and `static`/`inline`, so several sources may include it.
@@ -68,6 +68,26 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// The same wait with its loop inside one PTX block (no C++ loop around a
+// try_wait): cheaper on a hot path. It traps after 2^28 tries as well.
+__device__ __forceinline__ void mbar_wait_spin(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 p, n, 268435456;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
 // Generic-proxy writes to shared memory become visible to the async proxy
 // (a TMA store or wgmma reading them).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -108,6 +128,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
          "r"(bar)
+      : "memory");
+}
+
+// Copies the box at coordinates (c0, c1) of a 2-d map into shared memory at
+// `dst`; its bytes (the whole box, zeros where it leaves the tensor) complete a
+// transaction on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
 }
 
@@ -267,6 +299,58 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+#define VZT_WGMMA_D4_TEXT "{%0, %1, %2, %3}"
+#define VZT_WGMMA_D4_OPERANDS(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+
+#define VZT_WGMMA_D8_TEXT "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define VZT_WGMMA_D8_OPERANDS(d)                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+
+#define VZT_WGMMA_D16_TEXT                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                 \
+  "%8, %9, %10, %11, %12, %13, %14, %15}"
+#define VZT_WGMMA_D16_OPERANDS(d)                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),            \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+  "+f"(d[15])
+
+// d[64xN] (+)= A[64x16] * B[16xN] with A in registers (four bf16x2 words in the
+// m64k16 A fragment: thread t of the warpgroup holds rows 16 * (t / 32) +
+// (t % 32) / 4 (a[0], a[2]) and that + 8 (a[1], a[3]), k = 2 * (t % 4) + {0, 1}
+// (a[0], a[1]) and that + 8 (a[2], a[3])) and B K-major in shared memory
+// (stored as [N][K]); d is the m64nNk16 fragment, N / 2 floats. N is 8, 16,
+// 32, 64 or 128. `accumulate` 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int accumulate);
+
+// A0..A3, B and P are the operand numbers of a[0..3], desc_b and accumulate.
+#define VZT_WGMMA_RS(N, DTEXT, DOPS, A0, A1, A2, A3, B, P)                            \
+  template <>                                                                          \
+  __device__ __forceinline__ void wgmma_m64k16_rs<N>(float (&d)[N / 2],               \
+                                                      const uint32_t (&a)[4],          \
+                                                      uint64_t desc_b, int accumulate) { \
+    asm volatile(                                                                      \
+        "{\n"                                                                          \
+        ".reg .pred p;\n"                                                              \
+        "setp.ne.b32 p, %" P ", 0;\n"                                                  \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " DTEXT             \
+        ", {%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" B ", p, 1, 1, 0;\n"                 \
+        "}\n"                                                                          \
+        : DOPS(d)                                                                      \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));   \
+  }
+
+VZT_WGMMA_RS(8, VZT_WGMMA_D4_TEXT, VZT_WGMMA_D4_OPERANDS, "4", "5", "6", "7", "8", "9")
+VZT_WGMMA_RS(16, VZT_WGMMA_D8_TEXT, VZT_WGMMA_D8_OPERANDS, "8", "9", "10", "11", "12", "13")
+VZT_WGMMA_RS(32, VZT_WGMMA_D16_TEXT, VZT_WGMMA_D16_OPERANDS, "16", "17", "18", "19", "20", "21")
+VZT_WGMMA_RS(64, VZT_WGMMA_D32_TEXT, VZT_WGMMA_D32_OPERANDS, "32", "33", "34", "35", "36", "37")
+VZT_WGMMA_RS(128, VZT_WGMMA_D64_TEXT, VZT_WGMMA_D64_OPERANDS, "64", "65", "66", "67", "68",
+             "69")
+#undef VZT_WGMMA_RS
+
 // ---------------------------------------------------------------------------
 // Math.
 
@@ -331,6 +415,26 @@ static inline int make_map_bf16_bthd(CUtensorMap* map, const void* base, int bat
                         strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kTensorMapErrorBase + static_cast<int>(res);
+}
+
+// A map over a row-major 2-d tensor [rows, cols] of `dtype` (`elem_bytes` a
+// value, rows `row_bytes` apart, a multiple of 16), boxes of `box_cols` x
+// `box_rows` with the given swizzle. Reads past the tensor's edge fill zeros.
+// Returns 0 or an error code (kTensorMapErrorBase + CUresult for a refusal).
+static inline int make_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* base,
+                              int rows, int cols, long long row_bytes, int box_cols,
+                              int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode;
+  cudaError_t err = encode_tiled_fn(&encode);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUresult res = encode(map, dtype, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kTensorMapErrorBase + static_cast<int>(res);
 }
 

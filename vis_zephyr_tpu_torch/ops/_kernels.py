@@ -47,8 +47,8 @@ _SIGNATURES = {
     "vzt_paged_attn_decode": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
     "vzt_paged_kv_rows": [_P] * 8 + [_I] * 6 + [_P],
     "vzt_paged_kv_update": [_P] * 8 + [_I] * 5 + [_P],
-    "vzt_quant_matmul_int8": [_P] * 5 + [_I] * 6 + [_P],
-    "vzt_quant_matmul_int4": [_P] * 5 + [_I] * 7 + [_P],
+    "vzt_quant_matmul_int8": [_P] * 6 + [_I] * 6 + [_P],
+    "vzt_quant_matmul_int4": [_P] * 6 + [_I] * 7 + [_P],
     "vzt_flash_bwd_dkv": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],
     "vzt_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
     "vzt_fused_mlp_matvec": [_P] * 9 + [_I] * 4 + [_P],

@@ -1,7 +1,7 @@
 """Weight-only matmuls: the wrappers of kernels K5 (int8,
 `csrc/quant_matmul_int8.cu`) and K6 (int4, `csrc/quant_matmul_int4.cu`),
-their plain PyTorch versions, the int4 unpacking, and the `qlinear`
-dispatch every quantizable projection goes through.
+their plain PyTorch versions, their launch schedule, the int4 unpacking,
+and the `qlinear` dispatch every quantizable projection goes through.
 
 Port of `vis_zephyr_tpu/ops/quant_matmul.py` (`quantized_matmul`,
 `quantized_matmul_int4`, `qdot`'s `_base_dot`) and of `ops/quant.py`'s
@@ -19,21 +19,35 @@ end, rounded to x's dtype. int4: nibble → bf16 (exact), each group's dot
 summed in f32, times that group's f32 scale, the groups summed in f32,
 rounded to x's dtype once.
 
+K5 and K6 are one design (`csrc/quant_matmul_common.cuh`): outᵀ = W · xᵀ on
+wgmma, the weight tile its register A operand, converted to bf16 in
+registers, and x its B operand in shared memory, the rows of x padded to
+n = 8, 16, 32, 64 or 128; weights and x stream through a TMA ring of
+128-wide K stages. `schedule` picks the launch: column tiles of 64 W rows
+(n ≤ 32) or 128 (n ≥ 64), and K split over blocks where the tiles alone
+leave the card idle, in whole groups for int4; the last block of a tile to
+finish sums the splits' f32 partials in split order. The splits meet on
+per-tile counts in one zeroed int32 buffer per device, which the kernels
+leave zeroed: launches on a device are ordered on one stream, as the
+serving pump's are.
+
 `qlinear` routes by M, the rows of x with every leading dim flattened:
 M ≤ `QMM_MAX_M` launches K5 (decode steps, short prefill buckets and
 chunks, the Q-Former's query rows); above it the weight is dequantized into
 x's dtype and multiplied with `torch.matmul`, what the JAX package computes
 outside any Pallas kernel (`quant_matmul.py:314`). An int4 projection takes
-K6 under `_base_dot`'s gate (M ≤ `QMM_MAX_M`, N and the group multiples of
-128) and the dequantize route otherwise (`quant_matmul.py:274-289`). A
-tensor on the CPU takes the kernel's plain version; a CUDA tensor launches
-the kernel or raises (outside `_kernels.plain_versions()`): a shape a kernel
-cannot take inside its gate is an error, never a reason to take the
-dequantize route.
+K6 under `_base_dot`'s gate (M ≤ `QMM_MAX_M`, N a multiple of
+`INT4_GATE_N` and the group of `INT4_GATE_GROUP`) and the dequantize route
+otherwise (`quant_matmul.py:274-289`). The gate's constants are the JAX
+package's and do not move with the kernels' tiles. A tensor on the CPU
+takes the kernel's plain version; a CUDA tensor launches the kernel or
+raises (outside `_kernels.plain_versions()`): a shape a kernel cannot take
+inside its gate is an error, never a reason to take the dequantize route.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -42,10 +56,16 @@ import torch.nn.functional as F
 
 from . import _kernels
 
-QMM_MAX_M = 128      # rows up to which qlinear launches K5 or K6
-BLOCK_N = 128        # output columns per K5 / K6 block (8 warps x 2 n-tiles of 8)
-CHUNK_K = 64         # K per step of K5's main loop
-GROUP_K = 128        # K per step of K6's main loop; K6 takes groups that are multiples of it
+# The routing gate, the JAX package's (`quant_matmul.py:274-289`).
+QMM_MAX_M = 128        # rows up to which qlinear launches K5 or K6
+INT4_GATE_N = 128      # K6 takes N ...
+INT4_GATE_GROUP = 128  # ... and the group in multiples of these
+
+# K5's and K6's tiles (`csrc/quant_matmul_common.cuh`): they move with the kernels.
+STAGE_K = 128                   # K a ring stage covers
+X_ROWS = (8, 16, 32, 64, 128)   # wgmma's n: the rows of x rounded up
+WG_ROWS = 64                    # W rows (output columns) a consumer warpgroup owns
+BLOCKS_PER_SM = {64: 3, 128: 1}  # blocks of 64 and of 128 W rows an SM runs at once
 
 launches = 0         # K5 launches in this process (reset by callers that count)
 dequant_calls = 0    # int8 qlinear calls above QMM_MAX_M (the dequantize + matmul route)
@@ -65,20 +85,58 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """A K5 or K6 launch: a grid of (`tiles`, `splits`) blocks. Block
+    (tile, split) sums W rows [tile·block_n, +block_n) over the 128-wide K
+    stages [split·per_split, +per_split), the last split over what is left."""
+
+    n_rows: int      # x's rows as wgmma's n
+    block_n: int     # W rows (output columns) a block owns
+    tiles: int
+    stages: int      # ceil(K / STAGE_K)
+    splits: int
+    per_split: int
+
+    def k_ranges(self):
+        """[(split, k begin, k end)], in the order in which the last block of
+        a tile sums the splits' partials."""
+        return [(p, p * self.per_split * STAGE_K,
+                 min(self.stages, (p + 1) * self.per_split) * STAGE_K)
+                for p in range(self.splits)]
+
+
 @functools.lru_cache(maxsize=4096)
-def k_splits(M: int, N: int, K: int, sms: int):
-    """(splits, 64-wide K chunks per split) for a K5 launch. Splitting K
-    gives the narrow-N projections enough blocks for every SM (N = 1024 has
-    8 column blocks); each split's f32 partial [M, N] is written and read
-    once more, so a split is only taken while that traffic stays within an
-    eighth of the weight bytes (K / (16·M) splits)."""
-    chunks = K // CHUNK_K
-    if chunks == 0:
-        return 1, 0
-    column_blocks = -(-N // BLOCK_N)
-    want = max(1, min(-(-2 * sms // column_blocks), chunks, K // (16 * M)))
-    per = -(-chunks // want)
-    return -(-chunks // per), per
+def schedule(M: int, N: int, K: int, sms: int, group: int = 0) -> Schedule:
+    """K5's (`group` 0) or K6's (`group` = K / G) launch for x [M, K] and N
+    output columns on a card of `sms` SMs. K is split only where the column
+    tiles leave the card's block slots idle, into as many splits as the
+    slots hold whole sets of tiles, at most one a stage of K (a group for
+    int4: a split covers whole groups). Each split's
+    f32 fragments (block_n x n_rows a tile) are written once and read once
+    by the tile's last block, mostly in L2."""
+    n_rows = next(r for r in X_ROWS if M <= r)
+    block_n = WG_ROWS * (2 if n_rows >= 64 else 1)
+    tiles = -(-N // block_n)
+    stages = -(-K // STAGE_K)
+    unit = group // STAGE_K if group else 1   # a split covers whole groups
+    slots = sms * BLOCKS_PER_SM[block_n]             # blocks the card runs at once
+    splits = max(1, min(stages // unit, slots // tiles))
+    per = -(-(stages // unit) // splits) * unit
+    return Schedule(n_rows, block_n, tiles, stages, -(-stages // per), per)
+
+
+_counters = {}
+
+
+def _tile_counters(device, tiles: int) -> torch.Tensor:
+    """The zeroed per-tile counts on which a launch's splits meet, one
+    buffer per device (the kernels leave them zeroed)."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(4096, tiles), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def _launch(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -105,13 +163,16 @@ def _launch(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor) -> tor
     if x_ptr % 16 or w_ptr % 16:
         raise ValueError("quantized_matmul: x and weight_q must be 16-byte aligned")
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    splits, per = k_splits(M, N, K, _sm_count(dev.index))
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
-               if splits > 1 else None)
+    plan = schedule(M, N, K, _sm_count(dev.index))
+    ws = counters = 0
+    if plan.splits > 1:
+        counters = _tile_counters(dev, plan.tiles).data_ptr()
+        partials = torch.empty(plan.splits * plan.tiles * plan.block_n * plan.n_rows,
+                               dtype=torch.float32, device=dev)
+        ws = partials.data_ptr()   # `partials` is held until the launch is queued
     code = _kernels.lib().vzt_quant_matmul_int8(
-        x_ptr, w_ptr, scale.data_ptr(), out.data_ptr(),
-        0 if partial is None else partial.data_ptr(), M, N, K, splits, per,
-        int(x.dtype == torch.float32), _kernels.stream_ptr(dev))
+        x_ptr, w_ptr, scale.data_ptr(), out.data_ptr(), ws, counters, M, N, K,
+        plan.splits, plan.per_split, int(x.dtype == torch.float32), _kernels.stream_ptr(dev))
     _kernels.check(code, "vzt_quant_matmul_int8")
     launches += 1
     return out
@@ -169,18 +230,6 @@ def quantized_matmul_int4_plain(x: torch.Tensor, weight_q4: torch.Tensor,
     return (torch.bmm(xg, wg) * scale4.T[:, None, :]).sum(dim=0).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=4096)
-def group_splits(M: int, N: int, G: int, sms: int):
-    """(splits, groups per split) for a K6 launch: K is split across blocks
-    in whole groups, so that no group's scale meets part of its sum, while
-    the f32 partials' traffic stays within half the int4 weight bytes (at
-    most K / (32·M) splits; the rule K5 keeps for int8)."""
-    column_blocks = -(-N // BLOCK_N)
-    want = max(1, min(-(-2 * sms // column_blocks), G, (G * GROUP_K) // (32 * M)))
-    per = -(-G // want)
-    return -(-G // per), per
-
-
 def _launch4(x: torch.Tensor, weight_q4: torch.Tensor, scale4: torch.Tensor) -> torch.Tensor:
     global launches4
     M, K = x.shape
@@ -192,9 +241,9 @@ def _launch4(x: torch.Tensor, weight_q4: torch.Tensor, scale4: torch.Tensor) -> 
         raise TypeError("quantized_matmul_int4: weight_q4 must be int8 and scale4 f32")
     if not 1 <= M <= QMM_MAX_M:
         raise ValueError(f"quantized_matmul_int4: K6 takes 1 to {QMM_MAX_M} rows, got {M}")
-    if N % BLOCK_N or (K // G) % GROUP_K:
+    if N % INT4_GATE_N or (K // G) % INT4_GATE_GROUP:
         raise ValueError(f"quantized_matmul_int4: K6 takes N and the group in multiples of "
-                         f"{GROUP_K}, got N={N}, group={K // G}")
+                         f"{INT4_GATE_N} and {INT4_GATE_GROUP}, got N={N}, group={K // G}")
     if weight_q4.device != dev or scale4.device != dev:
         raise ValueError(f"quantized_matmul_int4: weight_q4 and scale4 must be on {dev}")
     if not (weight_q4.is_contiguous() and scale4.is_contiguous()):
@@ -204,13 +253,16 @@ def _launch4(x: torch.Tensor, weight_q4: torch.Tensor, scale4: torch.Tensor) -> 
     if x_ptr % 16 or w_ptr % 16:
         raise ValueError("quantized_matmul_int4: x and weight_q4 must be 16-byte aligned")
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    splits, per = group_splits(M, N, G, _sm_count(dev.index))
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
-               if splits > 1 else None)
+    plan = schedule(M, N, K, _sm_count(dev.index), K // G)
+    ws = counters = 0
+    if plan.splits > 1:
+        counters = _tile_counters(dev, plan.tiles).data_ptr()
+        partials = torch.empty(plan.splits * plan.tiles * plan.block_n * plan.n_rows,
+                               dtype=torch.float32, device=dev)
+        ws = partials.data_ptr()   # `partials` is held until the launch is queued
     code = _kernels.lib().vzt_quant_matmul_int4(
-        x_ptr, w_ptr, scale4.data_ptr(), out.data_ptr(),
-        0 if partial is None else partial.data_ptr(), M, N, K, G, splits, per,
-        int(x.dtype == torch.float32), _kernels.stream_ptr(dev))
+        x_ptr, w_ptr, scale4.data_ptr(), out.data_ptr(), ws, counters, M, N, K, G,
+        plan.splits, plan.per_split, int(x.dtype == torch.float32), _kernels.stream_ptr(dev))
     _kernels.check(code, "vzt_quant_matmul_int4")
     launches4 += 1
     return out
@@ -240,7 +292,7 @@ def _qlinear4(x: torch.Tensor, layer) -> torch.Tensor:
     M = math.prod(lead)
     N, G = scale4.shape
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    if M <= QMM_MAX_M and N % BLOCK_N == 0 and (K // G) % GROUP_K == 0:
+    if M <= QMM_MAX_M and N % INT4_GATE_N == 0 and (K // G) % INT4_GATE_GROUP == 0:
         out = quantized_matmul_int4(x.reshape(M, K), weight_q4, scale4).reshape(*lead, N)
         return out if bias is None else out + bias
     dequant4_calls += 1
