@@ -37,18 +37,28 @@ toolkit; exits non-zero on a machine without a card. Phases:
 4. K2      — dense_cache_append against its plain version, bit-exact, at the
              decode step's shape (T=1), a clamped tail, and chunked admission's
              (B=1, T=256 into a scratch cache, one chunk ending at the cache's
-             end); median kernel and plain times over 20 CUDA-event runs;
-5. K3      — paged_attn_decode against its plain version at B=32, Hq=32,
+             end); median kernel and plain times over 20 CUDA-event runs, and
+             the kernel's device time (a CUDA-graph replay);
+5. K3      — paged_attn_decode's SASS must hold HMMA (mma.sync), UTMALDG (the
+             pages by TMA) and UBLKCP (the scales by bulk copy); registers and
+             stack printed; then against its plain version at B=32, Hq=32,
              Hkv=8, D=128, page 128, 16 pages per slot, a shuffled page table
              and lengths that include 0, 1, 128, 129 and 2048: bf16 split,
              int8 split and int8 fused pools, each with and without the
              self-term, a windowed case, a two-row (S=2) case and NaN rows
              past `length`; per slot, max-abs error <= 1e-2 of the slot's
              largest value; exact zeros where no key is valid; the window's
-             edge told from 511 and 513; then without the self-term at
+             edge told from 511 and 513; the split plan's cases (one slot of
+             2048 in 16 splits, one of 200, one of 2048 with a window of
+             1000, 128 slots of 640 without a split, slots with fewer pages
+             than splits, S = 9 with a window whose edge crosses a page
+             between the tile's rows) and two calls at a split shape equal
+             bit for bit; device times at the decode shape and at 2048
+             tokens; then without the self-term at
              S = 1 to 9 query rows per slot (the verify shape; S = 9 is two
              row tiles) over int8 fused pools of 60 to 800 tokens, times
-             and bound per S, bf16 split pools at S = 5 with a window; then
+             (per call and on the device) and bound per S, bf16 split pools at
+             S = 5 with a window; then
              rows 7 and 8's contracts: the single-row entry `paged_attention`
              over bf16 and int8 split pools with and without the self-term,
              with and without a window of 512, and
@@ -667,15 +677,18 @@ def check_cache_append(gen) -> dict:
             raise AssertionError(f"K2 {name}: kernel disagrees with the plain version")
         if (T, lens) in ((1, [517]), (256, [512])) and S != 768:
             kernel_ms = median_ms(lambda: kv_cache.dense_cache_update(got_k, got_v, k, v, lengths, layer))
+            device_ms = graph_ms(lambda: kv_cache.dense_cache_update(got_k, got_v, k, v, lengths,
+                                                                     layer))
             plain_ms = median_ms(lambda: kv_cache.dense_cache_update_plain(ref_k, ref_v, k, v, lengths, layer))
             # The rows read once and written once; no arithmetic. The library
             # call for this function is the indexed write, its plain version.
             least, by = bound_ms(2 * 2 * (k.numel() + v.numel()), 0)
-            print(f"K2 {name}: kernel {kernel_ms:.4f} ms, plain ({T} indexed writes) "
-                  f"{plain_ms:.4f} ms, bound {least:.6f} ms by {by}, median of 20")
+            print(f"K2 {name}: kernel {kernel_ms:.4f} ms per call, {show(device_ms)} on the "
+                  f"device; plain ({T} indexed writes) {plain_ms:.4f} ms, bound {least:.6f} ms by "
+                  f"{by}, median of 20")
             if times is None:  # the decode step's shape goes into the result line
-                times = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=plain_ms,
-                             bound_ms=least, bound_by=by)
+                times = dict(ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+                             library_ms=plain_ms, bound_ms=least, bound_by=by)
     return {"max_abs_err": 0.0, "times": times}
 
 
@@ -720,9 +733,20 @@ def paged_call(pa, case, q, selfterm, k_new, v_new, window=None, plain=False, **
         v_new=v_new if selfterm else None, page_offset=case["P"])
 
 
+# K3's SASS: tensor-core products (HMMA: mma.sync), the pages by TMA
+# (UTMALDG) and the scales by bulk copy (UBLKCP).
+K3_SASS_OPS = ("HMMA", "UTMALDG", "UBLKCP")
+
+
 def check_paged_attention(gen) -> dict:
     from vis_zephyr_tpu_torch.ops import paged_attention as pa
 
+    sass = sass_counts("paged_attn_decode", K3_SASS_OPS)
+    resources = resource_usage("paged_attn_decode")
+    print(f"K3 SASS (paged_attn_decode, every instantiation): {sass}; registers and stack "
+          f"(spills) of the largest: {resources}")
+    if not all(sass[op] for op in K3_SASS_OPS):
+        raise AssertionError(f"K3's SASS lacks tensor-core or bulk-copy instructions: {sass}")
     dev = "cuda"
     Hq, Hkv, D, ps, B = 32, 8, 128, 128, 32
     edge = [0, 1, 128, 129, 2048, 2047, 127, 1025]
@@ -736,23 +760,25 @@ def check_paged_attention(gen) -> dict:
     def slot_err(a, b):  # max-abs difference per slot, [B]
         return (a.float() - b.float()).abs().flatten(1).amax(dim=1)
 
-    def compare(name, case, qq, selfterm, window=None):
+    def compare(name, case, qq, selfterm, window=None, new=None):
         # A slot of 2048 keys has outputs near 0.05 and a slot of one key near
         # 3, so one max-abs over all slots would gate the long slots at half a
         # typical value. Each slot is held to its own scale instead: max-abs
         # error over the slot's largest |plain| value (a bf16 ulp is at most
         # 0.78 % of a value).
         nonlocal worst
-        got = paged_call(pa, case, qq, selfterm, k_new, v_new, window)
+        kn, vn = new or (k_new, v_new)
+        got = paged_call(pa, case, qq, selfterm, kn, vn, window)
         torch.cuda.synchronize()
-        want = paged_call(pa, case, qq, selfterm, k_new, v_new, window, plain=True)
+        want = paged_call(pa, case, qq, selfterm, kn, vn, window, plain=True)
         err = slot_err(got, want)
         top = want.float().abs().flatten(1).amax(dim=1)
         rel = torch.where(top > 0, err / top.clamp_min(1e-30), err)
         long_slots = case["lengths"] >= 1000
+        long_rel = f"{float(rel[long_slots].max()):.3e}" if bool(long_slots.any()) else "none"
         print(f"K3 {name}: out max-abs {float(err.max()):.3e}; per slot, relative to the slot's "
               f"largest value: max {float(rel.max()):.3e} (<= 1e-2), over slots of >= 1000 keys "
-              f"{float(rel[long_slots].max()):.3e}")
+              f"{long_rel}")
         if not (float(rel.max()) <= 1e-2 and bool(torch.isfinite(got.float()).all())):
             raise AssertionError(f"K3 {name}: kernel disagrees with the plain version")
         worst = max(worst, float(err.max()))
@@ -803,11 +829,54 @@ def check_paged_attention(gen) -> dict:
     two = dict(case, lengths=torch.clamp(case["lengths"], min=2))
     compare("int8 fused, two query rows per slot (S=2), pool only", two, q2, False)
 
+    # The split plan's cases (int8 fused pools): one slot (as many splits as
+    # the table has pages), 128 slots of 640 tokens (no split), slots with
+    # fewer pages than splits, a window whose edge cuts a page in the middle
+    # of the splits' shares, and at S = 9 (two row tiles, eight splits) a
+    # window whose first page for the tile's later rows is a middle split's.
+    def rows(n, S=1):
+        return torch.randn(n, S, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+
+    def news(n):
+        return tuple(torch.randn(n, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+                     for _ in range(2))
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = {}
+    for label, lens, S, selfterm, window in (
+            ("one slot of 2048", [2048], 1, True, None),
+            ("one slot of 200 (2 pages)", [200], 1, True, None),
+            ("one slot of 2048, window 1000", [2048], 1, True, 1000),
+            ("128 slots of 640", [640] * 128, 1, True, None),
+            ("4 slots of 60, 130, 300, 2048", [60, 130, 300, 2048], 1, True, None),
+            ("2 slots of 2048, 1500 at S=9, window 764", [2048, 1500], 9, False, 764)):
+        c = paged_case(gen, lens, True, True)
+        n = len(lens)
+        plan = pa.split_plan(n, Hkv, S * Hq // Hkv, 16, sms)
+        splits[label] = plan.splits
+        compare(f"int8 fused, {label} ({plan.tiles} row tile(s), {plan.splits} split(s))", c,
+                rows(n, S), selfterm, window, news(n))
+    if not (splits["one slot of 2048"] == 16 and splits["128 slots of 640"] == 1
+            and splits["2 slots of 2048, 1500 at S=9, window 764"] > 2):
+        raise AssertionError(f"K3's split plan changed: {splits}")
+    # The splits' merge repeats bit for bit (no float atomics).
+    one = paged_case(gen, [2048, 1300, 70, 700], True, True)
+    q4, new4 = rows(4), news(4)
+    first = paged_call(pa, one, q4, True, *new4)
+    again = paged_call(pa, one, q4, True, *new4)
+    torch.cuda.synchronize()
+    same = torch.equal(first, again)
+    print(f"K3 4 slots in {pa.split_plan(4, Hkv, Hq // Hkv, 16, sms).splits} splits: two calls "
+          f"equal bit for bit: {same}")
+    if not same:
+        raise AssertionError("K3: two calls at a split shape differ")
+
     # Times at lengths like the served path's (prompts of 60 to 800 tokens), int8
     # fused pools with the self-term: what every layer of a decode step calls.
     served = torch.randint(60, 801, (B,), generator=gen, device=dev).tolist()
     case = paged_case(gen, served, True, True)
     ms = median_ms(lambda: paged_call(pa, case, q, True, k_new, v_new))
+    device_ms = graph_ms(lambda: paged_call(pa, case, q, True, k_new, v_new))
     plain_ms = median_ms(lambda: paged_call(pa, case, q, True, k_new, v_new, plain=True))
     tokens = sum(served)
     # Each valid K and V row read once with its scale; q, the self-term, the
@@ -817,15 +886,21 @@ def check_paged_attention(gen) -> dict:
                + 4 * case["table"].numel() + 8 * B)
     least, by = bound_ms(n_bytes, 4 * Hq * D * (tokens + B))
     print(f"K3 B={B}, {tokens} tokens in the pools (60 to 800 per slot), int8 fused, self-term: "
-          f"kernel {ms:.4f} ms, plain (gather + f32 matmuls) {plain_ms:.4f} ms, bound "
-          f"{least:.5f} ms by {by} ({n_bytes / 1e6:.2f} MB), median of 20")
+          f"kernel {ms:.4f} ms per call, {show(device_ms)} on the device; plain (gather + f32 "
+          f"matmuls) {plain_ms:.4f} ms; bound {least:.5f} ms by {by} ({n_bytes / 1e6:.2f} MB), "
+          f"median of 20")
     full = paged_case(gen, [2048] * B, True, True)
     full_ms = median_ms(lambda: paged_call(pa, full, q, True, k_new, v_new))
+    full_device_ms = graph_ms(lambda: paged_call(pa, full, q, True, k_new, v_new))
     full_bytes = B * 2048 * Hkv * 2 * (D + 4)
-    print(f"K3 B={B}, every slot at 2048 tokens: kernel {full_ms:.4f} ms, bound "
-          f"{bound_ms(full_bytes, 0)[0]:.5f} ms by bytes ({full_bytes / 1e6:.1f} MB)")
-    return {"max_abs_err": worst, "times": dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                                                bound_ms=least, bound_by=by)}
+    print(f"K3 B={B}, every slot at 2048 tokens: kernel {full_ms:.4f} ms per call, "
+          f"{show(full_device_ms)} on the device; bound {bound_ms(full_bytes, 0)[0]:.5f} ms by "
+          f"bytes ({full_bytes / 1e6:.1f} MB)")
+    return {"max_abs_err": worst, "sass": sass, "resources": resources,
+            "times": dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=least, bound_by=by),
+            "at_2048": dict(ms=full_ms, device_ms=full_device_ms,
+                            bound_ms=bound_ms(full_bytes, 0)[0])}
 
 
 # K3 without the self-term at S query rows per slot (the verify step's shape,
@@ -865,6 +940,7 @@ def check_paged_attention_rows(gen) -> dict:
         err, rel = compare(f"S={S}", case, q)
         worst = max(worst, err)
         ms = median_ms(lambda: paged_call(pa, case, q, False, None, None))
+        device_ms = graph_ms(lambda: paged_call(pa, case, q, False, None, None))
         plain_ms = median_ms(lambda: paged_call(pa, case, q, False, None, None, plain=True), 10)
         # Each valid K and V row read once with its scale, q and the output
         # once, the table and lengths; 4·Hq·D flops per (query row, key) pair
@@ -874,13 +950,16 @@ def check_paged_attention_rows(gen) -> dict:
                    + 8 * B)
         least, by = bound_ms(n_bytes, 4 * Hq * D * pairs)
         rows = S * Hq // Hkv
-        by_rows.append(dict(S=S, rows_per_kv_head=rows, tiles=-(-rows // 32),
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=least,
-                            bound_by=by))
-        print(f"K3 pool only, S={S} ({rows} query rows per kv head, tile "
-              f"{min(32, max(4, 1 << (rows - 1).bit_length()))}), B={B}, {tokens} tokens, int8 "
-              f"fused: max-abs {err:.3e}, per slot relative {rel:.3e} (<= 1e-2); kernel {ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms, bound {least:.5f} ms by {by}, median of 20")
+        plan = pa.split_plan(B, Hkv, rows, 16, torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+        by_rows.append(dict(S=S, rows_per_kv_head=rows, tiles=plan.tiles, splits=plan.splits,
+                            max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                            bound_ms=least, bound_by=by))
+        print(f"K3 pool only, S={S} ({rows} query rows per kv head, {plan.tiles} tile(s) of "
+              f"{plan.tile_rows}, {plan.splits} split(s)), B={B}, {tokens} tokens, int8 fused: "
+              f"max-abs {err:.3e}, per slot relative {rel:.3e} (<= 1e-2); kernel {ms:.4f} ms per "
+              f"call, {show(device_ms)} on the device; plain {plain_ms:.4f} ms; bound "
+              f"{least:.5f} ms by {by}, median of 20")
     q5 = torch.randn(B, 5, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
     wide = paged_case(gen, served, False, False)
     err, rel = compare("bf16 split, S=5, window 512", wide, q5, window=512)
@@ -3394,7 +3473,8 @@ def main(argv=None) -> None:
         dict(name="paged_attn_decode", source="vis_zephyr_tpu_torch/csrc/paged_attn_decode.cu",
              replaces=f"{paged_py}:109, {paged_py}:417, {paged_py}:604 and {paged_py}:911",
              max_abs_err=max(k3["max_abs_err"], k3_rows["max_abs_err"], k3_single["max_abs_err"]),
-             **k3["times"], by_rows=k3_rows["by_rows"], rows_7_8=k3_single["times"]),
+             **k3["times"], at_2048=k3["at_2048"], by_rows=k3_rows["by_rows"],
+             rows_7_8=k3_single["times"], sass=k3["sass"], resources=k3["resources"]),
         dict(name="paged_kv_rows", source="vis_zephyr_tpu_torch/csrc/paged_kv_rows.cu",
              replaces=f"{paged_py}:1691", max_abs_err=k4["max_abs_err"], **k4["times"]),
         # Timed at gate/up, M = 32; `passes` holds a decoder pass at each M.

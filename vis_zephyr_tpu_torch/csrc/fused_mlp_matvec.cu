@@ -51,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -68,15 +70,6 @@ __device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t word, int shift) {
   return *reinterpret_cast<const uint32_t*>(&pair);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // One 64-wide chunk: A rows g (words ra) and g + 8 (words rb) of a 16-row
 // weight tile, B = 16 permuted bf16 of column g (words b, two per k16 step).
 __device__ __forceinline__ void mma_chunk(float (&c)[4], const uint4& ra, const uint4& rb,
@@ -85,7 +78,7 @@ __device__ __forceinline__ void mma_chunk(float (&c)[4], const uint4& ra, const 
   const uint32_t wb[4] = {rb.x, rb.y, rb.z, rb.w};
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    mma_bf16(c, s8x2_to_bf16x2(wa[s], 0), s8x2_to_bf16x2(wb[s], 0), s8x2_to_bf16x2(wa[s], 16),
+    vzt::mma_m16n8k16_bf16(c, s8x2_to_bf16x2(wa[s], 0), s8x2_to_bf16x2(wb[s], 0), s8x2_to_bf16x2(wa[s], 16),
              s8x2_to_bf16x2(wb[s], 16), b[2 * s], b[2 * s + 1]);
   }
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's hand-written kernels:
 // mbarriers, TMA loads and stores, wgmma shared-memory descriptors, the
 // m64n128k16 and m64n64k16 bf16 products with A in shared memory, the
-// m64nNk16 ones with A in registers, and the host-side tensor-map encoders.
+// m64nNk16 ones with A in registers, the mma.sync m16n8k16 bf16 product, and
+// the host-side tensor-map encoders.
 //
 // Hand PTX through `asm volatile`; no CUTLASS or CuTe. Everything here is
 // header-only and `static`/`inline`, so several sources may include it.
@@ -350,6 +351,24 @@ VZT_WGMMA_RS(64, VZT_WGMMA_D32_TEXT, VZT_WGMMA_D32_OPERANDS, "32", "33", "34", "
 VZT_WGMMA_RS(128, VZT_WGMMA_D64_TEXT, VZT_WGMMA_D64_OPERANDS, "64", "65", "66", "67", "68",
              "69")
 #undef VZT_WGMMA_RS
+
+// ---------------------------------------------------------------------------
+// mma.sync.
+
+// d (+)= a * b on mma.sync m16n8k16, bf16 operands and f32 sums. With g =
+// lane / 4 and t = lane % 4: a is the 16x16 A fragment (a0 row g, k 2t and
+// 2t + 1; a1 row g + 8; a2, a3 the same rows at k + 8), b the 16x8 B fragment
+// (b0 k 2t and 2t + 1 of column g; b1 at k + 8), d the 16x8 C fragment (d0,
+// d1 row g, columns 2t and 2t + 1; d2, d3 row g + 8).
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
+                                                  uint32_t a2, uint32_t a3, uint32_t b0,
+                                                  uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
 // ---------------------------------------------------------------------------
 // Math.

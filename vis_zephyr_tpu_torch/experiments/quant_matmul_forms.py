@@ -119,7 +119,7 @@ def launcher(fn, bits: int, x, w, scale, split: bool):
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = qmm.schedule(M, N, K, sms, K // G if bits == 4 else 0)
     splits, per = (plan.splits, plan.per_split) if split else (1, plan.stages)
-    counters = qmm._tile_counters(x.device, plan.tiles)
+    counters = _kernels.split_counts(x.device, plan.tiles)
 
     def call():
         out = torch.empty((M, N), dtype=x.dtype, device=x.device)

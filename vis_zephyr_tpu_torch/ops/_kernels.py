@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -44,7 +45,7 @@ _SIGNATURES = {
     "vzt_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       ctypes.c_float, _P],
     "vzt_dense_cache_append": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vzt_paged_attn_decode": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
+    "vzt_paged_attn_decode": [_P] * 14 + [_I] * 12 + [ctypes.c_float, _P],
     "vzt_paged_kv_rows": [_P] * 8 + [_I] * 6 + [_P],
     "vzt_paged_kv_update": [_P] * 8 + [_I] * 5 + [_P],
     "vzt_quant_matmul_int8": [_P] * 6 + [_I] * 6 + [_P],
@@ -157,6 +158,32 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = lib().vzt_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index) -> int:
+    """The SMs of card `index` (None: the current one), which the kernels'
+    launch plans fill."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_split_counts = {}
+
+
+def split_counts(device, n: int):
+    """The zeroed int32 counts on which a launch's splits meet (K3's per
+    unit, K5's and K6's per column tile): one buffer per device, which the
+    kernels leave zeroed, so launches that use it must be ordered on one
+    stream, as the serving pump's are."""
+    import torch
+
+    buf = _split_counts.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(4096, n), dtype=torch.int32, device=device)
+        _split_counts[device] = buf
+    return buf
 
 
 def stream_ptr(device) -> int:

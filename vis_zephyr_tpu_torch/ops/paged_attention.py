@@ -44,6 +44,8 @@ The pools are updated IN PLACE (the JAX functions donate them).
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -211,6 +213,70 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# K3's launch (`csrc/paged_attn_decode.cu`): the tiles of query rows and the
+# splits of a slot's pages. They move with the kernel.
+MAX_SPLITS = 32  # the kernel's kMaxSplits
+
+
+def blocks_per_sm(quant: bool, tile_rows: int) -> int:
+    """K3 blocks an SM runs at once (`Pool::kBlocksPerSm`): int8 tiles of 16
+    rows (a ring of two pages) three, of 32 (three pages, more registers)
+    two; bf16 pools (pages twice as large) one."""
+    return (3 if tile_rows == 16 else 2) if quant else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """A K3 launch: a block per (split, kv head, row tile, slot). A (slot, kv
+    head)'s S·G query rows go in `tiles` tiles of `tile_rows` (16 or 32: the
+    tensor-core product's M), and the pages a tile's rows attend are shared
+    among `splits` blocks."""
+
+    tile_rows: int
+    tiles: int
+    splits: int
+
+    def pages(self, split: int, tile: int, length: int, q_off: int, S: int, G: int, ps: int,
+              pps: int, window: Optional[int] = None) -> Tuple[int, int]:
+        """The table pages [first, end) that block (split, tile) of a slot
+        walks, as the kernel finds them (`split_pages`): the pages below
+        `length` and within the table, none wholly after the tile's last
+        query row or wholly before the window of its first, in even shares
+        of ceil(valid / splits), in order; an empty range is first == end."""
+        row0 = tile * self.tile_rows
+        rows_here = min(self.tile_rows, S * G - row0)
+        n_pages = min(-(-length // ps), pps)
+        last_pos = q_off + (row0 + rows_here - 1) // G
+        n_pages = min(n_pages, 0 if last_pos < 0 else last_pos // ps + 1)
+        lo = 0
+        if window:
+            w0 = q_off + row0 // G - (window - 1)
+            lo = w0 // ps if w0 > 0 else 0
+        valid = max(0, n_pages - lo)
+        share = -(-valid // self.splits)
+        first = min(lo + split * share, lo + valid)
+        return first, min(first + share, lo + valid)
+
+
+@functools.lru_cache(maxsize=4096)
+def split_plan(B: int, Hkv: int, rows: int, pps: int, sms: int, quant: bool = True,
+               per_sm: Optional[int] = None) -> SplitPlan:
+    """K3's launch for B slots of `rows` = S·(Hq/Hkv) query rows per kv head
+    over a table `pps` pages wide, on a card of `sms` SMs. From shapes only
+    (never `lengths`, which would synchronise): tiles of 16 rows (decode's 4,
+    a tile of one mma) or 32, and the pages split only where the (slot, kv
+    head, tile) units leave the card's block slots idle (`per_sm` an SM, by
+    default `blocks_per_sm`): into as many splits as the slots hold whole
+    sets of units, at most one a table page and `MAX_SPLITS`. A split that
+    adds a second wave of blocks costs more than the pages it shares out."""
+    tile_rows = 16 if rows <= 16 else 32
+    tiles = -(-rows // tile_rows)
+    units = max(1, B * Hkv * tiles)
+    slots = sms * (per_sm or blocks_per_sm(quant, tile_rows))
+    splits = max(1, min(pps, MAX_SPLITS, slots // units))
+    return SplitPlan(tile_rows, tiles, splits)
+
+
 def _launch_attention(q, k_pages, v_pages, page_table, lengths, q_offs, scale, sliding_window,
                       k_scales, v_scales, k_new, v_new, page_offset) -> torch.Tensor:
     global attn_launches
@@ -247,11 +313,22 @@ def _launch_attention(q, k_pages, v_pages, page_table, lengths, q_offs, scale, s
     if k_pages.data_ptr() % 16 or (ps * D * k_pages.element_size()) % 16:
         raise ValueError("paged_attention_fa: pool rows must be 16-byte aligned")
     out = torch.empty_like(q)
+    pps = page_table.shape[1]
+    plan = split_plan(B, Hkv, S * (Hq // Hkv), pps, _kernels.sm_count(dev.index), quant)
+    ws_o = ws_ml = counters = None
+    if plan.splits > 1:  # held until the launch is queued
+        units = B * Hkv * plan.tiles
+        ws_o = torch.empty(units * plan.splits * plan.tile_rows * D, dtype=torch.float32,
+                           device=dev)
+        ws_ml = torch.empty(units * plan.splits * plan.tile_rows * 2, dtype=torch.float32,
+                            device=dev)
+        counters = _kernels.split_counts(dev, units)
     code = _kernels.lib().vzt_paged_attn_decode(
         q.data_ptr(), out.data_ptr(), k_pages.data_ptr(), _ptr(v_pages), _ptr(k_scales),
         _ptr(v_scales), page_table.data_ptr(), lengths.data_ptr(), q_offs.data_ptr(),
-        _ptr(k_new), _ptr(v_new), B, S, Hq, Hkv, ps, page_table.shape[1], int(page_offset),
-        int(sliding_window or 0), int(quant), float(scale), _kernels.stream_ptr(dev))
+        _ptr(k_new), _ptr(v_new), _ptr(ws_o), _ptr(ws_ml), _ptr(counters), B, S, Hq, Hkv, N,
+        ps, pps, int(page_offset), int(sliding_window or 0), int(quant), plan.tile_rows,
+        plan.splits, float(scale), _kernels.stream_ptr(dev))
     _kernels.check(code, "vzt_paged_attn_decode")
     attn_launches += 1
     return out
@@ -281,9 +358,10 @@ def paged_attention_fa(
     decode over a pool that already holds the token.
 
     Any S ≥ 1: the kernel takes the S·(Hq/Hkv) query rows of a kv head in
-    tiles of at most 32 rows. S > 1 without the self-term is the verify
-    step's shape: the rows are already in the pool and `q_offs` is the
-    position of the first.
+    tiles of 16 or 32 rows, and splits a slot's pages over several blocks
+    where the grid would leave SMs idle (`split_plan`). S > 1 without the
+    self-term is the verify step's shape: the rows are already in the pool
+    and `q_offs` is the position of the first.
 
     `k_new`/`v_new` (S = 1): the current token's K/V as a final
     online-softmax self-term. The pool then holds `[0, lengths)`, the query
@@ -298,15 +376,15 @@ def paged_attention_fa(
     one per (slot, kv head) (False, `_fa_kernel`,
     `vis_zephyr_tpu/ops/paged_attention.py:1286-1305`). False keeps the JAX
     package's refusals: no self-term and no fused pools, and no
-    `slot_block` above 1. Every value launches K3, whose grid (kv head,
-    slot, row tile) is already the (slot, kv head) grid: the TPU folded the
+    `slot_block` above 1. Every value launches K3, whose grid (split, kv
+    head, row tile, slot) holds the (slot, kv head) grid: the TPU folded the
     heads to divide a fixed cost per grid cell over more work, and a CUDA
     block pays no such cost in the same way.
 
     `pages_per_block` (the online softmax's step, in pages) and `slot_block`
     (slots a grid cell owns) are the JAX package's TPU tilings. With both
-    None the call runs K3, which steps one page at a time; the served steps
-    pass neither. Given either, in the configuration the probes' kernels
+    None the call runs K3, which steps one page (128 keys) at a time per
+    block; the served steps pass neither. Given either, in the configuration the probes' kernels
     take (KV-fused int8 pools, the self-term, S = 1, head_dim 128, at most
     4 query heads a kv head, a block's scores within a block's shared
     memory: `grouped_fits`) the call runs K10 (`paged_attention_batched`)

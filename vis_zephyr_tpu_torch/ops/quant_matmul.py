@@ -27,9 +27,8 @@ n = 8, 16, 32, 64 or 128; weights and x stream through a TMA ring of
 (n ≤ 32) or 128 (n ≥ 64), and K split over blocks where the tiles alone
 leave the card idle, in whole groups for int4; the last block of a tile to
 finish sums the splits' f32 partials in split order. The splits meet on
-per-tile counts in one zeroed int32 buffer per device, which the kernels
-leave zeroed: launches on a device are ordered on one stream, as the
-serving pump's are.
+per-tile counts in `_kernels.split_counts`, one zeroed int32 buffer per
+device, which the kernels leave zeroed.
 
 `qlinear` routes by M, the rows of x with every leading dim flattened:
 M ≤ `QMM_MAX_M` launches K5 (decode steps, short prefill buckets and
@@ -80,11 +79,6 @@ def quantized_matmul_plain(x: torch.Tensor, weight_q: torch.Tensor,
     return ((x.float() @ weight_q.float().T) * scale).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @dataclasses.dataclass(frozen=True)
 class Schedule:
     """A K5 or K6 launch: a grid of (`tiles`, `splits`) blocks. Block
@@ -126,19 +120,6 @@ def schedule(M: int, N: int, K: int, sms: int, group: int = 0) -> Schedule:
     return Schedule(n_rows, block_n, tiles, stages, -(-stages // per), per)
 
 
-_counters = {}
-
-
-def _tile_counters(device, tiles: int) -> torch.Tensor:
-    """The zeroed per-tile counts on which a launch's splits meet, one
-    buffer per device (the kernels leave them zeroed)."""
-    buf = _counters.get(device)
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(4096, tiles), dtype=torch.int32, device=device)
-        _counters[device] = buf
-    return buf
-
-
 def _launch(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     # A decode step calls this 224 times and the step is bound by the host,
     # so each check and allocation here is paid on the step's wall.
@@ -163,10 +144,10 @@ def _launch(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor) -> tor
     if x_ptr % 16 or w_ptr % 16:
         raise ValueError("quantized_matmul: x and weight_q must be 16-byte aligned")
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    plan = schedule(M, N, K, _sm_count(dev.index))
+    plan = schedule(M, N, K, _kernels.sm_count(dev.index))
     ws = counters = 0
     if plan.splits > 1:
-        counters = _tile_counters(dev, plan.tiles).data_ptr()
+        counters = _kernels.split_counts(dev, plan.tiles).data_ptr()
         partials = torch.empty(plan.splits * plan.tiles * plan.block_n * plan.n_rows,
                                dtype=torch.float32, device=dev)
         ws = partials.data_ptr()   # `partials` is held until the launch is queued
@@ -253,10 +234,10 @@ def _launch4(x: torch.Tensor, weight_q4: torch.Tensor, scale4: torch.Tensor) -> 
     if x_ptr % 16 or w_ptr % 16:
         raise ValueError("quantized_matmul_int4: x and weight_q4 must be 16-byte aligned")
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    plan = schedule(M, N, K, _sm_count(dev.index), K // G)
+    plan = schedule(M, N, K, _kernels.sm_count(dev.index), K // G)
     ws = counters = 0
     if plan.splits > 1:
-        counters = _tile_counters(dev, plan.tiles).data_ptr()
+        counters = _kernels.split_counts(dev, plan.tiles).data_ptr()
         partials = torch.empty(plan.splits * plan.tiles * plan.block_n * plan.n_rows,
                                dtype=torch.float32, device=dev)
         ws = partials.data_ptr()   # `partials` is held until the launch is queued
