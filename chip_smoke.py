@@ -34,11 +34,16 @@ toolkit; exits non-zero on a machine without a card. Phases:
              rows without a key and dK = dV = 0 on invalid keys; kernel (per
              call and on the device alone), plain, bound and the backward of
              `scaled_dot_product_attention` at T=S 256 and 2048 and at B=8;
-4. K2      — dense_cache_append against its plain version, bit-exact, at the
-             decode step's shape (T=1), a clamped tail, and chunked admission's
-             (B=1, T=256 into a scratch cache, one chunk ending at the cache's
-             end); median kernel and plain times over 20 CUDA-event runs, and
-             the kernel's device time (a CUDA-graph replay);
+4. K2      — dense_cache_append's two entries against their plain versions,
+             bit-exact: the copy entry (rows already rotated, the JAX
+             contract) and the rope entry (K rotated in the kernel, what the
+             dense-cache forward calls), at the decode step's shape (T=1), a
+             clamped tail, and chunked admission's (B=1, T=256 into a scratch
+             cache, one chunk ending at the cache's end); at the decode shape
+             and a chunk: per call (median of 20 CUDA-event runs), on the
+             device (a CUDA-graph replay) and issued back to back, beside the
+             plain version, the bound, `index_put_` of the rotated rows and
+             the route taken before (eager apply_rope + the copy entry);
 5. K3      — paged_attn_decode's SASS must hold HMMA (mma.sync), UTMALDG (the
              pages by TMA) and UBLKCP (the scales by bulk copy); registers and
              stack printed; then against its plain version at B=32, Hq=32,
@@ -66,9 +71,15 @@ toolkit; exits non-zero on a machine without a card. Phases:
              slot against the plain version; times at served lengths;
 6. K4      — paged_kv_rows against its plain version at L=32, B=32 with
              inactive slots on the trash page: bf16 and int8, split and
-             fused; whole pools and scales bit-exact; the same for its
-             absolute-page entry paged_kv_update at L = 1 and 2, timed at
-             the verify step's L = 1, B = 32;
+             fused; whole pools and scales bit-exact, page 0 included (the
+             last row in launch order wins there, in both); timed per call,
+             on the device and issued back to back; then its absolute-page
+             entry: `paged_kv_update_layer` at B=32, S = 1 to 9 rows a slot
+             from a page table (rows sharing a page, rows forced onto the
+             trash page, inactive slots) and on strided views, and the JAX
+             contract paged_kv_update at L = 1 and 2, over the same four pool
+             forms, bit-exact; timed at the verify step's form (int8 fused,
+             S = 5) beside the route taken before (S single-row calls);
 7. K5      — quant_matmul_int8 (wgmma, weights by TMA: its SASS must hold
              HGMMA and UTMALDG; its PRMT, LOP3 and I2F counts, registers and
              stack printed) against its plain version at every (K, N) of
@@ -129,15 +140,16 @@ toolkit; exits non-zero on a machine without a card. Phases:
              lookahead 4 and the same two with lookahead 0 (K1 and K2 counts
              exact, verify calls > 0; the streams' agreement printed); a
              paged server burst of 16 repetitive questions with `--lookahead
-             4` (K3 = 32 x verify steps, paged_kv_update = 32 x 5 x verify
+             4` (K3 = 32 x verify steps, paged_kv_update = 32 x verify
              steps, no paged_kv_rows launch), after the same burst without
              it for comparison; one verify step of a fixed
              batch of 16 on clones of int8 fused and bf16 split pools:
              kernel vs plain path cosine >= 0.999 on every column, column 0
              vs the decode step >= 0.99 (int8) and >= 0.999 (bf16);
 13. profile — only with --profile: wall, device-busy and idle share of one
-             batched decode step at B=32, and of one verify step (S = 5), and
-             the largest device items (torch.profiler); a text-only prefill
+             batched decode step at B=32, of one verify step (S = 5) and of
+             one dense decode step (B = 1), their kernel launches per step
+             and the largest device items (torch.profiler); a text-only prefill
              of 2048 tokens (K1's share of its device time, one K1 launch a
              layer); the decode step again on int8 and int4 weights after
              phases 15 and 16, the verify step on int8 weights;
@@ -232,12 +244,13 @@ import torch
 # tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12  # outside the tensor cores
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, peak: float = BF16_FLOPS):
     """The least time the card could take: (ms, "bytes" | "operations")."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_flops / BF16_FLOPS * 1e3
+    by_ops = n_flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -645,10 +658,22 @@ def check_flash_bwd(gen) -> dict:
 
 
 def check_cache_append(gen) -> dict:
+    """K2's two entries against their plain versions, bit for bit:
+    `dense_cache_update` (rows already rotated, the JAX contract) and
+    `dense_cache_update_rope` (K before RoPE, rotated in the kernel: what
+    the dense-cache forward calls once a layer), at the dense decode step's
+    shape, a clamped tail and chunked admission's T = 256 chunks. Timed at
+    the decode shape (and the rope entry at a chunk): per call, on the
+    device (graph replay), issued back to back; beside it the route the
+    forward took before, eager `apply_rope` then the copy entry."""
+    from vis_zephyr_tpu_torch.config import DecoderConfig
+    from vis_zephyr_tpu_torch.models.mistral import rope_cos_sin
+    from vis_zephyr_tpu_torch.ops import _kernels
     from vis_zephyr_tpu_torch.ops import kv_cache
 
     dev = "cuda"
-    Hkv, D = 8, 128
+    dec = DecoderConfig()
+    Hkv, D = dec.num_kv_heads, dec.head_dim
     # The dense decode step's shape, a clamped tail, and chunked admission's
     # shapes (one 256-token chunk into a B=1 scratch cache): the third chunk of
     # a longer prompt, and a last chunk that ends exactly at the cache's end.
@@ -665,30 +690,85 @@ def check_cache_append(gen) -> dict:
         k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        positions = lengths[:, None] + torch.arange(T, dtype=torch.int32, device=dev)[None, :]
+        cos, sin = rope_cos_sin(positions, D, dec.rope_theta)
         layer = L - 3
-        got_k, got_v = ck.clone(), cv.clone()
-        kv_cache.dense_cache_update(got_k, got_v, k, v, lengths, layer)
-        ref_k, ref_v = ck.clone(), cv.clone()
-        kv_cache.dense_cache_update_plain(ref_k, ref_v, k, v, lengths, layer)
-        torch.cuda.synchronize()
-        exact = torch.equal(got_k, ref_k) and torch.equal(got_v, ref_v)
-        print(f"K2 {name}: bit-exact against the plain version: {exact}")
-        if not exact:
-            raise AssertionError(f"K2 {name}: kernel disagrees with the plain version")
-        if (T, lens) in ((1, [517]), (256, [512])) and S != 768:
-            kernel_ms = median_ms(lambda: kv_cache.dense_cache_update(got_k, got_v, k, v, lengths, layer))
-            device_ms = graph_ms(lambda: kv_cache.dense_cache_update(got_k, got_v, k, v, lengths,
-                                                                     layer))
-            plain_ms = median_ms(lambda: kv_cache.dense_cache_update_plain(ref_k, ref_v, k, v, lengths, layer))
-            # The rows read once and written once; no arithmetic. The library
-            # call for this function is the indexed write, its plain version.
-            least, by = bound_ms(2 * 2 * (k.numel() + v.numel()), 0)
-            print(f"K2 {name}: kernel {kernel_ms:.4f} ms per call, {show(device_ms)} on the "
-                  f"device; plain ({T} indexed writes) {plain_ms:.4f} ms, bound {least:.6f} ms by "
-                  f"{by}, median of 20")
-            if times is None:  # the decode step's shape goes into the result line
-                times = dict(ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
-                             library_ms=plain_ms, bound_ms=least, bound_by=by)
+        for entry in ("copy", "rope"):
+            got_k, got_v = ck.clone(), cv.clone()
+            ref_k, ref_v = ck.clone(), cv.clone()
+            if entry == "copy":
+                kv_cache.dense_cache_update(got_k, got_v, k, v, lengths, layer)
+                kv_cache.dense_cache_update_plain(ref_k, ref_v, k, v, lengths, layer)
+            else:
+                kv_cache.dense_cache_update_rope(got_k, got_v, k, v, cos, sin, lengths, layer)
+                kv_cache.dense_cache_update_rope_plain(ref_k, ref_v, k, v, cos, sin, lengths,
+                                                       layer)
+            torch.cuda.synchronize()
+            exact = torch.equal(got_k, ref_k) and torch.equal(got_v, ref_v)
+            changed = int((got_k[layer] != ck[layer]).any(dim=-1).any(dim=-1).sum())
+            print(f"K2 {entry} entry, {name}: bit-exact against the plain version: {exact} "
+                  f"({changed} cache rows changed)")
+            if not exact or changed == 0:
+                raise AssertionError(f"K2 {entry} entry, {name}: kernel disagrees with the "
+                                     "plain version")
+        if (T, lens) not in ((1, [517]), (256, [512])) or S == 768:
+            continue
+        # The rows read once and written once (and the rope entry's cos / sin
+        # tables read once); its arithmetic is a few operations an element.
+        n_rows = B * T
+        copy_bound = bound_ms(2 * 2 * (k.numel() + v.numel()), 0)
+        rope_bound = bound_ms(2 * 2 * (k.numel() + v.numel()) + 2 * 4 * n_rows * D // 2,
+                              6 * k.numel(), FP32_FLOPS)
+
+        def copy_call():
+            kv_cache.dense_cache_update(got_k, got_v, k, v, lengths, layer)
+
+        def rope_call():
+            kv_cache.dense_cache_update_rope(got_k, got_v, k, v, cos, sin, lengths, layer)
+
+        def before_call():  # the dense-cache forward's route before the rope entry
+            kv_cache.dense_cache_update(got_k, got_v, kv_cache.apply_rope(k, cos, sin), v,
+                                        lengths, layer)
+
+        rows = torch.arange(B, device=dev)[:, None]
+        slots = torch.clamp(positions.long(), max=S - 1)
+        k_rot = kv_cache.apply_rope(k, cos, sin)
+
+        def library_call():  # the write half only: the rotated rows by index_put_
+            ref_k[layer].index_put_((rows, slots), k_rot)
+            ref_v[layer].index_put_((rows, slots), v)
+
+        row = {}
+        for label, fn in (("rope", rope_call), ("copy", copy_call), ("before", before_call),
+                          ("library", library_call)):
+            row[label] = dict(ms=median_ms(fn), device_ms=graph_ms(fn), issue_ms=issue_ms(fn))
+        with _kernels.plain_versions():
+            plain_ms = median_ms(rope_call)
+            copy_plain_ms = median_ms(copy_call)
+        print(f"K2 rope entry, {name}: kernel {row['rope']['ms']:.4f} ms per call, "
+              f"{show(row['rope']['device_ms'])} on the device, issued back to back "
+              f"{row['rope']['issue_ms']:.4f}; plain (apply_rope, casts, {T} indexed writes) "
+              f"{plain_ms:.4f} ms; bound {rope_bound[0]:.6f} ms by {rope_bound[1]}; before "
+              f"(eager apply_rope + the copy entry) {row['before']['ms']:.4f} per call, "
+              f"{show(row['before']['device_ms'])} on the device, issued "
+              f"{row['before']['issue_ms']:.4f}; index_put_ of the rotated rows "
+              f"{row['library']['ms']:.4f}, {show(row['library']['device_ms'])} on the device; "
+              f"median of 20")
+        print(f"K2 copy entry, {name}: kernel {row['copy']['ms']:.4f} ms per call, "
+              f"{show(row['copy']['device_ms'])} on the device, issued "
+              f"{row['copy']['issue_ms']:.4f}; plain ({T} indexed writes) {copy_plain_ms:.4f} "
+              f"ms; bound {copy_bound[0]:.6f} ms by {copy_bound[1]}")
+        if times is None:  # the decode step's shape goes into the result line
+            times = dict(ms=row["rope"]["ms"], device_ms=row["rope"]["device_ms"],
+                         issue_ms=row["rope"]["issue_ms"], plain_ms=plain_ms,
+                         library_ms=row["library"]["ms"],
+                         library_device_ms=row["library"]["device_ms"],
+                         bound_ms=rope_bound[0], bound_by=rope_bound[1],
+                         before=row["before"], copy_entry=dict(row["copy"], plain_ms=copy_plain_ms,
+                                                                bound_ms=copy_bound[0]))
+        else:
+            times["chunk_256"] = dict(row["rope"], plain_ms=plain_ms, bound_ms=rope_bound[0],
+                                      before=row["before"])
     return {"max_abs_err": 0.0, "times": times}
 
 
@@ -1081,88 +1161,183 @@ def check_paged_single(gen) -> dict:
     return {"max_abs_err": worst, "times": times}
 
 
+def verify_targets(table, lengths, active, S: int, ps: int):
+    """Within-layer page ids and offsets [S, B] of a verify step's rows, as
+    `_paged_verify_step` computes them: rows past the table forced onto the
+    trash page 0, inactive slots there at rows 0..S-1."""
+    pps = table.shape[1]
+    lengths_eff = torch.where(active, lengths, torch.zeros_like(lengths))
+    pos = lengths_eff[:, None] + torch.arange(S, dtype=lengths.dtype, device=lengths.device)
+    row_idx = pos // ps
+    pages = torch.gather(table, 1, torch.clamp(row_idx, max=pps - 1).long())
+    pages = torch.where(active[:, None] & (row_idx < pps), pages, torch.zeros_like(pages))
+    return pages.T.contiguous(), (pos % ps).T.contiguous()
+
+
+def kv_pools(gen, shape, quant: bool, fused: bool):
+    """Random pools (and scales) of `shape` [N, Hkv, rows, D]: int8 or bf16,
+    KV-fused (v None) or split."""
+    dev = "cuda"
+    if quant:
+        kp = torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        vp = None if fused else torch.randint(-128, 128, shape, generator=gen, device=dev,
+                                               dtype=torch.int8)
+        ksc = torch.rand(shape[:3], generator=gen, device=dev)
+        vsc = None if fused else torch.rand(shape[:3], generator=gen, device=dev)
+        return kp, vp, ksc, vsc
+    kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vp = None if fused else torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    return kp, vp, None, None
+
+
+POOL_FORMS = ((False, False, "bf16 split"), (False, True, "bf16 fused"),
+              (True, False, "int8 split"), (True, True, "int8 fused"))
+
+
 def check_paged_update(gen) -> dict:
-    """K4's absolute-page entry (`paged_kv_update{,_q}`) against its plain
-    version: bf16 and int8 pools, split and fused, L = 1 (the verify step's
-    calls) and L = 2, 32 slots with inactive ones on the trash page; whole
-    pools and scales bit-exact. Timed at the verify step's form (int8 fused,
-    L = 1, B = 32)."""
+    """K4's absolute-page entry against its plain version, whole pools and
+    scales bit for bit, page 0 included (rows that meet on one pool row leave
+    the last in (s, b) order, in the kernel and in the plain version), over
+    bf16 and int8, split and fused pools:
+    - `paged_kv_update_layer{,_q}`, the verify and writefirst steps' form:
+      32 slots, S = 1 to 9 rows a slot as projected ([B, S, Hkv, D]), page
+      ids and offsets from a page table as the verify step computes them
+      (rows of one slot sharing a page and crossing into the next, slots
+      whose last rows are forced onto the trash page, inactive slots), layer
+      1 of 2; a strided view of a wider block (the writefirst step's
+      `k[:, :1]`, and S = 5 of 7 columns);
+    - `paged_kv_update{,_q}`, the JAX contract: L = 1 and 2, absolute ids.
+    Timed at the verify step's form (int8 fused, B = 32, S = 5): per call,
+    on the device, issued back to back; plain, bound, one `index_put_` of
+    the quantized rows, and the route the verify step took before (S
+    single-row calls a layer, each with its index add and two copies)."""
     from vis_zephyr_tpu_torch.ops import _kernels
     from vis_zephyr_tpu_torch.ops import paged_attention as pa
 
     dev = "cuda"
-    B, Hkv, D, ps, N = 32, 8, 128, 128, 130
+    B, Hkv, D, ps, pps, L = 32, 8, 128, 128, 4, 2
+    P = 1 + B * pps
+    layer = 1
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[:B * pps] + 1).reshape(B, pps)
+    table = table.to(torch.int32).contiguous()
     active = torch.ones(B, dtype=torch.bool, device=dev)
     active[[2, 9, 21, 30]] = False
-    offsets = torch.where(active, torch.randint(0, ps, (B,), generator=gen, device=dev), 0)
-    offsets = offsets.to(torch.int32)
+    lengths = torch.randint(0, pps * ps - 9, (B,), generator=gen, device=dev)
+    # Slots ending past the table (forced rows), starting at a page's last row,
+    # and at a page's first.
+    lengths[[0, 5, 11]] = torch.tensor([pps * ps - 1, pps * ps - 3, pps * ps - 6], device=dev)
+    lengths[[7, 8]] = torch.tensor([ps - 1, 2 * ps], device=dev)
+    lengths = lengths.to(torch.int32)
+
+    def write(form, pools, k, v, pages, offsets, base=0):
+        kp, vp, ksc, vsc = pools
+        if form == "layer":
+            if ksc is None:
+                pa.paged_kv_update_layer(kp, vp, k, v, pages, offsets, base)
+            else:
+                pa.paged_kv_update_layer_q(kp, vp, ksc, vsc, k, v, pages, offsets, base)
+        elif ksc is None:
+            pa.paged_kv_update(kp, vp, k, v, pages, offsets)
+        else:
+            pa.paged_kv_update_q(kp, vp, ksc, vsc, k, v, pages, offsets)
+
+    def compare(label, form, pools, k, v, pages, offsets, base=0):
+        got = [None if t is None else t.clone() for t in pools]
+        ref = [None if t is None else t.clone() for t in pools]
+        write(form, got, k, v, pages, offsets, base)
+        with _kernels.plain_versions():
+            write(form, ref, k, v, pages, offsets, base)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(g, r) for g, r in zip(got, ref) if g is not None)
+        changed = int((got[0] != pools[0]).any(dim=-1).sum())
+        trash = int((got[0][base] != pools[0][base]).any(dim=-1).sum())
+        print(f"K4 {label}: whole pools and scales bit-exact against the plain version, page 0 "
+              f"included: {exact} ({changed} rows of the first pool changed, {trash} of them "
+              f"on the trash page)")
+        if not exact or changed == 0:
+            raise AssertionError(f"K4 {label}: kernel disagrees with the plain version")
+        return got, ref
+
     times = None
-    for L in (1, 2):
-        # Every active (layer, slot) writes a page of its own; inactive slots the
-        # trash page 0 at row 0 with equal rows (a verify step's pad rows).
-        ids = (torch.randperm(N - 1, generator=gen, device=dev)[:L * B] + 1).reshape(L, B)
-        page_ids = torch.where(active[None], ids, 0).to(torch.int32).contiguous()
-        ks = torch.randn(L, B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
-        vs = torch.randn(L, B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
-        idle = (~active).nonzero()[:, 0]
-        # Equal rows in every layer too: the layers' trash rows are one row here.
-        ks[:, idle], vs[:, idle] = ks[:1, idle[:1]], vs[:1, idle[:1]]
-        for quant, fused, label in ((False, False, "bf16 split"), (False, True, "bf16 fused"),
-                                    (True, False, "int8 split"), (True, True, "int8 fused")):
-            rows = 2 * ps if fused else ps
-            shape = (N, Hkv, rows, D)
-            if quant:
-                kp = torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
-                vp = None if fused else torch.randint(-128, 128, shape, generator=gen,
-                                                       device=dev, dtype=torch.int8)
-                ksc = torch.rand(shape[:3], generator=gen, device=dev)
-                vsc = None if fused else torch.rand(shape[:3], generator=gen, device=dev)
-            else:
-                kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-                vp = None if fused else torch.randn(shape, generator=gen,
-                                                    device=dev).to(torch.bfloat16)
-                ksc = vsc = None
-            got = [None if t is None else t.clone() for t in (kp, vp, ksc, vsc)]
-            ref = [None if t is None else t.clone() for t in (kp, vp, ksc, vsc)]
-            if quant:
-                pa.paged_kv_update_q(*got, ks, vs, page_ids, offsets)
-                with _kernels.plain_versions():
-                    pa.paged_kv_update_q(*ref, ks, vs, page_ids, offsets)
-            else:
-                pa.paged_kv_update(got[0], got[1], ks, vs, page_ids, offsets)
-                with _kernels.plain_versions():
-                    pa.paged_kv_update(ref[0], ref[1], ks, vs, page_ids, offsets)
-            torch.cuda.synchronize()
-            exact = all(torch.equal(g, r) for g, r in zip(got, ref) if g is not None)
-            changed = int((got[0] != kp).any(dim=-1).sum())
-            print(f"K4 paged_kv_update L={L}, {label}: whole pools and scales bit-exact against "
-                  f"the plain version: {exact} ({changed} rows of the first pool changed)")
-            if not exact or changed == 0:
-                raise AssertionError(f"K4 paged_kv_update L={L} {label}: kernel disagrees "
-                                     "with the plain version")
-            if quant and fused and L == 1:  # the verify step's form
-                ms = median_ms(lambda: pa.paged_kv_update_q(*got, ks, vs, page_ids, offsets))
-                with _kernels.plain_versions():
-                    plain_ms = median_ms(
-                        lambda: pa.paged_kv_update_q(*ref, ks, vs, page_ids, offsets))
-                # One index_put_ of rows already quantized (the write half only).
-                kq, vq = pa.quantize_kv(ks)[0], pa.quantize_kv(vs)[0]
-                page = page_ids.long()[:, :, None]
-                head = torch.arange(Hkv, device=dev)[None, None, :]
-                row = offsets.long()[None, :, None].expand(L, B, 1)
-                index = (torch.cat([page, page]), head, torch.cat([row, row + ps]))
-                both = torch.cat([kq, vq])
-                library_ms = median_ms(lambda: ref[0].index_put_(index, both))
-                # bf16 rows read once; int8 rows and f32 scales written once.
-                n_rows = 2 * L * B * Hkv
-                least, by = bound_ms(n_rows * (2 * D + D + 4) + 8 * L * B + 4 * B, 0)
-                times = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=least,
-                             bound_by=by)
-                print(f"K4 paged_kv_update L=1, B={B}, int8 fused: kernel {ms:.4f} ms, plain "
-                      f"(quantize + 4 indexed writes) {plain_ms:.4f} ms, one index_put_ of "
-                      f"quantized rows {library_ms:.4f} ms, bound {least:.6f} ms by {by}, "
-                      f"median of 20")
+    shape = (L * P, Hkv, ps, D)
+    for quant, fused, label in POOL_FORMS:
+        pools = kv_pools(gen, (shape[0], Hkv, 2 * ps if fused else ps, D), quant, fused)
+        for S in VERIFY_ROWS:
+            pages, offsets = verify_targets(table, lengths, active, S, ps)
+            k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+            v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+            got, ref = compare(f"paged_kv_update_layer, {label}, S={S}", "layer", pools, k, v,
+                               pages, offsets, layer * P)
+            if quant and fused and S == 5:  # the verify step's form
+                times = time_verify_write(pa, _kernels, got, ref, k, v, pages, offsets,
+                                          layer * P)
+        for S, width in ((1, 4), (5, 7)):  # strided views of a wider block
+            pages, offsets = verify_targets(table, lengths, active, S, ps)
+            block = torch.randn(B, width, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+            compare(f"paged_kv_update_layer, {label}, S={S} strided (columns of {width})",
+                    "layer", pools, block[:, :S], block[:, width - S:], pages, offsets, layer * P)
+        # The JAX contract: rows [L, B] at absolute ids, offsets [B].
+        offs = torch.where(active, torch.randint(0, ps, (B,), generator=gen, device=dev), 0)
+        offs = offs.to(torch.int32)
+        for n_layers in (1, 2):
+            ids = (torch.randperm(shape[0] - 1, generator=gen, device=dev)[:n_layers * B]
+                   + 1).reshape(n_layers, B)
+            page_ids = torch.where(active[None], ids, 0).to(torch.int32).contiguous()
+            k = torch.randn(n_layers, B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+            v = torch.randn(n_layers, B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+            compare(f"paged_kv_update L={n_layers}, {label}", "update", pools, k, v, page_ids,
+                    offs)
+        del pools
     return {"max_abs_err": 0.0, "times": times}
+
+
+def time_verify_write(pa, _kernels, got, ref, k, v, pages, offsets, base) -> dict:
+    """The verify step's K4 call (int8 fused, one layer) timed, beside its
+    plain version, one `index_put_` of the quantized rows and the old route."""
+    B, S, Hkv, D = k.shape
+    dev = k.device
+    ps = got[0].shape[2] // 2
+
+    def call():
+        pa.paged_kv_update_layer_q(got[0], None, got[2], None, k, v, pages, offsets, base)
+
+    def before_call():  # S single-row calls, each with an index add and two copies
+        for s in range(S):
+            page_ids = (pages[s] + base)[None]
+            pa.paged_kv_update_q(got[0], None, got[2], None, k[:, s][None].contiguous(),
+                                 v[:, s][None].contiguous(), page_ids, offsets[s])
+
+    kq, vq = pa.quantize_kv(k)[0], pa.quantize_kv(v)[0]
+    page = (pages.T.long() + base)[:, :, None]             # [B, S, 1]
+    head = torch.arange(Hkv, device=dev)[None, None, :]
+    row = offsets.T.long()[:, :, None]
+    index = (torch.cat([page, page]), head, torch.cat([row, row + ps]))
+    both = torch.cat([kq, vq])
+
+    def library_call():  # the write half only
+        ref[0].index_put_(index, both)
+
+    out = {}
+    for label, fn in (("kernel", call), ("before", before_call), ("library", library_call)):
+        out[label] = dict(ms=median_ms(fn), device_ms=graph_ms(fn), issue_ms=issue_ms(fn))
+    with _kernels.plain_versions():
+        plain_ms = median_ms(call)
+    # bf16 rows read once; int8 rows and f32 scales written once; ids and
+    # offsets read once.
+    n_rows = 2 * B * S * Hkv
+    least, by = bound_ms(n_rows * (2 * D + D + 4) + 2 * 4 * S * B, 0)
+    print(f"K4 paged_kv_update_layer_q, B={B}, S={S}, int8 fused (a verify step's layer): "
+          f"kernel {out['kernel']['ms']:.4f} ms per call, {show(out['kernel']['device_ms'])} on "
+          f"the device, issued back to back {out['kernel']['issue_ms']:.4f}; plain (quantize + "
+          f"4 indexed writes) {plain_ms:.4f}; one index_put_ of quantized rows "
+          f"{out['library']['ms']:.4f} ({show(out['library']['device_ms'])} on the device); "
+          f"bound {least:.6f} ms by {by}; before ({S} single-row calls with their copies) "
+          f"{out['before']['ms']:.4f} per call, {show(out['before']['device_ms'])} on the "
+          f"device, issued {out['before']['issue_ms']:.4f}; median of 20")
+    return dict(ms=out["kernel"]["ms"], device_ms=out["kernel"]["device_ms"],
+                issue_ms=out["kernel"]["issue_ms"], plain_ms=plain_ms,
+                library_ms=out["library"]["ms"], library_device_ms=out["library"]["device_ms"],
+                bound_ms=least, bound_by=by, before=out["before"])
 
 
 def check_paged_rows(gen) -> dict:
@@ -1174,29 +1349,16 @@ def check_paged_rows(gen) -> dict:
     active = torch.ones(B, dtype=torch.bool, device=dev)
     active[[3, 4, 11, 17, 18, 19, 30, 31]] = False
     # An active slot writes its own page at any row; inactive slots all write
-    # row 0 of trash page 0, with equal rows (a step's pad tokens at position 0).
+    # row 0 of trash page 0, where the last of them in slot order wins, in the
+    # kernel as in the plain version.
     pages = torch.where(active, torch.randperm(P - 1, generator=gen, device=dev)[:B] + 1, 0)
     offsets = torch.where(active, torch.randint(0, ps, (B,), generator=gen, device=dev), 0)
     pages, offsets = pages.to(torch.int32), offsets.to(torch.int32)
     ks = torch.randn(L, B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
     vs = torch.randn(L, B, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
-    idle = (~active).nonzero()[:, 0]
-    ks[:, idle], vs[:, idle] = ks[:, idle[:1]], vs[:, idle[:1]]
     times = None
-    for quant, fused, label in ((False, False, "bf16 split"), (False, True, "bf16 fused"),
-                                (True, False, "int8 split"), (True, True, "int8 fused")):
-        rows = 2 * ps if fused else ps
-        shape = (L * P, Hkv, rows, D)
-        if quant:
-            kp = torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
-            vp = None if fused else torch.randint(-128, 128, shape, generator=gen, device=dev,
-                                                   dtype=torch.int8)
-            ksc = torch.rand(shape[:3], generator=gen, device=dev)
-            vsc = None if fused else torch.rand(shape[:3], generator=gen, device=dev)
-        else:
-            kp = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-            vp = None if fused else torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-            ksc = vsc = None
+    for quant, fused, label in POOL_FORMS:
+        kp, vp, ksc, vsc = kv_pools(gen, (L * P, Hkv, 2 * ps if fused else ps, D), quant, fused)
         got = [None if t is None else t.clone() for t in (kp, vp, ksc, vsc)]
         ref = [None if t is None else t.clone() for t in (kp, vp, ksc, vsc)]
         if quant:
@@ -1215,7 +1377,10 @@ def check_paged_rows(gen) -> dict:
         if not exact or changed == 0:
             raise AssertionError(f"K4 {label}: kernel disagrees with the plain version")
         if quant and fused:  # the served path's form
-            ms = median_ms(lambda: pa.paged_kv_update_rows_q(*got, ks, vs, pages, offsets))
+            def call():
+                pa.paged_kv_update_rows_q(*got, ks, vs, pages, offsets)
+
+            ms, device_ms, issue = median_ms(call), graph_ms(call), issue_ms(call)
             with _kernels.plain_versions():
                 plain_ms = median_ms(lambda: pa.paged_kv_update_rows_q(*ref, ks, vs, pages, offsets))
             # The library call nearest to it: ONE indexed write of rows that are
@@ -1227,15 +1392,22 @@ def check_paged_rows(gen) -> dict:
             index = (torch.cat([page, page]), head, torch.cat([row.expand(L, B, 1),
                                                                row.expand(L, B, 1) + ps]))
             both = torch.cat([kq, vq])
-            library_ms = median_ms(lambda: ref[0].index_put_(index, both))
+            def library_call():
+                ref[0].index_put_(index, both)
+
+            library_ms, library_device_ms = median_ms(library_call), graph_ms(library_call)
             # bf16 rows read once; int8 rows and f32 scales written once.
             n_rows = 2 * L * B * Hkv
             least, by = bound_ms(n_rows * (2 * D + D + 4) + 8 * B, 0)
-            times = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=least,
-                         bound_by=by)
-            print(f"K4 {label}: kernel {ms:.4f} ms, plain (quantize + 4 indexed writes) "
-                  f"{plain_ms:.4f} ms, one index_put_ of quantized rows {library_ms:.4f} ms, "
-                  f"bound {least:.6f} ms by {by}, median of 20")
+            times = dict(ms=ms, device_ms=device_ms, issue_ms=issue, plain_ms=plain_ms,
+                         library_ms=library_ms, library_device_ms=library_device_ms,
+                         bound_ms=least, bound_by=by)
+            print(f"K4 paged_kv_rows, {label} (a decode step, L={L}, B={B}): kernel {ms:.4f} ms "
+                  f"per call, {show(device_ms)} on the device, issued back to back "
+                  f"{issue:.4f}; plain (quantize + 4 indexed writes) {plain_ms:.4f} ms, one "
+                  f"index_put_ of quantized rows {library_ms:.4f} ms "
+                  f"({show(library_device_ms)} on the device), bound {least:.6f} ms by {by}, "
+                  f"median of 20")
     return {"max_abs_err": 0.0, "times": times}
 
 
@@ -2010,9 +2182,9 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
                                       decoder_routes(cfg, b.max_slots * S, steps)))
     routes = {key: counts[key] for key in want}
     # A decode step: K3 once per layer and K4 once over all layers. A verify
-    # step: K3 once per layer over S rows, and S single-layer row writes per
-    # layer (`paged_kv_update`), no all-layer write.
-    k4_want, kvu_want = (0, L * S * steps) if lookahead else (steps, 0)
+    # step: K3 once per layer over S rows, and one write of the layer's S rows
+    # a slot (`paged_kv_update_layer`), no all-layer write.
+    k4_want, kvu_want = (0, L * steps) if lookahead else (steps, 0)
     print(f"{label} counters: K3 paged_attn_decode {counts['k3']} (want {L} x {steps} = {L * steps}), "
           f"K4 paged_kv_rows {counts['k4']} (want {k4_want}), K4 paged_kv_update {counts['kvu']} "
           f"(want {kvu_want}), K2 dense_cache_append {counts['k2']} "
@@ -2136,8 +2308,9 @@ def run_fixed_batch(model, cfg, seed: int) -> dict:
     if (k1, k2) != (L * 16, L * chunks):
         raise AssertionError("the admissions did not go through K1 and K2 as counted")
 
-    # Chunked admission runs the same arithmetic on both paths but for the row
-    # write (K2, a copy, against the indexed write), so everything it leaves
+    # Chunked admission runs the same arithmetic on both paths but for K's
+    # RoPE and the row write (K2, which repeats eager PyTorch's roundings,
+    # against `apply_rope` and the indexed write), so everything it leaves
     # behind must be equal bit for bit: pools, scales, table, lengths, tokens.
     rows = valid_rows(chunk_kern, L)
     same = {"int8 rows": torch.equal(chunk_kern.kp[rows], chunk_plain.kp[rows]),
@@ -2626,7 +2799,7 @@ def run_spec_batch(model, cfg, seed: int) -> dict:
     0 against `_paged_step`'s logits from the same pool state (>= 0.999 over
     bf16 pools; >= 0.99 over int8, where the verify attends its own row
     quantized and the decode step folds it in unquantized). Counts exact: K3
-    once per layer, `paged_kv_update` S times per layer, no all-layer write."""
+    and K4's `paged_kv_update_layer` once per layer, no all-layer write."""
     from vis_zephyr_tpu_torch.ops import _kernels
     from vis_zephyr_tpu_torch.ops import paged_attention as pa
     from vis_zephyr_tpu_torch.serve.paged import _paged_step, _paged_verify_step
@@ -2665,9 +2838,9 @@ def run_spec_batch(model, cfg, seed: int) -> dict:
               f"{', '.join(f'{c:.6f}' for c in cols)} (>= 0.999); column 0 vs the decode step "
               f"min {float(col0.min()):.6f} median {float(col0.median()):.6f} (>= {floor}), same "
               f"top-1 on {same_top1:.3f} of slots; launches K3 {counts[0]} (want {L}), "
-              f"paged_kv_rows {counts[1]} (want 0), paged_kv_update {counts[2]} (want {L * S})")
+              f"paged_kv_rows {counts[1]} (want 0), paged_kv_update {counts[2]} (want {L})")
         if not (min(cols) >= 0.999 and float(col0.min()) >= floor
-                and bool(torch.isfinite(logits_k).all()) and counts == (L, 0, L * S)):
+                and bool(torch.isfinite(logits_k).all()) and counts == (L, 0, L)):
             raise AssertionError(f"spec batch {label}: the verify step disagrees or miscounted")
         out[label] = dict(cols=cols, col0=float(col0.min()))
         del b, kp, vp, ksp, vsp, logits_k, logits_p, logits_d
@@ -2700,42 +2873,41 @@ def run_profile(model, cfg, seed: int, card: str, label: str = "profile",
                 lookahead: int = 0) -> None:
     """One batched decode step at B=32 (a verify step of S = lookahead + 1
     rows per slot when `lookahead` > 0): wall (host clock around steps that
-    end in a synchronize), device-busy time and the largest device items
-    (torch.profiler kernel sums; one stream, so kernels do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
+    end in a synchronize), device-busy time, kernel launches per step and the
+    largest device items (torch.profiler kernel sums; one stream, so kernels
+    do not overlap)."""
+    from vis_zephyr_tpu_torch.experiments.step_profile import profile_step, show_step
 
     # Verify steps emit up to S tokens a slot: a longer budget (and the pages
     # for it) keeps all 32 slots active through the 28 steps.
     extra = dict(lookahead=lookahead, max_new_tokens=512, num_pages=1 + 32 * 16) if lookahead else {}
     b = admitted_batcher(model, cfg, direct_requests(cfg, seed, 32), 32, kv_quant=True,
                          kv_fused=True, **extra)
-    for _ in range(4):
-        b.step()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(16):
-        t0 = time.perf_counter()
-        b.step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    n = 8
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            b.step()
-        torch.cuda.synchronize()
-    rows, busy = device_items(prof, n)
-    wall = statistics.median(walls)
+    got = profile_step(b.step)
     if int(b.active.sum()) != 32:
         raise AssertionError(f"{label}: a slot finished inside the profiled steps")
     kind = f"verify step (S={lookahead + 1})" if lookahead else "decode step"
-    print(f"{label}: batched {kind}, B=32 active slots, lengths about "
-          f"{int(b.slot_len.mean())}: wall median {wall:.2f} ms (16 steps, min {min(walls):.2f}, "
-          f"max {max(walls):.2f}), device busy {busy:.2f} ms per step, idle share "
-          f"{1 - busy / wall:.2f} [{card}]")
-    for key, ms, count in rows[:8]:
-        print(f"{label}:   {ms:8.3f} ms  {count:6.1f} launches/step  {key[:90]}")
-    if busy <= 0:
-        print(f"{label}: the profiler reported no device time")
+    show_step(f"{label}: batched {kind}, B=32 active slots, lengths about "
+              f"{int(b.slot_len.mean())}", label, got, card)
+
+
+def run_dense_profile(model, cfg, seed: int, card: str) -> None:
+    """One dense decode step (B = 1, bf16 weights, a text prompt of 170
+    tokens) profiled as `run_profile` profiles a batched one; K2 must launch
+    once a layer a step."""
+    from vis_zephyr_tpu_torch.experiments import step_profile
+    from vis_zephyr_tpu_torch.ops import kv_cache
+
+    step, state = step_profile.dense_decode(model, cfg, seed)
+    before = kv_cache.launches
+    got = step_profile.profile_step(step, warm=4, timed=16, profiled=8)
+    k2 = (kv_cache.launches - before) / (4 + 16 + 8)
+    step_profile.show_step(f"dense profile: decode step, B=1, position about "
+                           f"{int(state['cache']['length'][0])}, K2 {k2:.0f} launches per step",
+                           "dense profile", got, card)
+    if k2 != cfg.decoder.num_layers:
+        raise AssertionError(f"dense profile: {k2} K2 launches per step, expected one per "
+                             f"layer ({cfg.decoder.num_layers})")
 
 
 PREFILL_TOKENS = 2048  # a long text prompt: K1 in each of the 32 layers at T = S = 2048
@@ -3330,6 +3502,7 @@ def main(argv=None) -> None:
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
         run_profile(model, cfg, args.seed, card, label="spec profile", lookahead=SPEC_LOOKAHEAD)
+        run_dense_profile(model, cfg, args.seed, card)
         run_prefill_profile(model, cfg, args.seed, card)
         done("profile")
     if "precision" in phases:

@@ -37,7 +37,7 @@ from ..config import DecoderConfig
 
 from ..ops.attention import attention_mask, dot_product_attention
 from ..ops.flash_attention import flash_attention
-from ..ops.kv_cache import dense_cache_update
+from ..ops.kv_cache import apply_rope, dense_cache_update_rope
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -52,15 +52,6 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     inv_freq = 1.0 / (theta ** exponent)
     angles = positions.float()[..., None] * inv_freq
     return torch.cos(angles), torch.sin(angles)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, T, H, D]; cos/sin [B, T, D/2], cast to x's dtype first."""
-    d2 = x.shape[-1] // 2
-    x1, x2 = x[..., :d2], x[..., d2:]
-    cos = cos[:, :, None, :].to(x.dtype)
-    sin = sin[:, :, None, :].to(x.dtype)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
 class RMSNorm(nn.Module):
@@ -184,12 +175,14 @@ def _dropout_proj(layer_seed: int, rate: float) -> Callable:
 
 
 def _project_qkv(h, attn: MistralAttention, cfg: DecoderConfig, cos, sin,
-                 proj: Callable = _plain_proj):
+                 proj: Callable = _plain_proj, rotate_k: bool = True):
+    """(q, k, v) [B, T, heads, D], q rotated; k rotated unless `rotate_k` is
+    False (the dense-cache forward, whose K2 launch rotates it)."""
     B, T, _ = h.shape
     q = proj(attn.q_proj, h, 0).reshape(B, T, cfg.num_heads, cfg.head_dim)
     k = proj(attn.k_proj, h, 1).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     v = proj(attn.v_proj, h, 2).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    return apply_rope(q, cos, sin), (apply_rope(k, cos, sin) if rotate_k else k), v
 
 
 def _decoder_layer(layer: MistralDecoderLayer, h, cfg: DecoderConfig, cos, sin,
@@ -232,8 +225,9 @@ def mistral_forward(
         drops each LoRA branch's input (mask seeds fold in the layer and the
         projection).
       - cache given: appends T tokens at slots `cache.length[b] + arange(T)`
-        (`dense_cache_update`, kernel K2) and attends against the
-        whole cache buffer with plain attention.
+        (`dense_cache_update_rope`: kernel K2, which also applies K's RoPE,
+        one launch a layer) and attends against the whole cache buffer with
+        plain attention.
 
     Returns (logits f32, new_cache_or_kv).
     """
@@ -296,8 +290,8 @@ def mistral_forward(
 
         for i, layer in enumerate(layers):
             hn = rms_norm(h, layer.input_layernorm.weight, cfg.rms_norm_eps)
-            q, k, v = _project_qkv(hn, layer.self_attn, cfg, cos, sin)
-            dense_cache_update(ck, cv, k, v, lengths, i)
+            q, k, v = _project_qkv(hn, layer.self_attn, cfg, cos, sin, rotate_k=False)
+            dense_cache_update_rope(ck, cv, k, v, cos, sin, lengths, i)
             attn = dot_product_attention(q, ck[i].to(q.dtype), cv[i].to(q.dtype), mask=mask)
             h = h + layer.self_attn.o_proj(attn.reshape(B, T, -1))
             hn = rms_norm(h, layer.post_attention_layernorm.weight, cfg.rms_norm_eps)

@@ -39,15 +39,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p (a Python int would
 # otherwise pass as a 32-bit int and cut the pointer).
 _SIGNATURES = {
     "vzt_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       ctypes.c_float, _P],
     "vzt_dense_cache_append": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vzt_dense_cache_append_rope": [_P] * 7 + [_I] * 8 + [_P],
     "vzt_paged_attn_decode": [_P] * 14 + [_I] * 12 + [ctypes.c_float, _P],
     "vzt_paged_kv_rows": [_P] * 8 + [_I] * 6 + [_P],
-    "vzt_paged_kv_update": [_P] * 8 + [_I] * 5 + [_P],
+    "vzt_paged_kv_update": [_P] * 8 + [_I] * 5 + [_L] * 3 + [_I, _P],
     "vzt_quant_matmul_int8": [_P] * 6 + [_I] * 6 + [_P],
     "vzt_quant_matmul_int4": [_P] * 6 + [_I] * 7 + [_P],
     "vzt_flash_bwd_dkv": [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P],

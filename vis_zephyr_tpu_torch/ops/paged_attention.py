@@ -8,8 +8,9 @@ Port of `vis_zephyr_tpu/ops/paged_attention.py`: `paged_attention_fa` (the
 flash-structure kernel, with or without the self-term, any number of query
 rows, either grid), `paged_attention` (the single-row entry the writefirst
 decode step attends with), `paged_kv_update_rows{,_q}` (one decode step's
-rows of every layer), `paged_kv_update{,_q}` (rows at absolute page ids: the
-verify step's and the writefirst step's single-layer writes),
+rows of every layer), `paged_kv_update{,_q}` (rows at absolute page ids, the
+JAX contract), `paged_kv_update_layer{,_q}` (a layer's S rows a slot in one
+launch: the verify step's and the writefirst step's writes),
 `quantize_kv`/`dequant_kv` and the pool forms, `paged_attention_reference`;
 `paged_attention_batched` / `paged_attention_paired` are the kernels of the
 probes `experiments/batched_paged_attention_probe.py` and
@@ -63,7 +64,7 @@ attn_launches = 0  # K3 launches in this process (reset by callers that count)
 batched_launches = 0  # K10 launches (`paged_attention_batched`)
 paired_launches = 0  # K11 launches (`paged_attention_paired`)
 rows_launches = 0  # K4 launches through `paged_kv_update_rows{,_q}`
-update_launches = 0  # K4 launches through `paged_kv_update{,_q}`
+update_launches = 0  # K4 launches through `paged_kv_update{,_q}`, `paged_kv_update_layer{,_q}`
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -646,17 +647,21 @@ def paged_attention_paired(q, k_pages, page_table, lengths, q_offs, k_new, v_new
 
 
 def _kv_write_plain(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets) -> None:
-    """Rows [L, B, Hkv, D] to absolute pool pages `pages` [L, B] (long), row
-    `offsets[b]` (its V row `ps` further in a fused pool). Rows that land on
-    one page row in one call must be equal (the trash page's): which write
-    wins is not defined, here as on the card."""
+    """Rows ks/vs [n, Hkv, D] in launch order ((s, b), s outer) to absolute
+    pool pages `pages` [n] (long), row `offsets` [n] (its V row `ps` further
+    in a fused pool). Where rows land on one pool row (the trash page's), the
+    last of them in launch order is written, as on the card."""
     fused = v_pages is None
     quant = k_scales is not None
-    Hkv = ks.shape[2]
+    Hkv = ks.shape[1]
     ps = _page_size(k_pages, fused)
-    page = pages[:, :, None]
-    head = torch.arange(Hkv, device=k_pages.device)[None, None, :]
-    k_row = offsets.long()[None, :, None]
+    offsets = offsets.long()
+    key = pages * ps + offsets
+    keep = ~torch.triu(key[:, None] == key[None, :], diagonal=1).any(dim=1)
+    pages, offsets, ks, vs = pages[keep], offsets[keep], ks[keep], vs[keep]
+    page = pages[:, None]
+    head = torch.arange(Hkv, device=k_pages.device)[None, :]
+    k_row = offsets[:, None]
     v_row = k_row + (ps if fused else 0)
     v_pool = k_pages if fused else v_pages
     if quant:
@@ -672,15 +677,40 @@ def _kv_write_plain(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets
         v_pool[page, head, v_row] = vs.to(v_pool.dtype)
 
 
-def _launch_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets,
-                  absolute: bool) -> None:
-    """One K4 launch: `vzt_paged_kv_update` for absolute page ids [L, B],
-    `vzt_paged_kv_rows` for within-layer ids [B]."""
+# The three forms of a K4 call: (its wrappers, the rows' shape, the page ids
+# and offsets).
+#   "rows":   `paged_kv_update_rows{,_q}`, ks [L, B, Hkv, D], within-layer ids [B], offsets [B]
+#   "update": `paged_kv_update{,_q}`, ks [L, B, Hkv, D], absolute ids [L, B], offsets [B]
+#   "layer":  `paged_kv_update_layer{,_q}`, ks [B, S, Hkv, D] (any strides over B and S),
+#             within-layer ids [S, B] + page_base, offsets [S, B]
+_FORM_NAMES = {"rows": "paged_kv_update_rows", "update": "paged_kv_update",
+               "layer": "paged_kv_update_layer"}
+
+
+def _plain_order(k_pages, ks, vs, pages, offsets, form: str, page_base: int):
+    """The rows, absolute pages and offsets of a call, flat in launch order."""
+    pages = pages.long()
+    if form == "layer":
+        S, B = pages.shape
+        return (ks.transpose(0, 1).reshape(S * B, *ks.shape[2:]),
+                vs.transpose(0, 1).reshape(S * B, *vs.shape[2:]),
+                (pages + page_base).reshape(-1), offsets.reshape(-1))
+    L, B = ks.shape[:2]
+    if form == "rows":  # within-layer ids [B] → absolute [L, B]
+        pages = torch.arange(L, device=pages.device)[:, None] * (k_pages.shape[0] // L) + pages
+    return (ks.reshape(L * B, *ks.shape[2:]), vs.reshape(L * B, *vs.shape[2:]),
+            pages.reshape(-1), offsets.expand(L, B).reshape(-1))
+
+
+def _launch_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets, form: str,
+                  page_base: int) -> None:
+    """One K4 launch: `vzt_paged_kv_rows` for the "rows" form,
+    `vzt_paged_kv_update` for the others."""
     global rows_launches, update_launches
-    name = "paged_kv_update" if absolute else "paged_kv_update_rows"
+    name = _FORM_NAMES[form]
     fused = v_pages is None
     quant = k_scales is not None
-    L, B, Hkv, D = ks.shape
+    Hkv, D = ks.shape[2:]
     N, _, rows, _ = k_pages.shape
     dev = k_pages.device
     pool_dtype = torch.int8 if quant else torch.bfloat16
@@ -693,44 +723,54 @@ def _launch_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets,
             raise ValueError(f"{name}_q: v_scales go with split pools only")
         if not fused:
             _check_cuda("v_scales", v_scales, dev, torch.float32, (N, Hkv, rows))
-    _check_cuda("ks", ks, dev, torch.bfloat16)
-    _check_cuda("vs", vs, dev, torch.bfloat16, ks.shape)
-    _check_cuda("pages", pages, dev, torch.int32, (L, B) if absolute else (B,))
-    _check_cuda("offsets", offsets, dev, torch.int32, (B,))
-    if D > 1024 or (not absolute and N % L):
-        raise ValueError(f"{name}: head_dim {D} > 1024, or {N} pool pages are not {L} layers "
-                         "of pages")
+    if form == "layer":
+        B, S = ks.shape[:2]
+        id_shape = off_shape = (S, B)
+    else:
+        S, B = ks.shape[:2]  # S: the layers
+        id_shape, off_shape = ((B,) if form == "rows" else (S, B)), (B,)
+    _check_cuda("pages", pages, dev, torch.int32, id_shape)
+    _check_cuda("offsets", offsets, dev, torch.int32, off_shape)
+    for what, t in (("ks", ks), ("vs", vs)):
+        if t.device != dev or t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: {what} must be bf16 on {dev}, got {t.dtype} on {t.device}")
+        if t.stride()[2:] != (D, 1) or t.stride() != ks.stride() or t.data_ptr() % 8:
+            raise ValueError(f"{name}: {what} must hold each (row, head) as D contiguous "
+                             "elements, 8-byte aligned, with the strides of ks")
+    if D != HEAD_DIM or (form == "rows" and (N % S or not ks.is_contiguous())):
+        raise ValueError(f"{name}: head_dim {D} is not {HEAD_DIM}, or {N} pool pages are not "
+                         f"{S} layers of pages, or the rows are not contiguous")
     ps = _page_size(k_pages, fused)
     lib = _kernels.lib()
-    if absolute:
-        code = lib.vzt_paged_kv_update(
-            k_pages.data_ptr(), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales), ks.data_ptr(),
-            vs.data_ptr(), pages.data_ptr(), offsets.data_ptr(), L, B, Hkv, D, ps,
-            _kernels.stream_ptr(dev))
-        _kernels.check(code, "vzt_paged_kv_update")
-        update_launches += 1
-    else:
-        code = lib.vzt_paged_kv_rows(
-            k_pages.data_ptr(), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales), ks.data_ptr(),
-            vs.data_ptr(), pages.data_ptr(), offsets.data_ptr(), L, B, Hkv, D, N // L, ps,
-            _kernels.stream_ptr(dev))
+    ptrs = (k_pages.data_ptr(), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales), ks.data_ptr(),
+            vs.data_ptr(), pages.data_ptr(), offsets.data_ptr())
+    stream = _kernels.stream_ptr(dev)
+    if form == "rows":
+        code = lib.vzt_paged_kv_rows(*ptrs, S, B, Hkv, D, N // S, ps, stream)
         _kernels.check(code, "vzt_paged_kv_rows")
         rows_launches += 1
-
-
-def _kv_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets,
-              absolute: bool) -> None:
-    if vs.shape != ks.shape or k_pages.shape[1] != ks.shape[2] or k_pages.shape[3] != ks.shape[3]:
-        raise ValueError(f"paged_kv_update: rows {tuple(ks.shape)} / {tuple(vs.shape)} do not "
-                         f"fit pool {tuple(k_pages.shape)}")
-    if _kernels.use_kernel(k_pages):
-        _launch_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets, absolute)
         return
-    pages = pages.long()
-    if not absolute:  # within-layer ids [B] → absolute [L, B]
-        L = ks.shape[0]
-        pages = torch.arange(L, device=pages.device)[:, None] * (k_pages.shape[0] // L) + pages
-    _kv_write_plain(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets)
+    if form == "layer":
+        row_s, row_b, off_s = ks.stride(1), ks.stride(0), B
+    else:
+        row_s, row_b, off_s, page_base = ks.stride(0), ks.stride(1), 0, 0
+    code = lib.vzt_paged_kv_update(*ptrs, S, B, Hkv, D, ps, page_base, row_s, row_b, off_s,
+                                   stream)
+    _kernels.check(code, "vzt_paged_kv_update")
+    update_launches += 1
+
+
+def _kv_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets, form: str,
+              page_base: int = 0) -> None:
+    if vs.shape != ks.shape or k_pages.shape[1] != ks.shape[2] or k_pages.shape[3] != ks.shape[3]:
+        raise ValueError(f"{_FORM_NAMES[form]}: rows {tuple(ks.shape)} / {tuple(vs.shape)} do "
+                         f"not fit pool {tuple(k_pages.shape)}")
+    if _kernels.use_kernel(k_pages):
+        _launch_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets, form,
+                      page_base)
+        return
+    _kv_write_plain(k_pages, v_pages, k_scales, v_scales,
+                    *_plain_order(k_pages, ks, vs, pages, offsets, form, page_base))
 
 
 def paged_kv_update_rows(
@@ -744,7 +784,7 @@ def paged_kv_update_rows(
     """Write one decode step's K/V rows of every layer: slot b's row of layer
     l lands at page `l·P + pages[b]`, row `offsets[b]` (its V row at
     `ps + offsets[b]` of the same page in a fused pool). Returns the pools."""
-    _kv_write(k_pages, v_pages, None, None, ks, vs, pages, offsets, absolute=False)
+    _kv_write(k_pages, v_pages, None, None, ks, vs, pages, offsets, "rows")
     return k_pages, v_pages
 
 
@@ -760,7 +800,7 @@ def paged_kv_update_rows_q(
 ):
     """`paged_kv_update_rows` for int8 pools: each row is absmax-quantized
     (`quantize_kv`) and written with its scale."""
-    _kv_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets, absolute=False)
+    _kv_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets, "rows")
     return k_pages, v_pages, k_scales, v_scales
 
 
@@ -774,9 +814,10 @@ def paged_kv_update(
 ):
     """The JAX package's `paged_kv_update` contract: row (l, b) lands at pool
     page `page_ids[l, b]`, row `offsets[b]` (its V row at `ps + offsets[b]`
-    in a fused pool). The verify step calls it with L = 1, once per candidate
-    row and layer. Inactive slots pass the trash page 0. Returns the pools."""
-    _kv_write(k_pages, v_pages, None, None, ks, vs, page_ids, offsets, absolute=True)
+    in a fused pool); rows that meet on one pool row leave the last in (l, b)
+    order. The served steps call `paged_kv_update_layer`, the same K4 entry.
+    Returns the pools."""
+    _kv_write(k_pages, v_pages, None, None, ks, vs, page_ids, offsets, "update")
     return k_pages, v_pages
 
 
@@ -792,7 +833,44 @@ def paged_kv_update_q(
 ):
     """`paged_kv_update` for int8 pools: each row is absmax-quantized
     (`quantize_kv`, in the kernel on the card) and written with its scale."""
-    _kv_write(k_pages, v_pages, k_scales, v_scales, ks, vs, page_ids, offsets, absolute=True)
+    _kv_write(k_pages, v_pages, k_scales, v_scales, ks, vs, page_ids, offsets, "update")
+    return k_pages, v_pages, k_scales, v_scales
+
+
+def paged_kv_update_layer(
+    k_pages: torch.Tensor,            # [L·P, Hkv, ps, D] (2·ps fused), written in place
+    v_pages: Optional[torch.Tensor],  # None: KV-fused pool
+    ks: torch.Tensor,                 # [B, S, Hkv, D] — a layer's S rows a slot, as projected
+    vs: torch.Tensor,
+    pages: torch.Tensor,              # [S, B] int32 within-layer page of row (s, b)
+    offsets: torch.Tensor,            # [S, B] int32 row within the page
+    page_base: int,                   # the layer's first pool page, layer · P
+):
+    """Write S rows a slot of one layer in one K4 launch: row (b, s) lands at
+    pool page `page_base + pages[s, b]`, row `offsets[s, b]` (its V row at
+    `ps + offsets[s, b]` in a fused pool). Rows that meet on one pool row
+    (the trash page 0's: inactive slots' pad rows, rows forced there past a
+    slot's span) leave the last in (s, b) order, as S sequential
+    `paged_kv_update` calls do. `ks` / `vs` may be strided views (`k[:, :1]`):
+    no copy is made. Returns the pools."""
+    _kv_write(k_pages, v_pages, None, None, ks, vs, pages, offsets, "layer", page_base)
+    return k_pages, v_pages
+
+
+def paged_kv_update_layer_q(
+    k_pages: torch.Tensor,            # int8, written in place
+    v_pages: Optional[torch.Tensor],
+    k_scales: torch.Tensor,           # [L·P, Hkv, rows] f32, written in place
+    v_scales: Optional[torch.Tensor],
+    ks: torch.Tensor,                 # [B, S, Hkv, D] float
+    vs: torch.Tensor,
+    pages: torch.Tensor,              # [S, B] int32 within-layer
+    offsets: torch.Tensor,            # [S, B] int32
+    page_base: int,
+):
+    """`paged_kv_update_layer` for int8 pools: each row is absmax-quantized
+    (`quantize_kv`, in the kernel on the card) and written with its scale."""
+    _kv_write(k_pages, v_pages, k_scales, v_scales, ks, vs, pages, offsets, "layer", page_base)
     return k_pages, v_pages, k_scales, v_scales
 
 

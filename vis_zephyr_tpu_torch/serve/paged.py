@@ -25,12 +25,14 @@ addressed through per-slot page tables, so a request occupies only
   K/V as an online-softmax self-term, and after the layer loop all layers'
   rows are written by one launch (`paged_kv_update_rows{,_q}`). The older
   "writefirst" step (the JAX package's measured fallback) writes each
-  layer's row first (`paged_kv_update{,_q}`) and attends over the pool with
-  the token in it (`paged_attention`); no batcher takes it by default.
+  layer's row first (`paged_kv_update_layer{,_q}`) and attends over the
+  pool with the token in it (`paged_attention`); no batcher takes it by
+  default.
 - the speculative verify step (`lookahead`) writes its S = lookahead + 1
-  candidate rows first, one single-layer row write per row and layer
-  (`paged_kv_update{,_q}`), then attends all S rows at once without a
-  self-term; the host then rolls `lengths` back to the accepted prefix.
+  candidate rows first, all of a layer's in one launch
+  (`paged_kv_update_layer{,_q}`; the JAX step writes one row a call), then
+  attends all S rows at once without a self-term; the host then rolls
+  `lengths` back to the accepted prefix.
 - int8 KV (`kv_quant=True`): pools hold int8 rows with per-row absmax scales
   (row ≈ int8 · scale / 127.5). Admission quantizes on write, the decode
   write quantizes in the kernel, and the attention kernel folds the scales
@@ -63,8 +65,8 @@ import torch
 from ..config import VisZephyrConfig
 from ..models.mistral import _project_qkv, embed, rms_norm, rope_cos_sin
 from ..models.vis_zephyr import VisZephyr
-from ..ops.paged_attention import (paged_attention, paged_attention_fa, paged_kv_update,
-                                   paged_kv_update_q, paged_kv_update_rows,
+from ..ops.paged_attention import (paged_attention, paged_attention_fa, paged_kv_update_layer,
+                                   paged_kv_update_layer_q, paged_kv_update_rows,
                                    paged_kv_update_rows_q, quantize_kv)
 from .batching import ContinuousBatcher, _prefill_kv, _Request, not_ported
 from .generate import SamplingConfig, _sample
@@ -203,9 +205,10 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
       the current token's K/V folded in as the attention kernel's
       self-term; after the layer loop ALL layers' rows are written by one
       launch (every layer of a slot shares one page id and offset).
-    - "writefirst": each layer writes its row first (`paged_kv_update{,_q}`
-      at absolute page `l·P + page`, one launch a layer) and attends over
-      the pool with the token in it (`paged_attention`, lengths + 1).
+    - "writefirst": each layer writes its row first
+      (`paged_kv_update_layer{,_q}` at page `l·P + page`, one launch a
+      layer) and attends over the pool with the token in it
+      (`paged_attention`, lengths + 1).
     Any other value raises `ValueError` (the JAX step takes every other
     string as "writefirst").
 
@@ -268,12 +271,12 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
             ks_rows.append(k_new)
             vs_rows.append(v_new)
         else:
-            page_ids = (cur_page + i * P)[None]                     # [1, B] absolute
-            k_row, v_row = k_new[None].contiguous(), v_new[None].contiguous()
             if ksp is None:
-                paged_kv_update(kp, vp, k_row, v_row, page_ids, offset)
+                paged_kv_update_layer(kp, vp, k[:, :1], v[:, :1], cur_page[None],
+                                      offset[None], i * P)
             else:
-                paged_kv_update_q(kp, vp, ksp, vsp, k_row, v_row, page_ids, offset)
+                paged_kv_update_layer_q(kp, vp, ksp, vsp, k[:, :1], v[:, :1], cur_page[None],
+                                        offset[None], i * P)
             attn = paged_attention(q[:, 0], kp, vp, page_table, lengths_next,
                                    sliding_window=window, k_scales=ksp, v_scales=vsp,
                                    page_offset=i * P)
@@ -304,16 +307,19 @@ def _paged_verify_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, leng
     proposals) in ONE cached forward and return the greedy token of every
     position.
 
-    Per layer, each candidate row's K/V is written into the pools first (S
-    single-layer row writes, `paged_kv_update{,_q}`: int8 pools quantize
-    them), then all S rows attend at once (`paged_attention_fa` with S rows
-    and no self-term: row j at position `lengths + j` attends causally
-    through the pool, rows j' ≤ j included).
+    Per layer, the S candidate rows' K/V are written into the pools first,
+    in one launch (`paged_kv_update_layer{,_q}`, the rows as projected:
+    int8 pools quantize them; the JAX step writes one row a call, since
+    its TPU kernel rewrites whole row tiles), then all S rows attend at once
+    (`paged_attention_fa` with S rows and no self-term: row j at position
+    `lengths + j` attends causally through the pool, rows j' ≤ j included).
 
     Rows past a slot's allocated span land on the trash page (unallocated
     table entries are 0), and rows past `cache_len` are FORCED there:
     clamping their page index would overwrite the slot's last committed
     page. Inactive slots write their S pad rows to page 0 and attend them.
+    Where two rows meet on a trash-page row, the last in (s, b) order is
+    written, as S sequential calls leave it.
     The caller overwrites `lengths` with the accepted prefix. The pools are
     updated IN PLACE; `lengths` is not. Returns (greedy [B, S], logits
     [B, S, V] f32). (The JAX step's mesh and multi-LoRA arguments come with
@@ -349,13 +355,10 @@ def _paged_verify_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, leng
     for i, layer in enumerate(decoder.model.layers):
         hn = rms_norm(h, layer.input_layernorm.weight, dec.rms_norm_eps)
         q, k, v = _project_qkv(hn, layer.self_attn, dec, cos, sin)
-        for s in range(S):
-            page_ids = (pages[s] + i * P)[None]         # [1, B] absolute
-            k_s, v_s = k[:, s][None].contiguous(), v[:, s][None].contiguous()
-            if ksp is None:
-                paged_kv_update(kp, vp, k_s, v_s, page_ids, offsets[s])
-            else:
-                paged_kv_update_q(kp, vp, ksp, vsp, k_s, v_s, page_ids, offsets[s])
+        if ksp is None:
+            paged_kv_update_layer(kp, vp, k, v, pages, offsets, i * P)
+        else:
+            paged_kv_update_layer_q(kp, vp, ksp, vsp, k, v, pages, offsets, i * P)
         attn = paged_attention_fa(q, kp, vp, page_table, lengths_attn, lengths_eff,
                                   sliding_window=window, k_scales=ksp, v_scales=vsp,
                                   page_offset=i * P)
