@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch port's serving paths: one request at a time
 over a dense cache, and continuous batching over int8 KV-fused page pools,
 each with bf16 weights, int8 weights (`--load-8bit`) and int4 weights
-(`--load-4bit`), and each with prompt-lookup speculation (`--lookahead`);
+(`--load-4bit`), each with prompt-lookup speculation (`--lookahead`) and
+each with multi-step bursts replayed as CUDA graphs (`--multi-step`);
 the writefirst paged decode step; the fused int8 MLP probe; the trainer,
 stage 1 and stage 2; and the batched-head and slot-grouped attention
 probes.
@@ -146,6 +147,30 @@ toolkit; exits non-zero on a machine without a card. Phases:
              batch of 16 on clones of int8 fused and bf16 split pools:
              kernel vs plain path cosine >= 0.999 on every column, column 0
              vs the decode step >= 0.99 (int8) and >= 0.999 (bf16);
+12b. multistep — multi-step bursts (`--multi-step 8`); every served decode
+             step is a CUDA-graph replay, in bursts of one by default: a
+             fixed batch of 32 slots (int8 fused pools) stepped 8 times by
+             replays and 8 times by eager kernel-path `_paged_step`s on
+             clones of its state (tokens equal on every slot at every step,
+             logits cosine >= 0.999 per slot per step, K3 and K4 counted
+             exactly, a replay as a launch); a burst of 8 on graphs against
+             8 eager steps with the carry on the host, budgets 1 to 9 and an
+             EOS inside the burst (tokens, alive masks, pools and lengths
+             exactly equal); a burst of 8 against the same burst under
+             `plain_versions()` (each slot's first differing step printed;
+             last-step cosine >= 0.999 on the slots that never differ, at
+             least 16 of them); the paged server burst of 48 requests with
+             `--multi-step 8` (every reply HTTP 200 with all its tokens, K3 =
+             32 x decode steps and K4 = decode steps with a burst's steps
+             counted, bursts run, every page back); the B = 1 dense step
+             replayed against the eager `decode_step`, 9 steps bit for bit;
+             two dense /chat requests with `--multi-step 8` and the same two
+             with `--multi-step 1` (K1 and K2 exact, streams equal); then,
+             printed and not gated, the wall, device busy and idle share per
+             token of the 32-slot step and of the B = 1 dense step run
+             eagerly and in bursts of 1, 4, 8 and 16, the captures' host
+             time and graph pools' memory, and a burst of 8 on int8 and on
+             int4 weights in phases 15 and 16;
 13. profile — only with --profile: wall, device-busy and idle share of one
              batched decode step at B=32, of one verify step (S = 5) and of
              one dense decode step (B = 1), their kernel launches per step
@@ -215,7 +240,7 @@ toolkit; exits non-zero on a machine without a card. Phases:
              timed call's output gated against the plain version.
 
 `--phases` runs a subset (kernels, slice1, paged, batch, writefirst, spec,
-profile, precision, int8, mlp_probe, int4, train, attn_probes) and then
+multistep, profile, precision, int8, mlp_probe, int4, train, attn_probes) and then
 prints no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
@@ -224,6 +249,7 @@ last is a JSON object with one entry per kernel; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import gc
 import http.client
@@ -2097,11 +2123,13 @@ def paged_requests(rng, cfg, n: int, repeat: bool = False):
 
 
 def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int = 48,
-                     label: str = "paged", lookahead: int = 0, repeat: bool = False) -> dict:
+                     label: str = "paged", lookahead: int = 0, repeat: bool = False,
+                     multi_step: int = 1) -> dict:
     """The paged server under a burst of `n` concurrent /chat requests, with
     `--lookahead` when `lookahead` > 0 (then every scheduler step is a verify
-    step of S = lookahead + 1 rows per slot); `repeat`: repetitive questions
-    (`paged_requests`)."""
+    step of S = lookahead + 1 rows per slot) and `--multi-step` (a scheduler
+    step with no admission work waiting runs that many decode steps, each
+    counted in `steps`); `repeat`: repetitive questions (`paged_requests`)."""
     import numpy as np
 
     from vis_zephyr_tpu_torch.ops import flash_attention as fa
@@ -2113,7 +2141,8 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
     parser = argparse.ArgumentParser()
     api.add_engine_args(parser)
     flags = parser.parse_args(PAGED_FLAGS + ["--max-new-tokens", str(new_tokens),
-                                             "--lookahead", str(lookahead)])
+                                             "--lookahead", str(lookahead),
+                                             "--multi-step", str(multi_step)])
     engine = api.engine_from_args(model, cfg, WordTokenizer(cfg.decoder.vocab_size), flags)
     b = engine.batcher
     side = cfg.vision.image_size
@@ -2150,7 +2179,7 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
         fa.launches = kv_cache.launches = pa.attn_launches = pa.rows_launches = 0
         pa.update_launches = 0
         reset_routes()
-        b.steps = b.slots_stepped = b.verify_steps = b.proposed = b.accepted = 0
+        b.steps = b.slots_stepped = b.verify_steps = b.proposed = b.accepted = b.bursts = 0
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(requests)) as pool:
             results = list(pool.map(
@@ -2171,8 +2200,12 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
     S = lookahead + 1
     steps = b.verify_steps if lookahead else b.steps
     kind = f"verify steps (S = {S})" if lookahead else "decode steps"
-    print(f"{label}: {n} requests, all HTTP 200 with {new_tokens} tokens; {steps} {kind}, "
+    bursts = (f" ({b.bursts} bursts of {b.multi_step} = {b.bursts * b.multi_step} of them, "
+              f"{b.graphs.captures} capture)" if multi_step > 1 else "")
+    print(f"{label}: {n} requests, all HTTP 200 with {new_tokens} tokens; {steps} {kind}{bursts}, "
           f"mean active slots per step {b.slots_stepped / steps:.2f} of {b.max_slots}")
+    if multi_step > 1 and b.bursts == 0:
+        raise AssertionError(f"{label}: no scheduler step ran a burst")
     # Quantized weights: every chunk (256 rows) takes the dequantize route,
     # every decode step (M = max_slots) the kernel, every verify step (M =
     # max_slots x S) whichever route its rows take; plus each request's
@@ -2848,6 +2881,296 @@ def run_spec_batch(model, cfg, seed: int) -> dict:
     return out
 
 
+# -- multi-step bursts (--multi-step) ------------------------------------------------------
+
+BURST_STEPS = 8             # the fixed batch's compared steps, and the served bursts' size
+BURST_SIZES = (1, 4, 8, 16)  # the timed bursts
+
+
+def first_differences(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """{slot: first step where toks a and b [n, B] differ}."""
+    diff = (a != b).cpu()
+    return {slot: int(torch.nonzero(diff[:, slot])[0, 0]) + 1
+            for slot in range(diff.shape[1]) if bool(diff[:, slot].any())}
+
+
+def run_burst_batch(model, cfg, seed: int, card: str) -> dict:
+    """A fixed batch of 32 slots (int8 KV-fused pools, the profile's shape):
+    eight graph-replayed steps (`_paged_multi_step` bursts of one, the graph
+    captured first and the state put back in place) against eight eager
+    `_paged_step`s on the kernel path, on clones of its state: tokens equal
+    on every slot at every step and logits cosine >= 0.999 per slot per step
+    (a slot whose token differs is printed with its step and compared no
+    further; any such slot fails the phase); K3 and K4 counted exactly, a
+    replay as a launch. Then a burst of 8 (graphs) against the same burst
+    under `plain_versions()` (eager, plain kernels): each slot's first
+    differing token printed (bf16 ties between two arithmetic orders),
+    logits cosine >= 0.999 at the last step on the slots that never
+    differed, at least half of the slots without a difference."""
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+    from vis_zephyr_tpu_torch.serve.graphs import StepGraphs
+    from vis_zephyr_tpu_torch.serve.paged import _paged_multi_step, _paged_step
+
+    L = cfg.decoder.num_layers
+    b = admitted_batcher(model, cfg, direct_requests(cfg, seed, 32), 32, kv_quant=True,
+                         kv_fused=True)
+    active = torch.ones(32, dtype=torch.bool, device=b.device)
+    left = torch.full((32,), 64, dtype=torch.int32, device=b.device)
+    admitted = [b.kp, b.vp, b.ksp, b.vsp, b.lengths, b.token]
+
+    def clone():
+        return [None if t is None else t.clone() for t in admitted]
+
+    def burst(state, n, graphs):
+        kp, vp, ksp, vsp, lengths, token = state
+        return _paged_multi_step(model, kp, vp, (ksp, vsp), b.page_table, lengths, token, active,
+                                 left, None, cfg, b.sampling, n=n, graphs=graphs)
+
+    graphed, eager, graphs = clone(), clone(), StepGraphs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    burst(graphed, 1, graphs)  # the warm-up step, then the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    for t, a in zip(graphed, admitted):
+        if t is not None:
+            t.copy_(a)  # in place: the graph keeps reading these buffers
+    before = (pa.attn_launches, pa.rows_launches)
+    diverged, cos_min = {}, 1.0
+    for step in range(1, BURST_STEPS + 1):
+        toks, _, logits_g = burst(graphed, 1, graphs)
+        kp, vp, ksp, vsp, lengths, token = eager
+        tok_e, logits_e = _paged_step(model, kp, vp, (ksp, vsp), b.page_table, lengths, token,
+                                      active, None, cfg, b.sampling)
+        cos = slot_cosines(logits_g, logits_e).tolist()
+        same = (toks[0] == tok_e).tolist()
+        for slot in range(32):
+            if slot in diverged:
+                continue
+            cos_min = min(cos_min, cos[slot])
+            if not same[slot]:
+                diverged[slot] = step
+                print(f"multistep batch: slot {slot} differs at step {step}: graph token "
+                      f"{int(toks[0, slot])}, eager {int(tok_e[slot])}, logits cosine "
+                      f"{cos[slot]:.6f}")
+    counted = (pa.attn_launches - before[0], pa.rows_launches - before[1])
+    want = (2 * BURST_STEPS * L, 2 * BURST_STEPS)
+    same_pools = all(torch.equal(g, e) for g, e in zip(graphed, eager) if g is not None)
+    same_lengths = torch.equal(graphed[4], eager[4])
+    print(f"multistep batch: 32 slots, lengths about {int(b.slot_len.mean())}, int8 fused pools: "
+          f"{BURST_STEPS} graph-replayed steps against {BURST_STEPS} eager kernel-path steps: tokens "
+          f"equal on {32 - len(diverged)} of 32 slots at every step, logits cosine min "
+          f"{cos_min:.6f} (>= 0.999); lengths equal {same_lengths}, pools and scales bit-equal "
+          f"{same_pools}; K3 {counted[0]} and K4 {counted[1]} launches (want {want[0]} and "
+          f"{want[1]}: the replays' and the eager steps'); warm-up step and capture "
+          f"{capture_s:.2f} s, graph pool {graphs.pool_bytes() / 2**20:.1f} MiB [{card}]")
+    if diverged or not cos_min >= 0.999 or not same_lengths or counted != want:
+        raise AssertionError("multistep batch: the replayed step disagrees with the eager step")
+
+    # A burst of 8 on graphs against 8 eager kernel-path steps with the carry
+    # kept on the host, budgets of 1 to 9 and an EOS falling inside the burst.
+    probe = clone()
+    for _ in range(3):
+        tok3, _ = _paged_step(model, *probe[:2], tuple(probe[2:4]), b.page_table, probe[4],
+                              probe[5], active, None, cfg, b.sampling)
+    sampling = dataclasses.replace(b.sampling, eos_token_id=int(tok3[5]))
+    budgets = torch.tensor([1 + slot % 9 for slot in range(32)], dtype=torch.int32,
+                           device=b.device)
+    graphed, eager = clone(), clone()
+    before = (pa.attn_launches, pa.rows_launches)
+    kp, vp, ksp, vsp, lengths, token = graphed
+    toks_g, entry_g, logits_g = _paged_multi_step(
+        model, kp, vp, (ksp, vsp), b.page_table, lengths, token, active, budgets, None, cfg,
+        sampling, n=BURST_STEPS, graphs=StepGraphs())
+    kp, vp, ksp, vsp, lengths, token = eager
+    alive, left, want_toks, want_entry = active.clone(), budgets.clone(), [], []
+    for _ in range(BURST_STEPS):
+        want_entry.append(alive.clone())
+        tok, logits_e = _paged_step(model, kp, vp, (ksp, vsp), b.page_table, lengths, token,
+                                    alive, None, cfg, sampling)
+        want_toks.append(tok.clone())
+        left -= 1
+        alive = alive & (tok != sampling.eos_token_id) & (left > 0)
+    counted_burst = (pa.attn_launches - before[0], pa.rows_launches - before[1])
+    checks = dict(tokens=torch.equal(toks_g, torch.stack(want_toks)),
+                  entry_alive=torch.equal(entry_g, torch.stack(want_entry)),
+                  lengths=torch.equal(graphed[4], eager[4]),
+                  pools=all(torch.equal(g, e) for g, e in zip(graphed, eager) if g is not None),
+                  counts=counted_burst == want)
+    ended = int((~alive).sum())
+    print(f"multistep batch: a burst of {BURST_STEPS} on graphs (the warm-up step, then "
+          f"{BURST_STEPS - 1} replays) against {BURST_STEPS} eager kernel-path steps with the "
+          f"carry on the host, budgets 1 to 9 and EOS {sampling.eos_token_id}: {ended} of 32 "
+          f"slots ended inside it; equal {checks}; last logits bit-equal "
+          f"{torch.equal(logits_g, logits_e)}, max abs difference "
+          f"{float((logits_g - logits_e).abs().max()):.3g} [{card}]")
+    if not all(checks.values()):
+        raise AssertionError("multistep batch: the graph burst's carry disagrees with the eager "
+                             f"steps: {checks}")
+
+    kern, plain = clone(), clone()
+    toks_k, alive_k, logits_k = burst(kern, BURST_STEPS, StepGraphs())
+    with _kernels.plain_versions():
+        toks_p, alive_p, logits_p = burst(plain, BURST_STEPS, None)
+    firsts = first_differences(toks_k, toks_p)
+    kept = [slot for slot in range(32) if slot not in firsts]
+    cos = slot_cosines(logits_k, logits_p)[kept] if kept else torch.zeros(1)
+    print(f"multistep batch: a burst of {BURST_STEPS} (graph replays) against the same burst under "
+          f"plain_versions(): {len(kept)} of 32 slots equal at every step; the others' first "
+          f"different step {firsts}; last-step logits cosine on the equal slots min "
+          f"{float(cos.min()):.6f} (>= 0.999); alive masks equal {torch.equal(alive_k, alive_p)}")
+    if len(kept) < 16 or not float(cos.min()) >= 0.999 or not torch.equal(alive_k, alive_p):
+        raise AssertionError("multistep batch: the graph burst disagrees with the plain burst")
+    del b, graphed, eager, probe, kern, plain, graphs
+    torch.cuda.empty_cache()
+    return {"k3": counted[0], "k4": counted[1], "capture_s": capture_s}
+
+
+def run_burst_dense(model, cfg, seed: int, max_new_tokens: int, card: str) -> dict:
+    """The B = 1 dense step replayed against the eager `decode_step` on the
+    kernel path, bit for bit: a text prompt prefilled once, a burst of 1
+    (the warm-up step and the capture) and a burst of 8 replays on the
+    cache, 9 eager steps on a clone of it; tokens, K, V and lengths equal.
+    Then two dense /chat requests through the server started with
+    `--multi-step 8`, and the same two with `--multi-step 1` (bursts of
+    one): K1 once a layer a request, K2 once a layer a decode step (every
+    step of a burst counted), exactly, and the two runs' streams equal."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.serve import api
+    from vis_zephyr_tpu_torch.serve.generate import (SamplingConfig, decode_multi_step,
+                                                     decode_step, prefill)
+    from vis_zephyr_tpu_torch.serve.graphs import StepGraphs
+
+    L = cfg.decoder.num_layers
+    ids = torch.randint(3, cfg.decoder.vocab_size, (1, 170),
+                        generator=torch.Generator().manual_seed(seed + 5)).cuda()
+    last, cache, _ = prefill(model, ids, None, None, cfg, 512)
+    eager = {name: t.clone() for name, t in cache.items()}
+    token, graphs, sampling = last.argmax(-1), StepGraphs(), SamplingConfig(eos_token_id=-1)
+    got, tok = [], token
+    for n in (1, BURST_STEPS):
+        toks, _, tok = decode_multi_step(model, cache, tok, None, cfg, sampling, n, graphs)
+        got.append(toks)
+    want = []
+    for _ in range(1 + BURST_STEPS):
+        logits, eager = decode_step(model, eager, token, cfg)
+        token = logits.argmax(-1)
+        want.append(token)
+    checks = dict(tokens=torch.equal(torch.cat(got), torch.stack(want)),
+                  **{name: torch.equal(cache[name], eager[name]) for name in ("k", "v", "length")})
+    print(f"multistep dense: a burst of 1 and a burst of {BURST_STEPS} on graphs ({BURST_STEPS} "
+          f"replays after the warm-up step) against {1 + BURST_STEPS} eager decode steps, B=1 "
+          f"from position 170: bit-equal {checks} [{card}]")
+    if not all(checks.values()):
+        raise AssertionError(f"multistep dense: the replayed step disagrees with the eager step: "
+                             f"{checks}")
+    del cache, eager, graphs
+    side = cfg.vision.image_size
+    rng = np.random.default_rng(seed + 4)
+    images = [session_pixels(rng, side, 3) for _ in range(2)]
+    questions = ("describe the picture in detail", "what is happening on the street")
+    out = {}
+    for multi_step in (BURST_STEPS, 1):
+        parser = argparse.ArgumentParser()
+        api.add_engine_args(parser)
+        flags = parser.parse_args(["--max-new-tokens", str(max_new_tokens),
+                                   "--multi-step", str(multi_step)])
+        engine = api.engine_from_args(model, cfg, WordTokenizer(cfg.decoder.vocab_size), flags)
+        for i, (px, valid) in enumerate(images):
+            engine.attach_pixels(f"m{i}", px, valid, (2 * side, side))
+        server, thread = start_server(engine)
+        try:
+            fa.launches = kv_cache.launches = 0
+            results = [post_chat(server.server_address[1], {
+                "session_id": f"m{i}", "question": f"{DEFAULT_IMAGE_TOKEN}\n{q}"})
+                for i, q in enumerate(questions)]
+            counts = dict(k1=fa.launches, k2=kv_cache.launches)
+        finally:
+            stop_server(server, thread)
+        streams = []
+        for status, text, ttft, total in results:
+            words = text.split()
+            if status != 200 or len(words) != max_new_tokens:
+                raise AssertionError(f"multistep dense, --multi-step {multi_step}: HTTP {status}, "
+                                     f"{len(words)} tokens (want {max_new_tokens})")
+            streams.append([int(w[1:]) for w in words])
+        want = (L * len(results), L * len(results) * (max_new_tokens - 1))
+        rates = [(max_new_tokens - 1) / (r[3] - r[2]) for r in results]
+        print(f"multistep dense, --multi-step {multi_step}: {len(results)} requests of "
+              f"{max_new_tokens} tokens; K1 {counts['k1']} (want {want[0]}), K2 {counts['k2']} "
+              f"(want {L} x {len(results) * (max_new_tokens - 1)} decode steps = {want[1]}); TTFT "
+              f"{', '.join(f'{r[2] * 1e3:.1f}' for r in results)} ms, decode "
+              f"{', '.join(f'{r:.2f}' for r in rates)} tokens/s [{card}]")
+        if (counts["k1"], counts["k2"]) != want:
+            raise AssertionError(f"multistep dense, --multi-step {multi_step}: counts {counts}")
+        out[multi_step] = dict(counts, streams=streams)
+    agree = [first_divergence(a, b) for a, b in zip(out[BURST_STEPS]["streams"], out[1]["streams"])]
+    print(f"multistep dense: the --multi-step {BURST_STEPS} and --multi-step 1 streams agree on "
+          f"their first {agree} of {max_new_tokens} tokens (want all)")
+    if out[BURST_STEPS]["streams"] != out[1]["streams"]:
+        raise AssertionError("multistep dense: the --multi-step 8 and 1 streams differ")
+    return {"k1": out[BURST_STEPS]["k1"], "k2": out[BURST_STEPS]["k2"], "agree": agree}
+
+
+def run_burst_timing(model, cfg, seed: int, card: str, label: str = "multistep",
+                     sizes=BURST_SIZES, dense: bool = True) -> dict:
+    """Wall per token of the 32-slot paged step (int8 KV-fused pools) run
+    eagerly (`_paged_step`, the CPU's and `plain_versions()`'s form, which
+    the batcher served before its steps were replayed) and in bursts of
+    each of `sizes` (the batcher's `_step_burst`, which ends in the burst's
+    one copy to the host), and, with `dense`, of the B = 1 dense step the
+    same way (the eager `decode_step`; `decode_multi_step` over the model's
+    burst cache); device busy and idle share (torch.profiler, as
+    `run_profile` reads a step) of the eager step and of the burst of
+    BURST_STEPS; the captures' host seconds and their graph pools' memory.
+    Printed, not gated."""
+    from vis_zephyr_tpu_torch.experiments import step_profile as sp
+
+    b = admitted_batcher(model, cfg, direct_requests(cfg, seed, 32), 32, kv_quant=True,
+                         kv_fused=True, max_new_tokens=512, num_pages=1 + 32 * 16)
+    rows = {}
+    runs = [("paged", 1, False)] + [("paged", n, True) for n in sizes]
+    if dense:
+        runs += [("dense", 1, False)] + [("dense", n, True) for n in sizes]
+    graphs = {"paged": b.graphs}
+    for path, n, in_burst in runs:
+        if path == "paged":
+            # The batcher's burst at n (a burst of one too), or the eager step.
+            step = functools.partial(b._step_burst, n) if in_burst else sp.paged_eager_step(b)
+        elif in_burst:
+            step, graphs["dense"] = sp.dense_burst(model, cfg, seed, n)
+        else:
+            step, _ = sp.dense_decode(model, cfg, seed)
+        profiled = 0 if in_burst and n != BURST_STEPS else 2 if in_burst else 4
+        counts = dict(warm=1, timed=4) if in_burst and n > 1 else dict(warm=2, timed=8)
+        got = sp.profile_step(step, per_call=n if in_burst else 1, profiled=profiled, **counts)
+        name = f"{path} burst of {n}" if in_burst else f"{path} eager single step"
+        rows[(path, n if in_burst else 0)] = got
+        device = (f", device busy {got['device_ms']:.2f} ms per token, idle share "
+                  f"{got['idle_share']:.2f}, {got['launches']:.1f} kernel launches per token"
+                  if profiled else "")
+        print(f"{label}: {name}{', B=32' if path == 'paged' else ', B=1'}: wall "
+              f"{got['wall_ms']:.2f} ms per token (min {got['wall_min_ms']:.2f}, max "
+              f"{got['wall_max_ms']:.2f}){device} [{card}]", flush=True)
+        if profiled and got["device_ms"] <= 0:
+            print(f"{label}: the profiler reported no device time for {name}")
+    if int(b.active.sum()) != 32:
+        raise AssertionError(f"{label}: a slot finished inside the timed steps")
+    for path, g in graphs.items():
+        if g is None:  # the dense step on the CPU runs eagerly
+            continue
+        print(f"{label}: {path} captures {g.captures} in {g.capture_seconds:.2f} s of host time "
+              f"(each with its warm-up step), graph pools {g.pool_bytes() / 2**20:.1f} MiB [{card}]")
+    del b
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_verify_routes(model, cfg, seed: int, card: str) -> None:
     """One verify step of 32 slots (S = 5: 160 rows) on quantized weights:
     every decoder projection takes the dequantize route (over the kernels'
@@ -2871,8 +3194,9 @@ def run_verify_routes(model, cfg, seed: int, card: str) -> None:
 
 def run_profile(model, cfg, seed: int, card: str, label: str = "profile",
                 lookahead: int = 0) -> None:
-    """One batched decode step at B=32 (a verify step of S = lookahead + 1
-    rows per slot when `lookahead` > 0): wall (host clock around steps that
+    """One batched decode step at B=32 (`PagedBatcher.step`: a replayed burst
+    of one; a verify step of S = lookahead + 1 rows per slot, eager, when
+    `lookahead` > 0): wall (host clock around steps that
     end in a synchronize), device-busy time, kernel launches per step and the
     largest device items (torch.profiler kernel sums; one stream, so kernels
     do not overlap)."""
@@ -3402,8 +3726,8 @@ def run_attn_probes(seed: int, gen, card: str) -> dict:
                 probes={"batched": batched["times"], "paired": paired["times"]})
 
 
-PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "profile", "precision",
-          "int8", "mlp_probe", "int4", "train", "attn_probes")
+PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "multistep", "profile",
+          "precision", "int8", "mlp_probe", "int4", "train", "attn_probes")
 
 
 def main(argv=None) -> None:
@@ -3499,6 +3823,13 @@ def main(argv=None) -> None:
               f"batches: bf16 ties may break apart) [{card}]")
         run_spec_batch(model, cfg, args.seed)
         done("spec")
+    if "multistep" in phases:
+        run_burst_batch(model, cfg, args.seed, card)
+        multistep_paged = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card,
+                                           label="multistep paged", multi_step=BURST_STEPS)
+        multistep_dense = run_burst_dense(model, cfg, args.seed, args.max_new_tokens, card)
+        run_burst_timing(model, cfg, args.seed, card)
+        done("multistep")
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
         run_profile(model, cfg, args.seed, card, label="spec profile", lookahead=SPEC_LOOKAHEAD)
@@ -3527,6 +3858,9 @@ def main(argv=None) -> None:
                                   label="int8 paged")
         int8_logits = run_fixed_batch_quant(model, cfg, args.seed, batch, card)
         run_verify_routes(model, cfg, args.seed, card)
+        if "multistep" in phases:
+            run_burst_timing(model, cfg, args.seed, card, label="int8 multistep",
+                             sizes=(BURST_STEPS,), dense=False)
         done("int8")
         if "profile" in phases:
             run_profile(model, cfg, args.seed, card, label="int8 profile")
@@ -3571,6 +3905,9 @@ def main(argv=None) -> None:
         paged4 = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card, n=16,
                                   label="int4 paged")
         run_fixed_batch_quant(model, cfg, args.seed, batch, card, int8=int8_logits)
+        if "multistep" in phases:
+            run_burst_timing(model, cfg, args.seed, card, label="int4 multistep",
+                             sizes=(BURST_STEPS,), dense=False)
         done("int4")
         if "profile" in phases:
             run_profile(model, cfg, args.seed, card, label="int4 profile")
@@ -3597,13 +3934,14 @@ def main(argv=None) -> None:
         print(f"partial run of phases {phases}: no result line")
         return
 
-    # The counts of the eight served runs (bf16, int8 and int4 weights on each
-    # path, and speculation on each path), each set to 0 just before its run
-    # and read just after it. `launches` is their sum and `launches_by_path`
-    # says which run gave what.
+    # The counts of the ten served runs (bf16, int8 and int4 weights on each
+    # path, speculation on each path and multi-step bursts on each path),
+    # each set to 0 just before its run and read just after it. `launches` is
+    # their sum and `launches_by_path` says which run gave what.
     runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
             "dense_int4": dense4, "paged_int4": paged4, "spec_dense": spec_dense,
-            "spec_paged": spec_paged, "writefirst": writefirst, "mlp_probe": mlp_probe,
+            "spec_paged": spec_paged, "multistep_dense": multistep_dense,
+            "multistep_paged": multistep_paged, "writefirst": writefirst, "mlp_probe": mlp_probe,
             "train": trained["train"], "train_lora": trained["train_lora"],
             "attn_probes": attn}
     by_path = {name: {path: run.get(key, 0) for path, run in runs.items()}
@@ -3623,6 +3961,7 @@ def main(argv=None) -> None:
                "paged_int8": paged_kernels + ("quant_matmul_int8",),
                "dense_int4": dense_kernels + both, "paged_int4": paged_kernels + both,
                "spec_dense": dense_kernels,
+               "multistep_dense": dense_kernels, "multistep_paged": paged_kernels,
                "spec_paged": ("dense_cache_append", "paged_attn_decode", "paged_kv_update"),
                "writefirst": ("paged_attn_decode", "paged_kv_update"),
                "mlp_probe": ("fused_mlp_matvec",),

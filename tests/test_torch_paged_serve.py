@@ -344,11 +344,11 @@ def test_left_out_options_raise_not_implemented(models):
     port = models[1]
     kw = dict(GEOMETRY, sampling=tgen.SamplingConfig(max_new_tokens=2))
     for option in (dict(mesh=object()), dict(metrics=object()), dict(draft=object()),
-                   dict(draft=object(), lookahead=2), dict(multi_step=4), dict(prefix_cache=True),
+                   dict(draft=object(), lookahead=2), dict(prefix_cache=True),
                    dict(mlora=object()), dict(adapter_names={"a": 1}), dict(lazy_alloc=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpaged.PagedBatcher(port, TCFG, **kw, **option)
-    for option in ({}, dict(lookahead=2)):
+    for option in ({}, dict(lookahead=2), dict(multi_step=4)):
         with pytest.raises(NotImplementedError, match="dense"):
             tbatching.ContinuousBatcher(port, TCFG, **option)
     b = tpaged.PagedBatcher(port, TCFG, **kw)
@@ -372,7 +372,8 @@ def test_left_out_options_raise_not_implemented(models):
     for option in (dict(continuous_batching=True, kv_cache="dense"),
                    dict(continuous_batching=True, kv_cache="dense", lookahead=2),
                    dict(draft_params=object(), lookahead=2),
-                   dict(mesh=object()), dict(multi_step=2), dict(metrics=object()),
+                   dict(continuous_batching=True, kv_cache="dense", multi_step=2),
+                   dict(mesh=object()), dict(metrics=object()),
                    dict(continuous_batching=True, kv_cache="paged", draft_params=object()),
                    dict(continuous_batching=True, kv_cache="paged", prefix_cache=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

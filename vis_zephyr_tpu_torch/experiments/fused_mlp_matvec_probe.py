@@ -47,6 +47,7 @@ BLOCK_I = (64, 128)  # K9's tilings: rows of I per block
 DEFAULT_BLOCK_I = 64
 
 launches = 0         # K9 launches in this process (reset by callers that count)
+_kernels.register_counters(__name__, "launches")
 
 
 def fused_mlp_matvec_plain(x, gate_q, gate_scale, up_q, up_scale, down_q, down_scale):

@@ -9,13 +9,19 @@ one batched verify step (S = 5) of 32 slots over int8 KV-fused pools
 (`PagedBatcher.step`, through `chip_smoke.admitted_batcher`). For each: the
 wall (host clock around steps that end in a synchronize, median of 16),
 device busy (kernel time a step; one stream), kernel launches a step and
-the largest device items.
+the largest device items. With `--multi-step N` (N > 1) it profiles the
+burst form beside each decode step too: a burst of N steps replayed as CUDA
+graphs (`serve/generate.py::decode_multi_step` over the dense step's bucket
+cache; `PagedBatcher.step` with `multi_step` N), each reading divided by N,
+so that a row reads per token.
 
 It uses only helpers that earlier checkouts of `chip_smoke.py` hold too
 (`build_model`, `admitted_batcher`, `direct_requests`, `device_items`), so
-this file copied into an earlier checkout profiles that checkout's port:
+this file copied into an earlier checkout profiles that checkout's port
+(the burst form needs a checkout that has it):
 
     python -m vis_zephyr_tpu_torch.experiments.step_profile [--seed N] [--label NAME]
+        [--multi-step N]
 
 Needs the card. Prints a line a step on lines that name the card, then the
 results as one JSON object.
@@ -37,9 +43,12 @@ DENSE_TOKENS = 170  # the prompt of PERF.md's dense decode step breakdown
 LOOKAHEAD = 4
 
 
-def profile_step(step, warm: int = 4, timed: int = 16, profiled: int = 8) -> dict:
+def profile_step(step, warm: int = 4, timed: int = 16, profiled: int = 8,
+                 per_call: int = 1) -> dict:
     """`step()` run `warm` times, then `timed` times by the host clock, then
-    `profiled` times under torch.profiler."""
+    `profiled` times under torch.profiler (none when 0: no device reading).
+    Each call runs `per_call` decode steps (a burst), and every reading is
+    per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import device_items
@@ -53,15 +62,18 @@ def profile_step(step, warm: int = 4, timed: int = 16, profiled: int = 8) -> dic
         step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+    walls = [w / per_call for w in walls]
+    wall = statistics.median(walls)
+    got = {"wall_ms": wall, "wall_min_ms": min(walls), "wall_max_ms": max(walls)}
+    if not profiled:
+        return got
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(profiled):
             step()
         torch.cuda.synchronize()
-    rows, busy = device_items(prof, profiled)
-    wall = statistics.median(walls)
-    return {"wall_ms": wall, "wall_min_ms": min(walls), "wall_max_ms": max(walls),
-            "device_ms": busy, "idle_share": 1 - busy / wall,
-            "launches": sum(r[2] for r in rows), "items": rows}
+    rows, busy = device_items(prof, profiled * per_call)
+    return dict(got, device_ms=busy, idle_share=1 - busy / wall,
+                launches=sum(r[2] for r in rows), items=rows)
 
 
 def dense_decode(model, cfg, seed: int):
@@ -76,6 +88,46 @@ def dense_decode(model, cfg, seed: int):
         state["cache"] = decode_step(model, state["cache"], token, cfg)[1]
 
     return step, state
+
+
+def paged_eager_step(b):
+    """A closure running one eager decode step of PagedBatcher `b`
+    (`_paged_step`, the form the CPU and `plain_versions()` run, as the
+    batcher served every step before its steps were replayed as CUDA
+    graphs), with its copy of the tokens to the host and the host's
+    transitions."""
+    from ..serve.paged import _paged_step
+
+    def step():
+        b._active_dev.copy_(torch.from_numpy(b.active))
+        _, b.last_logits = _paged_step(b.model, b.kp, b.vp, (b.ksp, b.vsp), b.page_table,
+                                       b.lengths, b.token, b._active_dev, b.generator, b.cfg,
+                                       b.sampling)
+        b._process_burst(b.token.cpu().numpy()[None], b.active[None].copy())
+
+    return step
+
+
+def dense_burst(model, cfg, seed: int, n: int):
+    """A closure running one burst of `n` dense decode steps (B = 1, greedy)
+    after a text prefill of DENSE_TOKENS tokens into the model's burst cache
+    of 1024 slots, ending in the burst's one copy of its tokens to the host;
+    and the bucket's `StepGraphs` (its captures and memory)."""
+    from ..serve.generate import SamplingConfig, burst_cache, decode_multi_step
+
+    rng = torch.Generator().manual_seed(seed)
+    ids = torch.randint(3, cfg.decoder.vocab_size, (1, DENSE_TOKENS), generator=rng).cuda()
+    fixed, graphs = burst_cache(model, cfg, 1, 1024, ids)
+    last, cache, _ = prefill(model, ids, None, None, cfg, 1024, cache=fixed)
+    state = {"token": last.argmax(-1)}
+    sampling = SamplingConfig(eos_token_id=-1)
+
+    def step():
+        toks, _, state["token"] = decode_multi_step(model, cache, state["token"], None, cfg,
+                                                    sampling, n, graphs)
+        toks.tolist()
+
+    return step, graphs
 
 
 def show_step(head: str, label: str, got: dict, card: str, n: int = 12) -> None:
@@ -99,6 +151,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--multi-step", type=int, default=1,
+                    help="also profile bursts of N decode steps (N > 1)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("step_profile: needs a CUDA card")
@@ -107,13 +161,21 @@ def main(argv=None) -> dict:
     out = {}
     step, _ = dense_decode(model, cfg, args.seed)
     out["dense_decode"] = profile_step(step)
+    n = args.multi_step
+    if n > 1:
+        step, _ = dense_burst(model, cfg, args.seed, n)
+        out[f"dense_burst{n}"] = profile_step(step, warm=1, timed=4, profiled=2, per_call=n)
     requests = chip_smoke.direct_requests(cfg, args.seed, 32)
-    for name, extra in (("paged_decode", {}),
-                        ("paged_verify", dict(lookahead=LOOKAHEAD, max_new_tokens=512,
-                                              num_pages=1 + 32 * 16))):
+    long = dict(max_new_tokens=512, num_pages=1 + 32 * 16)  # the budget for every step here
+    runs = [("paged_decode", {}, 1)]
+    if n > 1:
+        runs.append((f"paged_burst{n}", dict(long, multi_step=n), n))
+    runs.append(("paged_verify", dict(long, lookahead=LOOKAHEAD), 1))
+    for name, extra, per_call in runs:
         b = chip_smoke.admitted_batcher(model, cfg, requests, 32, kv_quant=True, kv_fused=True,
                                         **extra)
-        out[name] = profile_step(b.step)
+        counts = dict(warm=1, timed=4, profiled=2) if per_call > 1 else {}
+        out[name] = profile_step(b.step, per_call=per_call, **counts)
         if int(b.active.sum()) != 32:
             raise AssertionError(f"step_profile {name}: a slot finished inside the profile")
         del b

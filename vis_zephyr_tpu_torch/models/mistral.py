@@ -10,7 +10,8 @@ checkpoints load with `load_state_dict`.
 
 The KV cache is a dict `{"k": [L,B,S,Hkv,D], "v": ..., "length": [B] int32}`.
 `length[b]` is the number of valid slots of row b; decode writes at slot
-`length[b]` and increments. The cache tensors are updated in place.
+`length[b]` and increments. The cache tensors, `length` included, are
+updated in place.
 
 Training (`cache=None`): each decoder layer may run under
 `torch.utils.checkpoint` (`remat`, the JAX `jax.checkpoint` of the scan
@@ -142,6 +143,18 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat1
     }
 
 
+def new_token_mask(lengths: torch.Tensor, new_valid: torch.Tensor, S: int) -> torch.Tensor:
+    """Bool [B, S]: False at the cache slots where an appended token that is
+    not valid lands (slot `lengths[b] + t` for `new_valid[b, t]` False),
+    True elsewhere. Fixed-shape ops (a gather at clamped offsets) and no
+    boolean indexing, which would sync the host and could not be captured
+    in a CUDA graph."""
+    T = new_valid.shape[1]
+    offs = torch.arange(S, device=lengths.device)[None, :] - lengths[:, None].long()
+    is_new = (offs >= 0) & (offs < T)
+    return ~is_new | torch.gather(new_valid, 1, offs.clamp(0, T - 1))
+
+
 _MASK64 = (1 << 64) - 1
 
 
@@ -227,7 +240,10 @@ def mistral_forward(
       - cache given: appends T tokens at slots `cache.length[b] + arange(T)`
         (`dense_cache_update_rope`: kernel K2, which also applies K's RoPE,
         one launch a layer) and attends against the whole cache buffer with
-        plain attention.
+        plain attention. `cache["length"]` advances IN PLACE by the valid
+        new tokens (the returned cache holds the same tensors), and nothing
+        on this branch syncs the host, so a decode step can be captured as
+        a CUDA graph (`serve/graphs.py`).
 
     Returns (logits f32, new_cache_or_kv).
     """
@@ -282,11 +298,7 @@ def mistral_forward(
         mask = attention_mask(slot, slot_ids.expand(B, S), kv_valid=kv_valid_slots,
                               causal=True, sliding_window=cfg.sliding_window)
         # Padded new tokens are attended by no one.
-        pad_slots = torch.ones((B, S), dtype=torch.bool, device=dev)
-        rows = torch.arange(B, device=dev)[:, None].expand(B, T)
-        inside = slot < S
-        pad_slots[rows[inside], slot[inside]] = new_valid[inside]
-        mask &= pad_slots[:, None, :]
+        mask &= new_token_mask(lengths, new_valid, S)[:, None, :]
 
         for i, layer in enumerate(layers):
             hn = rms_norm(h, layer.input_layernorm.weight, cfg.rms_norm_eps)
@@ -296,11 +308,9 @@ def mistral_forward(
             h = h + layer.self_attn.o_proj(attn.reshape(B, T, -1))
             hn = rms_norm(h, layer.post_attention_layernorm.weight, cfg.rms_norm_eps)
             h = h + layer.mlp(hn)
-        new_cache = {
-            "k": ck,
-            "v": cv,
-            "length": lengths + new_valid.sum(dim=1).to(lengths.dtype),
-        }
+        # In place: a captured decode step reads and advances one buffer.
+        lengths.add_(new_valid.sum(dim=1).to(lengths.dtype))
+        new_cache = {"k": ck, "v": cv, "length": lengths}
 
     h = rms_norm(h, decoder.model.norm.weight, cfg.rms_norm_eps)
     if logits_slice == "last":

@@ -28,6 +28,7 @@ import functools
 import os
 import shutil
 import subprocess
+import sys
 import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,6 +75,27 @@ def plain_versions():
         yield
     finally:
         _plain = before
+
+
+# The launch counters: module-level ints that a wrapper adds one to where it
+# launches its kernel (or takes a counted route), as (module, name). Each
+# module files its own here beside their definitions; `serve/graphs.py`
+# carries the whole registry across CUDA-graph replays, which run no Python.
+COUNTERS: list = []
+
+
+def register_counters(module_name: str, *names: str) -> None:
+    """File the launch counters `names` of module `module_name`."""
+    module = sys.modules[module_name]
+    for name in names:
+        getattr(module, name)  # a misspelt name fails here, at import
+        if (module, name) not in COUNTERS:
+            COUNTERS.append((module, name))
+
+
+def counter_values() -> list:
+    """Every registered counter's value, in `COUNTERS` order."""
+    return [getattr(module, name) for module, name in COUNTERS]
 
 
 def use_kernel(t) -> bool:

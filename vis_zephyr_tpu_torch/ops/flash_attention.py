@@ -25,6 +25,7 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)  # K1's m on a row with n
 launches = 0           # K1 launches in this process (reset by callers that count)
 bwd_dkv_launches = 0   # K7 launches
 bwd_dq_launches = 0    # K8 launches
+_kernels.register_counters(__name__, "launches", "bwd_dkv_launches", "bwd_dq_launches")
 
 
 def flash_attention_plain(q, k, v, kv_valid, causal: bool, scale: float) -> torch.Tensor:

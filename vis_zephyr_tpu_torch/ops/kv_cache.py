@@ -18,6 +18,7 @@ import torch
 from . import _kernels
 
 launches = 0  # K2 launches in this process, both entries (reset by callers that count)
+_kernels.register_counters(__name__, "launches")
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

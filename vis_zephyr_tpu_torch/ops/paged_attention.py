@@ -65,6 +65,8 @@ batched_launches = 0  # K10 launches (`paged_attention_batched`)
 paired_launches = 0  # K11 launches (`paged_attention_paired`)
 rows_launches = 0  # K4 launches through `paged_kv_update_rows{,_q}`
 update_launches = 0  # K4 launches through `paged_kv_update{,_q}`, `paged_kv_update_layer{,_q}`
+_kernels.register_counters(__name__, "attn_launches", "batched_launches", "paired_launches",
+                           "rows_launches", "update_launches")
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -70,6 +70,7 @@ launches = 0         # K5 launches in this process (reset by callers that count)
 dequant_calls = 0    # int8 qlinear calls above QMM_MAX_M (the dequantize + matmul route)
 launches4 = 0        # K6 launches
 dequant4_calls = 0   # int4 qlinear calls outside K6's gate (the dequantize + matmul route)
+_kernels.register_counters(__name__, "launches", "dequant_calls", "launches4", "dequant4_calls")
 
 
 def quantized_matmul_plain(x: torch.Tensor, weight_q: torch.Tensor,

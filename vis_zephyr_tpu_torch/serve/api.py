@@ -7,7 +7,9 @@ carry the image unless one is already attached. With
 `--continuous-batching --kv-cache paged` requests of different sessions share
 decode steps over paged KV pools (`--kv-quant`, `--kv-fused`, `--page-size`,
 `--num-pages`, `--max-slots`, `--prefill-chunk`, defaults as in the JAX
-server). `--load-8bit` serves int8 weights on either path. The OpenAI
+server). `--lookahead N` (prompt-lookup speculation) and `--multi-step N`
+(bursts of N decode steps) reach both paths. `--load-8bit` serves int8
+weights on either path. The OpenAI
 endpoints, health, metrics, profiling and draining are not ported yet.
 """
 
@@ -131,6 +133,11 @@ def add_engine_args(p) -> None:
     p.add_argument("--lookahead", type=int, default=0,
                    help="prompt-lookup speculative decoding span (greedy only; 0 disables): "
                         "the serialized path and the paged continuous batcher")
+    p.add_argument("--multi-step", type=int, default=1,
+                   help="decode steps per burst (multi-step scheduling): the serialized path "
+                        "ramps 1, 2, 4, N; the paged batcher bursts when no admission work "
+                        "waits; one copy to the host a burst, each step a CUDA-graph replay "
+                        "on the card; token-exact under greedy. Ignored with --lookahead")
 
 
 def engine_from_args(model, cfg, tokenizer, a) -> ChatEngine:
@@ -140,7 +147,7 @@ def engine_from_args(model, cfg, tokenizer, a) -> ChatEngine:
                       continuous_batching=a.continuous_batching, max_slots=a.max_slots,
                       kv_cache=a.kv_cache, kv_quant=a.kv_quant, num_pages=a.num_pages,
                       prefill_chunk=a.prefill_chunk or None, kv_fused=a.kv_fused,
-                      page_size=a.page_size, lookahead=a.lookahead)
+                      page_size=a.page_size, lookahead=a.lookahead, multi_step=a.multi_step)
 
 
 def main(args=None):

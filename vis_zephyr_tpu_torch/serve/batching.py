@@ -18,10 +18,13 @@ The JAX batcher is functional (its jitted programs return new caches). Here
 the device state is updated in place, so exactly one thread may call `step`.
 `active`, `budget`, `slot_len` stay on the host as numpy, as there.
 
+The host side of multi-step bursts is here too (`_has_admission_work`,
+`_process_burst`); the paged batcher runs the burst on the device.
+
 Not ported yet, each raising `NotImplementedError` when asked for: the dense
-batcher's own device step (`ContinuousBatcher` itself), meshes, metrics,
-multi-LoRA adapters, per-request sampling overrides, grammars, logprobs,
-penalties, a draft model and multi-step bursts.
+batcher's own device step (`ContinuousBatcher` itself, its multi-step burst
+included), meshes, metrics, multi-LoRA adapters, per-request sampling
+overrides, grammars, logprobs, penalties and a draft model.
 """
 
 from __future__ import annotations
@@ -130,8 +133,6 @@ class ContinuousBatcher:
                 (mesh, "a device mesh (tensor-parallel serving)", "Queue A step 13"),
                 (metrics, "ServingMetrics", "Queue A step 10"),
                 (draft, "a draft model", "Queue A step 9"),
-                (multi_step > 1 and not (lookahead > 0 and sampling.temperature <= 0.0),
-                 "multi-step bursts", "Queue A step 7, to do"),
                 (mlora, "multi-LoRA serving", "Queue A step 10"),
                 (adapter_names, "multi-LoRA serving", "Queue A step 10")):
             if value:
@@ -146,6 +147,7 @@ class ContinuousBatcher:
         # Speculation is greedy only: silently off when sampling (and
         # multi-step is ignored while it is on), as in the JAX batcher.
         self.lookahead = lookahead if sampling.temperature <= 0.0 else 0
+        self.multi_step = max(1, int(multi_step)) if self.lookahead == 0 else 1
         self._prefilling = None
         self._reserved_slot = None
         self.token = torch.full((max_slots,), cfg.decoder.pad_token_id, dtype=torch.int64,
@@ -365,6 +367,36 @@ class ContinuousBatcher:
 
     def step(self) -> int:
         raise NotImplementedError
+
+    # -- multi-step bursts --------------------------------------------------------
+
+    def _has_admission_work(self) -> bool:
+        """Whether a request waits to be admitted: a burst then yields to a
+        burst of one, so that admission waits one decode step, not
+        `multi_step`."""
+        return self._prefilling is not None or not self.pending.empty()
+
+    def _process_burst(self, toks: np.ndarray, alive: np.ndarray) -> int:
+        """The host side of a burst: toks / alive [n, B], token (j, slot)
+        counts iff the slot was alive entering step j. The same emit, EOS and
+        budget transitions as single steps, which the device's alive and
+        steps-left carry mirrors. Returns the slot steps taken."""
+        stepped = 0
+        for j in range(toks.shape[0]):
+            for slot in range(self.max_slots):
+                if not (self.active[slot] and alive[j, slot]):
+                    continue
+                stepped += 1
+                tok = int(toks[j, slot])
+                if tok == self.sampling.eos_token_id:
+                    self._finish(slot)
+                    continue
+                self._emit(self.slot_req[slot], tok)
+                self.slot_len[slot] += 1
+                self.budget[slot] -= 1
+                if self.budget[slot] <= 0:
+                    self._finish(slot)
+        return stepped
 
     # -- speculation ------------------------------------------------------------
 

@@ -9,12 +9,13 @@ Port of `vis_zephyr_tpu/serve/engine.py`. Two modes:
   sessions share decode steps in a `PagedBatcher`, advanced by one
   background pump thread.
 
-`lookahead` (prompt-lookup speculation, greedy only) reaches both. A
-session's image is preprocessed once and kept on the device. Not ported
-yet, each raising `NotImplementedError` when asked for: the dense batcher
-(`kv_cache="dense"` under continuous batching), a draft model, multi-step
-bursts, meshes, adapters, metrics, the prefix cache and lazy allocation;
-draining and the OpenAI endpoints are not ported either.
+`lookahead` (prompt-lookup speculation, greedy only) and `multi_step`
+(bursts of decode steps, replayed as CUDA graphs on the card; ignored under
+`lookahead`) reach both. A session's image is preprocessed once and kept on
+the device. Not ported yet, each raising `NotImplementedError` when asked
+for: the dense batcher (`kv_cache="dense"` under continuous batching), a
+draft model, meshes, adapters, metrics, the prefix cache and lazy
+allocation; draining and the OpenAI endpoints are not ported either.
 """
 
 from __future__ import annotations
@@ -81,8 +82,10 @@ class ChatEngine:
             temperature=temperature,
             eos_token_id=cfg.decoder.eos_token_id if eos is None else int(eos),
         )
-        # Prompt-lookup speculation: the serialized path and the paged batcher.
+        # Prompt-lookup speculation and multi-step bursts: the serialized
+        # path and the paged batcher.
         self.lookahead = lookahead
+        self.multi_step = max(1, int(multi_step))
         self.sessions: Dict[str, Dict] = {}
         self._sessions_lock = threading.Lock()
         self._lock = threading.Lock()  # one generation at a time
@@ -121,8 +124,6 @@ class ChatEngine:
             for value, what, step in (
                     (mesh, "a device mesh", "Queue A step 13"),
                     (metrics, "ServingMetrics", "Queue A step 10"),
-                    (multi_step > 1 and not (lookahead > 0 and temperature <= 0.0),
-                     "multi-step bursts", "Queue A step 7, to do"),
                     (mlora, "multi-LoRA serving", "Queue A step 10")):
                 if value:
                     raise not_ported(what, step)
@@ -259,7 +260,7 @@ class ChatEngine:
             self._lock.acquire()
             stream = generate_stream(self.model, input_ids, sess["images"],
                                      sess["patch_valid"], self.cfg, self.sampling,
-                                     lookahead=self.lookahead)
+                                     lookahead=self.lookahead, multi_step=self.multi_step)
         try:
             for tok in stream:
                 produced.append(tok)

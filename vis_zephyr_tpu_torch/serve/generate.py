@@ -2,16 +2,22 @@
 
 Port of `vis_zephyr_tpu/serve/generate.py` for the single-request path:
 `SamplingConfig`, `pad_to_bucket`, `_sample` (greedy, temperature, top-p),
-`prefill`, `decode_step`, `decode_verify`, `_propose_lookup`, `generate` and
-`generate_stream`'s single-step loop and its prompt-lookup speculative loop
-(`lookahead`). PyTorch runs eagerly, so each decode step is one Python call
-over the layer stack. Multi-step bursts, grammars, logprobs, penalties and
+`prefill`, `decode_step`, `decode_multi_step`, `decode_verify`,
+`_propose_lookup`, `generate` (its decode loop is one burst) and
+`generate_stream`'s burst loop (bursts of `multi_step` decode steps, of one
+by default) and its prompt-lookup speculative loop (`lookahead`). On the
+card a burst of n steps replays one captured step n times
+(`serve/graphs.py`) over the model's fixed decode cache for the batch
+(`burst_cache`), where the JAX package compiles its step and `lax.scan`
+once per bucket; on the CPU, and inside `_kernels.plain_versions()`, it
+runs the eager `decode_step` n times. Grammars, logprobs, penalties and
 beams are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -21,6 +27,8 @@ from ..config import VisZephyrConfig
 
 from ..models.mistral import embed, init_cache, mistral_forward
 from ..models.vis_zephyr import VisZephyr, vis_zephyr_forward
+from ..ops import _kernels
+from .graphs import StepGraphs
 
 # Speculation counts of the dense path in this process (reset by callers that
 # count): verify calls, tokens proposed, proposals accepted.
@@ -76,9 +84,13 @@ def prefill(
     cfg: VisZephyrConfig,
     cache_len: int,
     text_valid: Optional[torch.Tensor] = None,
+    cache: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """Run the multimodal prefill; the per-layer K/V it returns are copied
-    into a fresh decode cache of `cache_len` slots. On a CUDA device the
+    into a fresh decode cache of `cache_len` slots, or into `cache` (a
+    `burst_cache` buffer of at least that many: rows past the prompt keep
+    what they held, which the decode mask never lets through). On a CUDA
+    device the
     spliced length is padded to a multiple of 128, the flash kernel's tile.
 
     Returns (last_logits [B, V] f32, cache, lengths [B])."""
@@ -93,10 +105,14 @@ def prefill(
     T = k.shape[2]
     if cache_len < T:
         raise ValueError(f"cache_len={cache_len} < prefill length {T}")
-    cache = init_cache(cfg.decoder, B, cache_len, dtype=model.dtype, device=k.device)
+    if cache is None:
+        cache = init_cache(cfg.decoder, B, cache_len, dtype=model.dtype, device=k.device)
+    elif cache["k"].shape[1] != B or cache["k"].shape[2] < cache_len:
+        raise ValueError(f"cache of {tuple(cache['k'].shape[1:3])} (batch, slots) given for "
+                         f"({B}, {cache_len})")
     cache["k"][:, :, :T] = k
     cache["v"][:, :, :T] = v
-    cache["length"] = lengths.to(torch.int32)
+    cache["length"].copy_(lengths)
     last = logits[torch.arange(B, device=logits.device), lengths.long() - 1]
     return last, cache, lengths
 
@@ -117,6 +133,89 @@ def decode_step(
         cache=cache, logits_slice="last",
     )
     return logits[:, 0], new_cache
+
+
+# The decode caches kept per model on the card: one a (batch, device), with
+# its captured step.
+_bursts: "weakref.WeakKeyDictionary[VisZephyr, Dict]" = weakref.WeakKeyDictionary()
+
+
+def burst_cache(model: VisZephyr, cfg: VisZephyrConfig, batch: int, cache_len: int,
+                like: torch.Tensor) -> Tuple[Optional[Dict], Optional[StepGraphs]]:
+    """(cache, graphs) for a burst over `batch` rows of at least `cache_len`
+    slots on the device of `like` (the prompt's ids).
+    On the card: the model's one fixed dense cache for that batch, reused
+    across requests so that they all replay one captured step, and its
+    `StepGraphs`. A request that needs more slots than the cache has
+    replaces it by one of `cache_len` slots (and a new capture), so the
+    cache settles at the longest request served; decode attends the whole
+    buffer, masked past each row's length. One generation at a time per
+    model (the engine's serialized path holds its lock). Elsewhere, and
+    inside `_kernels.plain_versions()`, (None, None): `prefill` makes a
+    fresh cache of `cache_len` slots and the burst runs eagerly."""
+    if not _kernels.use_kernel(like):
+        return None, None
+    caches = _bursts.setdefault(model, {})
+    key = (batch, like.device)
+    got = caches.get(key)
+    if got is None or got[0]["k"].shape[2] < cache_len:
+        caches.pop(key, None)  # the old cache and graph go before the new are made
+        got = caches[key] = (init_cache(cfg.decoder, batch, cache_len, dtype=model.dtype,
+                                        device=like.device), StepGraphs())
+    return got
+
+
+@torch.no_grad()
+def decode_multi_step(
+    model: VisZephyr,
+    cache: Dict,
+    token: torch.Tensor,  # [B]
+    generator: Optional[torch.Generator],
+    cfg: VisZephyrConfig,
+    sampling: SamplingConfig,
+    n: int,
+    graphs: Optional[StepGraphs] = None,
+) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """`n` chained `decode_step`s with sampling (the serialized path's
+    multi-step burst): step j decodes the token step j − 1 sampled. Returns
+    (toks [n, B] on the device, cache, last token); the caller copies toks
+    to the host once and discards tokens past an EOS (the cache's rows past
+    it are never read: the next request's prefill resets `length`).
+
+    On a CUDA tensor (outside `_kernels.plain_versions()`) each step is a
+    replay of one captured step (`graphs`, a `StepGraphs`; a throwaway one
+    when None) over `cache` and a fixed token buffer, which the returned
+    token is; `cache` must keep its tensors for the graphs' life
+    (`burst_cache`). Elsewhere the same step runs eagerly. Under greedy
+    decoding the tokens are those of n eager `decode_step`s; with
+    temperature > 0 the draws come from `generator` in the same order."""
+    B = token.shape[0]
+    dev = token.device
+    toks = torch.empty((n, B), dtype=torch.int64, device=dev)
+    if not _kernels.use_kernel(token):
+        for j in range(n):
+            logits, cache = decode_step(model, cache, token, cfg)
+            token = _sample(logits, generator, sampling)
+            toks[j] = token
+        return toks, cache, token
+    if graphs is None:
+        graphs = StepGraphs()
+    buf = graphs.buffers(("token", B), lambda: torch.empty(B, dtype=torch.int64, device=dev))
+    if token is not buf:
+        buf.copy_(token)
+
+    def step():
+        logits = decode_step(model, cache, buf, cfg)[0]
+        buf.copy_(_sample(logits, generator, sampling))
+        return logits
+
+    # The step reads the sampler's temperature and top-p, not the budget.
+    key = ("decode", B, *(cache[name].data_ptr() for name in ("k", "v", "length")),
+           sampling.temperature, sampling.top_p, generator)
+    for j in range(n):
+        graphs.run(key, step, dev, generator)
+        toks[j].copy_(buf)
+    return toks, cache, buf
 
 
 @torch.no_grad()
@@ -174,20 +273,22 @@ def generate(
     generator: Optional[torch.Generator] = None,
 ) -> np.ndarray:
     """Batch generation. Returns [B, max_new_tokens] token ids, EOS-padded
-    after each row stops."""
+    after each row stops. The decode loop (JAX `_decode_loop`) is one burst
+    of `max_new_tokens − 1` steps (`decode_multi_step`); a row's tokens
+    after its first EOS are replaced by EOS on the host."""
+    B = input_ids.shape[0]
     cache_len = _cache_len(input_ids.shape[1], images, cfg, sampling.max_new_tokens)
+    fixed, graphs = burst_cache(model, cfg, B, cache_len, input_ids)
     last_logits, cache, _ = prefill(model, input_ids, images, patch_valid, cfg, cache_len,
-                                    text_valid=text_valid)
+                                    text_valid=text_valid, cache=fixed)
     token = _sample(last_logits, generator, sampling)
-    done = token == sampling.eos_token_id
-    tokens = [token]
-    for _ in range(sampling.max_new_tokens - 1):
-        logits, cache = decode_step(model, cache, token, cfg)
-        token = _sample(logits, generator, sampling)
-        token = torch.where(done, sampling.eos_token_id, token)
-        done = done | (token == sampling.eos_token_id)
-        tokens.append(token)
-    return torch.stack(tokens, dim=1).cpu().numpy()
+    tokens = [token[None]]
+    if sampling.max_new_tokens > 1:
+        tokens.append(decode_multi_step(model, cache, token, generator, cfg, sampling,
+                                        sampling.max_new_tokens - 1, graphs)[0])
+    out = torch.cat(tokens).T.cpu().numpy()
+    eos = sampling.eos_token_id
+    return np.where(np.cumsum(out == eos, axis=1) > 0, eos, out)
 
 
 @torch.no_grad()
@@ -200,21 +301,32 @@ def generate_stream(
     sampling: SamplingConfig = SamplingConfig(),
     generator: Optional[torch.Generator] = None,
     lookahead: int = 0,
+    multi_step: int = 1,
 ) -> Iterator[int]:
     """Single-sequence streaming generation: yields token ids until EOS or
-    the budget is exhausted, one decode step per token.
+    the budget is exhausted, one decode step per token, in bursts
+    (`decode_multi_step`) with one device-to-host copy each.
 
     `lookahead > 0` turns on prompt-lookup speculative decoding (greedy
     only; off when `sampling.temperature > 0`): up to `lookahead` tokens
     proposed from the sequence's own n-gram structure are verified in one
     multi-token cache append, with the same tokens as plain greedy decoding
-    and fewer decoder passes."""
+    and fewer decoder passes.
+
+    `multi_step` (ignored while speculation is on): the bursts' size, which
+    ramps 1→2→4→n so that the first tokens come no later; tokens past an
+    in-burst EOS are discarded. Under greedy decoding the tokens do not
+    depend on it."""
     global proposed, accepted
     if input_ids.shape[0] != 1:
         raise ValueError(f"streaming path is single-sequence, got batch {input_ids.shape[0]}")
+    speculate = lookahead > 0 and sampling.temperature <= 0.0
     cache_len = _cache_len(input_ids.shape[1], images, cfg, sampling.max_new_tokens, lookahead)
-    logits, cache, _ = prefill(model, input_ids, images, patch_valid, cfg, cache_len)
-    if lookahead > 0 and sampling.temperature <= 0.0:
+    fixed, graphs = ((None, None) if speculate
+                     else burst_cache(model, cfg, 1, cache_len, input_ids))
+    logits, cache, _ = prefill(model, input_ids, images, patch_valid, cfg, cache_len,
+                               cache=fixed)
+    if speculate:
         # Image sentinels (< 0) are placeholders, not vocabulary: keep them
         # out of the lookup history (an n-gram crossing one is meaningless).
         history = [int(t) for t in input_ids[0].tolist() if t >= 0]
@@ -238,7 +350,7 @@ def generate_stream(
             toks[0, 1 : 1 + n_prop] = prop
             valid = np.zeros((1, S), bool)
             valid[0, : 1 + n_prop] = True
-            base_len = cache["length"]
+            base_len = cache["length"].clone()  # the verify advances it in place
             logits, cache = decode_verify(model, cache, torch.as_tensor(toks, device=dev),
                                           torch.as_tensor(valid, device=dev), cfg)
             greedy = torch.argmax(logits[0], dim=-1).tolist()
@@ -250,7 +362,7 @@ def generate_stream(
             emitted = [int(t) for t in prop[:n_ok]] + [int(greedy[n_ok])]
             # Roll back to the accepted prefix: `tok` and the accepted
             # proposals are real cache rows; the new pending token is not.
-            cache["length"] = base_len + 1 + n_ok
+            cache["length"].copy_(base_len + 1 + n_ok)
             for t in emitted[:budget]:
                 if t == sampling.eos_token_id:
                     return
@@ -259,12 +371,20 @@ def generate_stream(
             budget -= len(emitted[:budget])
             tok = emitted[-1] if budget > 0 else None
         return
-    token = None
-    for _ in range(sampling.max_new_tokens):
-        if token is not None:
-            logits, cache = decode_step(model, cache, token, cfg)
-        token = _sample(logits, generator, sampling)
-        tok = int(token[0])
-        if tok == sampling.eos_token_id:
-            return
-        yield tok
+    # Bursts of decode steps (bursts of one when multi_step is 1).
+    token = _sample(logits, generator, sampling)
+    tok = int(token[0])
+    if tok == sampling.eos_token_id:
+        return
+    yield tok
+    remaining = sampling.max_new_tokens - 1
+    ramp = [1, 2, 4]
+    while remaining > 0:
+        n = min(ramp.pop(0) if ramp else multi_step, multi_step, remaining)
+        toks, cache, token = decode_multi_step(model, cache, token, generator, cfg,
+                                               sampling, n, graphs)
+        for t in toks[:, 0].tolist():  # the burst's one copy to the host
+            if t == sampling.eos_token_id:
+                return
+            yield t
+            remaining -= 1

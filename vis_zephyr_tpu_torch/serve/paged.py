@@ -3,7 +3,7 @@ high-slot-count serving.
 
 Port of `vis_zephyr_tpu/serve/paged.py`: `PageAllocator`, `_admit_paged`,
 `_admit_paged_q`, `_clear_row`, `_paged_step` (modes "selfterm" and
-"writefirst"),
+"writefirst"), `_paged_multi_step` (multi-step bursts),
 `_paged_verify_step` (prompt-lookup speculation) and `PagedBatcher` with
 eager full-span page allocation.
 
@@ -41,6 +41,12 @@ addressed through per-slot page tables, so a request occupies only
   then its V rows. Everywhere here `vp is None` / `vsp is None` means fused.
 - sliding window: when `cache_len` exceeds `decoder.sliding_window` the
   kernel masks slots below `length − window` and skips their pages.
+- multi-step bursts (`multi_step=n`): n decode steps with the EOS and budget
+  carry on the device and one device-to-host copy at the end. Every decode
+  step of the batcher runs in a burst (of one while admission work waits,
+  or when n is 1); on the card each step is a replay of the step captured
+  as a CUDA graph (`serve/graphs.py`) over the batcher's fixed buffers, and
+  the eager `_paged_step` is the CPU's and `plain_versions()`'s form.
 
 The JAX programs return new pools and rely on donation. Here pools,
 `page_table`, `lengths` and `token` are updated in place, and only one thread
@@ -48,8 +54,8 @@ The JAX programs return new pools and rely on donation. Here pools,
 
 Not ported yet, each raising `NotImplementedError` when asked for: meshes and
 the TP wrappers, multi-LoRA, grammars, logprobs, penalties, per-slot sampling
-overrides, a draft model, multi-step bursts, the prefix cache, lazy
-allocation with host swap, and metrics.
+overrides, a draft model, the prefix cache, lazy allocation with host
+swap, and metrics.
 """
 
 from __future__ import annotations
@@ -65,11 +71,13 @@ import torch
 from ..config import VisZephyrConfig
 from ..models.mistral import _project_qkv, embed, rms_norm, rope_cos_sin
 from ..models.vis_zephyr import VisZephyr
+from ..ops import _kernels
 from ..ops.paged_attention import (paged_attention, paged_attention_fa, paged_kv_update_layer,
                                    paged_kv_update_layer_q, paged_kv_update_rows,
                                    paged_kv_update_rows_q, quantize_kv)
 from .batching import ContinuousBatcher, _prefill_kv, _Request, not_ported
 from .generate import SamplingConfig, _sample
+from .graphs import StepGraphs
 
 
 class PageAllocator:
@@ -300,6 +308,70 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
 
 
 @torch.no_grad()
+def _paged_multi_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, token,
+                      active, steps_left, generator: Optional[torch.Generator],
+                      cfg: VisZephyrConfig, sampling: SamplingConfig, mode: str = "selfterm",
+                      n: int = 4, graphs: Optional[StepGraphs] = None):
+    """`n` chained `_paged_step`s (multi-step scheduling): the host's
+    scheduling, the step's Python and the copy of its tokens are paid once a
+    burst instead of once a token.
+
+    Token-exact with single-stepping: the device carries `alive` (from
+    `active`) and each slot's `steps_left` (the host's remaining budget,
+    int32 [B]), so a slot that emits EOS or runs out of budget mid-burst is
+    inactive from the next step on (its length stops growing and its row
+    goes to the trash page), as if the host had finished it between steps.
+    With temperature > 0 the draws come from `generator` in the
+    single-step order.
+
+    On a CUDA tensor (outside `_kernels.plain_versions()`) every step is a
+    replay of the step captured over these buffers and the carry's
+    (`graphs`, a `StepGraphs`; a throwaway one when None): the pools,
+    `page_table`, `lengths` and `token` must keep their tensors for the
+    graphs' life. Elsewhere the same step runs eagerly.
+
+    The pools, `lengths` and `token` are updated IN PLACE. Returns (toks
+    [n, B], entry_alive [n, B] bool, logits [B, V] f32 of the last step),
+    all on the device: token (j, b) counts iff entry_alive[j, b]. (The JAX
+    function's mesh, multi-LoRA and sampling-override arguments come with
+    those features, Queue A steps 13 and 10.)"""
+    B = token.shape[0]
+    dev = token.device
+    eos = sampling.eos_token_id
+    graphed = _kernels.use_kernel(token)
+    if graphed and graphs is None:
+        graphs = StepGraphs()
+
+    def make_carry():  # alive, steps left, alive entering the step
+        return (torch.empty(B, dtype=torch.bool, device=dev),
+                torch.empty(B, dtype=torch.int32, device=dev),
+                torch.empty(B, dtype=torch.bool, device=dev))
+
+    alive, left, entry = graphs.buffers(("carry", B), make_carry) if graphed else make_carry()
+    alive.copy_(active)
+    left.copy_(steps_left)
+
+    def step():
+        entry.copy_(alive)
+        tok, logits = _paged_step(model, kp, vp, scales, page_table, lengths, token, alive,
+                                  generator, cfg, sampling, mode=mode)
+        left.sub_(1)
+        alive.logical_and_((tok != eos) & (left > 0))
+        return logits
+
+    toks = torch.empty((n, B), dtype=token.dtype, device=dev)
+    entry_alive = torch.empty((n, B), dtype=torch.bool, device=dev)
+    key = ("paged", mode, B, sampling.temperature, sampling.top_p, eos, generator, *(
+        None if t is None else t.data_ptr()
+        for t in (kp, vp, *scales, page_table, lengths, token)))
+    for j in range(n):
+        logits = graphs.run(key, step, dev, generator) if graphed else step()
+        toks[j].copy_(token)
+        entry_alive[j].copy_(entry)
+    return toks, entry_alive, logits
+
+
+@torch.no_grad()
 def _paged_verify_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, toks,
                        active, cfg: VisZephyrConfig):
     """Batched speculative verify over the paged pools: append S candidate
@@ -384,7 +456,10 @@ class PagedBatcher(ContinuousBatcher):
     admit prompts in chunks of this many tokens, one chunk per scheduler
     step; None prefills a whole prompt at admission. `lookahead`:
     prompt-lookup speculation, greedy only (`_paged_verify_step` each
-    scheduler step)."""
+    scheduler step). `multi_step`: a scheduler step with no admission work
+    waiting runs a burst of this many decode steps, else a burst of one
+    (`_paged_multi_step`, replayed as CUDA graphs on the card); ignored
+    under `lookahead`."""
 
     def __init__(self, model: VisZephyr, cfg: VisZephyrConfig, max_slots: int = 32,
                  cache_len: int = 2048, sampling: SamplingConfig = SamplingConfig(),
@@ -428,12 +503,18 @@ class PagedBatcher(ContinuousBatcher):
         self.page_table = torch.zeros((max_slots, self.pages_per_seq), dtype=torch.int32,
                                       device=dev)
         self.lengths = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
+        # The host's `active` and `budget` as the device steps read them:
+        # fixed buffers, which a captured step keeps reading.
+        self._active_dev = torch.zeros((max_slots,), dtype=torch.bool, device=dev)
+        self._left_dev = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
+        self.graphs = StepGraphs()  # the burst's captured step (one a mode)
         self.slot_pages: List[List[int]] = [[] for _ in range(max_slots)]
         self._requeued: deque = deque()  # head-of-queue retries (no pages free)
         # [max_slots, V] of the last decode step; [max_slots, S, V] of the
         # last verify step.
         self.last_logits: Optional[torch.Tensor] = None
-        self.steps = 0          # decode steps run (verify steps: `verify_steps`)
+        self.steps = 0          # decode steps run, in bursts too (verify steps: `verify_steps`)
+        self.bursts = 0         # bursts of more than one decode step run
         self.slots_stepped = 0  # active slots summed over decode and verify steps
 
     @property
@@ -441,14 +522,18 @@ class PagedBatcher(ContinuousBatcher):
         return (self.active.any() or not self.pending.empty()
                 or bool(self._requeued) or self._prefilling is not None)
 
+    def _has_admission_work(self) -> bool:
+        return super()._has_admission_work() or bool(self._requeued)
+
     @property
     def _headroom(self) -> int:
-        """Rows a slot can append in ONE scheduler step (a decode step, or a
-        `lookahead + 1`-row verify): the growth that lazy allocation (Queue A
-        step 10) must have page-backed before a step. Eager allocation
-        claims the whole span at admission, and proposals are capped by the
-        budget, so every valid row lies inside it."""
-        return self.lookahead + 1
+        """Rows a slot can append in ONE scheduler step (a decode step, a
+        `multi_step` burst, or a `lookahead + 1`-row verify): the growth
+        that lazy allocation (Queue A step 10) must have page-backed before
+        a step. Eager allocation claims the whole span at admission, and
+        bursts and proposals are capped by the budget, so every valid row
+        lies inside it."""
+        return max(self.multi_step, self.lookahead + 1)
 
     def _next_request(self) -> Optional[_Request]:
         if self._requeued:
@@ -516,8 +601,10 @@ class PagedBatcher(ContinuousBatcher):
 
     def step(self) -> int:
         """Admit pending requests (one chunk's worth under chunked prefill),
-        then advance every active slot by one token. Returns the number of
-        active slots stepped."""
+        then advance every active slot by a burst of decode steps
+        (`_step_burst`): `multi_step` of them when no admission work waits,
+        else one. Returns the number of slot steps taken (a slot counts once
+        a step it was alive in)."""
         self._reap_cancelled()
         if self.prefill_chunk:
             self._pump_prefill()
@@ -529,26 +616,24 @@ class PagedBatcher(ContinuousBatcher):
             stepped = self._step_verify()
             self.slots_stepped += stepped
             return stepped
-        active = torch.as_tensor(self.active, device=self.device)
-        _, self.last_logits = _paged_step(
+        return self._step_burst(1 if self._has_admission_work() else self.multi_step)
+
+    def _step_burst(self, n: int) -> int:
+        """A burst of `n` decode steps over the active slots
+        (`_paged_multi_step` on the batcher's graphs: on the card every
+        decode step, a burst of one too, is a replay of the captured step),
+        one copy of its tokens to the host, then the host's transitions
+        (`_process_burst`)."""
+        self._active_dev.copy_(torch.from_numpy(self.active))
+        self._left_dev.copy_(torch.from_numpy(self.budget.astype(np.int32)))
+        toks, alive, self.last_logits = _paged_multi_step(
             self.model, self.kp, self.vp, (self.ksp, self.vsp), self.page_table, self.lengths,
-            self.token, active, self.generator, self.cfg, self.sampling)
-        tokens = self.token.cpu().numpy()
-        stepped = 0
-        for slot in range(self.max_slots):
-            if not self.active[slot]:
-                continue
-            stepped += 1
-            tok = int(tokens[slot])
-            if tok == self.sampling.eos_token_id:
-                self._finish(slot)
-                continue
-            self._emit(self.slot_req[slot], tok)
-            self.slot_len[slot] += 1
-            self.budget[slot] -= 1
-            if self.budget[slot] <= 0:
-                self._finish(slot)
-        self.steps += 1
+            self.token, self._active_dev, self._left_dev, self.generator, self.cfg,
+            self.sampling, n=n, graphs=self.graphs)
+        host = torch.stack((toks, alive.to(toks.dtype))).cpu().numpy()
+        stepped = self._process_burst(host[0], host[1].astype(bool))
+        self.steps += n
+        self.bursts += int(n > 1)
         self.slots_stepped += stepped
         return stepped
 
