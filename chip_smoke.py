@@ -146,7 +146,14 @@ toolkit; exits non-zero on a machine without a card. Phases:
              it for comparison; one verify step of a fixed
              batch of 16 on clones of int8 fused and bf16 split pools:
              kernel vs plain path cosine >= 0.999 on every column, column 0
-             vs the decode step >= 0.99 (int8) and >= 0.999 (bf16);
+             vs the decode step >= 0.99 (int8) and >= 0.999 (bf16); the
+             verify steps of both paths replayed as CUDA graphs against the
+             same steps run eagerly on the kernel path, 5 consecutive steps
+             with acceptance and rollback between them, bit for bit (paged:
+             32 slots, logits, pools, lengths, pending tokens and streams,
+             K3 and K4 exact; dense: greedy tokens, logits, K, V and
+             lengths, K2 and verify calls exact), then each form's wall,
+             device busy and idle share and the graph pools (printed);
 12b. multistep — multi-step bursts (`--multi-step 8`); every served decode
              step is a CUDA-graph replay, in bursts of one by default: a
              fixed batch of 32 slots (int8 fused pools) stepped 8 times by
@@ -188,11 +195,13 @@ toolkit; exits non-zero on a machine without a card. Phases:
              16 admitted whole on the kernel path, the plain path and against
              phase 11's bf16 logits (fed its tokens): kernel vs plain cosine
              >= 0.999, int8 vs bf16 weights >= 0.997; K5 (224 per decoder
-             pass of at most 128 rows) and dequantize-route counts (224 per
-             longer pass) exact against what the prefill, chunk and step
-             counters predict, the Q-Former's projections counted by rows;
-             one verify step of 32 slots (160 rows: the dequantize route on
-             every projection) counted;
+             launch a chunk of at most 128 rows, up to `QMM_CHUNK_MAX_M`
+             rows a pass) and dequantize-route counts (224 per longer pass)
+             exact against what the prefill, chunk and step counters
+             predict, the Q-Former's projections counted by rows; 14 verify
+             steps of 32 slots (160 rows: K5 on chunks of 128 and 32 rows,
+             no dequantize call) counted, the replayed step's wall, device
+             busy and idle share printed;
 15b. mlp_probe — `python -m vis_zephyr_tpu_torch.experiments.fused_mlp_matvec_probe`'s
              `main()` (numerics, then 32 chained calls in one CUDA graph for K9
              at each tiling and for the K5 route: us per layer, weight GB/s,
@@ -204,9 +213,11 @@ toolkit; exits non-zero on a machine without a card. Phases:
              Q-Former): 2 dense requests, a paged burst of 16, the fixed batch
              (kernel vs plain cosine >= 0.999; against bf16 and int8 weights
              printed, not gated: random weights say nothing of int4's
-             quality); K6 (224 per decoder pass of at most 128 rows), its
-             dequantize route (224 per longer pass) and K5 (the Q-Former's
-             rows) counted exactly;
+             quality); K6 (224 per decoder pass, a launch a chunk of at most
+             128 rows), its dequantize route (224 per pass past
+             `QMM_CHUNK_MAX_M` rows) and K5 (the Q-Former's rows) counted
+             exactly; the 160-row verify steps as on int8 weights (K6 on
+             chunks, no dequantize call);
 17. train  — the served model freed, stage 1 through the trainer's entry
              point `train/train.py::train` at full width with random bf16
              weights from the seed: 3 steps of 8 `<image>` captions (4 anyres
@@ -224,12 +235,15 @@ toolkit; exits non-zero on a machine without a card. Phases:
              have launched yet. The two attention probes' `main()`
              (`vis_zephyr_tpu_torch/experiments/batched_paged_attention_probe.py`
              and `paired_slot_attention_probe.py`: numerics against the plain
-             version and K3, gated at 1e-2 per slot and cosine 0.9999; then
-             K3, K10 at pages_per_block 1, 5, 8 and K11 at P = 2, 4, 8 in CUDA
-             graphs of 32 layer calls at 128 slots of 640 tokens and at 32
-             slots of 60-800, each route's layer-0 output at both shapes
-             gated against the plain version the same way), their launches
-             counted from 0; then K10 and K11 at B=32 (lengths 0 to 2048,
+             version and K3, gated at 1e-2 per slot and cosine 0.9999, K11
+             at two splits and its first design too; then K3, K10 at
+             pages_per_block 1, 5, 8, K11 and its first design
+             (`vzt_paged_attn_paired_walk`) at P = 2, 4, 8 in CUDA graphs of
+             32 layer calls at 128 slots of 640 tokens and at 32 slots of
+             60-800, each route's layer-0 output at both shapes gated
+             against the plain version the same way), their launches
+             counted from 0; K11's SASS (HMMA, UTMALDG, UBLKCP required)
+             and registers; then K10 and K11 at B=32 (lengths 0 to 2048,
              int8 fused pools, self-term) against their plain version and K3
              per slot (<= 1e-2, cosine >= 0.9999) at P = 1, 2, 4, 8,
              pages_per_block 1, 5, 6, 8, with and without a window of 512;
@@ -1927,26 +1941,27 @@ def qformer_routes(cfg, n_images: int, text_len: int):
     packed self in_proj, the self out_proj, the cross q and out_proj, ffn.0 and
     ffn.2 at the query rows (block 0's queries are followed by the text), the
     cross k and v at the visual rows."""
-    from vis_zephyr_tpu_torch.ops.quant_matmul import QMM_MAX_M
+    from vis_zephyr_tpu_torch.ops.quant_matmul import row_chunks
 
     pc = cfg.projector
     query_rows = ([n_images * (pc.num_queries + text_len)]
                   + [n_images * pc.num_queries] * (pc.num_blocks - 1))
     visual_rows = n_images * cfg.vision.tokens_per_image
     calls = [m for rows in query_rows for m in [rows] * 6 + [visual_rows] * 2]
-    k5 = sum(m <= QMM_MAX_M for m in calls)
-    return k5, len(calls) - k5
+    return (sum(len(row_chunks(m)) for m in calls), sum(not row_chunks(m) for m in calls))
 
 
 def decoder_routes(cfg, rows: int, passes: int = 1):
     """(kernel launches, dequantize-route calls) of `passes` quantized decoder
     passes of `rows` rows each: q, k, v, o, gate, up and down in every layer,
     224 at full depth, all on one route (K5 on int8 weights; K6 on int4, whose
-    gate the full-width shapes pass whole)."""
-    from vis_zephyr_tpu_torch.ops.quant_matmul import QMM_MAX_M
+    gate the full-width shapes pass whole), a launch a chunk of rows
+    (`row_chunks`)."""
+    from vis_zephyr_tpu_torch.ops.quant_matmul import row_chunks
 
     n = 7 * cfg.decoder.num_layers * passes
-    return (n, 0) if rows <= QMM_MAX_M else (0, n)
+    chunks = len(row_chunks(rows))
+    return (n * chunks, 0) if chunks else (0, n)
 
 
 def add_routes(*routes):
@@ -2835,7 +2850,7 @@ def run_spec_batch(model, cfg, seed: int) -> dict:
     and K4's `paged_kv_update_layer` once per layer, no all-layer write."""
     from vis_zephyr_tpu_torch.ops import _kernels
     from vis_zephyr_tpu_torch.ops import paged_attention as pa
-    from vis_zephyr_tpu_torch.serve.paged import _paged_step, _paged_verify_step
+    from vis_zephyr_tpu_torch.serve.paged import _paged_step, _paged_verify_body
 
     L = cfg.decoder.num_layers
     S = SPEC_LOOKAHEAD + 1
@@ -2852,12 +2867,12 @@ def run_spec_batch(model, cfg, seed: int) -> dict:
 
         kp, vp, ksp, vsp = pools()
         pa.attn_launches = pa.rows_launches = pa.update_launches = 0
-        _, logits_k = _paged_verify_step(model, kp, vp, (ksp, vsp), b.page_table,
+        _, logits_k = _paged_verify_body(model, kp, vp, (ksp, vsp), b.page_table,
                                          b.lengths.clone(), toks, active, cfg)
         counts = (pa.attn_launches, pa.rows_launches, pa.update_launches)
         kp, vp, ksp, vsp = pools()
         with _kernels.plain_versions():
-            _, logits_p = _paged_verify_step(model, kp, vp, (ksp, vsp), b.page_table,
+            _, logits_p = _paged_verify_body(model, kp, vp, (ksp, vsp), b.page_table,
                                              b.lengths.clone(), toks, active, cfg)
         kp, vp, ksp, vsp = pools()
         _, logits_d = _paged_step(model, kp, vp, (ksp, vsp), b.page_table, b.lengths.clone(),
@@ -2878,6 +2893,175 @@ def run_spec_batch(model, cfg, seed: int) -> dict:
         out[label] = dict(cols=cols, col0=float(col0.min()))
         del b, kp, vp, ksp, vsp, logits_k, logits_p, logits_d
         torch.cuda.empty_cache()
+    return out
+
+
+VERIFY_STEPS = 5  # consecutive verify steps compared: the capture's warm-up, then replays
+
+
+def run_verify_replay(model, cfg, seed: int, card: str) -> dict:
+    """The verify steps of both served paths replayed as CUDA graphs against
+    the same steps run eagerly on the kernel path, bit for bit, over
+    VERIFY_STEPS consecutive steps (the first the capture's warm-up, the
+    rest replays) with the host's acceptance and rollback between them;
+    then each form's wall, device busy and idle share (printed, not gated),
+    the captures' host time and the graph pools' memory.
+
+    Paged: two batchers of 32 slots (int8 KV-fused pools, S = 5), the second
+    given the first's admitted state; the first steps as served
+    (`PagedBatcher.step`, its verify step a replay over `verify_buffers`),
+    the second through `_paged_verify_body` run eagerly; after each step the
+    logits, pools, lengths, pending tokens and the host's streams equal; K3
+    and K4 32 launches a step on each, no all-layer write. Dense: a
+    repetitive text prompt prefilled into two caches; `verify_step`
+    (replays over the first) against `decode_verify` on the second, with the
+    same prompt-lookup proposals and rollback: greedy tokens, logits, K, V
+    and lengths equal after each step; K2 32 launches and one verify call a
+    step on each."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.experiments.step_profile import profile_step
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+    from vis_zephyr_tpu_torch.serve import generate as gen
+    from vis_zephyr_tpu_torch.serve.graphs import StepGraphs
+    from vis_zephyr_tpu_torch.serve.paged import _paged_verify_body
+
+    L = cfg.decoder.num_layers
+    S = SPEC_LOOKAHEAD + 1
+    out = {}
+    requests = direct_requests(cfg, seed, 32)
+    extra = dict(lookahead=SPEC_LOOKAHEAD, max_new_tokens=512, num_pages=1 + 32 * 16)
+    served = admitted_batcher(model, cfg, requests, 32, kv_quant=True, kv_fused=True, **extra)
+    eager = admitted_batcher(model, cfg, requests, 32, kv_quant=True, kv_fused=True, **extra)
+
+    def device_state(b):
+        return [t for t in (b.kp, b.vp, b.ksp, b.vsp, b.page_table, b.lengths, b.token)
+                if t is not None]
+
+    for mine, theirs in zip(device_state(eager), device_state(served)):
+        mine.copy_(theirs)  # the same start, whatever the two admissions rounded
+
+    def eager_verify(toks, valid):
+        toks_dev, active_dev = eager.verify_buffers(S)
+        toks_dev.copy_(torch.from_numpy(toks))
+        active_dev.copy_(torch.from_numpy(eager.active))
+        greedy, eager.last_logits = _paged_verify_body(
+            model, eager.kp, eager.vp, (eager.ksp, eager.vsp), eager.page_table, eager.lengths,
+            toks_dev, active_dev, cfg)
+        return greedy.cpu().numpy()
+
+    eager._verify_device = eager_verify
+    pa.attn_launches = pa.rows_launches = pa.update_launches = 0
+    steps = []
+    for _ in range(VERIFY_STEPS):
+        served.step()
+        eager.step()
+        steps.append(dict(
+            logits=torch.equal(served.last_logits, eager.last_logits),
+            device=all(torch.equal(x, y) for x, y in zip(device_state(served),
+                                                          device_state(eager))),
+            host=(served.slot_len.tolist() == eager.slot_len.tolist()
+                  and [list(h) for h in served.slot_hist] == [list(h) for h in eager.slot_hist])))
+    counts = (pa.attn_launches, pa.rows_launches, pa.update_launches)
+    want = (2 * L * VERIFY_STEPS, 0, 2 * L * VERIFY_STEPS)
+    equal = {key: all(step[key] for step in steps) for key in ("logits", "device", "host")}
+    print(f"spec verify replay, paged: 32 slots, int8 fused pools, S={S}: {VERIFY_STEPS} verify "
+          f"steps as served (the first the capture's warm-up, then replays) against "
+          f"{VERIFY_STEPS} eager kernel-path steps from the same state, acceptance and rollback "
+          f"between them: bit-equal {equal} (logits, pools, page table, lengths and pending "
+          f"tokens; the host's streams); {served.accepted} of {served.proposed} proposals "
+          f"accepted; K3 {counts[0]}, paged_kv_rows {counts[1]}, paged_kv_update {counts[2]} "
+          f"(want {want}); capture {served.graphs.capture_seconds:.2f} s of host time, graph "
+          f"pools {served.graphs.pool_bytes() / 2**20:.1f} MiB (the decode step's none: no "
+          f"decode step ran) [{card}]", flush=True)
+    if not all(equal.values()) or counts != want:
+        raise AssertionError(f"spec verify replay, paged: the replayed verify step disagrees with "
+                             f"the eager one or miscounted: {steps}, {counts}")
+    for name, b in (("replayed", served), ("eager", eager)):
+        got = profile_step(b.step, warm=2, timed=8, profiled=4)
+        out[f"paged_{name}"] = {k: v for k, v in got.items() if k != "items"}
+        print(f"spec verify replay, paged, {name} verify step, B=32, S={S}: wall "
+              f"{got['wall_ms']:.2f} ms (min {got['wall_min_ms']:.2f}, max {got['wall_max_ms']:.2f}),"
+              f" device busy {got['device_ms']:.2f} ms, idle share {got['idle_share']:.2f}, "
+              f"{got['launches']:.1f} kernel launches a step [{card}]", flush=True)
+        if int(b.active.sum()) != 32:
+            raise AssertionError("spec verify replay: a slot finished inside the timed steps")
+    out["paged_pool_mib"] = served.graphs.pool_bytes() / 2**20
+    del served, eager
+    torch.cuda.empty_cache()
+
+    # The serialized path: B = 1 over a dense cache.
+    rng = np.random.default_rng(seed + 6)
+    ids = np.tile(rng.integers(3, cfg.decoder.vocab_size, (1, 12)), (1, 8))
+    ids_t = torch.from_numpy(ids).cuda()
+    last, cache, _ = gen.prefill(model, ids_t, None, None, cfg, 512)
+    other = {name: t.clone() for name, t in cache.items()}
+    graphs = StepGraphs()
+    history, tok = ids[0].tolist(), int(last.argmax(-1)[0])
+    kv_cache.launches = gen.verify_calls = 0
+    dense_steps, accepted = [], 0
+    for _ in range(VERIFY_STEPS):
+        prop = gen._propose_lookup(np.asarray(history), span=SPEC_LOOKAHEAD)
+        prop = np.zeros((0,), np.int64) if prop is None else np.asarray(prop, np.int64)
+        toks = np.zeros((1, S), np.int64)
+        toks[0, 0], toks[0, 1:1 + len(prop)] = tok, prop
+        valid = np.zeros((1, S), bool)
+        valid[0, :1 + len(prop)] = True
+        base = cache["length"].clone()
+        greedy_r, logits_r = gen.verify_step(model, cache, torch.from_numpy(toks),
+                                             torch.from_numpy(valid), cfg, graphs)
+        logits_e, _ = gen.decode_verify(model, other, torch.from_numpy(toks).cuda(),
+                                        torch.from_numpy(valid).cuda(), cfg)
+        greedy_e = torch.argmax(logits_e, dim=-1)
+        greedy = greedy_r[0].tolist()
+        n_ok = 0
+        while n_ok < len(prop) and greedy[n_ok] == prop[n_ok]:
+            n_ok += 1
+        accepted += n_ok
+        check = dict(greedy=torch.equal(greedy_r, greedy_e), logits=torch.equal(logits_r, logits_e))
+        cache["length"].copy_(base + 1 + n_ok)
+        other["length"].copy_(base + 1 + n_ok)
+        check.update({name: torch.equal(cache[name], other[name]) for name in ("k", "v", "length")})
+        dense_steps.append(check)
+        emitted = [int(t) for t in prop[:n_ok]] + [greedy[n_ok]]
+        history += emitted
+        tok = emitted[-1]
+    dense_counts = (kv_cache.launches, gen.verify_calls)
+    dense_want = (2 * L * VERIFY_STEPS, 2 * VERIFY_STEPS)
+    dense_equal = {key: all(step[key] for step in dense_steps) for key in dense_steps[0]}
+    print(f"spec verify replay, dense: B=1, a repetitive prompt of {ids.shape[1]} tokens, "
+          f"S={S}: {VERIFY_STEPS} verify steps (`verify_step`: the warm-up, then replays) against "
+          f"{VERIFY_STEPS} eager `decode_verify`s with the same proposals and rollback: bit-equal "
+          f"{dense_equal}; {accepted} proposals accepted; K2 {dense_counts[0]}, verify calls "
+          f"{dense_counts[1]} (want {dense_want}); capture {graphs.capture_seconds:.2f} s, graph "
+          f"pool {graphs.pool_bytes() / 2**20:.1f} MiB [{card}]", flush=True)
+    if not all(dense_equal.values()) or dense_counts != dense_want:
+        raise AssertionError(f"spec verify replay, dense: the replayed verify step disagrees "
+                             f"with the eager one or miscounted: {dense_steps}, {dense_counts}")
+    toks_t = torch.from_numpy(toks)
+    valid_t = torch.from_numpy(valid)
+
+    def replayed():
+        base = cache["length"].clone()
+        gen.verify_step(model, cache, toks_t, valid_t, cfg, graphs)[0].tolist()
+        cache["length"].copy_(base)
+
+    def eager_step():
+        base = other["length"].clone()
+        logits, _ = gen.decode_verify(model, other, toks_t.cuda(), valid_t.cuda(), cfg)
+        torch.argmax(logits, dim=-1).tolist()
+        other["length"].copy_(base)
+
+    for name, step in (("replayed", replayed), ("eager", eager_step)):
+        got = profile_step(step, warm=2, timed=8, profiled=4)
+        out[f"dense_{name}"] = {k: v for k, v in got.items() if k != "items"}
+        print(f"spec verify replay, dense, {name} verify step, B=1, S={S}: wall "
+              f"{got['wall_ms']:.2f} ms (min {got['wall_min_ms']:.2f}, max {got['wall_max_ms']:.2f}),"
+              f" device busy {got['device_ms']:.2f} ms, idle share {got['idle_share']:.2f}, "
+              f"{got['launches']:.1f} kernel launches a step [{card}]", flush=True)
+    del cache, other, graphs
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3172,31 +3356,47 @@ def run_burst_timing(model, cfg, seed: int, card: str, label: str = "multistep",
 
 
 def run_verify_routes(model, cfg, seed: int, card: str) -> None:
-    """One verify step of 32 slots (S = 5: 160 rows) on quantized weights:
-    every decoder projection takes the dequantize route (over the kernels'
-    128-row gate), counted exactly; the step's wall."""
+    """Verify steps of 32 slots (S = 5: 160 rows) on quantized weights, as
+    served: every decoder projection takes K5 (int8) or K6 (int4) on chunks
+    of 128 and 32 rows (`row_chunks`) and none the dequantize route, counted
+    exactly over the first step (its warm-up and capture) and the replays
+    after it; the first step's wall and the replayed step's wall, device busy
+    and idle share (printed, not gated)."""
+    from vis_zephyr_tpu_torch.experiments.step_profile import profile_step
+    from vis_zephyr_tpu_torch.ops.quant_matmul import row_chunks
+
     S = SPEC_LOOKAHEAD + 1
     b = admitted_batcher(model, cfg, direct_requests(cfg, seed, 32), 32, kv_quant=True,
-                         kv_fused=True, lookahead=SPEC_LOOKAHEAD)
+                         kv_fused=True, lookahead=SPEC_LOOKAHEAD, max_new_tokens=512,
+                         num_pages=1 + 32 * 16)
     torch.cuda.synchronize()
     reset_routes()
     t0 = time.perf_counter()
     if b.step() != 32:
         raise AssertionError("a slot finished early")
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    got, want = read_routes(), expected_routes(model, (0, 0), decoder_routes(cfg, 32 * S))
-    print(f"int{weight_bits(model)} verify step, 32 slots x S={S} = {32 * S} rows: "
-          f"{show_routes(got, want)}; wall {wall:.2f} ms (one step, first of its shape) [{card}]")
-    if got != want or b.verify_steps != 1:
+    first = (time.perf_counter() - t0) * 1e3
+    got = profile_step(b.step, warm=1, timed=8, profiled=4)
+    routes = read_routes()
+    want = expected_routes(model, (0, 0), decoder_routes(cfg, 32 * S, b.verify_steps))
+    bits = weight_bits(model)
+    print(f"int{bits} verify step, 32 slots x S={S} = {32 * S} rows (chunks of "
+          f"{row_chunks(32 * S)}), {b.verify_steps} steps: {show_routes(routes, want)}; the first "
+          f"step (warm-up and capture) {first:.2f} ms of wall; replayed: wall "
+          f"{got['wall_ms']:.2f} ms (min {got['wall_min_ms']:.2f}, max {got['wall_max_ms']:.2f}), "
+          f"device busy {got['device_ms']:.2f} ms, idle share {got['idle_share']:.2f}, "
+          f"{got['launches']:.1f} kernel launches a step [{card}]")
+    if routes != want or routes["dequant"] or routes["dequant4"] or int(b.active.sum()) != 32:
         raise AssertionError("the quantized verify step did not route as counted")
+    del b
+    torch.cuda.empty_cache()
 
 
 def run_profile(model, cfg, seed: int, card: str, label: str = "profile",
                 lookahead: int = 0) -> None:
     """One batched decode step at B=32 (`PagedBatcher.step`: a replayed burst
-    of one; a verify step of S = lookahead + 1 rows per slot, eager, when
-    `lookahead` > 0): wall (host clock around steps that
+    of one; a verify step of S = lookahead + 1 rows per slot, replayed too,
+    when `lookahead` > 0): wall (host clock around steps that
     end in a synchronize), device-busy time, kernel launches per step and the
     largest device items (torch.profiler kernel sums; one stream, so kernels
     do not overlap)."""
@@ -3676,6 +3876,17 @@ def time_grouped(seed: int, batched_times: dict, paired_times: dict) -> dict:
         out[name] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
                          bound_ms=least, bound_by=by, config=tag,
                          probe_step_ms={shape: t["step_ms"] for shape, t in probe.items()})
+        if name == "paged_attn_paired":
+            # K11 and its first design (`walk`) on the device a layer, by P.
+            out[name]["device_ms_by_pair"] = {
+                shape: {route: ms / t["layers"] for route, ms in t["step_ms"].items()
+                        if route.startswith(("k11_", "walk_"))}
+                for shape, t in probe.items()}
+            for shape, routes in out[name]["device_ms_by_pair"].items():
+                print(f"paged_attn_paired on the device a layer at {shape}: "
+                      + ", ".join(f"{route} {ms:.4f} ms" for route, ms in routes.items())
+                      + f"; bound {probe[shape]['bound_ms_per_layer']:.5f} ms by "
+                        f"{probe[shape]['bound_by']}")
         print(f"{name} ({tag}) at the bench shape (128 slots of 640 tokens): {ms:.4f} ms per "
               f"call, {device_ms:.4f} on the device (a layer of the probe's graph); plain "
               f"{plain_ms:.4f} ms; bound {least:.5f} ms by {by}; no library call computes it")
@@ -3708,6 +3919,7 @@ def run_attn_probes(seed: int, gen, card: str) -> dict:
         if key.startswith("P"):
             checks[f"paired {key}"] = value["vs_plain"]
             checks[f"paired {key} vs K3"] = value["vs_k3"]
+            checks[f"paired {key}, the first design"] = value["walk_vs_plain"]
     # Every timed route's layer-0 output at both timed shapes against the
     # plain version on the same inputs (`time_routes`).
     for probe, res in (("batched", batched), ("paired", paired)):
@@ -3722,6 +3934,14 @@ def run_attn_probes(seed: int, gen, card: str) -> dict:
     print(f"attn_probes: launches in the probes' runs K10 {counts['k10']}, K11 {counts['k11']}")
     grouped = check_grouped(gen)
     times = time_grouped(seed, batched["times"], paired["times"])
+    # K11's build: tensor-core products, TMA boxes and bulk copies, no spills.
+    sass = sass_counts("paged_attn_paired_kernel", K3_SASS_OPS)
+    resources = resource_usage("paged_attn_paired_kernel")
+    print(f"K11 SASS (paged_attn_paired_kernel): {sass}; registers at entry {resources['reg']}, "
+          f"stack frame {resources['stack']} bytes, local {resources['local']}")
+    if not all(sass[op] for op in K3_SASS_OPS):
+        raise AssertionError(f"K11: no HMMA, UTMALDG or UBLKCP in its SASS: {sass}")
+    times["paged_attn_paired"].update(sass=sass, resources=resources)
     return dict(counts, max_abs_err=grouped, times=times,
                 probes={"batched": batched["times"], "paired": paired["times"]})
 
@@ -3822,6 +4042,7 @@ def main(argv=None) -> None:
               f"on their first {agree} of {args.max_new_tokens} tokens (other steps share other "
               f"batches: bf16 ties may break apart) [{card}]")
         run_spec_batch(model, cfg, args.seed)
+        run_verify_replay(model, cfg, args.seed, card)
         done("spec")
     if "multistep" in phases:
         run_burst_batch(model, cfg, args.seed, card)
@@ -3905,6 +4126,7 @@ def main(argv=None) -> None:
         paged4 = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card, n=16,
                                   label="int4 paged")
         run_fixed_batch_quant(model, cfg, args.seed, batch, card, int8=int8_logits)
+        run_verify_routes(model, cfg, args.seed, card)
         if "multistep" in phases:
             run_burst_timing(model, cfg, args.seed, card, label="int4 multistep",
                              sizes=(BURST_STEPS,), dense=False)
@@ -4025,7 +4247,7 @@ def main(argv=None) -> None:
         dict(name="paged_attn_batched", source="vis_zephyr_tpu_torch/csrc/paged_attn_grouped.cu",
              replaces="experiments/batched_paged_attention_probe.py:19",
              max_abs_err=attn["max_abs_err"]["k10"], **attn["times"]["paged_attn_batched"]),
-        dict(name="paged_attn_paired", source="vis_zephyr_tpu_torch/csrc/paged_attn_grouped.cu",
+        dict(name="paged_attn_paired", source="vis_zephyr_tpu_torch/csrc/paged_attn_paired.cu",
              replaces="experiments/paired_slot_attention_probe.py:28",
              max_abs_err=attn["max_abs_err"]["k11"], **attn["times"]["paged_attn_paired"]),
     ]

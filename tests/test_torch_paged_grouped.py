@@ -10,7 +10,10 @@ interpret mode; the same seeded numpy inputs (KV-fused int8 pools in the JAX
 layout, bf16 q, k_new, v_new) reach the port through `from_probe_arrays`.
 Cases: `pages_per_block` 1 and 2, P = 2 and 4, a window of 256, mixed
 lengths (3 against 505, 130 against 1) with a member of length 0 and NaN in
-the scales past every slot's length.
+the scales past every slot's length. K11's plain version with its walk
+split in 2, 3 and 4 (each split's probabilities rounded against its own
+running maximum, the splits merged in order) is held against the JAX probe
+too, and K11's split plan covers every block that holds a key once.
 
 Tolerance: both sides sum in f32 and round the probabilities to bf16 at the
 same block boundaries and the output once, but in other orders, so a value
@@ -139,6 +142,52 @@ def test_fa_paired_matches_the_jax_probe(jpaired, pair, window):
     assert_close(got, want)
     # P does not change a slot's arithmetic: the batched form gives the same bits.
     assert torch.equal(got, tbatched.fa_batched(*ported, pages_per_block=2, window=window))
+
+
+@pytest.fixture(scope="module")
+def paired_one_page(jpaired):
+    """The JAX probe at P = 2, one page a block, with its inputs ported."""
+    args = probe_arrays(31, MIXED, nan_past_length=True)
+    want = jpaired.fa_paired(*args, pages_per_block=1, pair=2, interpret=True)
+    return tpaired.from_probe_arrays(*args), want
+
+
+@pytest.mark.parametrize("splits", [2, 3, 4])
+def test_k11_split_walk_plain_version_matches_the_jax_probe(paired_one_page, splits):
+    ported, want = paired_one_page
+    got = tpa.paged_attention_grouped_plain(*ported, 1, splits=splits)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (len(MIXED), 1, HQ, D)
+    assert_close(got, want)
+    # The slot of length 0 is its v_new alone, split or not.
+    np.testing.assert_allclose(got[4, 0].float().numpy().reshape(HKV, -1, D),
+                               ported[6].float().numpy()[4][:, None].repeat(HQ // HKV, 1),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("window", [None, 300])
+def test_k11_split_plan_covers_every_block_with_a_key_once(window):
+    """`paired_split_blocks` (the kernel's `split_blocks`) over the splits of
+    `paired_plan` takes each block of `bk` tokens that holds a key of
+    [lo, hi) exactly once, in order, and no other; the plan splits only
+    where the units leave the card's block slots idle."""
+    rng = np.random.default_rng(32)
+    ps, pps = 128, 16
+    for ppcb in (1, 3, 6):
+        bk = ppcb * ps
+        for B, Hkv in ((1, 8), (8, 8), (32, 8), (128, 8)):
+            splits = tpa.paired_plan(B, Hkv, ps, pps, ppcb, 132)
+            assert 1 <= splits <= min(-(-pps // ppcb), tpa.MAX_SPLITS)
+            if B * Hkv >= 132 * 3:
+                assert splits == 1
+            for length in rng.integers(0, pps * ps + 1, 6).tolist() + [0, 1, bk, bk + 1]:
+                lo = max(length - window + 1, 0) if window else 0
+                hi = min(length, pps * ps)  # q_off = length: the pool's keys
+                want = list(range(lo // bk, -(-hi // bk))) if hi > lo else []
+                got = []
+                for sp in range(splits):
+                    first, end = tpa.paired_split_blocks(lo, hi, bk, splits, sp)
+                    got += list(range(first, end))
+                assert got == want, (ppcb, B, length, splits)
 
 
 def test_fa_paired_refuses_a_batch_that_is_not_whole_groups():

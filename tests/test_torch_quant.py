@@ -8,8 +8,10 @@
   and writes several N blocks). Inputs are bf16-representable, so both sum
   the same exact products in f32, in another order: max-abs error within
   1e-5 of the largest output.
-- `qlinear` takes K5 up to 128 rows and the dequantize route above, each
-  against the JAX `qdot`; a shape K5 cannot take raises off the CPU.
+- `qlinear` takes K5 once up to 128 rows, K5 on chunks of 128 rows and the
+  rest up to `QMM_CHUNK_MAX_M` (the port's departure from the JAX gate) and
+  the dequantize route above, each against the JAX `qdot`; a shape K5
+  cannot take raises off the CPU.
 - A quantized decoder and Q-Former: the port's own quantization equals the
   JAX package's tree carried over by the weight bridge, bit for bit, and the
   forwards agree to 1e-4 (the f32 model tests' tolerance).
@@ -156,11 +158,15 @@ def test_quantized_matmul_plain_matches_jax_pallas_kernel(M):
     assert torch.equal(bf16, got.to(torch.bfloat16))  # the same f32 sums, rounded once
 
 
-@pytest.mark.parametrize("lead", [(1,), (2, 64), (1, 129), (3, 100)],
-                         ids=["M1", "M128", "M129", "M300"])
+@pytest.mark.parametrize("lead", [(1,), (2, 64), (1, 129), (3, 100), (32, 5), (2, 128),
+                                  (1, tqmm.QMM_CHUNK_MAX_M + 1)],
+                         ids=["M1", "M128", "M129", "M300", "M160", "M256", "M above the chunks"])
 def test_qlinear_routes_by_rows_and_matches_jax_qdot(lead, monkeypatch):
-    """Up to QMM_MAX_M rows take K5 (its plain version on the CPU), above it
-    the dequantize route; both equal the JAX `qdot` on the same weights."""
+    """Up to QMM_MAX_M rows take K5 once (its plain version on the CPU), up to
+    QMM_CHUNK_MAX_M K5 on chunks of QMM_MAX_M rows and the rest (160: the
+    32-slot verify step at S = 5), above it the dequantize route; all equal
+    the JAX `qdot` on the same weights (whose gate dequantizes above 128
+    rows: within the K5 tests' 1e-5)."""
     rng = np.random.default_rng(sum(lead))
     K, N = 96, 80
     w = rng.standard_normal((N, K)).astype(np.float32)
@@ -178,9 +184,10 @@ def test_qlinear_routes_by_rows_and_matches_jax_qdot(lead, monkeypatch):
     want = np.asarray(jqmm.qdot(jnp.asarray(x), p)) + bias
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     M = int(np.prod(lead))
-    small = M <= tqmm.QMM_MAX_M
-    assert plain_calls == ([(M, K)] if small else [])
-    assert tqmm.dequant_calls - before == (0 if small else 1)
+    chunks = [] if M > tqmm.QMM_CHUNK_MAX_M else [128] * (M // 128) + [M % 128] * (M % 128 > 0)
+    assert tqmm.row_chunks(M) == chunks
+    assert plain_calls == [(c, K) for c in chunks]
+    assert tqmm.dequant_calls - before == (0 if chunks else 1)
     assert tqmm.launches == 0  # nothing launches on the CPU
 
 

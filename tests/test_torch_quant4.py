@@ -11,14 +11,16 @@
   exact products in f32, in another order: max-abs error within 1e-5 of the
   largest output.
 - `qlinear`'s int4 route takes K6 under the JAX gate (M ≤ 128, N and the
-  group multiples of 128) and the dequantize route otherwise, each against
-  the JAX `qdot`; what K6 cannot take raises off the CPU.
+  group multiples of 128), K6 on chunks of 128 rows up to `QMM_CHUNK_MAX_M`
+  (the port's departure from that gate) and the dequantize route otherwise,
+  each against the JAX `qdot`; what K6 cannot take raises off the CPU.
 - The int4 model, at `smoke_config` (the decoder at production head_dim 128,
   so every projection passes K6's gate; its Q-Former widened to the
   decoder's width, so that images reach the decoder): the port's
   quantization equals the JAX package's tree carried over by the weight
   bridge, bit for bit, and the decoder forwards agree to 1e-4 on 20 rows
-  (K6's plain version) and on 144 (the dequantize route).
+  (K6's plain version) and on 144 (K6's plain version on chunks of 128 and
+  16 rows, against the JAX dequantize route).
 - The slice: greedy tokens of the dense `generate` and of the paged batcher
   (int8 KV-fused pools, chunked admission) on int4 weights equal the JAX
   package's, through K6's plain version.
@@ -203,13 +205,15 @@ def test_quantized_matmul_int4_plain_matches_jax_pallas_kernel(M):
 
 
 @pytest.mark.parametrize("lead,N,group,k6", [
-    ((1,), 256, 128, True), ((2, 64), 256, 128, True), ((1, 129), 256, 128, False),
-    ((3,), 256, 64, False), ((3,), 192, 128, False)],
-    ids=["M1", "M128", "M129", "group 64", "N 192"])
+    ((1,), 256, 128, True), ((2, 64), 256, 128, True), ((1, 129), 256, 128, True),
+    ((3,), 256, 64, False), ((3,), 192, 128, False), ((32, 5), 256, 128, True),
+    ((2, 128), 256, 128, True), ((1, tqmm.QMM_CHUNK_MAX_M + 1), 256, 128, False)],
+    ids=["M1", "M128", "M129", "group 64", "N 192", "M160", "M256", "M above the chunks"])
 def test_qlinear_int4_routes_by_the_jax_gate_and_matches_jax_qdot(lead, N, group, k6, monkeypatch):
-    """M ≤ 128 with N and the group multiples of 128 takes K6 (its plain
-    version on the CPU); anything else the dequantize route. Both equal the
-    JAX `qdot` on the same weights."""
+    """N and the group multiples of 128 take K6 (its plain version on the
+    CPU): once up to 128 rows, on chunks of 128 rows and the rest up to
+    QMM_CHUNK_MAX_M; anything else the dequantize route. All equal the JAX
+    `qdot` on the same weights."""
     rng = np.random.default_rng(sum(lead) + N + group)
     K = 256
     w = rng.standard_normal((N, K)).astype(np.float32)
@@ -224,7 +228,8 @@ def test_qlinear_int4_routes_by_the_jax_gate_and_matches_jax_qdot(lead, N, group
     want = np.asarray(jqmm.qdot(jnp.asarray(x), p)) + bias
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     M = int(np.prod(lead))
-    assert calls.shapes == ([(M, K)] if k6 else [])
+    assert calls.shapes == ([(c, K) for c in tqmm.row_chunks(M)] if k6 else [])
+    assert len(calls.shapes) == (-(-M // 128) if k6 else 0)
     assert (tqmm.dequant4_calls - before[0], tqmm.dequant_calls - before[1]) == (0 if k6 else 1, 0)
     assert tqmm.launches4 == 0 and tqmm.launches == 0  # nothing launches on the CPU
 
@@ -274,10 +279,11 @@ def test_port_int4_quantization_equals_the_bridged_jax_tree(models, part):
     port.load_state_dict(bridged, strict=True)
 
 
-@pytest.mark.parametrize("T,k6", [(10, True), (72, False)], ids=["20 rows", "144 rows"])
-def test_int4_decoder_matches_jax(models, T, k6, monkeypatch):
-    """Two rows of T tokens: up to 128 rows every projection takes K6 (its
-    plain version on the CPU), above it the dequantize route."""
+@pytest.mark.parametrize("T,chunks", [(10, 1), (72, 2)], ids=["20 rows", "144 rows"])
+def test_int4_decoder_matches_jax(models, T, chunks, monkeypatch):
+    """Two rows of T tokens: every projection takes K6 (its plain version on
+    the CPU), once up to 128 rows and on chunks of 128 rows and the rest
+    above (the JAX package dequantizes there)."""
     _, qparams, port = models
     rng = np.random.default_rng(5)
     B = 2
@@ -296,7 +302,7 @@ def test_int4_decoder_matches_jax(models, T, k6, monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(gk.numpy(), np.asarray(wk), **TOL)
     n = 7 * CFG.decoder.num_layers
-    assert (len(calls.shapes), tqmm.dequant4_calls - before) == ((n, 0) if k6 else (0, n))
+    assert (len(calls.shapes), tqmm.dequant4_calls - before) == (n * chunks, 0)
 
 
 # -- the slice: greedy tokens on int4 weights -----------------------------------------------

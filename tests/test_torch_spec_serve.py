@@ -3,7 +3,8 @@ at `tiny_config` in f32 (the JAX side runs its Pallas kernels in interpret
 mode; the port's wrappers take their plain versions on CPU tensors).
 
 - `_propose_lookup` returns what the JAX function returns on seeded
-  histories;
+  histories, and `LookupHistory` (the incremental form both served paths
+  keep) what `_propose_lookup` returns on every prefix;
 - `decode_verify` logits (one multi-token dense-cache append) agree with the
   JAX function's to 1e-4, the model parity tests' tolerance;
 - `generate_stream(lookahead=k)` streams the same greedy tokens as the JAX
@@ -13,6 +14,11 @@ mode; the port's wrappers take their plain versions on CPU tensors).
   `lookahead=0`, with chunked admission over int8 fused pools and a sliding
   window (and there the JAX `PagedBatcher(lookahead=4)`'s too) and with
   whole admission over f32 split pools, a slot filling `cache_len` exactly;
+- the verify steps run over fixed buffers, which a step captured on the
+  card reads: the paged batcher's candidates and `active` go into the same
+  two tensors every step, and the serialized stream speculates on the fixed
+  cache that `burst_cache` hands it, across requests, with the JAX stream's
+  tokens;
 - `--lookahead` reaches the serialized path through the CLI and the paged
   batcher through the server, whose replies equal the non-speculative ones.
 
@@ -89,6 +95,22 @@ def test_propose_lookup_matches_jax(seed):
 # -- the dense path --------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("vocab", [3, 7, 50])
+def test_lookup_history_proposes_what_propose_lookup_does(vocab):
+    rng = np.random.default_rng(vocab)
+    tokens = rng.integers(0, vocab, 300).tolist()
+    history = tgen.LookupHistory()
+    for n, tok in enumerate(tokens, 1):
+        history.append(tok)
+        assert list(history) == tokens[:n] and np.asarray(history).tolist() == tokens[:n]
+        for span in (1, 4, 8):
+            want = tgen._propose_lookup(np.asarray(tokens[:n]), span=span)
+            got = history.propose(span)
+            assert (got is None) == (want is None), (n, span)
+            if want is not None:
+                assert got.tolist() == want.tolist() and len(got) > 0, (n, span)
+
+
 def test_decode_verify_logits_match_jax(models):
     """A prefilled text prompt, then one verify of the pending token, two
     proposals and two padded columns."""
@@ -143,6 +165,38 @@ def test_generate_stream_lookahead_matches_jax_and_plain(models, image, name):
     assert 0 < calls <= max_new - 1
     if name == "repetitive":  # the copy structure is found and accepted
         assert accepted > 0 and calls < max_new - 1
+
+
+def test_generate_stream_speculates_on_the_fixed_cache_it_is_given(models, image, monkeypatch):
+    """`generate_stream(lookahead=k)` prefills and verifies on the cache that
+    `burst_cache` hands it (on the card the model's one fixed cache, which a
+    captured verify step reads; here one made for the test, which the CPU
+    runs eagerly), request after request, rows of the one before left in
+    it, with the JAX speculative stream's tokens."""
+    params, port = models
+    ids, _, _, lookahead, max_new = stream_requests(image)["repetitive"]
+    ids = ids.astype(np.int64)
+    sampling = dict(max_new_tokens=max_new, eos_token_id=-1)
+    want = list(jgen.generate_stream(params, jnp.asarray(ids), None, None, CFG,
+                                     jgen.SamplingConfig(**sampling), lookahead=lookahead))
+    fixed = tgen.init_cache(TCFG.decoder, 1, 256, dtype=port.dtype)
+    graphs = tgen.StepGraphs()
+    given = []
+    monkeypatch.setattr(tgen, "burst_cache",
+                        lambda model, cfg, batch, cache_len, like: given.append(cache_len)
+                        or (fixed, graphs))
+    seen = []
+    verify = tgen.decode_verify
+    monkeypatch.setattr(tgen, "decode_verify", lambda model, cache, *a: seen.append(
+        tuple(cache[name].data_ptr() for name in ("k", "v", "length"))) or verify(model, cache,
+                                                                                   *a))
+    ptrs = tuple(fixed[name].data_ptr() for name in ("k", "v", "length"))
+    for _ in range(2):
+        got = list(tgen.generate_stream(port, torch.from_numpy(ids), None, None, TCFG,
+                                        tgen.SamplingConfig(**sampling), lookahead=lookahead))
+        assert got == want and len(got) == max_new
+    assert len(given) == 2 and max(given) <= 256
+    assert len(seen) >= 4 and set(seen) == {ptrs}
 
 
 def test_generate_stream_ignores_lookahead_when_sampling(models):
@@ -239,6 +293,35 @@ def test_paged_batcher_verify_step_counts_and_headroom(models):
     assert b.lengths.tolist() == b.slot_len.tolist()
     b.run_until_drained()
     assert [len(list(b.stream(h))) for h in handles] == [8, 8]
+
+
+def test_paged_batcher_verify_steps_run_through_fixed_buffers(models, image, monkeypatch):
+    """Every verify step of a batcher reads its candidates and `active` from
+    the same two tensors (`verify_buffers`, filled by copies) and runs on
+    the batcher's step graphs: on the card a captured step replays over
+    them. The tokens are the batcher's without speculation (and the JAX
+    batcher's: `test_paged_batcher_lookahead_matches_jax_and_plain`)."""
+    _, port = models
+    calls = []
+    verify = tpaged._paged_verify_step
+
+    def recording(model, kp, vp, scales, table, lengths, toks, active, cfg, graphs=None):
+        calls.append((toks.data_ptr(), active.data_ptr(), graphs, toks.clone(), active.clone()))
+        return verify(model, kp, vp, scales, table, lengths, toks, active, cfg, graphs)
+
+    monkeypatch.setattr(tpaged, "_paged_verify_step", recording)
+    kw = dict(max_slots=3, cache_len=64, page_size=16, num_pages=14)
+    sampling = tgen.SamplingConfig(max_new_tokens=16, eos_token_id=-1)
+    spec = tpaged.PagedBatcher(port, TCFG, sampling=sampling, lookahead=4, **kw)
+    requests = paged_requests(image)[:2]
+    got = run_paged(spec, requests)
+    toks_buf, active_buf = spec.verify_buffers(5)
+    assert len(calls) == spec.verify_steps >= 2
+    assert {c[:3] for c in calls} == {(toks_buf.data_ptr(), active_buf.data_ptr(), spec.graphs)}
+    assert tuple(toks_buf.shape) == (3, 5) and toks_buf.dtype == torch.int64
+    assert any(not torch.equal(a[3], b[3]) for a, b in zip(calls, calls[1:]))  # filled anew
+    assert calls[0][4].tolist() == [True, True, False]
+    assert got == run_paged(tpaged.PagedBatcher(port, TCFG, sampling=sampling, **kw), requests)
 
 
 # -- the flag through the CLI and the server -------------------------------------------

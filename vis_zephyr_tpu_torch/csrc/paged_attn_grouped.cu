@@ -1,14 +1,17 @@
-// K10 paged_attn_batched and K11 paged_attn_paired: decode attention (one
-// query row a slot, S = 1) over KV-fused int8 page pools with the current
-// token folded in last, one block per slot (K10) or per group of P slots
-// (K11), each block over every kv head of its slots.
+// K10 paged_attn_batched: decode attention (one query row a slot, S = 1) over
+// KV-fused int8 page pools with the current token folded in last, one block
+// per slot over every kv head of it; and the first design of K11, one block
+// per group of P slots, kept as `vzt_paged_attn_paired_walk` so that the
+// probes can time it beside K11's Hopper design (`paged_attn_paired.cu`).
 //
 // Replaces the TPU kernels `experiments/batched_paged_attention_probe.py::
 // _batched_kernel` (:19, wrapper `fa_batched`: one grid cell per slot, all kv
 // heads in one batched dot pair per block of tokens) and
 // `experiments/paired_slot_attention_probe.py::_paired_kernel` (:28, wrapper
-// `fa_paired`: one grid cell per P slots). They compute the function of K3
-// (`paged_attn_decode.cu`) in its served configuration, with K3's arithmetic:
+// `fa_paired`: one grid cell per P slots; K11 in `paged_attn_paired.cu` now
+// replaces it, and this walk is its measured baseline). They compute the
+// function of K3 (`paged_attn_decode.cu`) in its served configuration, with
+// K3's arithmetic:
 // - scores s = (q . kq) * scale * (k_scale / 127.5), f32 sums (int8 -> float
 //   is exact); a slot's keys are the interval [max(0, qpos - window + 1),
 //   min(length, qpos + 1)) with qpos = q_offs[b];
@@ -43,8 +46,8 @@
 //   and 8 steps (4 KB a warp) are loaded before any is used. A block runs at
 //   most 8 warps (249 registers a thread, no spills), looping over its units
 //   (slot, kv head) when P * Hkv is larger: K10 is 8 warps a slot at
-//   Hkv = 8, K11 the same 8 warps walking P slots one after the other, so
-//   B / P blocks share the card's 132 SMs.
+//   Hkv = 8, the K11 walk the same 8 warps walking P slots one after the
+//   other, so B / P blocks share the card's 132 SMs.
 // - scores of a block go to the warp's shared memory ([4 rows + the V
 //   scales] x bk floats), then one pass takes the block's maximum, the
 //   probabilities and their sum, and a second walk of the block's V rows
@@ -57,9 +60,10 @@
 //   outside its own range masked (alpha = 1, p = 0: its state does not
 //   change); here each warp walks its own slot's blocks only, which gives
 //   the same result, and blocks run at once.
-// Left for later: loads of the next chunk issued before the current one is
-// used (cp.async or TMA into a ring), mma for Q.K and P.V, and more blocks
-// than slots at small B (a split of long sequences).
+// K10 leaves for later: loads of the next chunk issued before the current
+// one is used (cp.async or TMA into a ring), mma for Q.K and P.V, and more
+// blocks than slots at small B (a split of long sequences); K11's Hopper
+// design (`paged_attn_paired.cu`) has all three.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -333,7 +337,8 @@ __device__ void attend_unit(const Params& p, int b, int h, float* s_w) {
   }
 }
 
-// kPaired false: K10, one slot a block (P = 1). True: K11, P slots a block.
+// kPaired false: K10, one slot a block (P = 1). True: the K11 walk, P slots a
+// block.
 // The warps of a block take the block's units (slot, kv head), slot-major,
 // in turn.
 template <bool kPaired>
@@ -419,14 +424,17 @@ extern "C" int vzt_paged_attn_batched(const void* q, void* out, const void* pool
              pages_per_block, page_offset, window, 1, scale, stream);
 }
 
-// K11: one block for each `pair` consecutive slots (pair >= 2; the last group
-// may be short). Arguments as K10's.
-extern "C" int vzt_paged_attn_paired(const void* q, void* out, const void* pool,
-                                     const void* scales, const void* page_table,
-                                     const void* lengths, const void* q_offs, const void* k_new,
-                                     const void* v_new, int B, int Hq, int Hkv, int ps, int pps,
-                                     int pages_per_block, int page_offset, int window, int pair,
-                                     float scale, void* stream) {
+// The first K11 design, K11's baseline in the probes: one block for each
+// `pair` consecutive slots (pair >= 2; the last group may be short), its
+// eight warps walking the group's slots one after the other. Arguments as
+// K10's. No wrapper of the port launches it.
+extern "C" int vzt_paged_attn_paired_walk(const void* q, void* out, const void* pool,
+                                          const void* scales, const void* page_table,
+                                          const void* lengths, const void* q_offs,
+                                          const void* k_new, const void* v_new, int B, int Hq,
+                                          int Hkv, int ps, int pps, int pages_per_block,
+                                          int page_offset, int window, int pair, float scale,
+                                          void* stream) {
   if (pair < 2) return static_cast<int>(cudaErrorInvalidValue);
   return run(q, out, pool, scales, page_table, lengths, q_offs, k_new, v_new, B, Hq, Hkv, ps, pps,
              pages_per_block, page_offset, window, pair, scale, stream);

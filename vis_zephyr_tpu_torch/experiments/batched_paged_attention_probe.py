@@ -107,10 +107,10 @@ def k3(case: dict, window=None, page_offset: int = 0) -> torch.Tensor:
                                  v_new=case["v_new"], page_offset=page_offset)
 
 
-def grouped_plain(case: dict, pages_per_block: int, window=None) -> torch.Tensor:
+def grouped_plain(case: dict, pages_per_block: int, window=None, splits: int = 1) -> torch.Tensor:
     return pa.paged_attention_grouped_plain(
         case["q"], case["k_pages"], case["page_table"], case["lengths"], case["q_offs"],
-        case["k_new"], case["v_new"], case["k_scales"], pages_per_block, window)
+        case["k_new"], case["v_new"], case["k_scales"], pages_per_block, window, splits=splits)
 
 
 def bench_case(device, seed: int, slots: int, lengths: List[int], layers: int) -> dict:

@@ -57,7 +57,9 @@ _SIGNATURES = {
     "vzt_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
     "vzt_fused_mlp_matvec": [_P] * 9 + [_I] * 4 + [_P],
     "vzt_paged_attn_batched": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
-    "vzt_paged_attn_paired": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
+    "vzt_paged_attn_paired": [_P] * 12 + [_I] * 11 + [ctypes.c_float, _P],
+    # K11's first design, timed beside K11 by the probes; no wrapper launches it.
+    "vzt_paged_attn_paired_walk": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
 }
 
 _lib = None

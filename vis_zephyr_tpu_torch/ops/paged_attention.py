@@ -1,6 +1,7 @@
 """Paged KV pools: decode attention over pages (kernel K3,
-`csrc/paged_attn_decode.cu`, and its served configuration one block a slot or
-a group of slots, kernels K10 and K11, `csrc/paged_attn_grouped.cu`), the row
+`csrc/paged_attn_decode.cu`, and its served configuration a slot a block or
+a group of slots, kernels K10, `csrc/paged_attn_grouped.cu`, and K11,
+`csrc/paged_attn_paired.cu`), the row
 writes (kernel K4, `csrc/paged_kv_rows.cu`), int8 KV quantization, and the
 plain PyTorch version of each.
 
@@ -413,7 +414,8 @@ def paged_attention_fa(
                               6, page_table.shape[1])
     if (tiled and v_pages is None and k_scales is not None and k_new is not None and S == 1
             and grouped_fits(Hq, k_pages.shape[1], D, k_pages.shape[3], k_pages.shape[2] // 2,
-                             page_table.shape[1], pages_per_block)):
+                             page_table.shape[1], pages_per_block,
+                             paired=min(slot_block or 1, B) > 1)):
         sb = max(1, min(slot_block or 1, B))
         if sb == 1:
             return paged_attention_batched(q, k_pages, page_table, lengths, q_offs, k_new, v_new,
@@ -478,21 +480,67 @@ GROUPED_SMEM_BYTES = 232448  # a block's shared memory on the H100 (227 KB)
 
 
 def grouped_fits(Hq: int, Hkv: int, D: int, pool_d: int, ps: int, pps: int,
-                 pages_per_block: int) -> bool:
-    """Whether K10 / K11 take this shape: head_dim 128, Hq a multiple of Hkv
-    by at most 4, and one warp's scores of a block (4 rows and the V scales
-    of `min(pages_per_block, pps) · ps` tokens, 4 floats of padding a row)
-    within a block's shared memory, as `csrc/paged_attn_grouped.cu` lays
-    them out."""
+                 pages_per_block: int, paired: bool = False) -> bool:
+    """Whether K10 (or K11, `paired`) takes this shape: head_dim 128, Hq a
+    multiple of Hkv by at most 4, and one warp's scores of a block (4 rows
+    and the V scales of `min(pages_per_block, pps) · ps` tokens, 4 floats of
+    padding a row) within a block's shared memory, as
+    `csrc/paged_attn_grouped.cu` lays them out (K11's block, a ring of two
+    stages and 4 rows of scores, then fits too: `paired_smem`); K11 also
+    needs `ps` a multiple of 4 (its scales come by 16-byte bulk copies)."""
     bk = min(pages_per_block, pps) * ps
     return (D == HEAD_DIM and pool_d == D and Hkv > 0 and Hq % Hkv == 0
             and Hq // Hkv <= GROUPED_MAX_G
-            and (GROUPED_MAX_G + 1) * (bk + 4) * 4 <= GROUPED_SMEM_BYTES)
+            and (GROUPED_MAX_G + 1) * (bk + 4) * 4 <= GROUPED_SMEM_BYTES
+            and (not paired or ps % 4 == 0))
+
+
+# K11's launch (`csrc/paged_attn_paired.cu`): a block per (slot, kv head,
+# split), its ring and scores. They move with the kernel.
+PAIRED_STAGE_BYTES = 128 * 128 + 128 * 4  # a stage: 128 int8 rows and their scales
+PAIRED_FIXED_BYTES = 1024 + 6144          # alignment slack and the fixed region
+PAIRED_BLOCKS_PER_SM = 3                  # its launch bounds
+SM_SMEM_BYTES = 233472                    # an SM's shared memory, 1 KB of it per block reserved
+
+
+def paired_smem(bk: int) -> int:
+    """Dynamic shared memory of a K11 block whose online softmax steps over
+    `bk` tokens: a ring of three stages, two where three leave the scores (4
+    rows of bk floats) no room (`smem_bytes` in the kernel)."""
+    three = PAIRED_FIXED_BYTES + 3 * PAIRED_STAGE_BYTES + 16 * bk
+    return three if three <= GROUPED_SMEM_BYTES else three - PAIRED_STAGE_BYTES
+
+
+@functools.lru_cache(maxsize=4096)
+def paired_plan(B: int, Hkv: int, ps: int, pps: int, pages_per_block: int, sms: int) -> int:
+    """K11's splits of a slot's walk for B slots over a table `pps` pages wide
+    on a card of `sms` SMs, from shapes only (K3's `split_plan` rule): the
+    (slot, kv head) units fill the card's block slots first, and a slot's
+    blocks of `min(pages_per_block, pps) · ps` tokens are split only where
+    the units leave slots idle, into as many splits as the slots hold whole
+    sets of units, at most one a block of the table and `MAX_SPLITS`."""
+    bk_pages = min(pages_per_block, pps)
+    per_sm = min(PAIRED_BLOCKS_PER_SM,
+                 SM_SMEM_BYTES // (paired_smem(bk_pages * ps) + 1024))
+    units = max(1, B * Hkv)
+    return max(1, min(-(-pps // bk_pages), MAX_SPLITS, sms * per_sm // units))
+
+
+def paired_split_blocks(lo: int, hi: int, bk: int, splits: int, split: int) -> Tuple[int, int]:
+    """The blocks [first, end) of `bk` tokens that split `split` of a slot
+    walks, as K11 finds them (`split_blocks`): the blocks that hold a key of
+    [lo, hi), in even shares of ceil(n / splits), in order."""
+    if hi <= lo:
+        return 0, 0
+    b0, b1 = lo // bk, -(-hi // bk)
+    share = -(-(b1 - b0) // splits)
+    first = min(b0 + split * share, b1)
+    return first, min(first + share, b1)
 
 
 def paged_attention_grouped_plain(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales,
                                   pages_per_block: int, sliding_window=None, scale=None,
-                                  page_offset: int = 0) -> torch.Tensor:
+                                  page_offset: int = 0, splits: int = 1) -> torch.Tensor:
     """K10's and K11's arithmetic in plain PyTorch (the slots a block owns do
     not change a slot's): KV-fused int8 pools, S = 1, the self-term. Scores
     in f32 with the K scales, then an online softmax over blocks of
@@ -500,7 +548,13 @@ def paged_attention_grouped_plain(q, k_pages, page_table, lengths, q_offs, k_new
     block's probabilities are exp(s − m) of the running maximum after the
     block, times the V scales, rounded to q's dtype before P·V. The
     self-term last, unquantized. Rows at or past `length` never reach the
-    output. Returns [B, 1, Hq, D]."""
+    output. Returns [B, 1, Hq, D].
+
+    `splits` > 1 is K11's split walk: a slot's blocks that hold a key go in
+    `splits` even shares (`paired_split_blocks`), each share runs the online
+    softmax from a fresh maximum, so its probabilities round against its own
+    running maximum, and the shares are merged in order, those without a key
+    skipped (weights exp(m_s − M), M the largest m of the others)."""
     B, S, Hq, D = q.shape
     Hkv = k_pages.shape[1]
     ps = _page_size(k_pages, True)
@@ -525,22 +579,48 @@ def paged_attention_grouped_plain(q, k_pages, page_table, lengths, q_offs, k_new
     qg = q.float().reshape(B, Hkv, G, D)
     s = torch.einsum("bhgd,bhtd->bhgt", qg, k) * scale
     s = s * (rows(k_scales, 0) * (1.0 / KV_QUANT_MAX))[:, :, None, :]
-    mask4 = mask[:, None, None, :]
-    s = torch.where(mask4, s, NEG_INF)
     v_mul = (rows(k_scales, ps) * (1.0 / KV_QUANT_MAX))[:, :, None, :]
-    m = torch.full((B, Hkv, G, 1), -float("inf"), device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((B, Hkv, G, D), device=q.device)
-    for lo in range(0, T, bk):
-        blk = slice(lo, lo + bk)
-        sb, mb = s[..., blk], mask4[..., blk]
-        m_next = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_next)
-        p = torch.where(mb, torch.exp(sb - m_next), 0.0)
-        l = alpha * l + p.sum(dim=-1, keepdim=True)
-        p = torch.where(mb, p * v_mul[..., blk], 0.0).to(q.dtype).float()
-        acc = acc * alpha + torch.einsum("bhgt,bhtd->bhgd", p, v[:, :, blk])
-        m = m_next
+
+    def walk(valid):  # the online softmax over the blocks, keys `valid` [B, T]
+        mask4 = valid[:, None, None, :]
+        sv = torch.where(mask4, s, NEG_INF)
+        m = torch.full((B, Hkv, G, 1), -float("inf"), device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, G, D), device=q.device)
+        for lo in range(0, T, bk):
+            blk = slice(lo, lo + bk)
+            sb, mb = sv[..., blk], mask4[..., blk]
+            m_next = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_next)
+            p = torch.where(mb, torch.exp(sb - m_next), 0.0)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            p = torch.where(mb, p * v_mul[..., blk], 0.0).to(q.dtype).float()
+            acc = acc * alpha + torch.einsum("bhgt,bhtd->bhgd", p, v[:, :, blk])
+            m = m_next
+        return m, l, acc
+
+    if splits == 1:
+        m, l, acc = walk(mask)
+    else:
+        # Block j of slot b belongs to split (j − b0) // share (the kernel's
+        # `split_blocks`); masked keys are in no split's walk.
+        lo_key = (torch.clamp(qpos[:, 0] - sliding_window + 1, min=0) if sliding_window
+                  is not None else torch.zeros_like(qpos[:, 0]))
+        hi_key = torch.clamp(torch.minimum(lengths.long(), qpos[:, 0] + 1), max=T)
+        b0 = lo_key // bk
+        share = torch.clamp(-((b0 - (hi_key + bk - 1) // bk) // splits), min=1)
+        owner = (slot // bk - b0[:, None]) // share[:, None]    # [B, T]
+        parts = [walk(mask & (owner == sp)) for sp in range(splits)]
+        has = [part[1] > 0 for part in parts]
+        m = torch.full_like(parts[0][0], -float("inf"))
+        for (m_s, _, _), h in zip(parts, has):
+            m = torch.where(h, torch.maximum(m, m_s), m)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(parts[0][2])
+        for (m_s, l_s, acc_s), h in zip(parts, has):
+            w = torch.where(h, torch.exp(m_s - m), 0.0)
+            l = l + l_s * w
+            acc = acc + torch.where(h, acc_s * w, 0.0)
     kn = k_new.to(q.dtype).float()                              # [B, Hkv, D]
     vn = v_new.to(q.dtype).float()
     s_self = torch.einsum("bhgd,bhd->bhg", qg, kn)[..., None] * scale
@@ -560,12 +640,14 @@ def _launch_grouped(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_sca
     name = "paged_attention_batched" if pair is None else "paged_attention_paired"
     B, _, Hq, D = q.shape
     N, Hkv, rows, _ = k_pages.shape
+    pps = page_table.shape[1]
     dev = q.device
-    if not grouped_fits(Hq, Hkv, D, k_pages.shape[3], rows // 2, page_table.shape[1],
-                        pages_per_block):
+    if not grouped_fits(Hq, Hkv, D, k_pages.shape[3], rows // 2, pps, pages_per_block,
+                        paired=pair is not None):
         raise ValueError(f"{name}: head_dim must be {HEAD_DIM}, Hq a multiple of Hkv by at most "
-                         f"{GROUPED_MAX_G} and a block's scores within {GROUPED_SMEM_BYTES} bytes "
-                         f"of shared memory; q={tuple(q.shape)}, pool={tuple(k_pages.shape)}, "
+                         f"{GROUPED_MAX_G}, a block's scores within {GROUPED_SMEM_BYTES} bytes "
+                         f"of shared memory (and for K11 pages a multiple of 4 rows); "
+                         f"q={tuple(q.shape)}, pool={tuple(k_pages.shape)}, "
                          f"pages_per_block={pages_per_block}")
     _check_cuda("q", q, dev, torch.bfloat16)
     _check_cuda("k_pages", k_pages, dev, torch.int8)
@@ -578,19 +660,29 @@ def _launch_grouped(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_sca
     if any(t.data_ptr() % 16 for t in (q, k_pages, k_new, v_new)):
         raise ValueError(f"{name}: q, the pool and k_new / v_new must be 16-byte aligned")
     out = torch.empty_like(q)
-    args = (q.data_ptr(), out.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
+    ptrs = (q.data_ptr(), out.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), q_offs.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), B, Hq, Hkv, rows // 2, page_table.shape[1], int(pages_per_block),
-            int(page_offset), int(sliding_window or 0))
+            v_new.data_ptr())
+    shape = (int(pages_per_block), int(page_offset), int(sliding_window or 0))
     if pair is None:
-        code = _kernels.lib().vzt_paged_attn_batched(*args, float(scale), _kernels.stream_ptr(dev))
+        code = _kernels.lib().vzt_paged_attn_batched(
+            *ptrs, B, Hq, Hkv, rows // 2, pps, *shape, float(scale), _kernels.stream_ptr(dev))
         _kernels.check(code, "vzt_paged_attn_batched")
         batched_launches += 1
-    else:
-        code = _kernels.lib().vzt_paged_attn_paired(*args, int(pair), float(scale),
-                                                     _kernels.stream_ptr(dev))
-        _kernels.check(code, "vzt_paged_attn_paired")
-        paired_launches += 1
+        return out
+    splits = paired_plan(B, Hkv, rows // 2, pps, int(pages_per_block),
+                         _kernels.sm_count(dev.index))
+    ws_o = ws_ml = counters = None
+    if splits > 1:  # held until the launch is queued
+        units = B * Hkv
+        ws_o = torch.empty(units * splits * GROUPED_MAX_G * D, dtype=torch.float32, device=dev)
+        ws_ml = torch.empty(units * splits * GROUPED_MAX_G * 2, dtype=torch.float32, device=dev)
+        counters = _kernels.split_counts(dev, units)
+    code = _kernels.lib().vzt_paged_attn_paired(
+        *ptrs, _ptr(ws_o), _ptr(ws_ml), _ptr(counters), B, Hq, Hkv, N, rows // 2, pps, *shape,
+        int(pair), splits, float(scale), _kernels.stream_ptr(dev))
+    _kernels.check(code, "vzt_paged_attn_paired")
+    paired_launches += 1
     return out
 
 
@@ -605,9 +697,16 @@ def _grouped(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales, pa
                          f"{pages_per_block}, {pair}")
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if not _kernels.use_kernel(q):
+        # Under `plain_versions()` on the card, K11's plain version splits a
+        # slot's walk as the kernel's plan does there; on the CPU, one split.
+        splits = 1
+        if pair is not None and q.device.type == "cuda":
+            splits = paired_plan(q.shape[0], k_pages.shape[1], k_pages.shape[2] // 2,
+                                 page_table.shape[1], int(pages_per_block),
+                                 _kernels.sm_count(q.device.index))
         return paged_attention_grouped_plain(q, k_pages, page_table, lengths, q_offs, k_new,
                                              v_new, k_scales, pages_per_block, sliding_window,
-                                             scale, page_offset)
+                                             scale, page_offset, splits)
     return _launch_grouped(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales,
                            pages_per_block, sliding_window, scale, page_offset, pair)
 
@@ -636,11 +735,14 @@ def paged_attention_paired(q, k_pages, page_table, lengths, q_offs, k_new, v_new
                            pages_per_block: int = 6, sliding_window: Optional[int] = None,
                            scale: Optional[float] = None, page_offset: int = 0,
                            pair: int = 2) -> torch.Tensor:
-    """`paged_attention_batched`'s function, one block per `pair` consecutive
-    slots (K11, the TPU kernel
+    """`paged_attention_batched`'s function for groups of `pair` consecutive
+    slots (K11, `csrc/paged_attn_paired.cu`, the TPU kernel
     `experiments/paired_slot_attention_probe.py::_paired_kernel`); the last
-    group may be short. The same arithmetic slot for slot, so the same plain
-    version on a CPU tensor."""
+    group may be short. K11 runs a block per (slot, kv head), the blocks of
+    a group adjacent, and splits a slot's walk where the units leave the
+    card idle (`paired_plan`); with one split its arithmetic is K10's slot
+    for slot. On a CPU tensor the plain version with one split (its `splits`
+    argument reproduces a split walk's rounding)."""
     return _grouped(q, k_pages, page_table, lengths, q_offs, k_new, v_new, k_scales,
                     pages_per_block, sliding_window, scale, page_offset, pair)
 

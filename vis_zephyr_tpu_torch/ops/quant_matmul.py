@@ -31,17 +31,25 @@ per-tile counts in `_kernels.split_counts`, one zeroed int32 buffer per
 device, which the kernels leave zeroed.
 
 `qlinear` routes by M, the rows of x with every leading dim flattened:
-M ≤ `QMM_MAX_M` launches K5 (decode steps, short prefill buckets and
-chunks, the Q-Former's query rows); above it the weight is dequantized into
-x's dtype and multiplied with `torch.matmul`, what the JAX package computes
-outside any Pallas kernel (`quant_matmul.py:314`). An int4 projection takes
-K6 under `_base_dot`'s gate (M ≤ `QMM_MAX_M`, N a multiple of
-`INT4_GATE_N` and the group of `INT4_GATE_GROUP`) and the dequantize route
-otherwise (`quant_matmul.py:274-289`). The gate's constants are the JAX
-package's and do not move with the kernels' tiles. A tensor on the CPU
-takes the kernel's plain version; a CUDA tensor launches the kernel or
-raises (outside `_kernels.plain_versions()`): a shape a kernel cannot take
-inside its gate is an error, never a reason to take the dequantize route.
+M ≤ `QMM_MAX_M` launches K5 once (decode steps, short prefill buckets and
+chunks, the Q-Former's query rows); up to `QMM_CHUNK_MAX_M` it launches K5
+on chunks of `QMM_MAX_M` rows and the rest (`row_chunks`: the speculative
+verify steps' S rows a slot, prefill chunks of 256); above it the weight is
+dequantized into x's dtype and multiplied with `torch.matmul`, what the JAX
+package computes outside any Pallas kernel (`quant_matmul.py:314`). An int4
+projection takes K6 the same way under the rest of `_base_dot`'s gate (N a
+multiple of `INT4_GATE_N` and the group of `INT4_GATE_GROUP`) and the
+dequantize route otherwise (`quant_matmul.py:274-289`). The JAX gate takes
+the Pallas kernel up to 128 rows only, a TPU choice: on the card a chunked
+pass reads the int8 or int4 weight once a chunk, where the dequantize route
+writes and reads a bf16 copy of it, so chunks win until the chunks' weight
+reads outweigh the copy (`QMM_CHUNK_MAX_M`, set by
+`experiments/quant_chunk_limit.py`). Chunks keep the kernels' contract row
+for row, so a chunked pass equals an unchunked kernel pass. The gate's
+constants do not move with the kernels' tiles. A tensor on the CPU takes
+the kernel's plain version; a CUDA tensor launches the kernel or raises
+(outside `_kernels.plain_versions()`): a shape a kernel cannot take inside
+its gate is an error, never a reason to take the dequantize route.
 """
 
 from __future__ import annotations
@@ -55,8 +63,14 @@ import torch.nn.functional as F
 
 from . import _kernels
 
-# The routing gate, the JAX package's (`quant_matmul.py:274-289`).
-QMM_MAX_M = 128        # rows up to which qlinear launches K5 or K6
+# The routing gate, the JAX package's (`quant_matmul.py:274-289`), and the
+# port's chunked rows above it.
+QMM_MAX_M = 128        # rows up to which qlinear launches K5 or K6 once
+# Rows up to which it launches them on chunks of QMM_MAX_M rows. A decoder pass
+# on the H100 (`experiments/quant_chunk_limit.py`): the chunks win on int8
+# weights up to 1408 rows (by 0.7 % there, inside the 1 % spread of repeated
+# readings; 3.3 % at 1280) and on int4 up to 1792; both lose at 1536 and 2048.
+QMM_CHUNK_MAX_M = 1280
 INT4_GATE_N = 128      # K6 takes N ...
 INT4_GATE_GROUP = 128  # ... and the group in multiples of these
 
@@ -66,8 +80,8 @@ X_ROWS = (8, 16, 32, 64, 128)   # wgmma's n: the rows of x rounded up
 WG_ROWS = 64                    # W rows (output columns) a consumer warpgroup owns
 BLOCKS_PER_SM = {64: 3, 128: 1}  # blocks of 64 and of 128 W rows an SM runs at once
 
-launches = 0         # K5 launches in this process (reset by callers that count)
-dequant_calls = 0    # int8 qlinear calls above QMM_MAX_M (the dequantize + matmul route)
+launches = 0         # K5 launches in this process, a chunk each (reset by callers that count)
+dequant_calls = 0    # int8 qlinear calls above QMM_CHUNK_MAX_M (the dequantize + matmul route)
 launches4 = 0        # K6 launches
 dequant4_calls = 0   # int4 qlinear calls outside K6's gate (the dequantize + matmul route)
 _kernels.register_counters(__name__, "launches", "dequant_calls", "launches4", "dequant4_calls")
@@ -121,7 +135,32 @@ def schedule(M: int, N: int, K: int, sms: int, group: int = 0) -> Schedule:
     return Schedule(n_rows, block_n, tiles, stages, -(-stages // per), per)
 
 
-def _launch(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def row_chunks(M: int, limit: int = QMM_CHUNK_MAX_M) -> list:
+    """The rows of each K5 or K6 launch of a `qlinear` pass of M rows: [M] up
+    to `QMM_MAX_M`, chunks of `QMM_MAX_M` and the rest up to `limit`, none
+    above it (the dequantize route)."""
+    if M > limit:
+        return []
+    full, rest = divmod(M, QMM_MAX_M)
+    return [QMM_MAX_M] * full + ([rest] if rest else [])
+
+
+def _chunked(matmul, x: torch.Tensor, weight, scale, chunks: list) -> torch.Tensor:
+    """x [M, K] through `matmul` (`quantized_matmul` or `_int4`) a chunk of
+    rows at a time; on the card each chunk's launch writes its rows of one
+    output in place."""
+    if len(chunks) == 1:
+        return matmul(x, weight, scale)
+    if not _kernels.use_kernel(x):
+        return torch.cat([matmul(part, weight, scale) for part in x.split(chunks)])
+    out = torch.empty((x.shape[0], weight.shape[0]), dtype=x.dtype, device=x.device)
+    for part, rows in zip(x.split(chunks), out.split(chunks)):
+        matmul(part, weight, scale, out=rows)
+    return out
+
+
+def _launch(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
+            out=None) -> torch.Tensor:
     # A decode step calls this 224 times and the step is bound by the host,
     # so each check and allocation here is paid on the step's wall.
     global launches
@@ -144,7 +183,8 @@ def _launch(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor) -> tor
     x_ptr, w_ptr = xb.data_ptr(), weight_q.data_ptr()
     if x_ptr % 16 or w_ptr % 16:
         raise ValueError("quantized_matmul: x and weight_q must be 16-byte aligned")
-    out = torch.empty((M, N), dtype=x.dtype, device=dev)
+    if out is None:
+        out = torch.empty((M, N), dtype=x.dtype, device=dev)
     plan = schedule(M, N, K, _kernels.sm_count(dev.index))
     ws = counters = 0
     if plan.splits > 1:
@@ -160,18 +200,19 @@ def _launch(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor) -> tor
     return out
 
 
-def quantized_matmul(x: torch.Tensor, weight_q: torch.Tensor,
-                     scale: torch.Tensor) -> torch.Tensor:
+def quantized_matmul(x: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor,
+                     out=None) -> torch.Tensor:
     """x [M, K] @ dequant(weight_q [N, K] int8, scale [N] f32).T → [M, N] in
     x's dtype (bf16 or f32). K5 on a CUDA tensor, for 1 ≤ M ≤ 128 and K a
-    multiple of 16; the plain version on the CPU."""
+    multiple of 16, written into `out` (a contiguous [M, N] of x's dtype)
+    when given; the plain version on the CPU."""
     if x.dim() != 2 or weight_q.dim() != 2 or weight_q.shape[1] != x.shape[1] \
             or tuple(scale.shape) != (weight_q.shape[0],):
         raise ValueError(f"quantized_matmul: x {tuple(x.shape)}, weight_q "
                          f"{tuple(weight_q.shape)} and scale {tuple(scale.shape)} do not fit")
     if not _kernels.use_kernel(x):
         return quantized_matmul_plain(x, weight_q, scale)
-    return _launch(x, weight_q, scale)
+    return _launch(x, weight_q, scale, out)
 
 
 def dequantize(weight_q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
@@ -212,7 +253,8 @@ def quantized_matmul_int4_plain(x: torch.Tensor, weight_q4: torch.Tensor,
     return (torch.bmm(xg, wg) * scale4.T[:, None, :]).sum(dim=0).to(x.dtype)
 
 
-def _launch4(x: torch.Tensor, weight_q4: torch.Tensor, scale4: torch.Tensor) -> torch.Tensor:
+def _launch4(x: torch.Tensor, weight_q4: torch.Tensor, scale4: torch.Tensor,
+             out=None) -> torch.Tensor:
     global launches4
     M, K = x.shape
     N, G = scale4.shape
@@ -234,7 +276,8 @@ def _launch4(x: torch.Tensor, weight_q4: torch.Tensor, scale4: torch.Tensor) -> 
     x_ptr, w_ptr = xb.data_ptr(), weight_q4.data_ptr()
     if x_ptr % 16 or w_ptr % 16:
         raise ValueError("quantized_matmul_int4: x and weight_q4 must be 16-byte aligned")
-    out = torch.empty((M, N), dtype=x.dtype, device=dev)
+    if out is None:
+        out = torch.empty((M, N), dtype=x.dtype, device=dev)
     plan = schedule(M, N, K, _kernels.sm_count(dev.index), K // G)
     ws = counters = 0
     if plan.splits > 1:
@@ -250,32 +293,35 @@ def _launch4(x: torch.Tensor, weight_q4: torch.Tensor, scale4: torch.Tensor) -> 
     return out
 
 
-def quantized_matmul_int4(x: torch.Tensor, weight_q4: torch.Tensor,
-                          scale4: torch.Tensor) -> torch.Tensor:
+def quantized_matmul_int4(x: torch.Tensor, weight_q4: torch.Tensor, scale4: torch.Tensor,
+                          out=None) -> torch.Tensor:
     """x [M, K] @ dequant_int4(weight_q4 [N, K/2] int8, scale4 [N, G] f32).T
     → [M, N] in x's dtype (bf16 or f32). K6 on a CUDA tensor, for
-    1 ≤ M ≤ 128 and N and the group K / G multiples of 128; the plain
-    version on the CPU."""
+    1 ≤ M ≤ 128 and N and the group K / G multiples of 128, written into
+    `out` when given; the plain version on the CPU."""
     if (x.dim() != 2 or scale4.dim() != 2 or x.shape[1] % (2 * scale4.shape[1])
             or tuple(weight_q4.shape) != (scale4.shape[0], x.shape[1] // 2)):
         raise ValueError(f"quantized_matmul_int4: x {tuple(x.shape)}, weight_q4 "
                          f"{tuple(weight_q4.shape)} and scale4 {tuple(scale4.shape)} do not fit")
     if not _kernels.use_kernel(x):
         return quantized_matmul_int4_plain(x, weight_q4, scale4)
-    return _launch4(x, weight_q4, scale4)
+    return _launch4(x, weight_q4, scale4, out)
 
 
 def _qlinear4(x: torch.Tensor, layer) -> torch.Tensor:
-    """The int4 route of `qlinear`: K6 under `_base_dot`'s gate, else the
-    weight dequantized into x's dtype and `F.linear`."""
+    """The int4 route of `qlinear`: K6 (on `row_chunks`) under the rest of
+    `_base_dot`'s gate, else the weight dequantized into x's dtype and
+    `F.linear`."""
     global dequant4_calls
     weight_q4, scale4 = layer.weight_q4, layer.scale4
     lead, K = x.shape[:-1], x.shape[-1]
     M = math.prod(lead)
     N, G = scale4.shape
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    if M <= QMM_MAX_M and N % INT4_GATE_N == 0 and (K // G) % INT4_GATE_GROUP == 0:
-        out = quantized_matmul_int4(x.reshape(M, K), weight_q4, scale4).reshape(*lead, N)
+    chunks = row_chunks(M)
+    if chunks and N % INT4_GATE_N == 0 and (K // G) % INT4_GATE_GROUP == 0:
+        out = _chunked(quantized_matmul_int4, x.reshape(M, K), weight_q4, scale4,
+                       chunks).reshape(*lead, N)
         return out if bias is None else out + bias
     dequant4_calls += 1
     return F.linear(x, dequant_int4(weight_q4, scale4, x.dtype), bias)
@@ -295,8 +341,10 @@ def qlinear(x: torch.Tensor, layer) -> torch.Tensor:
     global dequant_calls
     lead, K = x.shape[:-1], x.shape[-1]
     M = math.prod(lead)
-    if M <= QMM_MAX_M:
-        out = quantized_matmul(x.reshape(M, K), weight_q, layer.scale).reshape(*lead, -1)
+    chunks = row_chunks(M)
+    if chunks:
+        out = _chunked(quantized_matmul, x.reshape(M, K), weight_q, layer.scale,
+                       chunks).reshape(*lead, -1)
         return out if layer.bias is None else out + layer.bias.to(out.dtype)
     dequant_calls += 1
     return F.linear(x, dequantize(weight_q, layer.scale, x.dtype),

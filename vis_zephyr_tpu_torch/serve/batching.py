@@ -41,7 +41,7 @@ import torch
 from ..config import VisZephyrConfig
 from ..models.mistral import embed, init_cache, mistral_forward
 from ..models.vis_zephyr import VisZephyr, prepare_multimodal, vis_zephyr_forward
-from .generate import SamplingConfig, _propose_lookup, _sample
+from .generate import LookupHistory, SamplingConfig, _sample
 
 
 def not_ported(what: str, step: str):
@@ -157,7 +157,7 @@ class ContinuousBatcher:
         self.slot_req: List[Optional[_Request]] = [None] * max_slots
         self.slot_len = np.zeros(max_slots, np.int64)
         # Per-slot token history for n-gram lookup (vocabulary tokens only).
-        self.slot_hist: List[list] = [[] for _ in range(max_slots)]
+        self.slot_hist: List[LookupHistory] = [LookupHistory() for _ in range(max_slots)]
         self.verify_steps = 0  # speculative scheduler steps run
         self.proposed = 0      # tokens proposed over those steps
         self.accepted = 0      # proposals accepted
@@ -263,7 +263,7 @@ class ContinuousBatcher:
         self.token[slot] = tok
         # Lookup history: image sentinels (< 0) are placeholders, and an
         # n-gram crossing one is meaningless.
-        self.slot_hist[slot] = [int(t) for t in req.input_ids if t >= 0] + [tok]
+        self.slot_hist[slot] = LookupHistory([int(t) for t in req.input_ids if t >= 0] + [tok])
         if req.max_new_tokens <= 0:
             # Explicit zero-token request: prefill ran (and sampled), but
             # nothing is emitted, as on the serialized path.
@@ -425,7 +425,7 @@ class ContinuousBatcher:
                              self.cache_len - int(self.slot_len[slot]) - 1))
             if cap <= 0:
                 continue
-            prop = _propose_lookup(np.asarray(self.slot_hist[slot]), span=cap)
+            prop = self.slot_hist[slot].propose(cap)
             if prop is None or not len(prop):
                 continue
             prop = np.asarray(prop[:cap], np.int64)

@@ -9,16 +9,17 @@ by default) and its prompt-lookup speculative loop (`lookahead`). On the
 card a burst of n steps replays one captured step n times
 (`serve/graphs.py`) over the model's fixed decode cache for the batch
 (`burst_cache`), where the JAX package compiles its step and `lax.scan`
-once per bucket; on the CPU, and inside `_kernels.plain_versions()`, it
-runs the eager `decode_step` n times. Grammars, logprobs, penalties and
-beams are not ported yet.
+once per bucket, and each speculative verify replays one captured verify
+step over the same cache (`verify_step`); on the CPU, and inside
+`_kernels.plain_versions()`, the eager `decode_step` and `decode_verify`
+run. Grammars, logprobs, penalties and beams are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,10 +32,12 @@ from ..ops import _kernels
 from .graphs import StepGraphs
 
 # Speculation counts of the dense path in this process (reset by callers that
-# count): verify calls, tokens proposed, proposals accepted.
+# count): verify calls, tokens proposed, proposals accepted. `verify_calls`
+# is bumped inside the step, so the step graphs carry it across replays.
 verify_calls = 0
 proposed = 0
 accepted = 0
+_kernels.register_counters(__name__, "verify_calls")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +245,90 @@ def decode_verify(
     return logits, new_cache
 
 
+@torch.no_grad()
+def verify_step(
+    model: VisZephyr,
+    cache: Dict,
+    tokens: torch.Tensor,  # [B, S]
+    valid: torch.Tensor,   # [B, S] bool
+    cfg: VisZephyrConfig,
+    graphs: Optional[StepGraphs] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`decode_verify` with the greedy token of every position: returns
+    (greedy [B, S], logits [B, S, V] f32) on the cache's device, and
+    `cache["length"]` advanced in place by the valid tokens.
+
+    On a CUDA cache (outside `_kernels.plain_versions()`) the step is a
+    replay of the one captured over `cache` and two fixed buffers that
+    `tokens` and `valid` (host or device tensors) are copied into
+    (`graphs`, a `StepGraphs`; a throwaway one when None); `cache` must keep
+    its tensors for the graphs' life (`burst_cache`), and the returned
+    tensors are the graph's, overwritten by its next replay. Elsewhere
+    `decode_verify` runs eagerly."""
+    length = cache["length"]
+    dev = length.device
+    if not _kernels.use_kernel(length):
+        logits, _ = decode_verify(model, cache, tokens.to(dev), valid.to(dev), cfg)
+        return torch.argmax(logits, dim=-1), logits
+    if graphs is None:
+        graphs = StepGraphs()
+    B, S = tokens.shape
+    tok_buf, valid_buf = graphs.buffers(("verify", B, S), lambda: (
+        torch.zeros((B, S), dtype=torch.int64, device=dev),
+        torch.zeros((B, S), dtype=torch.bool, device=dev)))
+    tok_buf.copy_(tokens)
+    valid_buf.copy_(valid)
+
+    def step():
+        logits = decode_verify(model, cache, tok_buf, valid_buf, cfg)[0]
+        return torch.argmax(logits, dim=-1), logits
+
+    key = ("verify", B, S, *(cache[name].data_ptr() for name in ("k", "v", "length")))
+    return graphs.run(key, step, dev)
+
+
+class LookupHistory:
+    """A sequence's token history that proposes as `_propose_lookup(history,
+    ngram=2, span)` does, in constant time a call where the function scans
+    the whole history: a 32-slot verify step of long prompts spent most of
+    its host time in those scans, with the card idle.
+
+    Each bigram keeps the start of its last two occurrences. The trailing
+    bigram's last occurrence is the tail itself, so the one before it is the
+    scan's most recent match, and its continuation is never empty.
+    `np.asarray(history)` and `list(history)` give the tokens."""
+
+    def __init__(self, tokens=()):
+        self.tokens: List[int] = []
+        self._starts: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        for t in tokens:
+            self.append(t)
+
+    def append(self, token: int) -> None:
+        self.tokens.append(int(token))
+        if len(self.tokens) >= 2:
+            key = (self.tokens[-2], self.tokens[-1])
+            self._starts[key] = (len(self.tokens) - 2, self._starts.get(key, (-1,))[0])
+
+    def propose(self, span: int) -> Optional[np.ndarray]:
+        """`_propose_lookup(np.asarray(self), ngram=2, span=span)`."""
+        if len(self.tokens) < 3:
+            return None
+        earlier = self._starts[(self.tokens[-2], self.tokens[-1])][1]
+        if earlier < 0:
+            return None
+        return np.asarray(self.tokens[earlier + 2: earlier + 2 + span], np.int64)
+
+    def __len__(self) -> int:
+        return len(self.tokens)
+
+    def __iter__(self):
+        return iter(self.tokens)
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.tokens, dtype or np.int64)
+
+
 def _propose_lookup(history: np.ndarray, ngram: int = 2, span: int = 8):
     """Prompt-lookup proposal (speculation without a draft model): find the
     most recent earlier occurrence of the trailing `ngram` tokens in the
@@ -310,7 +397,8 @@ def generate_stream(
     `lookahead > 0` turns on prompt-lookup speculative decoding (greedy
     only; off when `sampling.temperature > 0`): up to `lookahead` tokens
     proposed from the sequence's own n-gram structure are verified in one
-    multi-token cache append, with the same tokens as plain greedy decoding
+    multi-token cache append (`verify_step`, over the same fixed cache as
+    the bursts on the card), with the same tokens as plain greedy decoding
     and fewer decoder passes.
 
     `multi_step` (ignored while speculation is on): the bursts' size, which
@@ -322,14 +410,13 @@ def generate_stream(
         raise ValueError(f"streaming path is single-sequence, got batch {input_ids.shape[0]}")
     speculate = lookahead > 0 and sampling.temperature <= 0.0
     cache_len = _cache_len(input_ids.shape[1], images, cfg, sampling.max_new_tokens, lookahead)
-    fixed, graphs = ((None, None) if speculate
-                     else burst_cache(model, cfg, 1, cache_len, input_ids))
+    fixed, graphs = burst_cache(model, cfg, 1, cache_len, input_ids)
     logits, cache, _ = prefill(model, input_ids, images, patch_valid, cfg, cache_len,
                                cache=fixed)
     if speculate:
         # Image sentinels (< 0) are placeholders, not vocabulary: keep them
         # out of the lookup history (an n-gram crossing one is meaningless).
-        history = [int(t) for t in input_ids[0].tolist() if t >= 0]
+        history = LookupHistory(t for t in input_ids[0].tolist() if t >= 0)
         budget = sampling.max_new_tokens
         tok = int(torch.argmax(logits, dim=-1)[0])
         # `tok` is pending: emitted to the caller, not yet in the cache.
@@ -339,9 +426,8 @@ def generate_stream(
         history.append(tok)
         budget -= 1
         S = lookahead + 1
-        dev = input_ids.device
         while budget > 0:
-            prop = _propose_lookup(np.asarray(history), span=lookahead)
+            prop = history.propose(lookahead)
             if prop is None:
                 prop = np.zeros((0,), np.int64)
             n_prop = len(prop)
@@ -351,9 +437,8 @@ def generate_stream(
             valid = np.zeros((1, S), bool)
             valid[0, : 1 + n_prop] = True
             base_len = cache["length"].clone()  # the verify advances it in place
-            logits, cache = decode_verify(model, cache, torch.as_tensor(toks, device=dev),
-                                          torch.as_tensor(valid, device=dev), cfg)
-            greedy = torch.argmax(logits[0], dim=-1).tolist()
+            greedy = verify_step(model, cache, torch.from_numpy(toks), torch.from_numpy(valid),
+                                 cfg, graphs)[0][0].tolist()  # the verify's one copy to the host
             n_ok = 0
             while n_ok < n_prop and greedy[n_ok] == prop[n_ok]:
                 n_ok += 1

@@ -32,7 +32,9 @@ addressed through per-slot page tables, so a request occupies only
   candidate rows first, all of a layer's in one launch
   (`paged_kv_update_layer{,_q}`; the JAX step writes one row a call), then
   attends all S rows at once without a self-term; the host then rolls
-  `lengths` back to the accepted prefix.
+  `lengths` back to the accepted prefix. On the card the step is a replay
+  of the step captured over the batcher's fixed buffers, as a decode step
+  is.
 - int8 KV (`kv_quant=True`): pools hold int8 rows with per-row absmax scales
   (row ≈ int8 · scale / 127.5). Admission quantizes on write, the decode
   write quantizes in the kernel, and the attention kernel folds the scales
@@ -373,6 +375,28 @@ def _paged_multi_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengt
 
 @torch.no_grad()
 def _paged_verify_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, toks,
+                       active, cfg: VisZephyrConfig, graphs: Optional[StepGraphs] = None):
+    """`_paged_verify_body` as the batcher runs it. On a CUDA tensor (outside
+    `_kernels.plain_versions()`) the step is a replay of the step captured
+    over these buffers (`graphs`, a `StepGraphs`; a throwaway one when
+    None): the pools, `page_table`, `lengths`, `toks` and `active` must keep
+    their tensors for the graphs' life, and the returned tensors are the
+    graph's outputs, overwritten by its next replay. Elsewhere the step runs
+    eagerly. Returns (greedy [B, S], logits [B, S, V] f32) on the device."""
+    if not _kernels.use_kernel(toks):
+        return _paged_verify_body(model, kp, vp, scales, page_table, lengths, toks, active, cfg)
+    if graphs is None:
+        graphs = StepGraphs()
+    B, S = toks.shape
+    # The step reads no sampler: greedy tokens only.
+    key = ("verify", B, S, *(None if t is None else t.data_ptr()
+                             for t in (kp, vp, *scales, page_table, lengths, toks, active)))
+    return graphs.run(key, lambda: _paged_verify_body(model, kp, vp, scales, page_table, lengths,
+                                                      toks, active, cfg), toks.device)
+
+
+@torch.no_grad()
+def _paged_verify_body(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, toks,
                        active, cfg: VisZephyrConfig):
     """Batched speculative verify over the paged pools: append S candidate
     rows per slot (column 0 the slot's pending token, later columns its
@@ -507,7 +531,7 @@ class PagedBatcher(ContinuousBatcher):
         # fixed buffers, which a captured step keeps reading.
         self._active_dev = torch.zeros((max_slots,), dtype=torch.bool, device=dev)
         self._left_dev = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
-        self.graphs = StepGraphs()  # the burst's captured step (one a mode)
+        self.graphs = StepGraphs()  # the captured decode step (one a mode) and verify step
         self.slot_pages: List[List[int]] = [[] for _ in range(max_slots)]
         self._requeued: deque = deque()  # head-of-queue retries (no pages free)
         # [max_slots, V] of the last decode step; [max_slots, S, V] of the
@@ -640,12 +664,24 @@ class PagedBatcher(ContinuousBatcher):
     def _verify_device(self, toks: np.ndarray, valid: np.ndarray) -> np.ndarray:
         """The paged verify: all S rows of every slot are written (rows past
         the accepted prefix are rolled back by `_verify_rollback`); `valid`
-        only drives the host's acceptance loop."""
+        only drives the host's acceptance loop. The candidates and `active`
+        go into fixed buffers (`verify_buffers`), which the step captured on
+        the card reads; the greedy tokens come back in one copy."""
+        toks_dev, active_dev = self.verify_buffers(toks.shape[1])
+        toks_dev.copy_(torch.from_numpy(toks))
+        active_dev.copy_(torch.from_numpy(self.active))
         greedy, self.last_logits = _paged_verify_step(
             self.model, self.kp, self.vp, (self.ksp, self.vsp), self.page_table, self.lengths,
-            torch.as_tensor(toks, device=self.device),
-            torch.as_tensor(self.active, device=self.device), self.cfg)
+            toks_dev, active_dev, self.cfg, graphs=self.graphs)
         return greedy.cpu().numpy()
+
+    def verify_buffers(self, S: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The verify step's fixed inputs for S rows a slot: candidates
+        [max_slots, S] int64 and `active` [max_slots] bool on the device."""
+        B, dev = self.max_slots, self.device
+        return self.graphs.buffers(("verify", B, S), lambda: (
+            torch.zeros((B, S), dtype=torch.int64, device=dev),
+            torch.zeros((B,), dtype=torch.bool, device=dev)))
 
     def _verify_rollback(self) -> None:
         self.lengths.copy_(torch.as_tensor(self.slot_len.astype(np.int32), device=self.device))
