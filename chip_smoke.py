@@ -3,9 +3,11 @@ over a dense cache, and continuous batching over int8 KV-fused page pools,
 each with bf16 weights, int8 weights (`--load-8bit`) and int4 weights
 (`--load-4bit`), each with prompt-lookup speculation (`--lookahead`) and
 each with multi-step bursts replayed as CUDA graphs (`--multi-step`);
-the writefirst paged decode step; the fused int8 MLP probe; the trainer,
-stage 1 and stage 2; and the batched-head and slot-grouped attention
-probes.
+continuous batching over one dense cache; per-request sampling, logprobs
+and penalties in the replayed steps of both batchers; the OpenAI
+endpoints; the writefirst paged decode step; the fused int8 MLP probe; the
+trainer, stage 1 and stage 2; and the batched-head and slot-grouped
+attention probes.
 
     python3 chip_smoke.py [--seed N] [--max-new-tokens N] [--profile] [--phases a,b]
 
@@ -44,7 +46,10 @@ toolkit; exits non-zero on a machine without a card. Phases:
              and a chunk: per call (median of 20 CUDA-event runs), on the
              device (a CUDA-graph replay) and issued back to back, beside the
              plain version, the bound, `index_put_` of the rotated rows and
-             the route taken before (eager apply_rope + the copy entry);
+             the route taken before (eager apply_rope + the copy entry); the
+             same at the dense batcher's shapes: B = 8 and 32 slots of 2048
+             rows at T = 1, and its verify step (B = 8, T = 5, rows clamped
+             at the cache's end);
 5. K3      — paged_attn_decode's SASS must hold HMMA (mma.sync), UTMALDG (the
              pages by TMA) and UBLKCP (the scales by bulk copy); registers and
              stack printed; then against its plain version at B=32, Hq=32,
@@ -178,6 +183,37 @@ toolkit; exits non-zero on a machine without a card. Phases:
              eagerly and in bursts of 1, 4, 8 and 16, the captures' host
              time and graph pools' memory, and a burst of 8 on int8 and on
              int4 weights in phases 15 and 16;
+12c. dense_batch — the dense continuous batcher: the server with
+             `--continuous-batching --max-slots 8` (one cache of 8 x 2048
+             rows, prefill chunks of 256) under 16 concurrent /chat requests
+             (every reply HTTP 200 with all its tokens, K2 = 32 x (decode
+             steps + chunks), K1 = 0; TTFT median and max, tokens/s,
+             captures and the graph pool printed); a fixed batch of 8
+             admitted whole into two batchers, one stepping as served (each
+             step a replay), one through eager kernel-path `_batch_step`s
+             from the same state: logits, cache, lengths, tokens and streams
+             bit for bit over 8 steps, K2 exact; the first step's logits
+             against the serialized B = 1 `decode_step` (cosine >= 0.999,
+             first tokens equal); the replayed and the eager 8-slot step
+             profiled; a burst of 8 against 8 single steps (budgets 2 to 9)
+             bit for bit; `--lookahead 4`: 5 verify steps replayed against 5
+             eager `decode_verify`s with acceptance and rollback, bit for
+             bit, K2 and verify calls exact; on int8 weights (phase 15) 8
+             replayed steps at 8 slots with K5 = 224 a step and no
+             dequantize call;
+12d. sampled — per-request sampling on both batchers: 8 requests, the even
+             slots at temperature 0.8 and top-p 0.9, two with logprobs and
+             two penalized; a batcher stepping as served against one stepping
+             eagerly from the same state and generator state, 6 steps: bit
+             for bit (tokens, logits, state, counts, logprobs); greedy rows
+             the argmax of their (penalized) logits, logprobs the step's
+             `log_softmax` within 1e-3, the penalized slots' counts exactly
+             their emitted tokens, the sampled tokens inside their nucleus;
+12e. openai — the OpenAI endpoints on the port's server in this process
+             (the dense batcher, the stand-in tokenizer, text prompts):
+             /v1/models, a chat completion as one body and as SSE (the same
+             text), n = 2, a stop string, logprobs (top 3: the greedy token
+             the top-1), sampling with penalties, `tools` refused by name;
 13. profile — only with --profile: wall, device-busy and idle share of one
              batched decode step at B=32, of one verify step (S = 5) and of
              one dense decode step (B = 1), their kernel launches per step
@@ -254,8 +290,8 @@ toolkit; exits non-zero on a machine without a card. Phases:
              timed call's output gated against the plain version.
 
 `--phases` runs a subset (kernels, slice1, paged, batch, writefirst, spec,
-multistep, profile, precision, int8, mlp_probe, int4, train, attn_probes) and then
-prints no result line. After a full run the line before
+multistep, dense_batch, sampled, openai, profile, precision, int8, mlp_probe,
+int4, train, attn_probes) and then prints no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
 """
@@ -717,14 +753,24 @@ def check_cache_append(gen) -> dict:
     # The dense decode step's shape, a clamped tail, and chunked admission's
     # shapes (one 256-token chunk into a B=1 scratch cache): the third chunk of
     # a longer prompt, and a last chunk that ends exactly at the cache's end.
-    cases = [("L=32 B=1 S=2048 T=1", 32, 1, 2048, 1, [517]),
-             ("L=32 B=3 S=2048 T=4, one length at S-2", 32, 3, 2048, 4, [0, 1000, 2046]),
-             ("L=32 B=1 S=1024 T=256 at 512 (a prefill chunk)", 32, 1, 1024, 256, [512]),
+    # The dense batcher's shapes: its decode step at 8 and 32 slots, its
+    # verify step (S = 5) at 8, slots of mixed lengths (one inactive, at 0).
+    lens8 = [0, 17, 300, 517, 901, 1200, 1655, 2040]
+    cases = [("L=32 B=1 S=2048 T=1", 32, 1, 2048, 1, [517], "decode"),
+             ("L=32 B=3 S=2048 T=4, one length at S-2", 32, 3, 2048, 4, [0, 1000, 2046], None),
+             ("L=32 B=1 S=1024 T=256 at 512 (a prefill chunk)", 32, 1, 1024, 256, [512],
+              "chunk_256"),
              ("L=32 B=1 S=768 T=256 at 512 (the chunk that fills the cache)", 32, 1, 768, 256,
-              [512]),
-             ("L=32 B=1 S=768 T=256 at 640 (128 rows clamped to S-1)", 32, 1, 768, 256, [640])]
+              [512], None),
+             ("L=32 B=1 S=768 T=256 at 640 (128 rows clamped to S-1)", 32, 1, 768, 256, [640],
+              None),
+             ("L=32 B=8 S=2048 T=1 (the dense batcher's step)", 32, 8, 2048, 1, lens8,
+              "batch_8"),
+             ("L=32 B=32 S=2048 T=1", 32, 32, 2048, 1, lens8 * 4, "batch_32"),
+             ("L=32 B=8 S=2048 T=5 (its verify step, three rows clamped to S-1)", 32, 8, 2048,
+              5, lens8[:-1] + [2046], "verify_8_s5")]
     times = None
-    for name, L, B, S, T, lens in cases:
+    for name, L, B, S, T, lens, timed in cases:
         ck = torch.randn(L, B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
         cv = torch.randn(L, B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -751,7 +797,7 @@ def check_cache_append(gen) -> dict:
             if not exact or changed == 0:
                 raise AssertionError(f"K2 {entry} entry, {name}: kernel disagrees with the "
                                      "plain version")
-        if (T, lens) not in ((1, [517]), (256, [512])) or S == 768:
+        if timed is None:
             continue
         # The rows read once and written once (and the rope entry's cos / sin
         # tables read once); its arithmetic is a few operations an element.
@@ -798,7 +844,7 @@ def check_cache_append(gen) -> dict:
               f"{show(row['copy']['device_ms'])} on the device, issued "
               f"{row['copy']['issue_ms']:.4f}; plain ({T} indexed writes) {copy_plain_ms:.4f} "
               f"ms; bound {copy_bound[0]:.6f} ms by {copy_bound[1]}")
-        if times is None:  # the decode step's shape goes into the result line
+        if timed == "decode":  # the decode step's shape goes into the result line
             times = dict(ms=row["rope"]["ms"], device_ms=row["rope"]["device_ms"],
                          issue_ms=row["rope"]["issue_ms"], plain_ms=plain_ms,
                          library_ms=row["library"]["ms"],
@@ -807,8 +853,9 @@ def check_cache_append(gen) -> dict:
                          before=row["before"], copy_entry=dict(row["copy"], plain_ms=copy_plain_ms,
                                                                 bound_ms=copy_bound[0]))
         else:
-            times["chunk_256"] = dict(row["rope"], plain_ms=plain_ms, bound_ms=rope_bound[0],
-                                      before=row["before"])
+            times[timed] = dict(row["rope"], plain_ms=plain_ms, bound_ms=rope_bound[0],
+                                bound_by=rope_bound[1], before=row["before"],
+                                library=row["library"])
     return {"max_abs_err": 0.0, "times": times}
 
 
@@ -2271,19 +2318,23 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
 
 
 def admitted_batcher(model, cfg, requests, max_slots: int, prefill_chunk=None,
-                     max_new_tokens: int = 64, **kw):
-    """A direct PagedBatcher with every request admitted before any decode
-    step: whole (the prompt prefills through K1) or, with `prefill_chunk`, in
-    chunks over a scratch cache (K2 at T = chunk). Inside
-    `_kernels.plain_versions()` the same admission takes the plain versions."""
+                     max_new_tokens: int = 64, dense: bool = False, options=None, **kw):
+    """A direct PagedBatcher (a dense ContinuousBatcher with `dense`) with
+    every request admitted before any decode step: whole (the prompt
+    prefills through K1) or, with `prefill_chunk`, in chunks over a scratch
+    cache (K2 at T = chunk). `options`: each request's `submit` arguments.
+    Inside `_kernels.plain_versions()` the same admission takes the plain
+    versions."""
+    from vis_zephyr_tpu_torch.serve.batching import ContinuousBatcher
     from vis_zephyr_tpu_torch.serve.generate import SamplingConfig
     from vis_zephyr_tpu_torch.serve.paged import PagedBatcher
 
-    b = PagedBatcher(model, cfg, max_slots=max_slots, cache_len=2048,
-                     sampling=SamplingConfig(max_new_tokens=max_new_tokens, eos_token_id=-1),
-                     prefill_chunk=prefill_chunk, **kw)
-    for ids, px, valid in requests:
-        b.submit(ids, px, valid)
+    b = (ContinuousBatcher if dense else PagedBatcher)(
+        model, cfg, max_slots=max_slots, cache_len=2048,
+        sampling=SamplingConfig(max_new_tokens=max_new_tokens, eos_token_id=-1),
+        prefill_chunk=prefill_chunk, **kw)
+    for i, (ids, px, valid) in enumerate(requests):
+        b.submit(ids, px, valid, **(options[i] if options else {}))
     if prefill_chunk:
         while not b.pending.empty() or b._prefilling is not None:
             b._pump_prefill()
@@ -2294,14 +2345,15 @@ def admitted_batcher(model, cfg, requests, max_slots: int, prefill_chunk=None,
     return b
 
 
-def direct_requests(cfg, seed: int, n: int):
+def direct_requests(cfg, seed: int, n: int, repeat: bool = False):
     import numpy as np
 
     from vis_zephyr_tpu_torch.data.tokenization import tokenize_with_images
 
     tok = WordTokenizer(cfg.decoder.vocab_size)
     return [(np.asarray(tokenize_with_images(q, tok), np.int64), px, valid)
-            for _, q, px, valid in paged_requests(np.random.default_rng(seed + 2), cfg, n)]
+            for _, q, px, valid in paged_requests(np.random.default_rng(seed + 2), cfg, n,
+                                                  repeat=repeat)]
 
 
 def slot_cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -3946,8 +3998,486 @@ def run_attn_probes(seed: int, gen, card: str) -> dict:
                 probes={"batched": batched["times"], "paired": paired["times"]})
 
 
-PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "multistep", "profile",
-          "precision", "int8", "mlp_probe", "int4", "train", "attn_probes")
+# -- the dense continuous batcher, per-request sampling, the OpenAI endpoints ---------------
+
+DENSE_SLOTS = 8   # the dense batcher's slots: the JAX server's default --max-slots
+DENSE_FLAGS = ["--continuous-batching", "--max-slots", str(DENSE_SLOTS)]
+DENSE_STEPS = 8   # the fixed batch's compared steps
+SAMPLED_STEPS = 6  # the sampled batch's compared steps: the capture's warm-up, then replays
+
+
+def device_state(b) -> list:
+    """A batcher's device state: the dense cache or the pools and page table,
+    lengths, pending tokens and the penalty counts."""
+    if hasattr(b, "kp"):
+        state = [b.kp, b.vp, b.ksp, b.vsp, b.page_table, b.lengths]
+    else:
+        state = [b.cache["k"], b.cache["v"], b.cache["length"]]
+    return [t for t in state + [b.token, b.counts] if t is not None]
+
+
+def copy_state(dst, src) -> None:
+    """The same start for two batchers admitted alike: dst's device state and
+    generator set from src's, in place (a captured step keeps reading dst's
+    buffers)."""
+    for mine, theirs in zip(device_state(dst), device_state(src)):
+        mine.copy_(theirs)
+    dst.generator.set_state(src.generator.get_state())
+
+
+def eager_bursts(b) -> None:
+    """Make `b` run its decode bursts as eager kernel-path steps with the
+    carry on the host (`_batch_step` or `_paged_step`, then `_logprobs` of
+    the step's logits), where a served batcher replays its captured step."""
+    from vis_zephyr_tpu_torch.serve.batching import _batch_step
+    from vis_zephyr_tpu_torch.serve.generate import _logprobs
+    from vis_zephyr_tpu_torch.serve.paged import _paged_step
+
+    def step(alive, overrides, penalties):
+        if hasattr(b, "kp"):
+            return _paged_step(b.model, b.kp, b.vp, (b.ksp, b.vsp), b.page_table, b.lengths,
+                               b.token, alive, b.generator, b.cfg, b.sampling,
+                               sample_overrides=overrides, penalties=penalties)
+        return _batch_step(b.model, b.cache, b.token, alive, b.generator, b.cfg, b.sampling,
+                           sample_overrides=overrides, penalties=penalties)
+
+    def burst(n, overrides, penalties, lp_out):
+        alive, left = b._active_dev.clone(), b._left_dev.clone()
+        toks, entry = [], []
+        for j in range(n):
+            entry.append(alive.clone())
+            tok, logits = step(alive, overrides, penalties)
+            if lp_out is not None:
+                for out, got in zip(lp_out, _logprobs(logits, tok)):
+                    out[j].copy_(got)
+            toks.append(tok.clone())
+            left -= 1
+            alive = alive & (tok != b.sampling.eos_token_id) & (left > 0)
+        return torch.stack(toks), torch.stack(entry), logits
+
+    b._burst_device = burst
+
+
+def streams(handles) -> list:
+    """What each request has received: its tokens and its logprob entries."""
+    return [(list(h.out.queue), [(c, ids.tolist(), lps.tolist()) for c, ids, lps in h.lp_log])
+            for h in handles]
+
+
+def same_batchers(a, b, ha, hb) -> dict:
+    """Bit-equality of two batchers after a step: the last logits, the device
+    state, and the host's lengths, histories and streams."""
+    return dict(logits=torch.equal(a.last_logits, b.last_logits),
+                device=all(torch.equal(x, y) for x, y in zip(device_state(a), device_state(b))),
+                host=(a.slot_len.tolist() == b.slot_len.tolist()
+                      and [list(h) for h in a.slot_hist] == [list(h) for h in b.slot_hist]
+                      and streams(ha) == streams(hb)))
+
+
+def post_json(port: int, method: str, path: str, payload=None):
+    """One request to the server; returns (status, body text)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    body = None if payload is None else json.dumps(payload)
+    conn.request(method, path, body=body, headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    text = resp.read().decode()
+    conn.close()
+    return resp.status, text
+
+
+def run_dense_server(model, cfg, seed: int, new_tokens: int, card: str, n: int = 16) -> dict:
+    """The server with `--continuous-batching --max-slots 8` (the dense
+    batcher: one cache of 8 x 2048 rows, prefill chunks of 256, every decode
+    step a replay) under `n` concurrent /chat requests of about 40, 300 and
+    600 words: every reply HTTP 200 with all its tokens, K2 = 32 x (decode
+    steps + prefill chunks), K1 = 0 (chunked admission), every slot free at
+    the end; TTFT, tokens/s, captures and the graph pool printed."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.serve import api
+
+    L = cfg.decoder.num_layers
+    parser = argparse.ArgumentParser()
+    api.add_engine_args(parser)
+    flags = parser.parse_args(DENSE_FLAGS + ["--max-new-tokens", str(new_tokens)])
+    engine = api.engine_from_args(model, cfg, WordTokenizer(cfg.decoder.vocab_size), flags)
+    b = engine.batcher
+    side = cfg.vision.image_size
+    requests = paged_requests(np.random.default_rng(seed + 1), cfg, n)
+    chunks = 0
+    for sid, question, px, valid in requests:
+        engine.attach_pixels(sid, px, valid, (2 * side, side))
+        length = len(engine.prompt_ids(question)) - 1 + int(valid.sum()) * cfg.tokens_per_patch
+        chunks += -(-length // b.prefill_chunk)
+    cache_gib = 2 * b.cache["k"].numel() * b.cache["k"].element_size() / 2**30
+    print(f"dense_batch: server flags {' '.join(DENSE_FLAGS)} -> {type(b).__name__}, max_slots "
+          f"{b.max_slots}, cache_len {b.cache_len}, prefill chunk {b.prefill_chunk}; the cache "
+          f"{cache_gib:.2f} GiB")
+    engine.attach_pixels("warm", requests[0][2], requests[0][3], (2 * side, side))
+    engine.chat_text("warm", requests[0][1])  # the capture, outside the counted run
+    server, thread = start_server(engine)
+    port = server.server_address[1]
+    try:
+        fa.launches = kv_cache.launches = 0
+        b.steps = b.slots_stepped = b.bursts = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(requests)) as pool:
+            results = list(pool.map(
+                lambda r: post_chat(port, {"session_id": r[0], "question": r[1]}), requests))
+        wall = time.perf_counter() - t0
+        counts = dict(k1=fa.launches, k2=kv_cache.launches)
+    finally:
+        stop_server(server, thread)
+        engine.close()
+    for (sid, _, _, _), (status, text, _, _) in zip(requests, results):
+        words = text.split()
+        if status != 200 or len(words) != new_tokens:
+            raise AssertionError(f"dense_batch request {sid}: HTTP {status}, {len(words)} tokens "
+                                 f"(want {new_tokens}): {text[:60]!r}")
+    want = dict(k1=0, k2=L * (b.steps + chunks))
+    ttfts = sorted(r[2] for r in results)
+    print(f"dense_batch: {n} requests, all HTTP 200 with {new_tokens} tokens; {b.steps} decode "
+          f"steps, mean active slots per step {b.slots_stepped / b.steps:.2f} of {b.max_slots}; "
+          f"K2 dense_cache_append {counts['k2']} (want {L} x ({b.steps} steps + {chunks} prefill "
+          f"chunks) = {want['k2']}), K1 flash_fwd {counts['k1']} (want 0); TTFT median "
+          f"{statistics.median(ttfts) * 1e3:.1f} ms, max {ttfts[-1] * 1e3:.1f} ms; "
+          f"{n * new_tokens} tokens in {wall:.2f} s = {n * new_tokens / wall:.1f} tokens/s over "
+          f"all slots, {wall / b.steps * 1e3:.1f} ms of wall per scheduler step; captures "
+          f"{b.graphs.captures} ({b.graphs.capture_seconds:.2f} s), graph pool "
+          f"{b.graphs.pool_bytes() / 2**20:.1f} MiB [{card}]", flush=True)
+    if counts != want or b.has_work or b.active.any() or b.slots_stepped <= b.steps:
+        raise AssertionError("dense_batch: the served dense batcher miscounted, leaked a slot or "
+                             "did not share steps")
+    return dict(counts, tokens_per_s=n * new_tokens / wall, ttft_median=statistics.median(ttfts),
+                ttft_max=ttfts[-1], captures=b.graphs.captures,
+                pool_mib=b.graphs.pool_bytes() / 2**20)
+
+
+def run_dense_batch(model, cfg, seed: int, new_tokens: int, card: str) -> dict:
+    """The dense continuous batcher (8 slots, cache 2048): the served run
+    (`run_dense_server`); then a fixed batch of 8 requests admitted whole
+    into two batchers, one stepping as served (every step a replay of the
+    captured step) and one through eager kernel-path `_batch_step`s from
+    the same state: tokens, logits, cache, lengths and the host's streams
+    bit for bit over 8 steps, K2 exact; the first step's logits per slot
+    against the serialized path's `decode_step` (B = 1) on the same request,
+    cosine >= 0.999; the replayed and the eager step profiled (wall, device
+    busy, idle share, largest items); a burst of 8 against 8 single steps
+    (budgets 2 to 9, every slot ending inside it) bit for bit; and
+    `--lookahead 4`: 5 verify steps replayed against 5 eager `decode_verify`
+    steps with acceptance and rollback, bit for bit."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.experiments.step_profile import profile_step, show_step
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.serve import generate as gen
+
+    L = cfg.decoder.num_layers
+    out = run_dense_server(model, cfg, seed, new_tokens, card)
+
+    requests = direct_requests(cfg, seed, DENSE_SLOTS)
+    served = admitted_batcher(model, cfg, requests, DENSE_SLOTS, dense=True)
+    eager = admitted_batcher(model, cfg, requests, DENSE_SLOTS, dense=True)
+    copy_state(eager, served)
+    eager_bursts(eager)
+    hs, he = list(served.slot_req), list(eager.slot_req)
+    first = served.token.clone()
+    kv_cache.launches = 0
+    steps = []
+    for step in range(DENSE_STEPS):
+        served.step()
+        eager.step()
+        steps.append(same_batchers(served, eager, hs, he))
+        if step == 0:
+            first_logits = served.last_logits.clone()
+    equal = {key: all(s[key] for s in steps) for key in steps[0]}
+    counted, want = kv_cache.launches, 2 * L * DENSE_STEPS
+    print(f"dense_batch: 8 slots, lengths about {int(served.slot_len.mean())}: {DENSE_STEPS} "
+          f"steps as served (the capture's warm-up, then replays) against {DENSE_STEPS} eager "
+          f"kernel-path `_batch_step`s from the same state: bit-equal {equal} (logits; cache, "
+          f"lengths and pending tokens; the host's streams); K2 {counted} (want {want}); "
+          f"captures {served.graphs.captures}, graph pool {served.graphs.pool_bytes() / 2**20:.1f} "
+          f"MiB [{card}]", flush=True)
+    if not all(equal.values()) or counted != want:
+        raise AssertionError(f"dense_batch: the replayed step disagrees with the eager one: {steps}")
+
+    cosines, same_first = [], True
+    for slot, (ids, px, valid) in enumerate(requests):
+        last, cache, _ = gen.prefill(model, torch.from_numpy(ids).cuda()[None],
+                                     torch.from_numpy(px).cuda()[None],
+                                     torch.from_numpy(valid).cuda()[None], cfg, 2048)
+        tok = last.argmax(-1)
+        same_first &= int(tok[0]) == int(first[slot])
+        logits, _ = gen.decode_step(model, cache, tok, cfg)
+        cosines.append(cosine(logits[0], first_logits[slot]))
+        del cache
+    print(f"dense_batch: the first step's logits per slot against the serialized path's "
+          f"`decode_step` (B = 1) on the same request: cosine min {min(cosines):.6f} (>= 0.999); "
+          f"first tokens equal {same_first} [{card}]", flush=True)
+    if not min(cosines) >= 0.999 or not same_first:
+        raise AssertionError("dense_batch: the batched step disagrees with the serialized step")
+
+    for name, b in (("replayed", served), ("eager", eager)):
+        got = profile_step(b.step, warm=2, timed=8, profiled=4)
+        out[f"step_{name}"] = {k: v for k, v in got.items() if k != "items"}
+        show_step(f"dense_batch, the {name} 8-slot decode step", "dense_batch", got, card, n=8)
+        if int(b.active.sum()) != DENSE_SLOTS:
+            raise AssertionError("dense_batch: a slot finished inside the profile")
+    out["pool_mib_fixed"] = served.graphs.pool_bytes() / 2**20
+    del served, eager
+    torch.cuda.empty_cache()
+
+    # A burst of 8 against 8 single steps, both replayed; budgets 2 to 9.
+    options = [dict(max_new_tokens=2 + i) for i in range(DENSE_SLOTS)]
+    burst = admitted_batcher(model, cfg, requests, DENSE_SLOTS, dense=True, options=options,
+                             multi_step=BURST_STEPS)
+    single = admitted_batcher(model, cfg, requests, DENSE_SLOTS, dense=True, options=options)
+    copy_state(single, burst)
+    hb, hs = list(burst.slot_req), list(single.slot_req)
+    burst.step()
+    for _ in range(BURST_STEPS):
+        single.step()
+    checks = dict(streams=streams(hb) == streams(hs),
+                  device=all(torch.equal(x, y) for x, y in zip(device_state(burst),
+                                                                device_state(single))),
+                  ended=not burst.active.any() and not single.active.any(),
+                  one_burst=(burst.bursts, single.bursts) == (1, 0))
+    print(f"dense_batch: a burst of {BURST_STEPS} (replays) against {BURST_STEPS} single "
+          f"replayed steps, budgets 2 to 9 (every slot ends inside the burst): {checks} "
+          f"[{card}]", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"dense_batch: the burst disagrees with the single steps: {checks}")
+    del burst, single
+    torch.cuda.empty_cache()
+
+    # --lookahead 4: the dense verify step replayed against decode_verify.
+    rep = direct_requests(cfg, seed, DENSE_SLOTS, repeat=True)
+    spec = admitted_batcher(model, cfg, rep, DENSE_SLOTS, dense=True, lookahead=SPEC_LOOKAHEAD)
+    other = admitted_batcher(model, cfg, rep, DENSE_SLOTS, dense=True, lookahead=SPEC_LOOKAHEAD)
+    copy_state(other, spec)
+
+    def eager_verify(toks, valid):
+        other.last_logits, _ = gen.decode_verify(model, other.cache, torch.from_numpy(toks).cuda(),
+                                                 torch.from_numpy(valid).cuda(), cfg)
+        return torch.argmax(other.last_logits, dim=-1).cpu().numpy()
+
+    other._verify_device = eager_verify
+    hs, ho = list(spec.slot_req), list(other.slot_req)
+    kv_cache.launches = gen.verify_calls = 0
+    vsteps = []
+    for _ in range(VERIFY_STEPS):
+        spec.step()
+        other.step()
+        vsteps.append(same_batchers(spec, other, hs, ho))
+    vequal = {key: all(s[key] for s in vsteps) for key in vsteps[0]}
+    vcounts = (kv_cache.launches, gen.verify_calls)
+    vwant = (2 * L * VERIFY_STEPS, 2 * VERIFY_STEPS)
+    print(f"dense_batch --lookahead {SPEC_LOOKAHEAD}: {VERIFY_STEPS} verify steps of 8 slots "
+          f"(S = {SPEC_LOOKAHEAD + 1}; the warm-up, then replays) against {VERIFY_STEPS} eager "
+          f"`decode_verify`s with acceptance and rollback: bit-equal {vequal}; {spec.accepted} of "
+          f"{spec.proposed} proposals accepted; K2 {vcounts[0]}, verify calls {vcounts[1]} (want "
+          f"{vwant}) [{card}]", flush=True)
+    if not all(vequal.values()) or vcounts != vwant or spec.accepted == 0:
+        raise AssertionError(f"dense_batch: the replayed verify step disagrees: {vsteps}")
+    del spec, other
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dense_batch_quant(model, cfg, seed: int, card: str) -> dict:
+    """The dense batcher on int8 weights: 8 slots admitted whole, then
+    DENSE_STEPS replayed decode steps: K5 224 a step (M = 8, one chunk), no
+    dequantize call, K2 32 a step, finite logits; the step's wall, device
+    busy and idle share printed."""
+    from vis_zephyr_tpu_torch.experiments.step_profile import profile_step
+    from vis_zephyr_tpu_torch.ops import kv_cache
+
+    L = cfg.decoder.num_layers
+    b = admitted_batcher(model, cfg, direct_requests(cfg, seed, DENSE_SLOTS), DENSE_SLOTS,
+                         dense=True)
+    reset_routes()
+    kv_cache.launches = 0
+    for _ in range(DENSE_STEPS):
+        b.step()
+    routes = read_routes()
+    counts = dict(routes, k2=kv_cache.launches)
+    want = expected_routes(model, (0, 0), decoder_routes(cfg, DENSE_SLOTS, DENSE_STEPS))
+    finite = bool(torch.isfinite(b.last_logits).all())
+    got = profile_step(b.step, warm=1, timed=6, profiled=2)
+    print(f"dense_batch int{weight_bits(model)}: 8 slots, {DENSE_STEPS} replayed decode steps: "
+          f"{show_routes(routes, want)}; K2 {counts['k2']} (want {L * DENSE_STEPS}); logits "
+          f"finite {finite}; a step's wall {got['wall_ms']:.2f} ms, device busy "
+          f"{got['device_ms']:.2f} ms, idle share {got['idle_share']:.2f} [{card}]", flush=True)
+    if routes != want or counts["k2"] != L * DENSE_STEPS or not finite:
+        raise AssertionError("dense_batch: the quantized dense step miscounted or is not finite")
+    del b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_sampled(model, cfg, seed: int, card: str) -> dict:
+    """Per-request sampling in the replayed steps of both batchers: 8
+    requests, the even slots at temperature 0.8 and top-p 0.9, the odd ones
+    greedy; slots 0 and 1 with logprobs (top 5), slots 2 and 3 with
+    frequency 0.5 and presence 1.0 penalties. Two batchers of a kind from
+    the same state and generator state, one stepping as served (replays),
+    one through eager kernel-path steps, SAMPLED_STEPS steps: tokens,
+    logits, state, counts and logprobs bit for bit; the greedy rows the
+    argmax of their (penalized) logits; the logprobs `log_softmax` of the
+    step's logits within 1e-3; the penalized slots' counts exactly their
+    emitted tokens; the sampled tokens inside their nucleus."""
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    options = [dict(temperature=0.8, top_p=0.9) if slot % 2 == 0 else {} for slot in range(8)]
+    for slot in (0, 1):
+        options[slot]["logprobs"] = 5
+    for slot in (2, 3):
+        options[slot].update(frequency_penalty=0.5, presence_penalty=1.0)
+    requests = direct_requests(cfg, seed + 7, 8)
+    out = {}
+    for kind in ("dense", "paged"):
+        extra = dict(dense=True) if kind == "dense" else dict(kv_quant=True, kv_fused=True)
+        fa.launches = kv_cache.launches = pa.attn_launches = pa.rows_launches = 0
+        served = admitted_batcher(model, cfg, requests, 8, options=options, **extra)
+        eager = admitted_batcher(model, cfg, requests, 8, options=options, **extra)
+        copy_state(eager, served)
+        eager_bursts(eager)
+        hs, he = list(served.slot_req), list(eager.slot_req)
+        checks, lp_err, nucleus_ok = [], 0.0, True
+        greedy_ok = True
+        for _ in range(SAMPLED_STEPS):
+            counts_before = served.counts.clone()
+            served.step()
+            eager.step()
+            checks.append(same_batchers(served, eager, hs, he))
+            logits = served.last_logits.float()
+            tok = served.token.long()
+            pen = logits - 0.5 * counts_before - 1.0 * (counts_before > 0).float()
+            for slot in (1, 5, 7):
+                greedy_ok &= int(tok[slot]) == int(logits[slot].argmax())
+            greedy_ok &= int(tok[3]) == int(pen[3].argmax())
+            lsm = torch.log_softmax(logits, dim=-1)
+            for slot in (0, 1):
+                chosen, ids, lps = hs[slot].lp_log[-1]
+                lp_err = max(lp_err, abs(chosen - float(lsm[slot, tok[slot]])),
+                             float((torch.from_numpy(lps).cuda()
+                                    - lsm[slot, torch.from_numpy(ids).long().cuda()]).abs().max()))
+            for slot in (0, 2, 4, 6):
+                row = (pen[slot] if slot == 2 else logits[slot]) / 0.8
+                srt = torch.sort(row, descending=True).values
+                cum = torch.softmax(srt, -1).cumsum(-1)
+                cut = srt[min(int((cum < 0.9).sum()), srt.numel() - 1)]
+                nucleus_ok &= bool(row[tok[slot]] >= cut)
+        equal = {key: all(c[key] for c in checks) for key in checks[0]}
+        emitted = {slot: list(hs[slot].out.queue) for slot in (2, 3)}
+        counts_ok = all(torch.equal(served.counts[slot].cpu(),
+                                    torch.bincount(torch.tensor(emitted[slot]),
+                                                   minlength=cfg.decoder.vocab_size).float())
+                        for slot in (2, 3))
+        counted = dict(k1=fa.launches, k2=kv_cache.launches, k3=pa.attn_launches,
+                       k4=pa.rows_launches)
+        gates = dict(bit_equal=all(equal.values()), greedy_rows=greedy_ok,
+                     logprobs=lp_err <= 1e-3, counts=counts_ok, nucleus=nucleus_ok,
+                     replayed=served.graphs.captures >= 1 and served.bursts == 0)
+        print(f"sampled {kind}: 8 slots (4 at temperature 0.8, top-p 0.9; 2 with logprobs, 2 "
+              f"penalized), {SAMPLED_STEPS} steps as served (replays) against eager kernel-path "
+              f"steps from the same generator state: bit-equal {equal}; {gates}; logprobs max "
+              f"error against log_softmax {lp_err:.2e}; launches {counted} (both batchers) "
+              f"[{card}]", flush=True)
+        if not all(gates.values()):
+            raise AssertionError(f"sampled {kind}: {gates}, {checks}")
+        out[kind] = counted
+        del served, eager
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_openai(model, cfg, seed: int, card: str) -> dict:
+    """The OpenAI endpoints on the port's server in this process
+    (`--continuous-batching --max-slots 8`, the dense batcher), the
+    stand-in tokenizer and text prompts: GET /v1/models; a chat completion
+    as one body and as SSE (the same text, [DONE] last); n = 2 (equal
+    greedy choices); a stop string (the text cut before it, finish_reason
+    "stop"); logprobs (one entry a token, the greedy token the top-1);
+    penalties; `tools` refused by name."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.serve import api
+
+    parser = argparse.ArgumentParser()
+    api.add_engine_args(parser)
+    engine = api.engine_from_args(model, cfg, WordTokenizer(cfg.decoder.vocab_size),
+                                  parser.parse_args(DENSE_FLAGS + ["--max-new-tokens", "64"]))
+    question = make_question(np.random.default_rng(seed + 8), 40)
+    chat = {"messages": [{"role": "system", "content": "answer briefly"},
+                         {"role": "user", "content": question}], "max_tokens": 12}
+    server, thread = start_server(engine)
+    port = server.server_address[1]
+    checks = {}
+    try:
+        kv_cache.launches = 0
+        t0 = time.perf_counter()
+        status, body = post_json(port, "GET", "/v1/models")
+        checks["models"] = status == 200 and json.loads(body)["data"][0]["id"] == "vis-zephyr-tpu"
+        status, body = post_json(port, "POST", "/v1/chat/completions", chat)
+        plain = json.loads(body)
+        text = plain["choices"][0]["message"]["content"]
+        checks["plain"] = (status == 200 and plain["usage"]["completion_tokens"] == 12
+                           and len(text.split()) == 12)
+        status, body = post_json(port, "POST", "/v1/chat/completions", dict(chat, stream=True))
+        events = [json.loads(line[6:]) for line in body.splitlines()
+                  if line.startswith("data: ") and line != "data: [DONE]"]
+        streamed = "".join(e["choices"][0]["delta"].get("content", "") for e in events
+                           if e["choices"])
+        checks["sse"] = (status == 200 and body.rstrip().endswith("data: [DONE]")
+                         and streamed == text and events[-1]["usage"]["completion_tokens"] == 12)
+        status, body = post_json(port, "POST", "/v1/chat/completions", dict(chat, n=2))
+        texts = [c["message"]["content"] for c in json.loads(body)["choices"]]
+        checks["n2"] = status == 200 and texts == [text, text]
+        stop = text.split()[3]
+        status, body = post_json(port, "POST", "/v1/chat/completions", dict(chat, stop=[stop]))
+        cut = json.loads(body)["choices"][0]
+        checks["stop"] = (status == 200 and cut["finish_reason"] == "stop"
+                          and text.startswith(cut["message"]["content"])
+                          and stop not in cut["message"]["content"])
+        status, body = post_json(port, "POST", "/v1/chat/completions",
+                                 dict(chat, logprobs=True, top_logprobs=3))
+        content = json.loads(body)["choices"][0]["logprobs"]["content"]
+        checks["logprobs"] = (status == 200 and len(content) == 12
+                              and all(e["top_logprobs"][0]["logprob"] == e["logprob"] <= 0
+                                      and e["top_logprobs"][0]["token"] == e["token"]
+                                      for e in content)
+                              and " ".join(e["token"] for e in content) == text)
+        status, body = post_json(port, "POST", "/v1/chat/completions",
+                                 dict(chat, frequency_penalty=0.5, presence_penalty=1.5,
+                                      temperature=0.8, top_p=0.9))
+        checks["sampled_penalized"] = (status == 200
+                                       and json.loads(body)["usage"]["completion_tokens"] == 12)
+        status, body = post_json(port, "POST", "/v1/chat/completions",
+                                 dict(chat, tools=[{"type": "function",
+                                                    "function": {"name": "f"}}]))
+        checks["tools_refused"] = status == 400 and "Queue A step 10" in body
+        wall = time.perf_counter() - t0
+        counts = dict(k2=kv_cache.launches)
+    finally:
+        stop_server(server, thread)
+        engine.close()
+    print(f"openai: /v1/models, /v1/chat/completions plain, SSE, n = 2, stop {stop!r}, logprobs "
+          f"(top 3), sampled with penalties, tools refused: {checks}; K2 {counts['k2']}; "
+          f"{wall:.2f} s for the 8 requests [{card}]", flush=True)
+    if not all(checks.values()) or counts["k2"] == 0:
+        raise AssertionError(f"openai: {checks}")
+    return counts
+
+
+PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "multistep",
+          "dense_batch", "sampled", "openai", "profile", "precision", "int8", "mlp_probe", "int4",
+          "train", "attn_probes")
 
 
 def main(argv=None) -> None:
@@ -4051,6 +4581,15 @@ def main(argv=None) -> None:
         multistep_dense = run_burst_dense(model, cfg, args.seed, args.max_new_tokens, card)
         run_burst_timing(model, cfg, args.seed, card)
         done("multistep")
+    if "dense_batch" in phases:
+        dense_batch = run_dense_batch(model, cfg, args.seed, args.max_new_tokens, card)
+        done("dense_batch")
+    if "sampled" in phases:
+        sampled = run_sampled(model, cfg, args.seed, card)
+        done("sampled")
+    if "openai" in phases:
+        openai = run_openai(model, cfg, args.seed, card)
+        done("openai")
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
         run_profile(model, cfg, args.seed, card, label="spec profile", lookahead=SPEC_LOOKAHEAD)
@@ -4079,6 +4618,8 @@ def main(argv=None) -> None:
                                   label="int8 paged")
         int8_logits = run_fixed_batch_quant(model, cfg, args.seed, batch, card)
         run_verify_routes(model, cfg, args.seed, card)
+        if "dense_batch" in phases:
+            dense_batch8 = run_dense_batch_quant(model, cfg, args.seed, card)
         if "multistep" in phases:
             run_burst_timing(model, cfg, args.seed, card, label="int8 multistep",
                              sizes=(BURST_STEPS,), dense=False)
@@ -4156,14 +4697,19 @@ def main(argv=None) -> None:
         print(f"partial run of phases {phases}: no result line")
         return
 
-    # The counts of the ten served runs (bf16, int8 and int4 weights on each
-    # path, speculation on each path and multi-step bursts on each path),
-    # each set to 0 just before its run and read just after it. `launches` is
-    # their sum and `launches_by_path` says which run gave what.
+    # The counts of the served runs (bf16, int8 and int4 weights on each
+    # path, speculation on each path, multi-step bursts on each path, the
+    # dense batcher on bf16 and int8 weights, per-request sampling on both
+    # batchers and the OpenAI endpoints), each set to 0 just before its run
+    # and read just after it. `launches` is their sum and `launches_by_path`
+    # says which run gave what.
     runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
             "dense_int4": dense4, "paged_int4": paged4, "spec_dense": spec_dense,
             "spec_paged": spec_paged, "multistep_dense": multistep_dense,
-            "multistep_paged": multistep_paged, "writefirst": writefirst, "mlp_probe": mlp_probe,
+            "multistep_paged": multistep_paged, "dense_batch": dense_batch,
+            "dense_batch_int8": dense_batch8, "sampled_dense": sampled["dense"],
+            "sampled_paged": sampled["paged"], "openai": openai,
+            "writefirst": writefirst, "mlp_probe": mlp_probe,
             "train": trained["train"], "train_lora": trained["train_lora"],
             "attn_probes": attn}
     by_path = {name: {path: run.get(key, 0) for path, run in runs.items()}
@@ -4185,6 +4731,11 @@ def main(argv=None) -> None:
                "spec_dense": dense_kernels,
                "multistep_dense": dense_kernels, "multistep_paged": paged_kernels,
                "spec_paged": ("dense_cache_append", "paged_attn_decode", "paged_kv_update"),
+               "dense_batch": ("dense_cache_append",),
+               "dense_batch_int8": ("dense_cache_append", "quant_matmul_int8"),
+               "sampled_dense": ("flash_fwd", "dense_cache_append"),
+               "sampled_paged": ("flash_fwd", "paged_attn_decode", "paged_kv_rows"),
+               "openai": ("dense_cache_append",),
                "writefirst": ("paged_attn_decode", "paged_kv_update"),
                "mlp_probe": ("fused_mlp_matvec",),
                "train": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),

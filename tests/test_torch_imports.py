@@ -2,13 +2,15 @@
 
 A fresh interpreter, with both blocked by an import hook, imports every module
 of `vis_zephyr_tpu_torch` (the ported experiment probes among them, whose
-numerics checks it runs) and serves a chat through a serialized and a paged
-`ChatEngine` on the CPU, with float and with int8 weights, and takes one
-stage-1 and one stage-2 train step; a source scan finds no such import in the
-port or in `chip_smoke.py`. The modules the port copied instead of importing
+numerics checks it runs) and serves a chat through a serialized, a dense-batching
+and a paged `ChatEngine` on the CPU, with float and with int8 weights, and an
+OpenAI chat completion with logprobs and penalties, and takes one stage-1 and
+one stage-2 train step; a source scan finds no such import in the port or in
+`chip_smoke.py`. The modules the port copied instead of importing
 (`config`, `constants`, `conversation`, `data/anyres`, `data/tokenization`,
-the sampler of `data/dataset`) give what the JAX package's give on the same
-inputs.
+the sampler of `data/dataset`, `StopMatcher` and the vocabulary's byte
+strings of the OpenAI endpoints) give what the JAX package's give on the
+same inputs.
 """
 
 import dataclasses
@@ -104,14 +106,28 @@ for load_8bit in (False, True):
     if load_8bit:
         from vis_zephyr_tpu_torch.models.builder import quantize_weights
         quantize_weights(model)
-    for flags in ({}, dict(continuous_batching=True, kv_cache="paged", kv_quant=True,
-                           kv_fused=True, max_slots=2, cache_len=256, page_size=16,
-                           prefill_chunk=32)):
+    for flags in ({}, dict(continuous_batching=True, max_slots=2, cache_len=256,
+                           prefill_chunk=32),
+                  dict(continuous_batching=True, kv_cache="paged", kv_quant=True,
+                       kv_fused=True, max_slots=2, cache_len=256, page_size=16,
+                       prefill_chunk=32)):
         engine = ChatEngine(model, cfg, Tokenizer(), max_new_tokens=3, **flags)
         engine.attach_pixels("s", pixels, valid, (112, 56))
         replies.append(engine.chat_text("s", "<image>\nwhat is this"))
         engine.close()
-assert len(replies) == 4 and all(len(r.split()) == 3 for r in replies), replies
+assert len(replies) == 6 and all(len(r.split()) == 3 for r in replies), replies
+
+# An OpenAI chat completion through the dense batcher.
+from vis_zephyr_tpu_torch.serve.openai_api import chat_completion
+
+engine = ChatEngine(model, cfg, Tokenizer(), max_new_tokens=3, continuous_batching=True,
+                    max_slots=2, cache_len=256)
+err, out = chat_completion(engine, {"messages": [{"role": "user", "content": "hi there"}],
+                                    "logprobs": True, "top_logprobs": 2,
+                                    "presence_penalty": 1.0, "n": 2})
+engine.close()
+assert err is None and out["usage"]["completion_tokens"] == 6, (err, out)
+assert all(len(c["logprobs"]["content"]) == 3 for c in out["choices"]), out
 
 # One stage-1 and one stage-2 train step on the CPU.
 from vis_zephyr_tpu_torch.constants import IMAGE_TOKEN_INDEX
@@ -232,6 +248,47 @@ def test_config_fields_match(make):
         for prop in ("tokens_per_side", "tokens_per_image", "head_dim"):
             if hasattr(getattr(want, part), prop):
                 assert getattr(getattr(got, part), prop) == getattr(getattr(want, part), prop)
+
+
+STOP_CASES = [
+    ([], ["hello ", "world"]),
+    (["</s>"], ["abc</", "s>def"]),
+    (["END", "STOP"], ["xx EN", "D yy", "STOP"]),
+    (["ab"], ["a", "a", "b", "c"]),
+    (["xyz"], ["x", "y", "q"]),
+]
+
+
+@pytest.mark.parametrize("stops,deltas", STOP_CASES)
+def test_stop_matcher_matches(stops, deltas):
+    """`serve/openai_api.py::StopMatcher` is a copy: delta for delta the
+    original's output."""
+    from vis_zephyr_tpu.serve.openai_api import StopMatcher as JStop
+    from vis_zephyr_tpu_torch.serve.openai_api import StopMatcher as TStop
+
+    runs = []
+    for cls in (JStop, TStop):
+        m = cls(stops)
+        runs.append(([m.feed(d) for d in deltas], m.flush(), m.stopped))
+    assert runs[0] == runs[1]
+
+
+def test_token_strings_match():
+    """`serve/engine.py::token_strings_from_tokenizer`, the copy of the JAX
+    structured module's, on a decode-only tokenizer and on one with
+    sentencepiece-style pieces."""
+    from vis_zephyr_tpu.serve.structured import token_strings_from_tokenizer as jts
+    from vis_zephyr_tpu_torch.serve.engine import token_strings_from_tokenizer as tts
+
+    class Pieces:
+        def convert_ids_to_tokens(self, ids):
+            table = ["<s>", "\u2581the", "<0xC3>", "ab", None, "\u2581"]
+            return [table[i % len(table)] for i in ids]
+
+    tok = MockTokenizer()
+    tok("some words to decode")
+    assert tts(tok, 20) == jts(tok, 20)
+    assert tts(Pieces(), 12) == jts(Pieces(), 12)
 
 
 def test_constants_match():

@@ -348,31 +348,28 @@ def test_left_out_options_raise_not_implemented(models):
                    dict(mlora=object()), dict(adapter_names={"a": 1}), dict(lazy_alloc=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpaged.PagedBatcher(port, TCFG, **kw, **option)
-    for option in ({}, dict(lookahead=2), dict(multi_step=4)):
-        with pytest.raises(NotImplementedError, match="dense"):
-            tbatching.ContinuousBatcher(port, TCFG, **option)
+    # The dense batcher is ported; it refuses what the paged one refuses.
+    for option in (dict(mesh=object()), dict(draft=object()), dict(mlora=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbatching.ContinuousBatcher(port, TCFG, cache_len=64, **option)
     b = tpaged.PagedBatcher(port, TCFG, **kw)
     ids = np.array([5, 6, 7])
-    for option in (dict(adapter="lora-a"), dict(temperature=0.5), dict(top_p=0.5),
-                   dict(grammar=object()), dict(logprobs=2), dict(frequency_penalty=0.5),
-                   dict(presence_penalty=0.5)):
+    # Per-request temperature, top-p, logprobs and penalties are served.
+    for option in (dict(adapter="lora-a"), dict(grammar=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             b.submit(ids, **option)
     step = (port, b.kp, b.vp, (b.ksp, b.vsp), b.page_table, b.lengths, b.token,
             torch.zeros(4, dtype=torch.bool), None, TCFG, kw["sampling"])
     for option in (dict(mesh=object()), dict(mlora=object()),
-                   dict(adapter_idx=object()), dict(sample_overrides=(1, 1)),
-                   dict(grammar=(1, 1)), dict(want_logprobs=True), dict(penalties=(1, 1, 1))):
+                   dict(adapter_idx=object()), dict(grammar=(1, 1))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpaged._paged_step(*step, **option)
     # Two modes exist (writefirst is held in test_torch_paged_single.py); an
     # unknown one is refused, where the JAX step would take it as writefirst.
     with pytest.raises(ValueError, match="selfterm"):
         tpaged._paged_step(*step, mode="write-first")
-    for option in (dict(continuous_batching=True, kv_cache="dense"),
-                   dict(continuous_batching=True, kv_cache="dense", lookahead=2),
+    for option in (dict(continuous_batching=True, kv_cache="dense", mlora=object()),
                    dict(draft_params=object(), lookahead=2),
-                   dict(continuous_batching=True, kv_cache="dense", multi_step=2),
                    dict(mesh=object()), dict(metrics=object()),
                    dict(continuous_batching=True, kv_cache="paged", draft_params=object()),
                    dict(continuous_batching=True, kv_cache="paged", prefix_cache=True)):

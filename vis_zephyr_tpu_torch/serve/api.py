@@ -1,16 +1,18 @@
 """Streaming HTTP chat server (stdlib `ThreadingHTTPServer`).
 
-Port of the `/chat` endpoint of `vis_zephyr_tpu/serve/api.py`: POST /chat
-with ``{"session_id": str, "image_base64": str?, "question": str}`` →
-chunked text/plain stream of the reply; the first request of a session must
-carry the image unless one is already attached. With
-`--continuous-batching --kv-cache paged` requests of different sessions share
-decode steps over paged KV pools (`--kv-quant`, `--kv-fused`, `--page-size`,
-`--num-pages`, `--max-slots`, `--prefill-chunk`, defaults as in the JAX
-server). `--lookahead N` (prompt-lookup speculation) and `--multi-step N`
-(bursts of N decode steps) reach both paths. `--load-8bit` serves int8
-weights on either path. The OpenAI
-endpoints, health, metrics, profiling and draining are not ported yet.
+Port of `vis_zephyr_tpu/serve/api.py`'s stdlib server: POST /chat with
+``{"session_id": str, "image_base64": str?, "question": str}`` → chunked
+text/plain stream of the reply (the first request of a session must carry
+the image unless one is already attached), and the OpenAI endpoints
+(`serve/openai_api.py`): POST /v1/chat/completions, POST /v1/completions
+(one JSON body, or SSE with ``"stream": true``) and GET /v1/models. With
+`--continuous-batching` requests share decode steps: over one dense cache
+(`--kv-cache dense`, the default) or over paged KV pools (`--kv-cache paged`
+with `--kv-quant`, `--kv-fused`, `--page-size`, `--num-pages`), with
+`--max-slots` and `--prefill-chunk`, defaults as in the JAX server.
+`--lookahead N` (prompt-lookup speculation) and `--multi-step N` (bursts of
+N decode steps) reach every path. `--load-8bit` / `--load-4bit` serve int8 /
+int4 weights. Health, metrics, profiling and draining are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import io
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from . import openai_api
 from .engine import ChatEngine
 
 
@@ -66,7 +69,11 @@ class ChatHandler(BaseHTTPRequestHandler):
         except (ValueError, json.JSONDecodeError):
             self._json(400, {"error": "invalid JSON"})
             return
-        if self.path.rstrip("/") != "/chat":
+        path = self.path.rstrip("/")
+        if path in ("/v1/chat/completions", "/v1/completions"):
+            self._openai(path, payload)
+            return
+        if path != "/chat":
             self.send_error(404)
             return
         error, stream = _handle_chat(self.engine, payload)
@@ -78,6 +85,15 @@ class ChatHandler(BaseHTTPRequestHandler):
         self.send_header("Transfer-Encoding", "chunked")
         self.send_header("Access-Control-Allow-Origin", "*")
         self.end_headers()
+        self._stream_chunked(stream)
+
+    def do_GET(self):
+        if self.path.split("?", 1)[0].rstrip("/") == "/v1/models":
+            self._json(200, openai_api.list_models(self.engine))
+        else:
+            self.send_error(404)
+
+    def _stream_chunked(self, stream):
         try:
             for chunk in stream:
                 data = chunk.encode("utf-8")
@@ -86,6 +102,31 @@ class ChatHandler(BaseHTTPRequestHandler):
             self.wfile.write(b"0\r\n\r\n")
         except (BrokenPipeError, ConnectionResetError):
             stream.close()  # client gone: stop decoding now
+
+    def _openai(self, path: str, payload: dict):
+        """The OpenAI endpoints: one JSON body, or an SSE stream."""
+        fn = (openai_api.chat_completion if path == "/v1/chat/completions"
+              else openai_api.completion)
+        try:
+            error, result = fn(self.engine, payload)
+        except Exception as e:  # noqa: BLE001 — a handler fault must give an HTTP
+            # error body, never a dropped connection.
+            self._json(500, {"error": {"message": f"{type(e).__name__}: {e}",
+                                       "type": "internal_error"}})
+            return
+        if error is not None:
+            self._json(400, error)
+            return
+        if isinstance(result, dict):
+            self._json(200, result)
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.send_header("Access-Control-Allow-Origin", "*")
+        self.end_headers()
+        self._stream_chunked(result)
 
     def _json(self, code: int, obj: dict):
         body = json.dumps(obj).encode()
@@ -118,7 +159,9 @@ def add_engine_args(p) -> None:
     p.add_argument("--continuous-batching", action="store_true")
     p.add_argument("--max-slots", type=int, default=8)
     p.add_argument("--kv-cache", choices=["dense", "paged"], default="dense",
-                   help="paged: shared page pools (memory follows the tokens in flight)")
+                   help="under --continuous-batching: dense, one cache of --max-slots x "
+                        "cache_len rows; paged, shared page pools (memory follows the tokens "
+                        "in flight)")
     p.add_argument("--num-pages", type=int, default=None,
                    help="paged pool size per layer (default: half the dense footprint)")
     p.add_argument("--page-size", type=int, default=128, help="tokens per KV page (paged only)")

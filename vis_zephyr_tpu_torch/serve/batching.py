@@ -1,11 +1,15 @@
-"""Continuous batching: the slot scheduler shared by the batchers.
+"""Continuous batching: the slot scheduler and the dense-cache batcher.
 
-Port of `vis_zephyr_tpu/serve/batching.py` as far as the paged batcher
-(`serve/paged.py::PagedBatcher`) inherits it: requests, the pending queue,
+Port of `vis_zephyr_tpu/serve/batching.py`: requests, the pending queue,
 whole-prompt and chunked prefill admission, first-token sampling on
-activation, emit / finish / cancel, and the host side of prompt-lookup
-speculation (`lookahead`: per-slot lookup histories and `_step_verify`, the
-acceptance loop around the subclass's `_verify_device`).
+activation, emit / finish / cancel, the per-slot sampling state (temperature
+and top-p overrides, logprobs, frequency / presence penalties), multi-step
+bursts, the host side of prompt-lookup speculation (`lookahead`: per-slot
+lookup histories and `_step_verify`, the acceptance loop around the
+batcher's `_verify_device`), and `ContinuousBatcher` itself on one dense
+cache `[L, slots, cache_len, Hkv, D]` (`_admit`, `_batch_step`,
+`_batch_multi_step`, the dense verify step). The paged batcher
+(`serve/paged.py::PagedBatcher`) inherits the scheduler.
 
 - a fixed pool of `max_slots` sequence slots shares one batched KV store,
 - new requests prefill individually (B = 1) between decode steps, whole or in
@@ -14,17 +18,21 @@ acceptance loop around the subclass's `_verify_device`).
   and their lengths do not grow,
 - finished slots (EOS / budget / cancel) are free at once.
 
+Every decode step runs in a burst (`_run_burst`: n steps with the EOS and
+budget carry on the device, one copy to the host; n is one while admission
+work waits or a slot wants logprobs or penalties). On the card each step of
+a burst, and each verify step, is a replay of the step captured over the
+batcher's fixed buffers (`serve/graphs.py`): the cache or pools, lengths,
+tokens, the carry and the per-slot sampling operands (temperatures and
+top-p [slots], frequency and presence [slots], counts [slots, V] f32, the
+logprobs' outputs).
+
 The JAX batcher is functional (its jitted programs return new caches). Here
 the device state is updated in place, so exactly one thread may call `step`.
 `active`, `budget`, `slot_len` stay on the host as numpy, as there.
 
-The host side of multi-step bursts is here too (`_has_admission_work`,
-`_process_burst`); the paged batcher runs the burst on the device.
-
-Not ported yet, each raising `NotImplementedError` when asked for: the dense
-batcher's own device step (`ContinuousBatcher` itself, its multi-step burst
-included), meshes, metrics, multi-LoRA adapters, per-request sampling
-overrides, grammars, logprobs, penalties and a draft model.
+Not ported yet, each raising `NotImplementedError` when asked for: meshes,
+metrics, multi-LoRA adapters, grammars and a draft model.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import dataclasses
 import queue
 import threading
 import time
+from collections import deque
 from typing import Iterator, List, Optional
 
 import numpy as np
@@ -41,14 +50,10 @@ import torch
 from ..config import VisZephyrConfig
 from ..models.mistral import embed, init_cache, mistral_forward
 from ..models.vis_zephyr import VisZephyr, prepare_multimodal, vis_zephyr_forward
-from .generate import LookupHistory, SamplingConfig, _sample
-
-
-def not_ported(what: str, step: str):
-    """The error every left-out option raises: what it is and the ROADMAP
-    entry that brings it."""
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md, {step})")
-
+from ..ops import _kernels
+from .generate import (LP_TOPK, LookupHistory, SamplingConfig, _logprobs, _logprobs_host,
+                       _sample, _sample_tail, decode_step, not_ported, verify_step, weight_form)
+from .graphs import StepGraphs, addresses
 
 @torch.no_grad()
 def _prefill_kv(model: VisZephyr, input_ids, images, patch_valid, cfg: VisZephyrConfig):
@@ -98,6 +103,140 @@ def _chunk_extend(decoder, embeds, positions, valid, cache, cfg: VisZephyrConfig
                            cache=cache, logits_slice="all")
 
 
+@torch.no_grad()
+def _admit(cache, k, v, length: int, slot: int):
+    """Copy a prefilled sequence's K/V [L, T, Hkv, D] into cache slot `slot`
+    and set its length, in place (the JAX function's slot update). Rows past
+    the cache, where a prefill was padded beyond `cache_len`, lie past
+    `length` and are dropped."""
+    T = min(k.shape[1], cache["k"].shape[2])
+    cache["k"][:, slot, :T] = k[:, :T]
+    cache["v"][:, slot, :T] = v[:, :T]
+    cache["length"][slot] = int(length)
+    return cache
+
+
+@torch.no_grad()
+def _batch_step(model: VisZephyr, cache, token, active, generator: Optional[torch.Generator],
+                cfg: VisZephyrConfig, sampling: SamplingConfig, mlora=None, adapter_idx=None,
+                sample_overrides=None, grammar=None, penalties=None):
+    """One decode step over all slots of the dense cache; inactive slots are
+    frozen (their row is written at their length, which does not grow).
+
+    `sample_overrides`: optional (temps [B], top_ps [B]) per-slot sampling
+    parameters (`generate._sample_per_slot`). `penalties`: optional (freq
+    [B], pres [B], counts [B, V] f32) frequency / presence penalties over
+    emitted tokens; the counts gain the step's tokens in place. The JAX
+    step's logprobs (`want_logprobs`) are `_logprobs` of the raw logits it
+    returns, which `_run_burst` takes; its grammar and multi-LoRA arguments
+    come with those features (Queue A step 10).
+
+    `cache` (lengths included) and `token` are updated IN PLACE. Returns
+    (next_token [B], logits [B, V] f32)."""
+    for value, what, step in (
+            (mlora is not None or adapter_idx is not None, "multi-LoRA serving",
+             "Queue A step 10"),
+            (grammar, "structured output (grammar)", "Queue A step 10")):
+        if value:
+            raise not_ported(what, step)
+    logits, _ = decode_step(model, cache, token, cfg)
+    # The decode step advanced every slot's length; inactive slots keep theirs.
+    cache["length"].sub_((~active).to(cache["length"].dtype))
+    next_token = _sample_tail(logits, generator, sampling, active, cfg.decoder.pad_token_id,
+                              sample_overrides, penalties)
+    token.copy_(next_token)
+    return next_token, logits
+
+
+@torch.no_grad()
+def _run_burst(step, key, token, active, steps_left, eos: int, n: int,
+               graphs: Optional[StepGraphs], generator: Optional[torch.Generator],
+               lp_out=None):
+    """`n` chained decode steps (multi-step scheduling): the host's
+    scheduling, the step's Python and the copy of its tokens are paid once a
+    burst instead of once a token. `step(alive)` runs one step over the slots
+    `alive` and returns (next_token [B], logits [B, V] f32), writing the
+    token into `token` in place.
+
+    Token-exact with single-stepping: the device carries `alive` (from
+    `active`) and each slot's `steps_left` (the host's remaining budget,
+    int32 [B]), so a slot that emits EOS or runs out of budget mid-burst is
+    inactive from the next step on, as if the host had finished it between
+    steps. With temperature > 0 the draws come from `generator` in the
+    single-step order. `lp_out`: three tensors [n, B], [n, B, LP_TOPK] int32,
+    [n, B, LP_TOPK] that take step j's `_logprobs` at row j.
+
+    On a CUDA tensor (outside `_kernels.plain_versions()`) every step is a
+    replay of the step captured under `key` (`graphs`, a `StepGraphs`; a
+    throwaway one when None): whatever the step reads must keep its tensors
+    for the graphs' life, and `key` names them. Elsewhere the same step runs
+    eagerly. Returns (toks [n, B], entry_alive [n, B] bool, logits [B, V]
+    f32 of the last step), all on the device: token (j, b) counts iff
+    entry_alive[j, b]."""
+    B = token.shape[0]
+    dev = token.device
+    graphed = _kernels.use_kernel(token)
+    if graphed and graphs is None:
+        graphs = StepGraphs()
+
+    def make_carry():  # alive, steps left, alive entering the step
+        return (torch.empty(B, dtype=torch.bool, device=dev),
+                torch.empty(B, dtype=torch.int32, device=dev),
+                torch.empty(B, dtype=torch.bool, device=dev))
+
+    alive, left, entry = graphs.buffers(("carry", B), make_carry) if graphed else make_carry()
+    alive.copy_(active)
+    left.copy_(steps_left)
+
+    def body():
+        entry.copy_(alive)
+        tok, logits = step(alive)
+        left.sub_(1)
+        alive.logical_and_((tok != eos) & (left > 0))
+        return logits, (None if lp_out is None else _logprobs(logits, tok))
+
+    toks = torch.empty((n, B), dtype=token.dtype, device=dev)
+    entry_alive = torch.empty((n, B), dtype=torch.bool, device=dev)
+    for j in range(n):
+        logits, lp = graphs.run(key, body, dev, generator) if graphed else body()
+        toks[j].copy_(token)
+        entry_alive[j].copy_(entry)
+        if lp_out is not None:
+            for out, got in zip(lp_out, lp):
+                out[j].copy_(got)
+    return toks, entry_alive, logits
+
+
+@torch.no_grad()
+def _batch_multi_step(model: VisZephyr, cache, token, active, steps_left,
+                      generator: Optional[torch.Generator], cfg: VisZephyrConfig,
+                      sampling: SamplingConfig, n: int = 4, graphs: Optional[StepGraphs] = None,
+                      sample_overrides=None, penalties=None, lp_out=None):
+    """`n` chained `_batch_step`s in one burst (`_run_burst`): on the card
+    each a replay of the step captured over the cache, `token`, the carry
+    and the sampling operands, which must keep their tensors for the graphs'
+    life. The cache and `token` are updated IN PLACE. Returns (toks [n, B],
+    entry_alive [n, B], logits [B, V] f32 of the last step)."""
+    def step(alive):
+        return _batch_step(model, cache, token, alive, generator, cfg, sampling,
+                           sample_overrides=sample_overrides, penalties=penalties)
+
+    key = ("dense", token.shape[0], weight_form(model), sampling.temperature, sampling.top_p,
+           sampling.eos_token_id, generator, lp_out is not None,
+           *addresses(cache["k"], cache["v"], cache["length"], token,
+                  *(sample_overrides or (None, None)), *(penalties or (None, None, None))))
+    return _run_burst(step, key, token, active, steps_left, sampling.eos_token_id, n, graphs,
+                      generator, lp_out)
+
+
+def _reset_count_row(counts: torch.Tensor, slot: int, tok: int) -> torch.Tensor:
+    """A fresh activation in `slot`: zero its emitted-token counts and record
+    the first token, in place."""
+    counts[slot].zero_()
+    counts[slot, tok] += 1.0
+    return counts
+
+
 @dataclasses.dataclass
 class _Request:
     request_id: int
@@ -105,6 +244,18 @@ class _Request:
     images: Optional[np.ndarray]
     patch_valid: Optional[np.ndarray]
     max_new_tokens: int
+    # Per-request sampling overrides (None = the batcher's SamplingConfig).
+    temperature: Optional[float] = None
+    top_p: Optional[float] = None
+    # OpenAI frequency / presence penalties over emitted tokens (0 = off).
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
+    # OpenAI logprobs: None = off; N (0..LP_TOPK) = the chosen token's logprob
+    # and the top alternatives of each emitted token, appended to `lp_log` as
+    # (chosen_lp, top_ids, top_lps) BEFORE the token enters `out` (so a
+    # consumer reading token i may index lp_log[i]).
+    logprobs: Optional[int] = None
+    lp_log: List[tuple] = dataclasses.field(default_factory=list)
     cancelled: bool = False  # set by cancel(); slot freed at the next step
     out: "queue.Queue[Optional[int]]" = dataclasses.field(default_factory=queue.Queue)
     # Wall-clock trace of the request.
@@ -114,15 +265,30 @@ class _Request:
 
 
 class ContinuousBatcher:
-    """Host-side scheduler around the prefill / admit / step programs. The
-    dense-cache device step of the JAX class is not ported: build a
-    `serve.paged.PagedBatcher`."""
+    """The slot scheduler and the dense-cache batcher: one cache
+    [L, max_slots, cache_len, Hkv, D] holds every slot (at 8 slots of 2048
+    in bf16, 2 GiB for Zephyr-7B: 128 KiB a slot a token).
+
+    `prefill_chunk`: admit prompts in chunks of this many tokens, one chunk
+    per scheduler step; None prefills a whole prompt at admission.
+    `lookahead`: prompt-lookup speculation, greedy only (`_step_verify`
+    each scheduler step, the dense verify step `generate.verify_step`).
+    `multi_step`: a scheduler step with no admission work waiting, and no
+    slot asking for logprobs or penalties, runs a burst of this many decode
+    steps, else a burst of one (`_batch_multi_step`, replayed as CUDA
+    graphs on the card); ignored under `lookahead`. Requests carry their
+    own temperature, top-p, logprobs and penalties (`submit`)."""
 
     def __init__(self, model: VisZephyr, cfg: VisZephyrConfig, max_slots: int = 8,
                  cache_len: int = 2048, sampling: SamplingConfig = SamplingConfig(),
-                 seed: int = 0, **options):
-        raise not_ported("the dense-cache continuous batcher (kv_cache='dense')",
-                         "Queue A step 7b")
+                 seed: int = 0, mesh=None, metrics=None, prefill_chunk: Optional[int] = None,
+                 lookahead: int = 0, draft=None, multi_step: int = 1, mlora=None,
+                 adapter_names=None):
+        self._init_scheduler(model, cfg, max_slots, cache_len, sampling, seed, prefill_chunk,
+                             mesh=mesh, metrics=metrics, lookahead=lookahead, draft=draft,
+                             multi_step=multi_step, mlora=mlora, adapter_names=adapter_names)
+        self.cache = init_cache(cfg.decoder, max_slots, cache_len, dtype=model.dtype,
+                                device=self.device)
 
     def _init_scheduler(self, model: VisZephyr, cfg: VisZephyrConfig, max_slots: int,
                         cache_len: int, sampling: SamplingConfig, seed: int,
@@ -139,8 +305,8 @@ class ContinuousBatcher:
                 raise not_ported(what, step)
         self.model = model
         self.cfg = cfg
-        self.device = model.device
-        self.max_slots = max_slots
+        self.device = dev = model.device
+        self.max_slots = B = max_slots
         self.cache_len = cache_len
         self.sampling = sampling
         self.prefill_chunk = prefill_chunk
@@ -150,19 +316,47 @@ class ContinuousBatcher:
         self.multi_step = max(1, int(multi_step)) if self.lookahead == 0 else 1
         self._prefilling = None
         self._reserved_slot = None
-        self.token = torch.full((max_slots,), cfg.decoder.pad_token_id, dtype=torch.int64,
-                                device=self.device)
-        self.active = np.zeros(max_slots, bool)
-        self.budget = np.zeros(max_slots, np.int64)
-        self.slot_req: List[Optional[_Request]] = [None] * max_slots
-        self.slot_len = np.zeros(max_slots, np.int64)
+        self.token = torch.full((B,), cfg.decoder.pad_token_id, dtype=torch.int64, device=dev)
+        self.active = np.zeros(B, bool)
+        self.budget = np.zeros(B, np.int64)
+        self.slot_req: List[Optional[_Request]] = [None] * B
+        self.slot_len = np.zeros(B, np.int64)
+        # Per-slot sampling state (the JAX batcher's): the host's arrays and
+        # the sets of slots whose request set them, kept from one activation
+        # to the next; while no active slot is in a set its operand is off
+        # and the step pays nothing for it. The steps read the arrays from
+        # one fixed device buffer (temperatures, top-p, frequency, presence),
+        # refreshed before a burst that uses them.
+        self.slot_temp = np.full(B, sampling.temperature, np.float32)
+        self.slot_topp = np.full(B, sampling.top_p, np.float32)
+        self.slot_freq = np.zeros(B, np.float32)
+        self.slot_pres = np.zeros(B, np.float32)
+        self._override_slots: set = set()
+        self._lp_slots: set = set()
+        self._penalty_slots: set = set()
+        self._slot_params = torch.zeros((4, B), dtype=torch.float32, device=dev)
+        # Emitted-token counts [B, V] f32, made with the first penalized
+        # request; rows reset at activation.
+        self.counts: Optional[torch.Tensor] = None
         # Per-slot token history for n-gram lookup (vocabulary tokens only).
-        self.slot_hist: List[LookupHistory] = [LookupHistory() for _ in range(max_slots)]
+        self.slot_hist: List[LookupHistory] = [LookupHistory() for _ in range(B)]
         self.verify_steps = 0  # speculative scheduler steps run
         self.proposed = 0      # tokens proposed over those steps
         self.accepted = 0      # proposals accepted
         self.pending: "queue.Queue[_Request]" = queue.Queue()
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._requeued: deque = deque()  # head-of-queue retries (no pages free)
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        # The host's `active` and `budget` as the device steps read them:
+        # fixed buffers, which a captured step keeps reading.
+        self._active_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._left_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.graphs = StepGraphs()  # the captured decode steps (one a key) and verify step
+        # [max_slots, V] of the last decode step; [max_slots, S, V] of the
+        # last verify step.
+        self.last_logits: Optional[torch.Tensor] = None
+        self.steps = 0          # decode steps run, in bursts too (verify steps: `verify_steps`)
+        self.bursts = 0         # bursts of more than one decode step run
+        self.slots_stepped = 0  # active slots summed over decode and verify steps
         self._next_id = 0
         self._lock = threading.Lock()
 
@@ -175,18 +369,29 @@ class ContinuousBatcher:
                grammar=None, logprobs: Optional[int] = None,
                frequency_penalty: float = 0.0, presence_penalty: float = 0.0) -> _Request:
         """Queue a request. Returns a handle whose `.out` queue yields token
-        ids and a final `None` sentinel. Sampling follows the batcher's one
-        `SamplingConfig`."""
+        ids and a final `None` sentinel.
+
+        `temperature` / `top_p`: per-request sampling overrides (None = the
+        batcher's SamplingConfig), ignored when the batcher speculates: its
+        verify step commits greedy continuations. `logprobs`: None = off; N
+        (0..LP_TOPK) = each emitted token's raw-distribution logprob and top
+        alternatives in the handle's `lp_log`. `frequency_penalty` /
+        `presence_penalty`: OpenAI penalties over the request's emitted
+        tokens. Logprobs and penalties are refused under speculation (a
+        ValueError, as in the JAX batcher); adapters and grammars are not
+        ported (Queue A step 10)."""
         if adapter is not None and adapter != "base":
             raise not_ported("a per-request adapter", "Queue A step 10")
-        if temperature is not None or top_p is not None:
-            raise not_ported("per-request temperature / top_p", "Queue A step 10")
         if grammar is not None:
             raise not_ported("structured output (grammar)", "Queue A step 10")
-        if logprobs is not None:
-            raise not_ported("logprobs", "Queue A step 10")
-        if frequency_penalty or presence_penalty:
-            raise not_ported("frequency / presence penalties", "Queue A step 10")
+        if logprobs is not None and self.lookahead > 0:
+            raise ValueError("logprobs are incompatible with speculative decoding "
+                             "(--lookahead); serve logprobs from a non-speculative engine")
+        if (frequency_penalty or presence_penalty) and self.lookahead > 0:
+            raise ValueError("frequency/presence penalties are incompatible with "
+                             "speculative decoding (--lookahead)")
+        if self.lookahead > 0:
+            temperature = top_p = None
         with self._lock:
             rid = self._next_id
             self._next_id += 1
@@ -197,6 +402,11 @@ class ContinuousBatcher:
             patch_valid if patch_valid is None else np.asarray(patch_valid),
             (self.sampling.max_new_tokens if max_new_tokens is None
              else max_new_tokens),  # an explicit 0 means zero tokens
+            temperature=temperature,
+            top_p=top_p,
+            frequency_penalty=float(frequency_penalty or 0.0),
+            presence_penalty=float(presence_penalty or 0.0),
+            logprobs=logprobs,
         )
         req.submitted_at = time.perf_counter()
         self.pending.put(req)
@@ -227,7 +437,7 @@ class ContinuousBatcher:
 
     @property
     def has_work(self) -> bool:
-        return (self.active.any() or not self.pending.empty()
+        return (self.active.any() or not self.pending.empty() or bool(self._requeued)
                 or self._prefilling is not None)
 
     # -- scheduler -----------------------------------------------------------
@@ -236,6 +446,8 @@ class ContinuousBatcher:
         return not self.active[slot] and slot != self._reserved_slot
 
     def _next_request(self) -> Optional[_Request]:
+        if self._requeued:
+            return self._requeued.popleft()
         try:
             return self.pending.get_nowait()
         except queue.Empty:
@@ -248,19 +460,96 @@ class ContinuousBatcher:
         return (ids, torch.as_tensor(req.images, device=self.device)[None],
                 torch.as_tensor(req.patch_valid, device=self.device)[None])
 
+    def _admit_pending(self) -> None:
+        """Whole-prompt admission: prefill each waiting request into a free slot."""
+        for slot in range(self.max_slots):
+            if not self._slot_free(slot):
+                continue
+            req = self._next_request()
+            if req is None:
+                return
+            if req.cancelled:
+                req.out.put(None)
+                continue
+            ids, images, pv = self._request_tensors(req)
+            last_logits, k, v, length = _prefill_kv(self.model, ids, images, pv, self.cfg)
+            if length + req.max_new_tokens > self.cache_len:
+                req.out.put(None)  # too long for a slot; reject
+                continue
+            if not self._install(req, slot, last_logits, k, v, length):
+                # No room (the paged pools): retry once active requests release it.
+                self._requeued.appendleft(req)
+                return
+
     def _install(self, req: _Request, slot: int, last_logits, k, v, length: int) -> bool:
-        raise NotImplementedError
+        """Put a prefilled request into `slot` (k / v [L, T, Hkv, D],
+        last_logits [V]) and emit its first token. Returns whether it went
+        in (the dense cache always has room)."""
+        _admit(self.cache, k, v, length, slot)
+        self.slot_len[slot] = int(length)
+        self._activate(req, slot, last_logits)
+        return True
+
+    def _live(self, held: set) -> bool:
+        """Whether an active slot is in `held`."""
+        return any(self.active[slot] for slot in held)
+
+    def _sample_overrides(self):
+        """(temps [B], top_ps [B]) for the steps, or None while every active
+        request samples as the batcher does."""
+        if not self._live(self._override_slots):
+            return None
+        return self._slot_params[0], self._slot_params[1]
+
+    def _penalty_operand(self):
+        """(freq [B], pres [B], counts [B, V]) for the steps, or None while no
+        active request is penalized."""
+        if not self._live(self._penalty_slots):
+            return None
+        return self._slot_params[2], self._slot_params[3], self.counts
+
+    def _set_slot_sampling(self, req: _Request, slot: int) -> None:
+        self.slot_temp[slot] = (self.sampling.temperature if req.temperature is None
+                                else req.temperature)
+        self.slot_topp[slot] = self.sampling.top_p if req.top_p is None else req.top_p
+        if req.temperature is not None or req.top_p is not None:
+            self._override_slots.add(slot)
+        else:
+            self._override_slots.discard(slot)
 
     def _activate(self, req: _Request, slot: int, last_logits: torch.Tensor) -> None:
-        """Sample the request's first token from its prefill logits and open
-        the slot. `max_new_tokens` of 0 or 1 and an EOS first token finish at
-        once."""
-        first = _sample(last_logits[None], self.generator, self.sampling)
+        """Open the slot: its sampling state, then its first token, sampled
+        from its prefill logits at its own temperature and top-p (its
+        logprobs from the host copy of those logits). `max_new_tokens` of 0
+        or 1 and an EOS first token finish at once."""
+        self._set_slot_sampling(req, slot)
+        if req.logprobs is not None:
+            self._lp_slots.add(slot)
+        else:
+            self._lp_slots.discard(slot)
+        self.slot_freq[slot] = req.frequency_penalty
+        self.slot_pres[slot] = req.presence_penalty
+        if req.frequency_penalty or req.presence_penalty:
+            self._penalty_slots.add(slot)
+            if self.counts is None:
+                self.counts = torch.zeros((self.max_slots, self.cfg.decoder.vocab_size),
+                                          dtype=torch.float32, device=self.device)
+        else:
+            self._penalty_slots.discard(slot)
+        overrides = None
+        if slot in self._override_slots:
+            overrides = tuple(torch.tensor([x[slot]], device=self.device)
+                              for x in (self.slot_temp, self.slot_topp))
+        first = _sample(last_logits[None], self.generator, self.sampling, overrides=overrides)
         tok = int(first[0])
+        if req.logprobs is not None and tok != self.sampling.eos_token_id:
+            req.lp_log.append(_logprobs_host(last_logits.float().cpu().numpy(), tok))
         self.slot_req[slot] = req
         self.active[slot] = True
         self.budget[slot] = req.max_new_tokens - 1
         self.token[slot] = tok
+        if self.counts is not None:
+            _reset_count_row(self.counts, slot, tok)
         # Lookup history: image sentinels (< 0) are placeholders, and an
         # n-gram crossing one is meaningless.
         self.slot_hist[slot] = LookupHistory([int(t) for t in req.input_ids if t >= 0] + [tok])
@@ -366,7 +655,27 @@ class ContinuousBatcher:
         self.active[slot] = False
 
     def step(self) -> int:
-        raise NotImplementedError
+        """Admit pending requests (one chunk's worth under chunked prefill),
+        then advance every active slot: a speculative verify step under
+        `lookahead`, else a burst of decode steps (`_step_burst`), of
+        `multi_step` when no admission work waits and no slot wants logprobs
+        or penalties (they need the host between steps), else of one.
+        Returns the number of slot steps taken (a slot counts once a step it
+        was alive in)."""
+        self._reap_cancelled()
+        if self.prefill_chunk:
+            self._pump_prefill()
+        else:
+            self._admit_pending()
+        if not self.active.any():
+            return 0
+        if self.lookahead > 0:
+            stepped = self._step_verify()
+            self.slots_stepped += stepped
+            return stepped
+        single = (self._has_admission_work() or self._live(self._lp_slots)
+                  or self._live(self._penalty_slots))
+        return self._step_burst(1 if single else self.multi_step)
 
     # -- multi-step bursts --------------------------------------------------------
 
@@ -374,13 +683,51 @@ class ContinuousBatcher:
         """Whether a request waits to be admitted: a burst then yields to a
         burst of one, so that admission waits one decode step, not
         `multi_step`."""
-        return self._prefilling is not None or not self.pending.empty()
+        return (self._prefilling is not None or not self.pending.empty()
+                or bool(self._requeued))
 
-    def _process_burst(self, toks: np.ndarray, alive: np.ndarray) -> int:
+    def _step_burst(self, n: int) -> int:
+        """A burst of `n` decode steps over the active slots
+        (`_burst_device`: on the card every decode step, a burst of one too,
+        is a replay of the captured step), one copy of its tokens (and
+        logprobs) to the host, then the host's transitions
+        (`_process_burst`)."""
+        self._active_dev.copy_(torch.from_numpy(self.active))
+        self._left_dev.copy_(torch.from_numpy(self.budget.astype(np.int32)))
+        overrides, penalties = self._sample_overrides(), self._penalty_operand()
+        if overrides is not None or penalties is not None:
+            self._slot_params.copy_(torch.from_numpy(np.stack(
+                (self.slot_temp, self.slot_topp, self.slot_freq, self.slot_pres))))
+        lp_out = None
+        if self._live(self._lp_slots):
+            B, dev = self.max_slots, self.device
+            lp_out = self.graphs.buffers(("logprobs", n, B), lambda: (
+                torch.zeros((n, B), device=dev),
+                torch.zeros((n, B, LP_TOPK), dtype=torch.int32, device=dev),
+                torch.zeros((n, B, LP_TOPK), device=dev)))
+        toks, alive, self.last_logits = self._burst_device(n, overrides, penalties, lp_out)
+        host = torch.stack((toks, alive.to(toks.dtype))).cpu().numpy()
+        lp_host = None if lp_out is None else [t.cpu().numpy().copy() for t in lp_out]
+        stepped = self._process_burst(host[0], host[1].astype(bool), lp_host)
+        self.steps += n
+        self.bursts += int(n > 1)
+        self.slots_stepped += stepped
+        return stepped
+
+    def _burst_device(self, n: int, overrides, penalties, lp_out):
+        """The device side of a burst: (toks [n, B], entry_alive [n, B],
+        logits [B, V]) of `_batch_multi_step` over the dense cache."""
+        return _batch_multi_step(self.model, self.cache, self.token, self._active_dev,
+                                 self._left_dev, self.generator, self.cfg, self.sampling, n=n,
+                                 graphs=self.graphs, sample_overrides=overrides,
+                                 penalties=penalties, lp_out=lp_out)
+
+    def _process_burst(self, toks: np.ndarray, alive: np.ndarray, lp=None) -> int:
         """The host side of a burst: toks / alive [n, B], token (j, slot)
         counts iff the slot was alive entering step j. The same emit, EOS and
         budget transitions as single steps, which the device's alive and
-        steps-left carry mirrors. Returns the slot steps taken."""
+        steps-left carry mirrors; `lp`, the burst's logprobs on the host,
+        goes to the slots that asked. Returns the slot steps taken."""
         stepped = 0
         for j in range(toks.shape[0]):
             for slot in range(self.max_slots):
@@ -391,7 +738,10 @@ class ContinuousBatcher:
                 if tok == self.sampling.eos_token_id:
                     self._finish(slot)
                     continue
-                self._emit(self.slot_req[slot], tok)
+                req = self.slot_req[slot]
+                if lp is not None and slot in self._lp_slots:
+                    req.lp_log.append((float(lp[0][j, slot]), lp[1][j, slot], lp[2][j, slot]))
+                self._emit(req, tok)
                 self.slot_len[slot] += 1
                 self.budget[slot] -= 1
                 if self.budget[slot] <= 0:
@@ -473,14 +823,19 @@ class ContinuousBatcher:
         return stepped
 
     def _verify_device(self, toks: np.ndarray, valid: np.ndarray) -> np.ndarray:
-        """Append and verify `toks` [B, S] (`valid` marks real proposals);
-        returns the greedy token of every position [B, S] on the host. The
-        dense batcher's form is step 7b; `PagedBatcher` overrides it."""
-        raise not_ported("the dense batcher's verify step", "Queue A step 7b")
+        """Append and verify `toks` [B, S] (`valid` marks real proposals) in
+        one cached forward over the dense cache (`generate.verify_step`: on
+        the card a replay of the step captured over the cache and two fixed
+        buffers); returns the greedy token of every position [B, S] on the
+        host. `PagedBatcher` overrides it."""
+        greedy, self.last_logits = verify_step(
+            self.model, self.cache, torch.from_numpy(toks), torch.from_numpy(valid), self.cfg,
+            self.graphs)
+        return greedy.cpu().numpy()
 
     def _verify_rollback(self) -> None:
         """Set the device lengths to the host's committed `slot_len`."""
-        raise not_ported("the dense batcher's verify step", "Queue A step 7b")
+        self.cache["length"].copy_(torch.from_numpy(self.slot_len.astype(np.int32)))
 
     def run_until_drained(self, max_steps: int = 100000) -> None:
         for _ in range(max_steps):

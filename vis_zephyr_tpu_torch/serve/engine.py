@@ -5,25 +5,28 @@ Port of `vis_zephyr_tpu/serve/engine.py`. Two modes:
 
 - the default: serialized generation (one request decodes at a time, under a
   lock) over a dense KV cache;
-- `continuous_batching=True` with `kv_cache="paged"`: requests of different
-  sessions share decode steps in a `PagedBatcher`, advanced by one
+- `continuous_batching=True`: requests of different sessions share decode
+  steps in a `ContinuousBatcher` over one dense cache (`kv_cache="dense"`,
+  the default) or a `PagedBatcher` (`kv_cache="paged"`), advanced by one
   background pump thread.
 
 `lookahead` (prompt-lookup speculation, greedy only) and `multi_step`
 (bursts of decode steps, replayed as CUDA graphs on the card; ignored under
-`lookahead`) reach both. A session's image is preprocessed once and kept on
-the device. Not ported yet, each raising `NotImplementedError` when asked
-for: the dense batcher (`kv_cache="dense"` under continuous batching), a
-draft model, meshes, adapters, metrics, the prefix cache and lazy
-allocation; draining and the OpenAI endpoints are not ported either.
+`lookahead`) reach every mode. A session's image is preprocessed once and
+kept on the device. `generate_request` is the session-free entry of the
+OpenAI endpoints (`serve/openai_api.py`): per-request budget, temperature,
+top-p, logprobs and penalties on every mode. Not ported yet, each raising
+`NotImplementedError` when asked for: a draft model, meshes, adapters,
+grammars, metrics, the prefix cache, lazy allocation and draining.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 import warnings
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -280,3 +283,157 @@ class ChatEngine:
 
     def chat_text(self, session_id: str, question: str, pil_image=None) -> str:
         return "".join(self.chat(session_id, question, pil_image))
+
+    def drain(self, timeout: float = 120.0) -> bool:
+        """Graceful shutdown (refuse new requests, wait for the in-flight
+        ones): not ported yet."""
+        raise not_ported("graceful drain", "Queue A step 10")
+
+    # -- stateless generation (the OpenAI endpoints) ---------------------------
+
+    def token_strings(self) -> List[bytes]:
+        """The raw bytes each vocabulary id contributes to decoded text (cached),
+        for the logprobs' `bytes`."""
+        if not hasattr(self, "_token_strings"):
+            self._token_strings = token_strings_from_tokenizer(self.tokenizer,
+                                                               self.cfg.decoder.vocab_size)
+        return self._token_strings
+
+    def token_bytes(self, tok: int) -> bytes:
+        blobs = self.token_strings()
+        return blobs[tok] if 0 <= tok < len(blobs) else b""
+
+    def token_text(self, tok: int) -> str:
+        # Lossy display form: a byte-fallback token may hold a partial UTF-8
+        # sequence; `token_bytes` has the exact bytes.
+        return self.token_bytes(tok).decode("utf-8", errors="replace")
+
+    def generate_request(
+        self,
+        prompt: str,
+        pil_image=None,
+        max_new_tokens: Optional[int] = None,
+        temperature: Optional[float] = None,
+        top_p: Optional[float] = None,
+        adapter: Optional[str] = None,
+        grammar=None,
+        logprobs: Optional[int] = None,
+        lp_sink: Optional[list] = None,
+        frequency_penalty: float = 0.0,
+        presence_penalty: float = 0.0,
+    ) -> Iterator[int]:
+        """Session-free generation from a fully rendered prompt: yields raw
+        token ids until EOS or the budget. It drives /v1/chat/completions and
+        /v1/completions, whose requests each carry their whole context.
+
+        Per-request `max_new_tokens` / `temperature` / `top_p` override the
+        engine's defaults; under continuous batching they apply per slot in
+        the shared step (`generate._sample_per_slot`); a speculative batcher
+        serves greedy only and ignores them. `logprobs` (top-N) with
+        `lp_sink`: one `(chosen_lp, top_ids, top_lps)` entry a token,
+        appended before the token is yielded. Submission is eager: under
+        continuous batching the request is queued before this returns (so
+        several calls decode together: the OpenAI `n`), and refusals raise
+        here. Adapters and grammars are not ported (Queue A step 10)."""
+        if adapter is not None and adapter != "base":
+            raise not_ported("a per-request adapter", "Queue A step 10")
+        if grammar is not None:
+            raise not_ported("structured output (grammar)", "Queue A step 10")
+        images = patch_valid = None
+        if pil_image is not None:
+            if DEFAULT_IMAGE_TOKEN not in prompt:
+                prompt = DEFAULT_IMAGE_TOKEN + "\n" + prompt
+            images, patch_valid = self.preprocess_image(pil_image)
+        ids = np.asarray(tokenize_with_images(prompt, self.tokenizer), np.int64)
+        if self.batcher is not None:
+            handle = self.batcher.submit(
+                ids, images, patch_valid, max_new_tokens=max_new_tokens,
+                temperature=temperature, top_p=top_p, logprobs=logprobs,
+                frequency_penalty=frequency_penalty, presence_penalty=presence_penalty)
+            self._ensure_pump()
+            return self._stream_handle(handle, logprobs, lp_sink)
+        overrides = {name: value for name, value in (
+            ("max_new_tokens", max_new_tokens), ("temperature", temperature), ("top_p", top_p))
+            if value is not None}
+        sampling = dataclasses.replace(self.sampling, **overrides)
+        penalties = ((frequency_penalty, presence_penalty)
+                     if (frequency_penalty or presence_penalty) else None)
+        return self._generate_serialized(ids, images, patch_valid, sampling,
+                                         lp_sink if logprobs is not None else None, penalties)
+
+    def _stream_handle(self, handle, logprobs, lp_sink) -> Iterator[int]:
+        if logprobs is None or lp_sink is None:
+            yield from self.batcher.stream(handle)
+            return
+        # lp_log[i] is appended before token i enters the queue, so indexing
+        # by consumption order is race-free.
+        for i, tok in enumerate(self.batcher.stream(handle)):
+            lp_sink.append(handle.lp_log[i])
+            yield tok
+
+    def _generate_serialized(self, ids, images, patch_valid, sampling, lp_sink,
+                             penalties=None) -> Iterator[int]:
+        with self._lock:
+            dev = self.device
+            yield from generate_stream(
+                self.model, torch.as_tensor(ids, device=dev)[None],
+                None if images is None else torch.as_tensor(images, device=dev)[None],
+                None if patch_valid is None else torch.as_tensor(patch_valid, device=dev)[None],
+                self.cfg, sampling, lookahead=self.lookahead, multi_step=self.multi_step,
+                lp_sink=lp_sink, penalties=penalties)
+
+    def stream_text(self, token_iter: Iterator[int]) -> Iterator[str]:
+        """Detokenize a token stream into stable text deltas, re-decoding only
+        a sliding window (the vLLM detokenizer's structure): `prefix..read`
+        is context already emitted, kept so that the decoder renders the
+        piece boundary as a full decode would, and `read..end` the pending
+        tail, held back while it renders incomplete (ending in U+FFFD, a
+        split UTF-8 sequence)."""
+        produced: List[int] = []
+        prefix = 0  # window start: context tokens already fully emitted
+        read = 0    # tokens emitted as text (prefix..read renders context)
+        for tok in token_iter:
+            produced.append(tok)
+            ctx = self.tokenizer.decode(produced[prefix:read], skip_special_tokens=True)
+            full = self.tokenizer.decode(produced[prefix:], skip_special_tokens=True)
+            if len(full) <= len(ctx) or full.endswith("\ufffd"):
+                continue  # tail incomplete (mid-codepoint or a merged piece)
+            yield full[len(ctx):]
+            prefix = max(read, len(produced) - 8)
+            read = len(produced)
+        # Stream over: flush any tail still held back.
+        if read < len(produced):
+            ctx = self.tokenizer.decode(produced[prefix:read], skip_special_tokens=True)
+            full = self.tokenizer.decode(produced[prefix:], skip_special_tokens=True)
+            if len(full) > len(ctx):
+                yield full[len(ctx):]
+
+
+def token_strings_from_tokenizer(tokenizer, vocab_size: Optional[int] = None) -> List[bytes]:
+    """The RAW BYTES each vocabulary id contributes to decoded text (the port's
+    copy of `vis_zephyr_tpu/serve/structured.py::token_strings_from_tokenizer`).
+
+    HF sentencepiece-style tokenizers: `convert_ids_to_tokens` with the
+    ``▁`` → space and ``<0xNN>`` → byte conventions; other tokenizers: a
+    `decode` per id. Bytes, not str: a byte-fallback token ``<0xC3>`` is the
+    single byte 0xC3."""
+    V = vocab_size or getattr(tokenizer, "vocab_size", None) or len(tokenizer.get_vocab())
+    conv = getattr(tokenizer, "convert_ids_to_tokens", None)
+    out: List[bytes] = []
+    if conv is not None:
+        for t in conv(list(range(V))):
+            if t is None:
+                out.append(b"")
+            elif len(t) == 6 and t.startswith("<0x") and t.endswith(">"):
+                out.append(bytes([int(t[3:5], 16)]))
+            elif t.startswith("<") and t.endswith(">"):
+                out.append(b"")  # special tokens contribute no text
+            else:
+                out.append(t.replace("\u2581", " ").encode("utf-8"))
+        return out
+    for i in range(V):
+        try:
+            out.append(tokenizer.decode([i], skip_special_tokens=True).encode("utf-8"))
+        except Exception:  # noqa: BLE001 — an id the tokenizer cannot decode adds nothing
+            out.append(b"")
+    return out

@@ -1,18 +1,30 @@
 """Autoregressive generation: multimodal prefill + dense KV-cache decode.
 
 Port of `vis_zephyr_tpu/serve/generate.py` for the single-request path:
-`SamplingConfig`, `pad_to_bucket`, `_sample` (greedy, temperature, top-p),
-`prefill`, `decode_step`, `decode_multi_step`, `decode_verify`,
-`_propose_lookup`, `generate` (its decode loop is one burst) and
-`generate_stream`'s burst loop (bursts of `multi_step` decode steps, of one
-by default) and its prompt-lookup speculative loop (`lookahead`). On the
-card a burst of n steps replays one captured step n times
+`SamplingConfig`, `pad_to_bucket`, `_sample` (greedy, temperature, top-p,
+per-slot overrides), the batched steps' sampling operands
+(`_sample_per_slot`, `LP_TOPK`, `_apply_penalties`, `_count_token`,
+`_logprobs`, `_logprobs_host`), `prefill`, `decode_step`,
+`decode_multi_step`, `decode_verify`, `_propose_lookup`, `generate` (its
+decode loop is one burst) and `generate_stream`'s burst loop (bursts of
+`multi_step` decode steps, of one by default), its prompt-lookup
+speculative loop (`lookahead`) and its logprobs (`lp_sink`) and penalties.
+On the card a burst of n steps replays one captured step n times
 (`serve/graphs.py`) over the model's fixed decode cache for the batch
 (`burst_cache`), where the JAX package compiles its step and `lax.scan`
 once per bucket, and each speculative verify replays one captured verify
 step over the same cache (`verify_step`); on the CPU, and inside
 `_kernels.plain_versions()`, the eager `decode_step` and `decode_verify`
-run. Grammars, logprobs, penalties and beams are not ported yet.
+run.
+
+A sampled token is drawn by the exponential race (`_draw`): the argmax of
+p / E with E ~ Exp(1) from the step's generator, the categorical
+distribution that `torch.multinomial` draws, without its host-side check
+of the probabilities, so that a captured step replays the draw. The JAX
+package draws through Gumbel noise: sampled tokens are the same
+distribution, not the same bits.
+
+Grammars (`mask`) and beams are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ from ..config import VisZephyrConfig
 from ..models.mistral import embed, init_cache, mistral_forward
 from ..models.vis_zephyr import VisZephyr, vis_zephyr_forward
 from ..ops import _kernels
-from .graphs import StepGraphs
+from .graphs import StepGraphs, addresses
 
 # Speculation counts of the dense path in this process (reset by callers that
 # count): verify calls, tokens proposed, proposals accepted. `verify_calls`
@@ -52,21 +64,130 @@ def pad_to_bucket(length: int, bucket: int = 128, minimum: int = 128) -> int:
     return max(minimum, ((length + bucket - 1) // bucket) * bucket)
 
 
+def not_ported(what: str, step: str):
+    """The error every left-out option raises: what it is and the ROADMAP
+    entry that brings it."""
+    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md, {step})")
+
+
+def _draw(probs: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One categorical draw a row, probs [B, V] → [B]: the exponential race
+    argmax(p / E), E ~ Exp(1) from `generator` (what `torch.multinomial(probs,
+    1)` computes, with no host sync, so a captured step replays it). E is
+    kept above 0 so that a zero probability never wins."""
+    e = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / e.clamp_(min=torch.finfo(probs.dtype).tiny), dim=-1)
+
+
+def _top_p_cut(scaled: torch.Tensor, top_p) -> torch.Tensor:
+    """-inf outside each row's nucleus: the smallest set of the sorted tokens
+    whose cumulative probability reaches top_p (a float, or [B, 1])."""
+    sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+    cum = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)
+    cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True).clamp_(max=scaled.shape[-1] - 1)
+    cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+    return scaled.masked_fill(scaled < cutoff, float("-inf"))
+
+
 def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
-            sampling: SamplingConfig) -> torch.Tensor:
-    """logits [B, V] → token [B] (first maximum under greedy)."""
+            sampling: SamplingConfig, overrides=None, mask=None) -> torch.Tensor:
+    """logits [B, V] → token [B] (first maximum under greedy).
+
+    `overrides`: optional (temps [B], top_ps [B]) per-slot parameters
+    (`_sample_per_slot`), which take precedence over `sampling`'s scalars.
+    `mask` (grammars, Queue A step 10) is refused."""
+    if mask is not None:
+        raise not_ported("structured output (grammar)", "Queue A step 10")
+    if overrides is not None:
+        return _sample_per_slot(logits, generator, overrides[0], overrides[1])
     if sampling.temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
     logits = logits.float() / sampling.temperature
     if sampling.top_p < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        cum = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)
-        # Keep the smallest set with cumulative probability ≥ top_p.
-        cutoff_idx = (cum < sampling.top_p).sum(dim=-1, keepdim=True)
-        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
-        logits = logits.masked_fill(logits < cutoff, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        logits = _top_p_cut(logits, sampling.top_p)
+    return _draw(torch.softmax(logits, dim=-1), generator)
+
+
+def _sample_per_slot(logits: torch.Tensor, generator: Optional[torch.Generator],
+                     temps: torch.Tensor, top_ps: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling: logits [B, V], temps / top_ps [B] → token [B]. Row b
+    is greedy (its first maximum) where temps[b] <= 0, else drawn from its
+    own nucleus at its own temperature. Fixed-shape: every row is scaled,
+    cut and drawn, and `torch.where` picks, so a captured step never
+    branches on the data."""
+    logits = logits.float()
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
+    sampled = _draw(torch.softmax(_top_p_cut(scaled, top_ps[:, None]), dim=-1), generator)
+    return torch.where(temps <= 0.0, greedy, sampled)
+
+
+# OpenAI caps `top_logprobs` at 20; one static K keeps a single captured step
+# (requests asking for fewer slice on the host).
+LP_TOPK = 20
+
+
+def _apply_penalties(logits: torch.Tensor, counts: torch.Tensor, freq: torch.Tensor,
+                     pres: torch.Tensor) -> torch.Tensor:
+    """OpenAI frequency / presence penalties over OUTPUT tokens (the vLLM
+    convention): logits [B, V], counts [B, V] (per-slot emitted-token
+    counts), freq / pres [B] → penalized logits."""
+    return logits - freq[:, None] * counts - pres[:, None] * (counts > 0).to(logits.dtype)
+
+
+def _count_token(counts: torch.Tensor, token: torch.Tensor,
+                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Record this step's token per active slot (every slot when `active` is
+    None): counts [B, V] f32 gains one at (b, token[b]), IN PLACE. Returns
+    counts."""
+    rows = torch.arange(counts.shape[0], device=counts.device)
+    add = (torch.ones_like(token, dtype=counts.dtype) if active is None
+           else active.to(counts.dtype))
+    return counts.index_put_((rows, token), add, accumulate=True)
+
+
+def _logprobs(logits: torch.Tensor, token: torch.Tensor):
+    """Per-token logprobs from the RAW model distribution (f32 log-softmax of
+    the unscaled logits: before temperature, top-p and penalties, the OpenAI
+    convention): logits [B, V], token [B] → (chosen [B], top_ids [B, LP_TOPK]
+    int32, top_lps [B, LP_TOPK])."""
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    chosen = torch.gather(lsm, -1, token[:, None].long())[:, 0]
+    top_lps, top_ids = torch.topk(lsm, LP_TOPK, dim=-1)
+    return chosen, top_ids.to(torch.int32), top_lps
+
+
+def _logprobs_host(logits_row: np.ndarray, token: int):
+    """numpy twin of `_logprobs` for one row (first tokens, sampled from the
+    admission logits)."""
+    x = np.asarray(logits_row, np.float32)
+    lsm = x - (np.max(x) + np.log(np.sum(np.exp(x - np.max(x)))))
+    top = np.argpartition(-lsm, LP_TOPK)[:LP_TOPK]
+    top = top[np.argsort(-lsm[top])]
+    return float(lsm[token]), top.astype(np.int32), lsm[top]
+
+
+def _sample_tail(logits: torch.Tensor, generator: Optional[torch.Generator],
+                 sampling: SamplingConfig, active: Optional[torch.Tensor] = None,
+                 pad_id: int = 0, overrides=None, penalties=None) -> torch.Tensor:
+    """A decode step's sampling, the JAX steps' tail: logits [B, V] f32 →
+    next token [B]. Penalties (freq [B], pres [B], counts [B, V]) shape the
+    sampled logits; rows not `active` take `pad_id`; the counts gain the
+    active rows' tokens in place."""
+    if penalties is not None:
+        logits = _apply_penalties(logits, penalties[2], penalties[0], penalties[1])
+    token = _sample(logits, generator, sampling, overrides=overrides)
+    if active is not None:
+        token = torch.where(active, token, torch.full_like(token, pad_id))
+    if penalties is not None:
+        _count_token(penalties[2], token, active)
+    return token
+
+
+def weight_form(model: VisZephyr) -> str:
+    """The decoder's weight form as a captured step's key names it: the
+    class of its first projection (`Linear`, `QuantLinear`, `QuantLinear4`)."""
+    return type(model.decoder.model.layers[0].self_attn.q_proj).__name__
 
 
 def _cache_len(T: int, images, cfg: VisZephyrConfig, max_new_tokens: int,
@@ -178,12 +299,21 @@ def decode_multi_step(
     sampling: SamplingConfig,
     n: int,
     graphs: Optional[StepGraphs] = None,
+    overrides=None,
+    penalties=None,
+    lp_out=None,
 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """`n` chained `decode_step`s with sampling (the serialized path's
     multi-step burst): step j decodes the token step j − 1 sampled. Returns
     (toks [n, B] on the device, cache, last token); the caller copies toks
     to the host once and discards tokens past an EOS (the cache's rows past
     it are never read: the next request's prefill resets `length`).
+
+    The sampling operands (`_sample_tail`): `overrides` (temps [B], top_ps
+    [B]), `penalties` (freq [B], pres [B], counts [B, V] f32, counted in
+    place) and `lp_out`, three tensors [n, B], [n, B, LP_TOPK] int32,
+    [n, B, LP_TOPK] that take step j's `_logprobs` at row j; each is a fixed
+    buffer that a captured step reads or writes.
 
     On a CUDA tensor (outside `_kernels.plain_versions()`) each step is a
     replay of one captured step (`graphs`, a `StepGraphs`; a throwaway one
@@ -195,29 +325,33 @@ def decode_multi_step(
     B = token.shape[0]
     dev = token.device
     toks = torch.empty((n, B), dtype=torch.int64, device=dev)
-    if not _kernels.use_kernel(token):
-        for j in range(n):
-            logits, cache = decode_step(model, cache, token, cfg)
-            token = _sample(logits, generator, sampling)
-            toks[j] = token
-        return toks, cache, token
-    if graphs is None:
+    graphed = _kernels.use_kernel(token)
+    if graphed and graphs is None:
         graphs = StepGraphs()
-    buf = graphs.buffers(("token", B), lambda: torch.empty(B, dtype=torch.int64, device=dev))
+    buf = (graphs.buffers(("token", B), lambda: torch.empty(B, dtype=torch.int64, device=dev))
+           if graphed else torch.empty_like(token))
     if token is not buf:
         buf.copy_(token)
 
     def step():
         logits = decode_step(model, cache, buf, cfg)[0]
-        buf.copy_(_sample(logits, generator, sampling))
-        return logits
+        nxt = _sample_tail(logits, generator, sampling, overrides=overrides,
+                           penalties=penalties)
+        buf.copy_(nxt)
+        return None if lp_out is None else _logprobs(logits, nxt)
 
-    # The step reads the sampler's temperature and top-p, not the budget.
-    key = ("decode", B, *(cache[name].data_ptr() for name in ("k", "v", "length")),
-           sampling.temperature, sampling.top_p, generator)
+    # The step reads the sampler's temperature and top-p and its operands'
+    # buffers, not the budget.
+    key = ("decode", B, weight_form(model), sampling.temperature, sampling.top_p, generator,
+           lp_out is not None, *addresses(cache["k"], cache["v"], cache["length"],
+                                          *(overrides or (None, None)),
+                                          *(penalties or (None, None, None))))
     for j in range(n):
-        graphs.run(key, step, dev, generator)
+        lp = graphs.run(key, step, dev, generator) if graphed else step()
         toks[j].copy_(buf)
+        if lp_out is not None:
+            for out, got in zip(lp_out, lp):
+                out[j].copy_(got)
     return toks, cache, buf
 
 
@@ -283,7 +417,7 @@ def verify_step(
         logits = decode_verify(model, cache, tok_buf, valid_buf, cfg)[0]
         return torch.argmax(logits, dim=-1), logits
 
-    key = ("verify", B, S, *(cache[name].data_ptr() for name in ("k", "v", "length")))
+    key = ("verify", B, S, *addresses(cache["k"], cache["v"], cache["length"]))
     return graphs.run(key, step, dev)
 
 
@@ -389,6 +523,9 @@ def generate_stream(
     generator: Optional[torch.Generator] = None,
     lookahead: int = 0,
     multi_step: int = 1,
+    grammar=None,
+    lp_sink: Optional[list] = None,
+    penalties: Optional[Tuple[float, float]] = None,
 ) -> Iterator[int]:
     """Single-sequence streaming generation: yields token ids until EOS or
     the budget is exhausted, one decode step per token, in bursts
@@ -404,10 +541,22 @@ def generate_stream(
     `multi_step` (ignored while speculation is on): the bursts' size, which
     ramps 1→2→4→n so that the first tokens come no later; tokens past an
     in-burst EOS are discarded. Under greedy decoding the tokens do not
-    depend on it."""
+    depend on it.
+
+    `lp_sink`: when not None, one `(chosen_lp, top_ids, top_lps)` entry
+    (`_logprobs`, the raw distribution) is appended per yielded token, before
+    it is yielded. `penalties`: optional (frequency_penalty,
+    presence_penalty) over this stream's emitted tokens. Either turns
+    speculation and bursts off, as in the JAX function; on the card their
+    counts and outputs are the captured step's fixed buffers. `grammar`
+    (Queue A step 10) is refused."""
     global proposed, accepted
     if input_ids.shape[0] != 1:
         raise ValueError(f"streaming path is single-sequence, got batch {input_ids.shape[0]}")
+    if grammar is not None:
+        raise not_ported("structured output (grammar)", "Queue A step 10")
+    if lp_sink is not None or penalties is not None:
+        lookahead, multi_step = 0, 1
     speculate = lookahead > 0 and sampling.temperature <= 0.0
     cache_len = _cache_len(input_ids.shape[1], images, cfg, sampling.max_new_tokens, lookahead)
     fixed, graphs = burst_cache(model, cfg, 1, cache_len, input_ids)
@@ -456,20 +605,48 @@ def generate_stream(
             budget -= len(emitted[:budget])
             tok = emitted[-1] if budget > 0 else None
         return
+    if sampling.max_new_tokens <= 0:
+        return  # a zero budget yields no token, as the JAX function's step loop
     # Bursts of decode steps (bursts of one when multi_step is 1).
     token = _sample(logits, generator, sampling)
     tok = int(token[0])
     if tok == sampling.eos_token_id:
         return
+    if lp_sink is not None:
+        chosen, ids, lps = (t.cpu().numpy() for t in _logprobs(logits, token))
+        lp_sink.append((float(chosen[0]), ids[0], lps[0]))
     yield tok
+    dev, V = token.device, cfg.decoder.vocab_size
+
+    def fixed(key, make):  # a captured step's buffers outlive the request
+        return make() if graphs is None else graphs.buffers(key, make)
+
+    pen = lp_out = None
+    if penalties is not None:
+        pen = fixed(("penalties", 1), lambda: (
+            torch.zeros(1, device=dev), torch.zeros(1, device=dev),
+            torch.zeros((1, V), device=dev)))
+        pen[0].fill_(float(penalties[0]))
+        pen[1].fill_(float(penalties[1]))
+        pen[2].zero_()
+        pen[2][0, tok] = 1.0
+    if lp_sink is not None:
+        lp_out = fixed(("logprobs", 1, 1), lambda: (
+            torch.zeros((1, 1), device=dev),
+            torch.zeros((1, 1, LP_TOPK), dtype=torch.int32, device=dev),
+            torch.zeros((1, 1, LP_TOPK), device=dev)))
     remaining = sampling.max_new_tokens - 1
     ramp = [1, 2, 4]
     while remaining > 0:
         n = min(ramp.pop(0) if ramp else multi_step, multi_step, remaining)
         toks, cache, token = decode_multi_step(model, cache, token, generator, cfg,
-                                               sampling, n, graphs)
-        for t in toks[:, 0].tolist():  # the burst's one copy to the host
+                                               sampling, n, graphs, penalties=pen,
+                                               lp_out=lp_out)
+        lp_host = None if lp_out is None else [t.cpu().numpy().copy() for t in lp_out]
+        for j, t in enumerate(toks[:, 0].tolist()):  # the burst's one copy to the host
             if t == sampling.eos_token_id:
                 return
+            if lp_host is not None:
+                lp_sink.append((float(lp_host[0][j, 0]), lp_host[1][j, 0], lp_host[2][j, 0]))
             yield t
             remaining -= 1

@@ -49,6 +49,12 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return stream
 
 
+def addresses(*tensors) -> tuple:
+    """The buffers' addresses, as a captured step's key names them (None for
+    an absent operand)."""
+    return tuple(None if t is None else t.data_ptr() for t in tensors)
+
+
 class StepGraph:
     """One step, run eagerly once and then captured; `replay()` runs it again."""
 

@@ -54,17 +54,17 @@ The JAX programs return new pools and rely on donation. Here pools,
 `page_table`, `lengths` and `token` are updated in place, and only one thread
 (the engine's pump) may call `step`.
 
+Per-request temperature and top-p, logprobs and penalties ride every
+decode step as the scheduler base's fixed per-slot buffers (`serve/batching.py`).
+
 Not ported yet, each raising `NotImplementedError` when asked for: meshes and
-the TP wrappers, multi-LoRA, grammars, logprobs, penalties, per-slot sampling
-overrides, a draft model, the prefix cache, lazy allocation with host
-swap, and metrics.
+the TP wrappers, multi-LoRA, grammars, a draft model, the prefix cache, lazy
+allocation with host swap, and metrics.
 """
 
 from __future__ import annotations
 
 import bisect
-import queue
-from collections import deque
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -77,9 +77,9 @@ from ..ops import _kernels
 from ..ops.paged_attention import (paged_attention, paged_attention_fa, paged_kv_update_layer,
                                    paged_kv_update_layer_q, paged_kv_update_rows,
                                    paged_kv_update_rows_q, quantize_kv)
-from .batching import ContinuousBatcher, _prefill_kv, _Request, not_ported
-from .generate import SamplingConfig, _sample
-from .graphs import StepGraphs
+from .batching import ContinuousBatcher, _Request, _run_burst, not_ported
+from .generate import SamplingConfig, _sample_tail, weight_form
+from .graphs import StepGraphs, addresses
 
 
 class PageAllocator:
@@ -227,16 +227,19 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
     row they just wrote); their token becomes `pad_token_id` and their
     length does not grow.
 
+    The sampling operands as in `batching._batch_step`: `sample_overrides`
+    (temps [B], top_ps [B]) and `penalties` (freq [B], pres [B], counts
+    [B, V] f32, counted in place); the logprobs of the JAX step's
+    `want_logprobs` are `_logprobs` of the returned raw logits, which
+    `_paged_multi_step` takes.
+
     The pools, `lengths` and `token` are updated IN PLACE. Returns
     (next_token [B], logits [B, V] f32)."""
     for value, what, step in (
             (mesh, "a device mesh (tensor-parallel paged step)", "Queue A step 13"),
             (mlora is not None or adapter_idx is not None, "multi-LoRA serving",
              "Queue A step 10"),
-            (sample_overrides, "per-slot sampling overrides", "Queue A step 10"),
-            (grammar, "structured output (grammar)", "Queue A step 10"),
-            (want_logprobs, "logprobs", "Queue A step 10"),
-            (penalties, "frequency / presence penalties", "Queue A step 10")):
+            (grammar, "structured output (grammar)", "Queue A step 10")):
         if value:
             raise not_ported(what, step)
     if mode not in ("selfterm", "writefirst"):
@@ -302,8 +305,8 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
 
     h = rms_norm(h, decoder.model.norm.weight, dec.rms_norm_eps)
     logits = decoder.lm_head(h[:, -1:]).float()[:, 0]
-    next_token = _sample(logits, generator, sampling)
-    next_token = torch.where(active, next_token, torch.full_like(next_token, dec.pad_token_id))
+    next_token = _sample_tail(logits, generator, sampling, active, dec.pad_token_id,
+                              sample_overrides, penalties)
     token.copy_(next_token)
     lengths.add_(active.to(lengths.dtype))
     return next_token, logits
@@ -313,64 +316,36 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
 def _paged_multi_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, token,
                       active, steps_left, generator: Optional[torch.Generator],
                       cfg: VisZephyrConfig, sampling: SamplingConfig, mode: str = "selfterm",
-                      n: int = 4, graphs: Optional[StepGraphs] = None):
-    """`n` chained `_paged_step`s (multi-step scheduling): the host's
-    scheduling, the step's Python and the copy of its tokens are paid once a
-    burst instead of once a token.
-
-    Token-exact with single-stepping: the device carries `alive` (from
-    `active`) and each slot's `steps_left` (the host's remaining budget,
-    int32 [B]), so a slot that emits EOS or runs out of budget mid-burst is
-    inactive from the next step on (its length stops growing and its row
-    goes to the trash page), as if the host had finished it between steps.
-    With temperature > 0 the draws come from `generator` in the
-    single-step order.
+                      n: int = 4, graphs: Optional[StepGraphs] = None, sample_overrides=None,
+                      penalties=None, lp_out=None):
+    """`n` chained `_paged_step`s in one burst (`batching._run_burst`: the
+    EOS and budget carry on the device, token-exact with single-stepping;
+    with temperature > 0 the draws come from `generator` in the single-step
+    order; `lp_out` takes each step's logprobs).
 
     On a CUDA tensor (outside `_kernels.plain_versions()`) every step is a
-    replay of the step captured over these buffers and the carry's
-    (`graphs`, a `StepGraphs`; a throwaway one when None): the pools,
-    `page_table`, `lengths` and `token` must keep their tensors for the
-    graphs' life. Elsewhere the same step runs eagerly.
+    replay of the step captured over these buffers, the sampling operands
+    and the carry's (`graphs`, a `StepGraphs`; a throwaway one when None):
+    the pools, `page_table`, `lengths`, `token` and the operands must keep
+    their tensors for the graphs' life. Elsewhere the same step runs
+    eagerly.
 
     The pools, `lengths` and `token` are updated IN PLACE. Returns (toks
     [n, B], entry_alive [n, B] bool, logits [B, V] f32 of the last step),
     all on the device: token (j, b) counts iff entry_alive[j, b]. (The JAX
-    function's mesh, multi-LoRA and sampling-override arguments come with
-    those features, Queue A steps 13 and 10.)"""
-    B = token.shape[0]
-    dev = token.device
-    eos = sampling.eos_token_id
-    graphed = _kernels.use_kernel(token)
-    if graphed and graphs is None:
-        graphs = StepGraphs()
+    function's mesh and multi-LoRA arguments come with those features,
+    Queue A steps 13 and 10.)"""
+    def step(alive):
+        return _paged_step(model, kp, vp, scales, page_table, lengths, token, alive, generator,
+                           cfg, sampling, mode=mode, sample_overrides=sample_overrides,
+                           penalties=penalties)
 
-    def make_carry():  # alive, steps left, alive entering the step
-        return (torch.empty(B, dtype=torch.bool, device=dev),
-                torch.empty(B, dtype=torch.int32, device=dev),
-                torch.empty(B, dtype=torch.bool, device=dev))
-
-    alive, left, entry = graphs.buffers(("carry", B), make_carry) if graphed else make_carry()
-    alive.copy_(active)
-    left.copy_(steps_left)
-
-    def step():
-        entry.copy_(alive)
-        tok, logits = _paged_step(model, kp, vp, scales, page_table, lengths, token, alive,
-                                  generator, cfg, sampling, mode=mode)
-        left.sub_(1)
-        alive.logical_and_((tok != eos) & (left > 0))
-        return logits
-
-    toks = torch.empty((n, B), dtype=token.dtype, device=dev)
-    entry_alive = torch.empty((n, B), dtype=torch.bool, device=dev)
-    key = ("paged", mode, B, sampling.temperature, sampling.top_p, eos, generator, *(
-        None if t is None else t.data_ptr()
-        for t in (kp, vp, *scales, page_table, lengths, token)))
-    for j in range(n):
-        logits = graphs.run(key, step, dev, generator) if graphed else step()
-        toks[j].copy_(token)
-        entry_alive[j].copy_(entry)
-    return toks, entry_alive, logits
+    key = ("paged", mode, token.shape[0], weight_form(model), sampling.temperature,
+           sampling.top_p, sampling.eos_token_id, generator, lp_out is not None,
+           *addresses(kp, vp, *scales, page_table, lengths, token,
+                  *(sample_overrides or (None, None)), *(penalties or (None, None, None))))
+    return _run_burst(step, key, token, active, steps_left, sampling.eos_token_id, n, graphs,
+                      generator, lp_out)
 
 
 @torch.no_grad()
@@ -389,8 +364,7 @@ def _paged_verify_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, leng
         graphs = StepGraphs()
     B, S = toks.shape
     # The step reads no sampler: greedy tokens only.
-    key = ("verify", B, S, *(None if t is None else t.data_ptr()
-                             for t in (kp, vp, *scales, page_table, lengths, toks, active)))
+    key = ("verify", B, S, *addresses(kp, vp, *scales, page_table, lengths, toks, active))
     return graphs.run(key, lambda: _paged_verify_body(model, kp, vp, scales, page_table, lengths,
                                                       toks, active, cfg), toks.device)
 
@@ -481,9 +455,9 @@ class PagedBatcher(ContinuousBatcher):
     step; None prefills a whole prompt at admission. `lookahead`:
     prompt-lookup speculation, greedy only (`_paged_verify_step` each
     scheduler step). `multi_step`: a scheduler step with no admission work
-    waiting runs a burst of this many decode steps, else a burst of one
-    (`_paged_multi_step`, replayed as CUDA graphs on the card); ignored
-    under `lookahead`."""
+    waiting, and no slot asking for logprobs or penalties, runs a burst of
+    this many decode steps, else a burst of one (`_paged_multi_step`,
+    replayed as CUDA graphs on the card); ignored under `lookahead`."""
 
     def __init__(self, model: VisZephyr, cfg: VisZephyrConfig, max_slots: int = 32,
                  cache_len: int = 2048, sampling: SamplingConfig = SamplingConfig(),
@@ -527,27 +501,7 @@ class PagedBatcher(ContinuousBatcher):
         self.page_table = torch.zeros((max_slots, self.pages_per_seq), dtype=torch.int32,
                                       device=dev)
         self.lengths = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
-        # The host's `active` and `budget` as the device steps read them:
-        # fixed buffers, which a captured step keeps reading.
-        self._active_dev = torch.zeros((max_slots,), dtype=torch.bool, device=dev)
-        self._left_dev = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
-        self.graphs = StepGraphs()  # the captured decode step (one a mode) and verify step
         self.slot_pages: List[List[int]] = [[] for _ in range(max_slots)]
-        self._requeued: deque = deque()  # head-of-queue retries (no pages free)
-        # [max_slots, V] of the last decode step; [max_slots, S, V] of the
-        # last verify step.
-        self.last_logits: Optional[torch.Tensor] = None
-        self.steps = 0          # decode steps run, in bursts too (verify steps: `verify_steps`)
-        self.bursts = 0         # bursts of more than one decode step run
-        self.slots_stepped = 0  # active slots summed over decode and verify steps
-
-    @property
-    def has_work(self) -> bool:
-        return (self.active.any() or not self.pending.empty()
-                or bool(self._requeued) or self._prefilling is not None)
-
-    def _has_admission_work(self) -> bool:
-        return super()._has_admission_work() or bool(self._requeued)
 
     @property
     def _headroom(self) -> int:
@@ -558,35 +512,6 @@ class PagedBatcher(ContinuousBatcher):
         bursts and proposals are capped by the budget, so every valid row
         lies inside it."""
         return max(self.multi_step, self.lookahead + 1)
-
-    def _next_request(self) -> Optional[_Request]:
-        if self._requeued:
-            return self._requeued.popleft()
-        try:
-            return self.pending.get_nowait()
-        except queue.Empty:
-            return None
-
-    def _admit_pending(self) -> None:
-        """Whole-prompt admission: prefill each waiting request into a free slot."""
-        for slot in range(self.max_slots):
-            if not self._slot_free(slot):
-                continue
-            req = self._next_request()
-            if req is None:
-                return
-            if req.cancelled:
-                req.out.put(None)
-                continue
-            ids, images, pv = self._request_tensors(req)
-            last_logits, k, v, length = _prefill_kv(self.model, ids, images, pv, self.cfg)
-            if length + req.max_new_tokens > self.cache_len:
-                req.out.put(None)  # exceeds a sequence's page span; reject
-                continue
-            if not self._install(req, slot, last_logits, k, v, length):
-                # Pool exhausted: retry once active requests release pages.
-                self._requeued.appendleft(req)
-                return
 
     def _install(self, req: _Request, slot: int, last_logits, k, v, length: int) -> bool:
         """Allocate pages for the request's full span and write its K/V.
@@ -623,43 +548,13 @@ class PagedBatcher(ContinuousBatcher):
             _clear_row(self.page_table, slot)
         super()._finish(slot)
 
-    def step(self) -> int:
-        """Admit pending requests (one chunk's worth under chunked prefill),
-        then advance every active slot by a burst of decode steps
-        (`_step_burst`): `multi_step` of them when no admission work waits,
-        else one. Returns the number of slot steps taken (a slot counts once
-        a step it was alive in)."""
-        self._reap_cancelled()
-        if self.prefill_chunk:
-            self._pump_prefill()
-        else:
-            self._admit_pending()
-        if not self.active.any():
-            return 0
-        if self.lookahead > 0:
-            stepped = self._step_verify()
-            self.slots_stepped += stepped
-            return stepped
-        return self._step_burst(1 if self._has_admission_work() else self.multi_step)
-
-    def _step_burst(self, n: int) -> int:
-        """A burst of `n` decode steps over the active slots
-        (`_paged_multi_step` on the batcher's graphs: on the card every
-        decode step, a burst of one too, is a replay of the captured step),
-        one copy of its tokens to the host, then the host's transitions
-        (`_process_burst`)."""
-        self._active_dev.copy_(torch.from_numpy(self.active))
-        self._left_dev.copy_(torch.from_numpy(self.budget.astype(np.int32)))
-        toks, alive, self.last_logits = _paged_multi_step(
+    def _burst_device(self, n: int, overrides, penalties, lp_out):
+        """The device side of a burst: `_paged_multi_step` over the pools."""
+        return _paged_multi_step(
             self.model, self.kp, self.vp, (self.ksp, self.vsp), self.page_table, self.lengths,
             self.token, self._active_dev, self._left_dev, self.generator, self.cfg,
-            self.sampling, n=n, graphs=self.graphs)
-        host = torch.stack((toks, alive.to(toks.dtype))).cpu().numpy()
-        stepped = self._process_burst(host[0], host[1].astype(bool))
-        self.steps += n
-        self.bursts += int(n > 1)
-        self.slots_stepped += stepped
-        return stepped
+            self.sampling, n=n, graphs=self.graphs, sample_overrides=overrides,
+            penalties=penalties, lp_out=lp_out)
 
     def _verify_device(self, toks: np.ndarray, valid: np.ndarray) -> np.ndarray:
         """The paged verify: all S rows of every slot are written (rows past
