@@ -6,8 +6,9 @@ each with multi-step bursts replayed as CUDA graphs (`--multi-step`);
 continuous batching over one dense cache; per-request sampling, logprobs
 and penalties in the replayed steps of both batchers; the OpenAI
 endpoints; the writefirst paged decode step; the fused int8 MLP probe; the
-trainer, stage 1 and stage 2; and the batched-head and slot-grouped
-attention probes.
+trainer, stage 1 and stage 2; the load paths (the trainer's own checkpoint,
+the peft artifact, the consolidated dir, the native tokenizer); and the
+batched-head and slot-grouped attention probes.
 
     python3 chip_smoke.py [--seed N] [--max-new-tokens N] [--profile] [--phases a,b]
 
@@ -267,6 +268,29 @@ toolkit; exits non-zero on a machine without a card. Phases:
              gradient cosine >= 0.999); stage 2 (LoRA r=128, alpha=256,
              dropout 0.05) through `make_train_step` for 2 steps; K1 = 64,
              K7 = K8 = 32 launches per micro-step, exactly;
+17b. load  — the load paths at full width (random bf16 weights from the
+             seed): LoRA (r 128, alpha 256, `lora_b` random) on the decoder's
+             projections, one AdamW update of the adapters from seeded
+             gradients, the full train state saved by
+             `train/checkpoints.save_checkpoint` (free disk checked first;
+             bytes, save and sync seconds printed) into a model dir beside
+             `config.json` and a Zephyr-form `tokenizer.json` (Metaspace BPE
+             with byte fallback, 32000 pieces, written by the script);
+             `load_pretrained_model(dir)` with `VZT_NATIVE_TOKENIZER=1` (the
+             tokenizer must be the port's `NativeTokenizer`; load seconds and
+             host RSS, anonymous and file-backed, printed) against
+             `merge_lora` of the in-memory model on the card (every tensor bit
+             for bit); 2 sessions and 3 requests through `ChatEngine` on the
+             loaded model and on the in-memory one (replies equal, the first
+             turns' greedy tokens equal, every text round-trips through the
+             native tokenizer, K1 = 32 x requests and K2 = 32 x decode steps
+             exactly), then one request on `load_8bit` (K5 launched, no
+             dequantize call); the peft artifact (HF base and CLIP tower as
+             `pytorch_model.bin`) and the consolidated dir at full widths and
+             every decoder layer the disk has room for (all 32 on the card;
+             the depth printed), each bit for bit against the merged model;
+             whether the native image route builds (printed, not gated: the
+             card's machine has no libjpeg headers);
 18. attn_probes — last, after every served phase: K10 and K11 must not
              have launched yet. The two attention probes' `main()`
              (`vis_zephyr_tpu_torch/experiments/batched_paged_attention_probe.py`
@@ -291,7 +315,7 @@ toolkit; exits non-zero on a machine without a card. Phases:
 
 `--phases` runs a subset (kernels, slice1, paged, batch, writefirst, spec,
 multistep, dense_batch, sampled, openai, profile, precision, int8, mlp_probe,
-int4, train, attn_probes) and then prints no result line. After a full run the line before
+int4, train, load, attn_probes) and then prints no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
 """
@@ -3772,6 +3796,405 @@ def run_train(seed: int, card: str) -> dict:
     return {"train": stage1, "train_lora": stage2}
 
 
+LOAD_LORA = (128, 256)     # r, alpha: the reference's stage-2 recipe
+LOAD_QUESTIONS = ("<image>\ndescribe the picture", "<image>\nwhat is in the image",
+                  "and what colour is it")
+
+
+def write_zephyr_tokenizer(path: str, vocab_size: int) -> None:
+    """A tokenizer.json in the form of the Zephyr-7B-β tokenizer (BPE over
+    Metaspace pieces with byte fallback: <unk>, <s>, </s>, the 256 byte
+    tokens, then pieces), written without a tokenizer package: single
+    characters, merges that build "word" and "▁word" for the words of the
+    smoke's questions and of the chat template (so that a prompt takes about
+    as many tokens as with the real tokenizer), and filler pieces up to
+    `vocab_size` so that every id a random model emits decodes."""
+    import string
+
+    from vis_zephyr_tpu_torch.conversation import templates
+
+    conv = templates["zephyr_v1"].copy()
+    for question in LOAD_QUESTIONS:
+        conv.append_message(conv.roles[0], question)
+        conv.append_message(conv.roles[1], "a reply")
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    for ch in "▁" + string.ascii_letters + string.digits + string.punctuation:
+        vocab.setdefault(ch, len(vocab))
+    merges = []
+    words = sorted(set(WORDS) | set(conv.get_prompt().replace("</s>", " ").split()))
+    for word in words:
+        for piece in ("▁", word[0]):
+            for ch in word[len(piece) - (piece == "▁"):]:
+                if piece + ch not in vocab:
+                    vocab[piece + ch] = len(vocab)
+                    merges.append(f"{piece} {ch}")
+                piece += ch
+    i = 0
+    while len(vocab) < vocab_size:
+        vocab.setdefault(f"▁t{i}", len(vocab))
+        i += 1
+    tj = {"version": "1.0", "added_tokens": [],
+          "normalizer": None,
+          "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                            "prepend_scheme": "first", "split": False},
+          "decoder": {"type": "Sequence", "decoders": [
+              {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+              {"type": "ByteFallback"}, {"type": "Fuse"},
+              {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+          "model": {"type": "BPE", "unk_token": "<unk>", "byte_fallback": True,
+                    "fuse_unk": True, "vocab": vocab, "merges": merges}}
+    with open(path, "w") as f:
+        json.dump(tj, f)
+
+
+def rss_fields() -> dict:
+    """This process's resident memory in bytes (VmRSS; the mapped pages of a
+    file count in it), and its anonymous and file-backed parts where the
+    kernel reports them (RssAnon, RssFile)."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key in ("VmRSS", "RssAnon", "RssFile"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+class RssPeak:
+    """The largest `rss_fields` seen by a thread polling every 20 ms inside
+    a `with` block."""
+
+    def __enter__(self):
+        self.peak = rss_fields()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def _poll(self):
+        while not self._stop.wait(0.02):
+            now = rss_fields()
+            self.peak = {k: max(v, now[k]) for k, v in self.peak.items()}
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def same_weights(got: dict, want: dict, label: str) -> None:
+    """Every tensor of `want` in `got`, bit for bit."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys differ: {sorted(set(got) ^ set(want))[:8]}")
+    bad = [k for k, v in want.items() if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+    print(f"{label}: {len(want)} tensors, {len(want) - len(bad)} bit for bit equal to the "
+          f"in-memory merged model's")
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} tensors differ, first {bad[:4]}")
+
+
+def write_released_forms(model, cfg, root: str, depth: int) -> dict:
+    """The reference's released forms of the LoRA-wrapped `model` at decoder
+    depth `depth` (full widths): an HF base (`pytorch_model.bin`, the card's
+    machine has no safetensors) and an HF CLIP tower, a peft artifact
+    (adapter_config.json, adapter_model.bin, non_lora_trainables.bin), and
+    the keys of a consolidated dir for after the merge. Returns the dirs."""
+    cut = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, num_layers=depth))
+    dirs = {name: os.path.join(root, name) for name in ("base", "tower", "peft", "consolidated")}
+    for d in dirs.values():
+        os.makedirs(d)
+    lora = (".lora_a", ".lora_b", ".lora_scale")
+    base = {k: v for k, v in model.decoder.state_dict().items()
+            if not k.endswith(lora) and not (k.startswith("model.layers.")
+                                            and int(k.split(".")[2]) >= depth)}
+    torch.save(base, os.path.join(dirs["base"], "pytorch_model.bin"))
+    torch.save({f"vision_model.{k}": v for k, v in model.vision.state_dict().items()},
+               os.path.join(dirs["tower"], "pytorch_model.bin"))
+    adapters = {}
+    for name, mod in model.decoder.named_modules():
+        if hasattr(mod, "lora_a") and int(name.split(".")[2]) < depth:
+            pre = f"base_model.model.{name}"
+            adapters[f"{pre}.lora_A.weight"] = mod.lora_a.T.contiguous()
+            adapters[f"{pre}.lora_B.weight"] = mod.lora_b.T.contiguous()
+    torch.save(adapters, os.path.join(dirs["peft"], "adapter_model.bin"))
+    with open(os.path.join(dirs["peft"], "adapter_config.json"), "w") as f:
+        json.dump({"r": LOAD_LORA[0], "lora_alpha": LOAD_LORA[1]}, f)
+    torch.save({f"base_model.model.model.mm_projector.{k}": v
+                for k, v in model.projector.state_dict().items()},
+               os.path.join(dirs["peft"], "non_lora_trainables.bin"))
+    for d in (dirs["peft"], dirs["consolidated"]):
+        with open(os.path.join(d, "config.json"), "w") as f:
+            f.write(cut.to_json())
+    return dirs
+
+
+def run_load(seed: int, max_new_tokens: int, card: str) -> dict:
+    """The load paths at full width: the port trainer's full stage-2 state
+    (LoRA r 128, α 256, `lora_b` random, the adapters' AdamW moments) saved by
+    `train/checkpoints.save_checkpoint` into a model dir beside `config.json`
+    and a Zephyr-form `tokenizer.json`, loaded by `load_pretrained_model`
+    with the native tokenizer and held bit for bit against `merge_lora` of
+    the in-memory model; 2 sessions and 3 requests served on it (greedy
+    tokens equal the in-memory merged model's, K1 and K2 counted), then on
+    `load_8bit` (K5, no dequantize call); the peft artifact and the
+    consolidated dir at as many layers as the disk holds, each bit for bit."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.data import native, native_lib
+    from vis_zephyr_tpu_torch.data.tokenizer_native import NativeTokenizer
+    from vis_zephyr_tpu_torch.models.builder import load_pretrained_model
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.serve import generate as tgen
+    from vis_zephyr_tpu_torch.serve.engine import ChatEngine
+    from vis_zephyr_tpu_torch.train.checkpoints import save_checkpoint
+    from vis_zephyr_tpu_torch.train.lora import LoraConfig, add_lora, merge_lora
+    from vis_zephyr_tpu_torch.train.optimizer import OptimizerConfig, build_optimizer
+
+    model, cfg = build_model(seed)
+    L = cfg.decoder.num_layers
+    r, alpha = LOAD_LORA
+    gen = torch.Generator("cuda").manual_seed(seed + 3)
+    add_lora(model, LoraConfig(r=r, alpha=alpha), gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.01, generator=gen)
+    # The adapters' optimizer state, as a stage-2 run leaves it: one AdamW
+    # update from seeded gradients.
+    opt = build_optimizer(model, OptimizerConfig(total_steps=1), stage="2")
+    opt.update([torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype) * 1e-3
+                for p in opt.params])
+    model.requires_grad_(False)
+    n_lora = sum(p.numel() for p in opt.params)
+
+    root = tempfile.mkdtemp(prefix="vzt_load_")
+    try:
+        state_bytes = (sum(t.numel() * t.element_size() for t in model.state_dict().values())
+                       + sum(t.numel() * t.element_size() for s in opt.adamw.state.values()
+                             for t in s.values() if torch.is_tensor(t)))
+        per_layer = sum(t.numel() * t.element_size()
+                        for t in model.decoder.model.layers[0].state_dict().values())
+        fixed = state_bytes - L * per_layer
+        free = shutil.disk_usage(root).free
+        print(f"load: {free / 2**30:.1f} GiB free on the disk of {root}; the full state needs "
+              f"about {state_bytes / 2**30:.1f} GiB ({n_lora / 1e6:.1f} M adapter params and "
+              f"their AdamW moments)")
+        if free < 1.1 * state_bytes:
+            raise AssertionError("load: not enough free disk for the full state")
+        # The released forms, written from the LoRA-wrapped model before the
+        # merge: two dirs of (fixed parts + depth layers) each.
+        room = (free - 1.1 * state_bytes) / 2
+        depth = max(0, min(L, int((room - fixed) // (per_layer * 1.1))))
+        if depth < 1:
+            raise AssertionError("load: no disk left for the released forms")
+        t0 = time.perf_counter()
+        forms = write_released_forms(model, cfg, os.path.join(root, "forms"), depth)
+        print(f"load: wrote the peft artifact and its base at depth {depth} of {L} (full widths, "
+              f"as deep as the disk allows) in {time.perf_counter() - t0:.1f} s")
+
+        # (1) Save as the port trainer saves, into a model dir.
+        t0 = time.perf_counter()
+        ckpt = save_checkpoint(os.path.join(root, "run"),
+                               {"params": model, "opt_state": opt, "step": 1}, step=1)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.sync()
+        sync_s = time.perf_counter() - t0
+        del opt
+        gc.collect()
+        model_dir = os.path.join(root, "model")
+        os.makedirs(model_dir)
+        os.rename(os.path.join(ckpt, "state"), os.path.join(model_dir, "state"))
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+        write_zephyr_tokenizer(os.path.join(model_dir, "tokenizer.json"), cfg.decoder.vocab_size)
+        ckpt_bytes = dir_bytes(os.path.join(model_dir, "state"))
+        print(f"load: save_checkpoint of the full stage-2 state: {ckpt_bytes / 2**30:.2f} GiB "
+              f"in {save_s:.2f} s, then os.sync {sync_s:.2f} s [{card}]")
+
+        # The in-memory reference: merge_lora on the device, as the builder does.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merge_lora(model)
+        torch.cuda.synchronize()
+        merge_s = time.perf_counter() - t0
+        print(f"load: merge_lora of the in-memory model on the device: {merge_s * 1e3:.1f} ms "
+              f"({7 * L} adapters) [{card}]")
+
+        # (2) Load through the builder with the native tokenizer.
+        os.environ["VZT_NATIVE_TOKENIZER"] = "1"
+        torch.cuda.synchronize()
+        before = rss_fields()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            tok, loaded, lcfg, _ = load_pretrained_model(model_dir, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        after = rss_fields()
+        if not isinstance(tok, NativeTokenizer):
+            raise AssertionError(f"load: the tokenizer is {type(tok).__name__}, not the port's "
+                                 f"NativeTokenizer")
+        parts = "; ".join(f"{k} {before[k] / 2**30:.2f} -> peak {rss.peak[k] / 2**30:.2f}"
+                          for k in ("RssAnon", "RssFile") if k in before)
+        print(f"load: load_pretrained_model (state.pt by mmap into a meta model, to the card, "
+              f"LoRA merged there): {load_s:.2f} s; host RSS {before['VmRSS'] / 2**30:.2f} -> "
+              f"peak {rss.peak['VmRSS'] / 2**30:.2f} -> {after['VmRSS'] / 2**30:.2f} GiB, the "
+              f"peak {(rss.peak['VmRSS'] - before['VmRSS']) / 2**30:.2f} GiB over the start "
+              f"against the file's {ckpt_bytes / 2**30:.2f} GiB ({parts or 'no RssAnon / RssFile '
+              'in /proc/self/status here'}); tokenizer {type(tok).__name__}, vocabulary "
+              f"{tok.vocab_size} [{card}]")
+        if lcfg != cfg:
+            raise AssertionError(f"load: the loaded config differs: {lcfg}")
+        same_weights(loaded.state_dict(), model.state_dict(), "load: state.pt")
+
+        # (3) Serve: 2 sessions, 3 requests, pixels attached as slice 1 does.
+        rng = np.random.default_rng(seed)
+        side = cfg.vision.image_size
+        pixels = [session_pixels(rng, side, 3) for _ in range(2)]
+        requests = [("s0", LOAD_QUESTIONS[0]), ("s1", LOAD_QUESTIONS[1]), ("s0", LOAD_QUESTIONS[2])]
+
+        def serve(m, counted: bool):
+            engine = ChatEngine(m, lcfg, tok, max_new_tokens=max_new_tokens)
+            for sid, (px, valid) in zip(("s0", "s1"), pixels):
+                engine.attach_pixels(sid, px, valid, (2 * side, side))
+            if counted:
+                fa.launches = kv_cache.launches = 0
+                reset_routes()
+            replies, rates = [], []
+            for sid, question in requests:
+                t0 = time.perf_counter()
+                chunks, first = [], None
+                for chunk in engine.chat(sid, question):
+                    first = first or time.perf_counter() - t0
+                    chunks.append(chunk)
+                total = time.perf_counter() - t0
+                replies.append("".join(chunks))
+                rates.append((max_new_tokens - 1) / (total - (first or 0.0)))
+            counts = dict(k1=fa.launches, k2=kv_cache.launches, **read_routes())
+            return engine, replies, rates, counts
+
+        engine, replies, rates, counts = serve(loaded, counted=True)
+        _, want_replies, _, _ = serve(model, counted=False)
+        # Greedy tokens of the first turns, direct, on both models (each
+        # model's serialized cache has seen the same requests).
+        sampling = tgen.SamplingConfig(max_new_tokens=max_new_tokens)
+        for (sid, question), (px, valid) in zip(requests[:2], pixels):
+            ids = torch.tensor([engine.prompt_ids(question)], device="cuda")
+            images = torch.as_tensor(px, device="cuda")[None]
+            pv = torch.as_tensor(valid, device="cuda")[None]
+            got = tgen.generate(loaded, ids, images, pv, lcfg, sampling)
+            want = tgen.generate(model, ids, images, pv, cfg, sampling)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"load: greedy tokens {got.tolist()} differ from the "
+                                     f"in-memory merged model's {want.tolist()}")
+        print(f"load served: {len(requests)} requests on 2 sessions; first turns' greedy tokens "
+              f"equal the in-memory merged model's; replies equal its replies: "
+              f"{replies == want_replies}; decode {statistics.median(rates):.1f} tokens/s median "
+              f"(of {', '.join(f'{x:.1f}' for x in rates)}); reply 0 starts {replies[0][:40]!r} "
+              f"[{card}]")
+        if replies != want_replies:
+            raise AssertionError("load: the loaded model's replies differ from the in-memory "
+                                 "merged model's")
+        for text in list(replies) + [q for _, q in requests]:
+            back = tok.decode(tok.encode(text, add_bos=False))
+            if back != text:
+                raise AssertionError(f"load: {text[:40]!r} does not round-trip through the "
+                                     f"native tokenizer ({back[:40]!r})")
+        decode_steps = len(requests) * (max_new_tokens - 1)
+        print(f"load counters: K1 flash_fwd {counts['k1']} (want {L * len(requests)}), K2 "
+              f"dense_cache_append {counts['k2']} (want {L} x {decode_steps} decode steps); "
+              f"every text round-trips through the native tokenizer")
+        if counts["k1"] != L * len(requests) or counts["k2"] != L * decode_steps:
+            raise AssertionError("load: the served path did not go through K1 and K2 as counted")
+        engine.close()
+        del engine, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The same checkpoint served on int8 weights (load_8bit after the merge).
+        t0 = time.perf_counter()
+        tok8, loaded8, cfg8, _ = load_pretrained_model(model_dir, device="cuda", load_8bit=True)
+        torch.cuda.synchronize()
+        load8_s = time.perf_counter() - t0
+        if weight_bits(loaded8) != 8:
+            raise AssertionError("load: load_8bit did not quantize the decoder")
+        engine8 = ChatEngine(loaded8, cfg8, tok8, max_new_tokens=max_new_tokens)
+        # Two crops: the Q-Former's cross-attention then projects 2 x 577
+        # visual rows, inside K5's chunked route (QMM_CHUNK_MAX_M).
+        px, valid = pixels[0]
+        engine8.attach_pixels("s0", px[:2], valid[:2], (side, side))
+        fa.launches = kv_cache.launches = 0
+        reset_routes()
+        reply8 = engine8.chat_text("s0", LOAD_QUESTIONS[0])
+        counts8 = dict(k1=fa.launches, k2=kv_cache.launches, **read_routes())
+        print(f"load int8 (load_8bit after the merge): loaded in {load8_s:.2f} s; one request, "
+              f"{show_routes(counts8, dict(k5='> 0', dequant=0, k6=0, dequant4=0))}; K1 "
+              f"{counts8['k1']}, K2 {counts8['k2']}; reply starts {reply8[:40]!r}")
+        if not (counts8["k5"] > 0 and counts8["dequant"] == 0 and counts8["k1"] > 0):
+            raise AssertionError("load int8: K5 did not serve the loaded checkpoint")
+        engine8.close()
+        del engine8, loaded8
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(root, "model"))
+        os.environ.pop("VZT_NATIVE_TOKENIZER")  # the released forms carry no tokenizer
+
+        # (4) The released forms at depth `depth`, against the merged model.
+        want = {}
+        sd = model.state_dict()
+        for k, v in sd.items():
+            parts = k.split(".")
+            if k.startswith("decoder.model.layers.") and int(parts[3]) >= depth:
+                continue
+            want[k] = v
+        t0 = time.perf_counter()
+        _, peft, pcfg, _ = load_pretrained_model(forms["peft"], model_base=forms["base"],
+                                                 vision_tower_path=forms["tower"], device="cuda")
+        torch.cuda.synchronize()
+        peft_s = time.perf_counter() - t0
+        print(f"load: the peft artifact ({dir_bytes(forms['peft']) / 2**30:.2f} GiB, base "
+              f"{dir_bytes(forms['base']) / 2**30:.2f} GiB, tower "
+              f"{dir_bytes(forms['tower']) / 2**30:.2f} GiB) loaded and merged in {peft_s:.2f} s, "
+              f"depth {pcfg.decoder.num_layers}")
+        same_weights(peft.state_dict(), want, "load: peft artifact")
+        del peft
+        gc.collect()
+        consolidated = {f"model.vision_tower.vision_tower.{k}": v
+                        for k, v in torch.load(os.path.join(forms["tower"], "pytorch_model.bin"),
+                                               mmap=True, weights_only=True).items()}
+        consolidated.update({f"model.mm_projector.{k}": v
+                             for k, v in model.projector.state_dict().items()})
+        consolidated.update({k[len("decoder."):]: v for k, v in want.items()
+                             if k.startswith("decoder.")})
+        torch.save(consolidated, os.path.join(forms["consolidated"], "pytorch_model.bin"))
+        del consolidated
+        t0 = time.perf_counter()
+        _, cons, _, _ = load_pretrained_model(forms["consolidated"], device="cuda")
+        torch.cuda.synchronize()
+        cons_s = time.perf_counter() - t0
+        print(f"load: the consolidated dir ({dir_bytes(forms['consolidated']) / 2**30:.2f} GiB) "
+              f"loaded in {cons_s:.2f} s, depth {depth}")
+        same_weights(cons.state_dict(), want, "load: consolidated dir")
+        del cons
+        built = native.available()
+        print(f"load: the native image route (native/vzt_image.cpp, -ljpeg) "
+              f"{'builds' if built else 'does not build'} on this machine"
+              + ("" if built else f": {native_lib.build_error.get('vzt_image', '')[-200:]!r}"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("VZT_NATIVE_TOKENIZER", None)
+    return {"load": counts, "load_int8": counts8}
+
+
 GROUPED_PAIRS = (1, 2, 4, 8)  # slots a block owns: 1 is K10, more K11
 GROUPED_PAGES = (1, 5, 6, 8)  # pages_per_block: the probes' timed steps
 
@@ -4477,7 +4900,7 @@ def run_openai(model, cfg, seed: int, card: str) -> dict:
 
 PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "multistep",
           "dense_batch", "sampled", "openai", "profile", "precision", "int8", "mlp_probe", "int4",
-          "train", "attn_probes")
+          "train", "load", "attn_probes")
 
 
 def main(argv=None) -> None:
@@ -4538,7 +4961,7 @@ def main(argv=None) -> None:
         k9 = check_fused_mlp(gen)
         done("kernels K9")
     model = None
-    if set(phases) - {"kernels", "train", "attn_probes"}:
+    if set(phases) - {"kernels", "train", "load", "attn_probes"}:
         model, cfg = build_model(args.seed)
     if "slice1" in phases:
         dense = run_slice(model, cfg, args.seed, args.max_new_tokens, card)
@@ -4685,6 +5108,15 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
         trained = run_train(args.seed, card)
         done("train")
+    if "load" in phases:
+        # The load paths build their own full-width model from the seed.
+        model = None
+        for run in (dense, dense8):
+            run.pop("precision_inputs", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        loads = run_load(args.seed, args.max_new_tokens, card)
+        done("load")
     if "attn_probes" in phases:
         # Last, so that the K10 and K11 counters, still 0 when it starts, show
         # that no served phase launched either kernel.
@@ -4711,7 +5143,7 @@ def main(argv=None) -> None:
             "sampled_paged": sampled["paged"], "openai": openai,
             "writefirst": writefirst, "mlp_probe": mlp_probe,
             "train": trained["train"], "train_lora": trained["train_lora"],
-            "attn_probes": attn}
+            "load": loads["load"], "load_int8": loads["load_int8"], "attn_probes": attn}
     by_path = {name: {path: run.get(key, 0) for path, run in runs.items()}
                for name, key in (("flash_fwd", "k1"), ("dense_cache_append", "k2"),
                                  ("paged_attn_decode", "k3"), ("paged_kv_rows", "k4"),
@@ -4740,6 +5172,7 @@ def main(argv=None) -> None:
                "mlp_probe": ("fused_mlp_matvec",),
                "train": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
                "train_lora": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+               "load": dense_kernels, "load_int8": dense_kernels + ("quant_matmul_int8",),
                "attn_probes": ("paged_attn_batched", "paged_attn_paired")}
     if not all(by_path[name][path] > 0 for path, names in on_path.items() for name in names):
         raise AssertionError(f"a kernel was never launched on its served path: {by_path}")

@@ -5,15 +5,18 @@ of `vis_zephyr_tpu_torch` (the ported experiment probes among them, whose
 numerics checks it runs) and serves a chat through a serialized, a dense-batching
 and a paged `ChatEngine` on the CPU, with float and with int8 weights, and an
 OpenAI chat completion with logprobs and penalties, and takes one stage-1 and
-one stage-2 train step; a source scan finds no such import in the port or in
+one stage-2 train step, whose state the builder serves back through the
+native tokenizer; a source scan finds no such import in the port or in
 `chip_smoke.py`. The modules the port copied instead of importing
 (`config`, `constants`, `conversation`, `data/anyres`, `data/tokenization`,
 the sampler of `data/dataset`, `StopMatcher` and the vocabulary's byte
-strings of the OpenAI endpoints) give what the JAX package's give on the
-same inputs.
+strings of the OpenAI endpoints, `data/tokenizer_native` and `data/native`)
+give what the JAX package's give on the same inputs; the port builds its
+native libraries into its own build directory, never into `native/`.
 """
 
 import dataclasses
+import json
 import os
 import re
 import subprocess
@@ -147,6 +150,34 @@ for stage in ("1", "2"):
     step = make_train_step(model, cfg, opt, remat=True, lora_dropout=0.05 if stage == "2" else 0.0)
     state, metrics = step(init_train_state(model, opt), batch)
     assert state["step"] == 1 and bool(torch.isfinite(metrics["loss"])), metrics
+
+# The load paths' native routes: the stage-2 state just trained, saved as the
+# port's trainer saves it, served back through the builder with the C++ BPE
+# tokenizer (VZT_NATIVE_TOKENIZER=1; a Metaspace tokenizer.json written here),
+# LoRA merged; and the C++ anyres pipeline where its library builds.
+import json, os, tempfile
+from vis_zephyr_tpu_torch.data import native, tokenizer_native
+from vis_zephyr_tpu_torch.models.builder import load_pretrained_model
+from vis_zephyr_tpu_torch.train.checkpoints import save_checkpoint
+
+path = save_checkpoint(tempfile.mkdtemp(), state, step=1)
+with open(os.path.join(path, "config.json"), "w") as f:
+    f.write(cfg.to_json())
+vocab = {"<unk>": 0, "<s>": 1, "</s>": 2, "\u2581": 3, "a": 4, "b": 5, "\u2581a": 6, "\u2581b": 7}
+with open(os.path.join(path, "tokenizer.json"), "w") as f:
+    json.dump({"model": {"type": "BPE", "vocab": vocab, "merges": ["\u2581 a", "\u2581 b"],
+                         "byte_fallback": True},
+               "pre_tokenizer": {"type": "Metaspace", "replacement": "\u2581",
+                                 "prepend_scheme": "always"}}, f)
+os.environ["VZT_NATIVE_TOKENIZER"] = "1"
+tok, loaded, _, _ = load_pretrained_model(path, dtype=torch.float32, device="cpu")
+assert isinstance(tok, tokenizer_native.NativeTokenizer), tok
+assert tok.encode("a b", add_bos=False) == [6, 7] and tok.decode([1, 6, 7]) == "a b"
+assert not any(name.endswith("lora_a") for name in loaded.state_dict())
+if native.available():
+    px, pv = native.anyres_preprocess_native(np.zeros((60, 80, 3), np.uint8),
+                                             cfg.mm_grid_pinpoints, target_size=56)
+    assert px.shape[1:] == (56, 56, 3) and pv.any()
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "vis_zephyr_tpu")]
 print("ok", len(names))
 """
@@ -342,3 +373,88 @@ def test_anyres_geometry_matches(size):
     cur = (grid[1] * 24, grid[0] * 24)
     assert tanyres.unpad_slice(cur, size) == janyres.unpad_slice(cur, size)
     assert (tanyres.robust_literal_eval(PINPOINTS) == janyres.robust_literal_eval(PINPOINTS))
+
+
+# -- the native copies ------------------------------------------------------------------
+
+
+def _zephyr_like_tokenizer_json(path):
+    """A Metaspace + byte-fallback BPE tokenizer.json trained on a few lines."""
+    tokenizers = pytest.importorskip("tokenizers")
+    from tokenizers import decoders, models, pre_tokenizers, trainers
+
+    tok = tokenizers.Tokenizer(models.BPE(unk_token="<unk>", byte_fallback=True))
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(replacement="▁", prepend_scheme="always")
+    tok.decoder = decoders.Sequence([decoders.Metaspace(), decoders.ByteFallback(), decoders.Fuse()])
+    tok.train_from_iterator(["describe the picture in detail", "what is in the image"] * 20,
+                            trainer=trainers.BpeTrainer(vocab_size=120, show_progress=False,
+                                                        special_tokens=["<unk>", "<s>", "</s>"]))
+    tok.save(str(path))
+    tj = json.loads(path.read_text())
+    vocab = tj["model"]["vocab"]
+    for b in range(256):
+        vocab.setdefault(f"<0x{b:02X}>", len(vocab))
+    path.write_text(json.dumps(tj))
+    return str(path)
+
+
+def test_native_tokenizer_copy_matches(tmp_path):
+    from vis_zephyr_tpu.data import tokenizer_native as jtn
+    from vis_zephyr_tpu_torch.data import tokenizer_native as ttn
+
+    path = _zephyr_like_tokenizer_json(tmp_path / "tokenizer.json")
+    blob = ttn.convert_tokenizer_json(path)
+    assert blob == jtn.convert_tokenizer_json(path)
+    if not (ttn.available() and jtn.available()):
+        pytest.skip("a native tokenizer library does not build here")
+    want, got = jtn.NativeTokenizer(blob=blob), ttn.NativeTokenizer(blob=blob)
+    for text in ("describe the picture", "  what's in THE image? é 🙂", ""):
+        ids = got.encode(text)
+        assert ids == want.encode(text) and got.decode(ids) == want.decode(ids)
+    assert got.vocab_size == want.vocab_size
+
+
+def test_native_image_copy_matches():
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from vis_zephyr_tpu.data import native as jn
+    from vis_zephyr_tpu_torch.data import native as tn
+
+    if not (tn.available() and jn.available()):
+        pytest.skip("a native image library does not build here")
+    img = np.random.default_rng(2).integers(0, 255, (70, 90, 3), np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=90)
+    np.testing.assert_array_equal(tn.decode_jpeg(buf.getvalue()), jn.decode_jpeg(buf.getvalue()))
+    np.testing.assert_array_equal(tn.resize_lanczos(img, (50, 40)), jn.resize_lanczos(img, (50, 40)))
+    for a, b in zip(tn.anyres_preprocess_native(img, PINPOINTS, target_size=56),
+                    jn.anyres_preprocess_native(img, PINPOINTS, target_size=56)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_port_builds_its_native_libraries_outside_native(tmp_path, monkeypatch):
+    """The port reads `native/*.cpp` in place and writes its libraries into
+    its own build directory (here a fresh one), never into `native/`."""
+    from vis_zephyr_tpu_torch.data import native_lib
+
+    native_dir = os.path.join(REPO, "native")
+    assert os.path.realpath(native_lib.NATIVE_DIR) == os.path.realpath(native_dir)
+    assert native_lib.BUILD == os.path.join(REPO, "vis_zephyr_tpu_torch", "build")
+
+    def snapshot():
+        return {n: os.stat(os.path.join(native_dir, n)).st_mtime_ns for n in os.listdir(native_dir)}
+
+    before = snapshot()
+    monkeypatch.setattr(native_lib, "BUILD", str(tmp_path))
+    monkeypatch.setattr(native_lib, "_tried", {})
+    monkeypatch.setattr(native_lib, "build_error", {})
+    built = [native_lib.load("vzt_tokenizer", "vzt_tokenizer.cpp", ["-O3"]),
+             native_lib.load("vzt_image", "vzt_image.cpp", ["-O3", "-march=native"], ["-ljpeg"])]
+    assert snapshot() == before
+    for name, lib in zip(("vzt_tokenizer", "vzt_image"), built):
+        assert (lib is not None) == os.path.exists(tmp_path / f"lib{name}.so"), name
+        assert lib is not None or native_lib.build_error[name], name
+    assert all(n.startswith("lib") and n.endswith(".so") for n in os.listdir(tmp_path))

@@ -218,28 +218,33 @@ def test_vis_zephyr_forward(models):
 
 
 @pytest.mark.parametrize("form", ["port", "orbax"])
-def test_builder_names_the_checkpoint_form(form, tmp_path):
-    """A model directory with a `state/` is refused under its true form:
-    the port trainer's own `state/state.pt` (written here by
-    `train/checkpoints.py::save_checkpoint`) by that name, pointing to the
-    roadmap steps that will load it; a directory orbax wrote as orbax."""
+def test_builder_names_the_checkpoint_form(form, models, tmp_path):
+    """A model directory with a `state/` is read under its true form: the
+    port trainer's own `state/state.pt` (written here by
+    `train/checkpoints.py::save_checkpoint`) loads back into the same
+    weights; a directory orbax wrote is refused as orbax, naming the script
+    that exports it to the port's form."""
     from vis_zephyr_tpu_torch.models.builder import load_pretrained_model
     from vis_zephyr_tpu_torch.train import checkpoints as tckpt
 
+    _, port = models
     if form == "port":
-        layer = torch.nn.Linear(2, 2)
         model_dir = tckpt.save_checkpoint(
-            str(tmp_path), {"params": layer, "step": 1,
-                            "opt_state": torch.optim.SGD(layer.parameters(), lr=0.1)}, step=1)
-        match = r"the port trainer's own checkpoint .*state\.pt.*Queue A steps 1 and 5"
-    else:
-        (tmp_path / "model" / "state").mkdir(parents=True)
-        (tmp_path / "model" / "state" / "_CHECKPOINT_METADATA").write_text("{}")
-        model_dir = str(tmp_path / "model")
-        match = "is a native orbax checkpoint"
-    with pytest.raises(NotImplementedError, match=match) as refused:
-        load_pretrained_model(model_dir, device="cpu")
-    assert ("orbax" in str(refused.value)) == (form == "orbax")
+            str(tmp_path), {"params": port, "step": 1,
+                            "opt_state": torch.optim.SGD(port.parameters(), lr=0.1)}, step=1)
+        (tmp_path / "checkpoint-1" / "config.json").write_text(CFG.to_json())
+        _, loaded, cfg, _ = load_pretrained_model(model_dir, dtype=torch.float32, device="cpu")
+        assert cfg == TCFG
+        want, got = port.state_dict(), loaded.state_dict()
+        assert set(got) == set(want)
+        for key, value in want.items():
+            assert torch.equal(got[key], value), key
+        return
+    (tmp_path / "model" / "state").mkdir(parents=True)
+    (tmp_path / "model" / "state" / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(NotImplementedError,
+                       match="is a native orbax checkpoint.*export_orbax_to_torch"):
+        load_pretrained_model(str(tmp_path / "model"), device="cpu")
 
 
 def test_builder_loads_hf_layout(models, tmp_path):

@@ -22,7 +22,7 @@ mode; the port's wrappers take their plain versions on CPU tensors).
 - `--lookahead` reaches the serialized path through the CLI and the paged
   batcher through the server, whose replies equal the non-speculative ones.
 
-The builder's refusal of the image-token alignment flags is here too.
+The builder's image-token alignment at load is here too.
 """
 
 import argparse
@@ -397,21 +397,36 @@ def test_lookahead_flag_through_cli_and_server(models, image, tmp_path, monkeypa
 
 @pytest.mark.parametrize("flag", ["mm_use_im_start_end", "mm_use_im_patch_token"])
 def test_builder_refuses_image_token_alignment_before_reading_weights(tmp_path, flag,
-                                                                     monkeypatch):
-    """The JAX builder aligns the tokenizer and embeddings for these flags;
-    the port's refuses, naming its ROADMAP step, before any weight is read."""
-    cfg = dataclasses.replace(CFG, **{flag: True})
-    (tmp_path / "config.json").write_text(cfg.to_json())
-    (tmp_path / "mm_projector.bin").write_bytes(b"not read")
+                                                                     monkeypatch, models):
+    """The builder no longer refuses these flags: as the JAX builder does, it
+    adds the image tokens to the tokenizer and mean-extends the embedding
+    and output tables at load, with HF's tokenizer in place of the native
+    one (which has no added-token machinery), and the returned config's
+    vocabulary follows the tables (tests/test_torch_load.py holds the
+    alignment against JAX). The name is kept from when the builder refused
+    them."""
+    from torch_port_util import word_list, word_tokenizer
 
-    def no_weights(*args, **kw):
-        raise AssertionError("a weight file was read")
-
-    monkeypatch.setattr(tbuilder, "_load_hf_state_dict", no_weights)
-    monkeypatch.setattr(tbuilder.torch, "load", no_weights)
-    with pytest.raises(NotImplementedError, match="Queue A step 11"):
-        tbuilder.load_pretrained_model(str(tmp_path), model_base=str(tmp_path / "base"),
-                                       vision_tower_path=str(tmp_path / "tower"),
-                                       dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A step 11"):
-        tbuilder.load_pretrained_model(str(tmp_path), device="cpu")  # no weight paths at all
+    _, port = models
+    base, tower = tmp_path / "base", tmp_path / "tower"
+    for d in (base, tower):
+        d.mkdir()
+    torch.save(port.decoder.state_dict(), base / "pytorch_model.bin")
+    torch.save({f"vision_model.{k}": v for k, v in port.vision.state_dict().items()},
+               tower / "pytorch_model.bin")
+    torch.save({f"model.mm_projector.{k}": v for k, v in port.projector.state_dict().items()},
+               tmp_path / "mm_projector.bin")
+    (tmp_path / "config.json").write_text(dataclasses.replace(CFG, **{flag: True}).to_json())
+    word_tokenizer(word_list(CFG.decoder.vocab_size)).save_pretrained(str(base))
+    monkeypatch.setenv("VZT_NATIVE_TOKENIZER", "1")
+    tok, loaded, cfg, _ = tbuilder.load_pretrained_model(
+        str(tmp_path), model_base=str(base), vision_tower_path=str(tower),
+        dtype=torch.float32, device="cpu")
+    n = 2 if flag == "mm_use_im_start_end" else 1
+    V = CFG.decoder.vocab_size + n
+    assert type(tok).__name__ == "PreTrainedTokenizerFast" and len(tok) == V
+    assert getattr(cfg, flag) and cfg.decoder.vocab_size == V
+    for table in (loaded.decoder.model.embed_tokens.weight, loaded.decoder.lm_head.weight):
+        assert table.shape[0] == V
+        torch.testing.assert_close(table[-n:], table[:-n].mean(0, keepdim=True).expand(n, -1),
+                                   rtol=0, atol=0)

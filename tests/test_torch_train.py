@@ -497,13 +497,16 @@ def _losses(out):
 def test_train_stage1_matches_jax_and_resumes(tmp_path, pil_fixture, monkeypatch):
     from vis_zephyr_tpu.data import native as jnative
     from vis_zephyr_tpu.train import train as jtrain
+    from vis_zephyr_tpu_torch.data import native as tnative
     from vis_zephyr_tpu_torch.data import prefetch as tprefetch
     from vis_zephyr_tpu_torch.train import train as ttrain
 
     data_path, img_dir = pil_fixture
-    # The JAX dataset takes its native C++ image route when the library is
-    # built; the port has only the PIL route, so hold JAX to PIL too.
+    # Each dataset takes its native C++ image route when its library is
+    # built; hold both to the PIL route here (tests/test_torch_load_train.py
+    # runs both trainers on whichever route the machine builds).
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     # Both trainers start from the JAX init of seed 0: the port's random
     # init draws from a torch generator, so the test hands it the JAX tree
     # through the weight bridge.
@@ -574,8 +577,7 @@ def test_train_refuses_what_is_not_ported(tmp_path, pil_fixture):
 
     data_path, img_dir = pil_fixture
     base = _train_args(ttrain, data_path, img_dir, str(tmp_path / "x"))
-    for over, match in ((dict(mesh_fsdp=4), "step 13"), (dict(mesh_model=2), "step 13"),
-                        (dict(mm_use_im_start_end=True), "step 11")):
+    for over, match in ((dict(mesh_fsdp=4), "step 13"), (dict(mesh_model=2), "step 13")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.train(ttrain.TrainArguments(**{**base, **over}), MockTokenizer(), cfg=TCFG)
     # An orbax full state is refused by name.

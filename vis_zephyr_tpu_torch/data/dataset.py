@@ -15,10 +15,13 @@ surface:
 - `length_grouped_indices` / `modality_grouped_indices` ↔
   `vis_zephyr/train/vis_zephyr_trainer.py:59-190`.
 
+`use_native` as in the JAX dataset: any value but "no" takes the native C++
+anyres route (`data/native.py`) wherever its library builds, PIL otherwise;
+"no" always takes PIL.
+
 Not ported, each refused with `NotImplementedError` naming its step in
-ROADMAP.md Queue A: the native C++ image route (`use_native="yes"`; the
-port's "auto" takes the PIL route), visual-prompt (ViP) records (step 12)
-and the `spatial*` patch merge's `merge_info` (steps 2 and 3).
+ROADMAP.md Queue A: visual-prompt (ViP) records (step 12) and the
+`spatial*` patch merge's `merge_info` (steps 2 and 3).
 """
 
 from __future__ import annotations
@@ -70,17 +73,13 @@ class DataConfig:
     visual_prompt_style: Optional[str] = None
     conv: Conversation = field(default_factory=lambda: default_conversation)
     seed: int = 0
-    use_native: str = "auto"  # "auto" | "no" take the PIL route; "yes" is not ported
+    use_native: str = "auto"  # "auto" | "yes" | "no" — C++ image pipeline
 
 
 class SupervisedDataset:
     """Lazily processed supervised dataset (host-side)."""
 
     def __init__(self, data_config: DataConfig, tokenizer):
-        if data_config.use_native == "yes":
-            raise NotImplementedError(
-                "the native C++ image route (use_native='yes') is not ported yet; "
-                "'auto' takes the PIL route (ROADMAP.md, Queue A steps 1 and 5)")
         if data_config.mm_patch_merge_type.startswith("spatial"):
             raise NotImplementedError(
                 f"mm_patch_merge_type={data_config.mm_patch_merge_type!r} (merge_info) is not "
@@ -94,6 +93,12 @@ class SupervisedDataset:
             self.max_patches = anyres.max_anyres_patches(pins, data_config.image_size)
         else:
             self.max_patches = data_config.max_patches
+        if data_config.use_native == "no":
+            self._use_native = False
+        else:
+            from . import native
+
+            self._use_native = native.available()
 
     def __len__(self):
         return len(self.records)
@@ -143,10 +148,20 @@ class SupervisedDataset:
             image = Image.open(os.path.join(self.cfg.image_folder, rec["image"])).convert("RGB")
             sample["images_size"] = image.size
             if self.cfg.image_aspect_ratio == "anyres":
-                pixels, patch_valid = anyres_preprocess_host(
-                    image, self.cfg.mm_grid_pinpoints,
-                    target_size=self.cfg.image_size, max_patches=self.max_patches,
-                )
+                if self._use_native:
+                    from . import native
+
+                    pixels, patch_valid = native.anyres_preprocess_native(
+                        np.asarray(image.convert("RGB"), np.uint8),
+                        self.cfg.mm_grid_pinpoints,
+                        target_size=self.cfg.image_size,
+                        max_patches=self.max_patches,
+                    )
+                else:
+                    pixels, patch_valid = anyres_preprocess_host(
+                        image, self.cfg.mm_grid_pinpoints,
+                        target_size=self.cfg.image_size, max_patches=self.max_patches,
+                    )
             else:
                 one = preprocess_mode_host(image, self.cfg.image_aspect_ratio, self.cfg.image_size)
                 pixels = np.zeros((self.max_patches,) + one.shape, np.float32)

@@ -15,6 +15,11 @@ stage-2 tree's LoRA leaves (`lora_a` [in, r], `lora_b` [r, out],
 `lora_scale`, stacked per layer) give `{name}.lora_a`, `.lora_b` and
 `.lora_scale` in the same orientation; they load into a model whose
 projections `train/lora.py::add_lora` wrapped.
+
+`lora_from_peft` and `clean_non_lora` read the reference's stage-2 artifact
+(a peft adapter dir and `non_lora_trainables.bin`) for the port's HF-named
+modules: the counterpart of `vis_zephyr_tpu/models/hf_convert.py::
+convert_lora_adapters` and of the JAX builder's key cleanup.
 """
 
 from __future__ import annotations
@@ -145,3 +150,55 @@ def state_dict_from_jax(params_np: Mapping, cfg: VisZephyrConfig) -> Dict[str, t
     for name, fn, sub_cfg in parts:
         out.update({f"{name}.{k}": v for k, v in fn(params_np[name], sub_cfg).items()})
     return out
+
+
+# peft module names (after "layers.{i}.") of the decoder projections LoRA targets.
+PEFT_MODULES = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")
+
+
+def lora_from_peft(state_dict: Mapping, num_layers: int, r: int, alpha: float,
+                   dtype: torch.dtype = torch.float32) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A peft `adapter_model` state dict → `train/lora.py::attach_lora`'s
+    adapters, {"decoder.model.layers.{i}.{module}": {"lora_a", "lora_b",
+    "lora_scale"}}.
+
+    peft keys look like `base_model.model.model.layers.{i}.self_attn.q_proj.
+    lora_A.weight` with A [r, in] and B [out, r] (torch's layout); the port
+    keeps `lora_a` [in, r] and `lora_b` [r, out] and `lora_scale` = α / r,
+    as the JAX `convert_lora_adapters` stacks them per layer. A module must
+    carry an adapter in every layer or in none."""
+    sd = {}
+    for k, v in state_dict.items():
+        idx = k.find("layers.")
+        if idx >= 0 and ".lora_" in k:
+            sd[k[idx:]] = v
+    adapters: Dict[str, Dict[str, torch.Tensor]] = {}
+    for module in PEFT_MODULES:
+        found = [i for i in range(num_layers) if f"layers.{i}.{module}.lora_A.weight" in sd]
+        if not found:
+            continue
+        if len(found) != num_layers:
+            raise ValueError(f"adapter for {module} covers {len(found)} of {num_layers} layers")
+        for i in found:
+            pre = f"layers.{i}.{module}"
+            adapters[f"decoder.model.{pre}"] = {
+                "lora_a": sd[f"{pre}.lora_A.weight"].to(dtype).T.contiguous(),
+                "lora_b": sd[f"{pre}.lora_B.weight"].to(dtype).T.contiguous(),
+                "lora_scale": torch.tensor(alpha / r, dtype=dtype),
+            }
+    if not adapters:
+        raise ValueError("no LoRA adapter weights recognized in state dict")
+    return adapters
+
+
+def clean_non_lora(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """`non_lora_trainables.bin` keys cleaned as the JAX builder cleans them
+    (DeepSpeed / FSDP prefixes): a leading `base_model.` dropped, then a
+    leading `model.` where keys start `model.model.`."""
+    sd = {(k[len("base_model."):] if k.startswith("base_model.") else k): v
+          for k, v in state_dict.items()}
+    if any(k.startswith("model.model.") for k in sd):
+        sd = {(k[len("model."):] if k.startswith("model.model.") else k): v
+              for k, v in sd.items()}
+    return sd

@@ -1,11 +1,11 @@
 """VisZephyr — CLIP tower → multi-layer fusion → text-conditioned Q-Former →
 token splice → Mistral decoder, PyTorch.
 
-Port of `vis_zephyr_tpu/models/vis_zephyr.py` (`encode_images`,
-`prepare_multimodal` with the flat patch merge, `vis_zephyr_forward`). The
-JAX functions take a parameter pytree; these take a `VisZephyr` module whose
-`vision`, `projector` and `decoder` submodules each carry HF state-dict
-names.
+Port of `vis_zephyr_tpu/models/vis_zephyr.py` (`initialize_vision_tokenizer`,
+`encode_images`, `prepare_multimodal` with the flat patch merge,
+`vis_zephyr_forward`). The JAX functions take a parameter pytree; these take
+a `VisZephyr` module whose `vision`, `projector` and `decoder` submodules
+each carry HF state-dict names.
 
 Data model (host collators produce these):
 - `input_ids`   [B, T]   right-padded, one IMAGE_TOKEN_INDEX per multimodal row,
@@ -17,12 +17,14 @@ Data model (host collators produce these):
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import VisZephyrConfig
+from ..constants import DEFAULT_IM_END_TOKEN, DEFAULT_IM_START_TOKEN, DEFAULT_IMAGE_PATCH_TOKEN
 
 from ..ops.splice import compact_text_ids, splice_image_tokens
 from .clip_vit import CLIPVisionTower, select_and_stack
@@ -46,6 +48,86 @@ class VisZephyr(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.decoder.model.embed_tokens.weight.device
+
+
+def with_vocab(model: VisZephyr, cfg: VisZephyrConfig) -> VisZephyrConfig:
+    """`cfg` with `decoder.vocab_size` set to the rows of `model`'s embedding
+    table, also stored as the model's and its decoder's `cfg`. The JAX
+    package reads vocabulary sizes from its parameters; the port sizes
+    buffers (the penalty counts of the batchers and of `generate`) from the
+    config, so a resized table must carry its config along."""
+    rows = model.decoder.model.embed_tokens.weight.shape[0]
+    if rows != cfg.decoder.vocab_size:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, vocab_size=rows))
+    model.cfg, model.decoder.cfg = cfg, cfg.decoder
+    return cfg
+
+
+@torch.no_grad()
+def initialize_vision_tokenizer(
+    model: VisZephyr,
+    tokenizer,
+    cfg: VisZephyrConfig,
+    mm_use_im_patch_token: bool = False,
+    mm_use_im_start_end: bool = False,
+    pretrained_embed_tokens: Optional[torch.Tensor] = None,
+) -> Tuple[VisZephyrConfig, int]:
+    """Add the image placeholder special tokens to `tokenizer` and resize the
+    decoder's embedding tables, in place (reference
+    `vis_zephyr_arch.py:338-393`).
+
+    - `<im_patch>` under `mm_use_im_patch_token`; `<im_start>`/`<im_end>`
+      under `mm_use_im_start_end`.
+    - New rows of `embed_tokens` and `lm_head` are the mean of the existing
+      rows (taken in f32, rounded to the table's dtype, as the JAX mean of a
+      bf16 table is).
+    - `pretrained_embed_tokens`: optional [V, D] or [n_new, D] rows from a
+      stage-1 artifact that carried tuned embeddings; they override the new
+      input rows.
+
+    Returns (cfg with `decoder.vocab_size` equal to the tables' rows, the
+    number of rows added). Adds no row where the tables already cover the
+    tokenizer (a checkpoint saved resized)."""
+    new_tokens = []
+    if mm_use_im_patch_token:
+        new_tokens.append(DEFAULT_IMAGE_PATCH_TOKEN)
+    if mm_use_im_start_end:
+        new_tokens += [DEFAULT_IM_START_TOKEN, DEFAULT_IM_END_TOKEN]
+    if not new_tokens:
+        return with_vocab(model, cfg), 0
+    tokenizer.add_tokens(new_tokens, special_tokens=True)
+    target_vocab = len(tokenizer)
+
+    dec = model.decoder
+    embed = dec.model.embed_tokens.weight
+    V, D = embed.shape
+    n_new = target_vocab - V
+    if n_new <= 0:
+        return with_vocab(model, cfg), 0
+
+    def mean_extend(table: torch.Tensor) -> torch.Tensor:
+        mean = table.float().mean(dim=0, keepdim=True).to(table.dtype)
+        return torch.cat([table, mean.expand(n_new, -1)], dim=0)
+
+    new_embed = mean_extend(embed)
+    if pretrained_embed_tokens is not None:
+        pre = torch.as_tensor(pretrained_embed_tokens).to(embed.device, embed.dtype)
+        if pre.shape[0] == target_vocab:
+            new_embed[-n_new:] = pre[-n_new:]
+        elif pre.shape[0] == n_new:
+            new_embed[-n_new:] = pre
+        else:
+            raise ValueError(
+                f"pretrained embed_tokens shape {tuple(pre.shape)} matches neither the "
+                f"resized vocab {target_vocab} nor the {n_new} new rows")
+    head = dec.lm_head
+    dec.model.embed_tokens = nn.Embedding(target_vocab, D, _weight=new_embed,
+                                          _freeze=not embed.requires_grad,
+                                          device=embed.device, dtype=embed.dtype)
+    dec.lm_head = nn.Linear(D, target_vocab, bias=False, device="meta", dtype=head.weight.dtype)
+    dec.lm_head.weight = nn.Parameter(mean_extend(head.weight),
+                                      requires_grad=head.weight.requires_grad)
+    return with_vocab(model, cfg), n_new
 
 
 def init_vis_zephyr(cfg: VisZephyrConfig, generator: torch.Generator, device=None,

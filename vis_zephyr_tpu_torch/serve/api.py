@@ -12,7 +12,8 @@ with `--kv-quant`, `--kv-fused`, `--page-size`, `--num-pages`), with
 `--max-slots` and `--prefill-chunk`, defaults as in the JAX server.
 `--lookahead N` (prompt-lookup speculation) and `--multi-step N` (bursts of
 N decode steps) reach every path. `--load-8bit` / `--load-4bit` serve int8 /
-int4 weights. Health, metrics, profiling and draining are not ported yet.
+int4 weights. `--device` (the port's own; default `cuda`) runs it on the
+CPU when asked. Health, metrics, profiling and draining are not ported yet.
 """
 
 from __future__ import annotations
@@ -207,12 +208,14 @@ def main(args=None):
     p.add_argument("--load-8bit", action="store_true", help="int8 weight-only decoder and Q-Former")
     p.add_argument("--load-4bit", action="store_true",
                    help="int4 weight-only decoder (group-128 scales), int8 Q-Former")
+    p.add_argument("--device", default="cuda",
+                   help="where the model runs: the card (default) or, when asked, cpu")
     add_engine_args(p)
     a = p.parse_args(args)
 
     tokenizer, model, cfg, _ = load_pretrained_model(
         a.model_path, model_base=a.model_base, vision_tower_path=a.vision_tower,
-        dtype=torch.bfloat16, device="cuda", load_8bit=a.load_8bit, load_4bit=a.load_4bit,
+        dtype=torch.bfloat16, device=a.device, load_8bit=a.load_8bit, load_4bit=a.load_4bit,
     )
     if tokenizer is None:
         raise SystemExit("could not load a tokenizer; pass --model-base or a "

@@ -1,6 +1,7 @@
 """Interactive single-image chat CLI (PyTorch port of
 `vis_zephyr_tpu/serve/cli.py`): load the model, preprocess the image once,
-read user turns and stream each reply."""
+read user turns and stream each reply. `--device` (the port's own; default
+`cuda`) runs it on the CPU when asked."""
 
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int4 weight-only decoder (group-128 scales), int8 Q-Former")
     p.add_argument("--lookahead", type=int, default=0,
                    help="prompt-lookup speculative decoding span (greedy only; 0 disables)")
+    p.add_argument("--device", default="cuda",
+                   help="where the model runs: the card (default) or, when asked, cpu")
     return p
 
 
@@ -39,7 +42,8 @@ def main(args=None):
     args = build_parser().parse_args(args)
     tokenizer, model, cfg, _ = load_pretrained_model(
         args.model_path, model_base=args.model_base, vision_tower_path=args.vision_tower,
-        dtype=torch.bfloat16, device="cuda", load_8bit=args.load_8bit, load_4bit=args.load_4bit,
+        dtype=torch.bfloat16, device=args.device, load_8bit=args.load_8bit,
+        load_4bit=args.load_4bit,
     )
     if tokenizer is None:
         raise SystemExit("could not load a tokenizer; pass --model-base or a "

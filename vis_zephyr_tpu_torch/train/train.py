@@ -16,8 +16,9 @@ One card: on a CUDA device the decoder's attention runs the flash kernels
 (K1 forward, twice under remat; K7 and K8 backward) whenever the spliced
 length is a multiple of 128 (in practice when `model_max_length` truncates
 it). Meshes and more than one process are not ported (ROADMAP.md, Queue A
-step 13), nor `mm_use_im_start_end` / `mm_use_im_patch_token` (step 11's
-`initialize_vision_tokenizer`).
+step 13). `mm_use_im_start_end` / `mm_use_im_patch_token` add their tokens
+to the tokenizer and mean-extend the tables (`initialize_vision_tokenizer`)
+before LoRA is attached, as the JAX trainer does.
 
 Departures from the JAX signature:
 - `build_components` and `train` take an optional prebuilt `dataset` (any
@@ -48,7 +49,7 @@ import torch
 from ..config import VisZephyrConfig
 from ..data import prefetch as _prefetch
 from ..data.dataset import Collator, DataConfig, LengthGroupedSampler, SupervisedDataset
-from ..models.vis_zephyr import init_vis_zephyr
+from ..models.vis_zephyr import init_vis_zephyr, initialize_vision_tokenizer
 from ..utils.metrics import MetricsLogger
 from .checkpoints import latest_checkpoint, load_checkpoint, load_projector, save_checkpoint
 from .lora import LoraConfig, add_lora
@@ -110,11 +111,6 @@ def build_components(args: TrainArguments, tokenizer, cfg: Optional[VisZephyrCon
                      dataset=None):
     """Construct (cfg, model, dataset, collator) for a run. `dataset`, if
     given, stands in for the `SupervisedDataset` of `args.data_path`."""
-    if args.mm_use_im_start_end or args.mm_use_im_patch_token:
-        raise NotImplementedError(
-            "mm_use_im_start_end / mm_use_im_patch_token (the image-token alignment, "
-            "initialize_vision_tokenizer) is not ported to PyTorch yet (ROADMAP.md, "
-            "Queue A step 11)")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     device = torch.device(args.device)
     if args.model_path:
@@ -136,6 +132,13 @@ def build_components(args: TrainArguments, tokenizer, cfg: Optional[VisZephyrCon
                                 device=device, dtype=dtype)
     if args.pretrain_mm_mlp_adapter:
         load_projector(args.pretrain_mm_mlp_adapter, model.projector)
+    if args.mm_use_im_start_end or args.mm_use_im_patch_token:
+        cfg, _ = initialize_vision_tokenizer(model, tokenizer, cfg,
+                                             mm_use_im_patch_token=args.mm_use_im_patch_token,
+                                             mm_use_im_start_end=args.mm_use_im_start_end)
+        cfg = dataclasses.replace(cfg, mm_use_im_start_end=args.mm_use_im_start_end,
+                                  mm_use_im_patch_token=args.mm_use_im_patch_token)
+        model.cfg = cfg
     if args.stage == "2":
         add_lora(model, LoraConfig(r=args.lora_r, alpha=args.lora_alpha),
                  torch.Generator(device).manual_seed(args.seed + 1), dtype=dtype)
