@@ -5,7 +5,9 @@ each with bf16 weights, int8 weights (`--load-8bit`) and int4 weights
 each with multi-step bursts replayed as CUDA graphs (`--multi-step`);
 continuous batching over one dense cache; per-request sampling, logprobs
 and penalties in the replayed steps of both batchers; the OpenAI
-endpoints; the writefirst paged decode step; the fused int8 MLP probe; the
+endpoints; two-model speculation (`--draft-model`) on both batchers, the
+draft's proposal bursts replayed as CUDA graphs; the server's /health,
+/metrics, /debug/profile and drain; the writefirst paged decode step; the fused int8 MLP probe; the
 trainer, stage 1 and stage 2; the load paths (the trainer's own checkpoint,
 the peft artifact, the consolidated dir, the native tokenizer); and the
 batched-head and slot-grouped attention probes.
@@ -125,7 +127,12 @@ toolkit; exits non-zero on a machine without a card. Phases:
              and 600 words; every reply HTTP 200 with all its tokens; launch
              counters exact (K3 = 32 x decode steps, K4 = decode steps, K2 =
              32 x prefill chunks); slots reused; every page back in the
-             allocator;
+             allocator; then the server's own readings: GET /health "ok",
+             GET /metrics (its TTFT and TPOT counts equal the 48 requests),
+             one GET /debug/profile?seconds=1 with a request in flight (its
+             trace file written and not empty), and a drain with one request
+             in flight (that request ends with all its tokens, the next POST
+             gets 503 and /health reads "draining");
 11. batch  — direct PagedBatchers with the same 16 requests admitted before
              the first step, whole (K1) and in chunks of 256 (K2 at T=256), on
              the kernel path and on the plain path, and with bf16 pools:
@@ -215,6 +222,32 @@ toolkit; exits non-zero on a machine without a card. Phases:
              /v1/models, a chat completion as one body and as SSE (the same
              text), n = 2, a stop string, logprobs (top 3: the greedy token
              the top-1), sampling with penalties, `tools` refused by name;
+12f. draft — two-model speculation at full width (bf16 target): a random
+             draft of the same vocabulary and tokenizer, decoder depth 2 at
+             the published widths, saved as the port's `state/state.pt`
+             with its `config.json` and a Zephyr-form `tokenizer.json`,
+             loaded through the server's flags (`--draft-model` with no
+             `--lookahead`: 4); three rounds of its proposal burst over 16
+             slots (various caps, commits and rollbacks between rounds) as
+             served (the first round the capture's warm-up, then replays),
+             as an eager burst with the carry on the device and as single
+             steps with the host choosing each token, from the same state:
+             proposals and the draft cache bit for bit, K1 = 2 x admissions
+             and K2 = 2 x draft steps exactly; each draft's burst timed
+             (wall, device busy, idle share; captures' seconds). Then the
+             paged server (int8 fused pools, `--max-slots 16`, 16 requests)
+             and the dense one (`--max-slots 8`, 8 requests), each without
+             speculation, with `--lookahead 4` (prompt lookup), with the
+             target as its own draft and with the small draft: every reply
+             HTTP 200 with all its tokens, K1 = draft layers x draft
+             admissions and K2 = 32 x (target's chunks and, dense, verify
+             steps) + draft layers x draft steps exactly (paged: K3 and
+             paged_kv_update 32 x verify steps, no paged_kv_rows), every
+             request a draft admission, GET /metrics' requests and
+             proposals equal to the batcher's; printed, not gated: tokens/s
+             of the four, each draft's acceptance rate from /metrics, and
+             the first divergence of each speculative run's streams from
+             the lookup-only and unspeculated ones;
 13. profile — only with --profile: wall, device-busy and idle share of one
              batched decode step at B=32, of one verify step (S = 5) and of
              one dense decode step (B = 1), their kernel launches per step
@@ -314,8 +347,8 @@ toolkit; exits non-zero on a machine without a card. Phases:
              timed call's output gated against the plain version.
 
 `--phases` runs a subset (kernels, slice1, paged, batch, writefirst, spec,
-multistep, dense_batch, sampled, openai, profile, precision, int8, mlp_probe,
-int4, train, load, attn_probes) and then prints no result line. After a full run the line before
+multistep, dense_batch, sampled, openai, draft, profile, precision, int8,
+mlp_probe, int4, train, load, attn_probes) and then prints no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
 """
@@ -1952,10 +1985,10 @@ def session_pixels(rng, side: int, crops: int):
     return px, np.arange(4) < crops
 
 
-def start_server(engine):
+def start_server(engine, profile_dir=None):
     from vis_zephyr_tpu_torch.serve.api import serve
 
-    server = serve(engine, "127.0.0.1", 0)
+    server = serve(engine, "127.0.0.1", 0, profile_dir=profile_dir)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     return server, thread
@@ -2210,12 +2243,14 @@ def paged_requests(rng, cfg, n: int, repeat: bool = False):
 
 def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int = 48,
                      label: str = "paged", lookahead: int = 0, repeat: bool = False,
-                     multi_step: int = 1) -> dict:
+                     multi_step: int = 1, observe: bool = False) -> dict:
     """The paged server under a burst of `n` concurrent /chat requests, with
     `--lookahead` when `lookahead` > 0 (then every scheduler step is a verify
     step of S = lookahead + 1 rows per slot) and `--multi-step` (a scheduler
     step with no admission work waiting runs that many decode steps, each
-    counted in `steps`); `repeat`: repetitive questions (`paged_requests`)."""
+    counted in `steps`); `repeat`: repetitive questions (`paged_requests`);
+    `observe`: then the server's own readings (`observe_server`)."""
+    from vis_zephyr_tpu_torch.utils.metrics import ServingMetrics
     import numpy as np
 
     from vis_zephyr_tpu_torch.ops import flash_attention as fa
@@ -2249,6 +2284,7 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
     # Warm the path once (cuBLAS handles, allocator), outside the counted run.
     engine.attach_pixels("warm", requests[0][2], requests[0][3], (2 * side, side))
     engine.chat_text("warm", requests[0][1])
+    engine.close()  # the pump's last step counts itself after the reply ends
     uses = np.zeros(b.max_slots, np.int64)
     install = b._install
 
@@ -2266,6 +2302,7 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
         pa.update_launches = 0
         reset_routes()
         b.steps = b.slots_stepped = b.verify_steps = b.proposed = b.accepted = b.bursts = 0
+        engine.metrics = b.metrics = ServingMetrics()  # the burst's requests alone
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(requests)) as pool:
             results = list(pool.map(
@@ -2338,7 +2375,84 @@ def run_paged_server(model, cfg, seed: int, new_tokens: int, card: str, n: int =
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{card}]")
     counts.update(tokens_per_s=n * new_tokens / wall, ttft_median=statistics.median(ttfts),
                   streams={sid: text.split() for (sid, *_), (_, text, _, _) in zip(requests, results)})
+    if observe:
+        observe_server(engine, requests[0][:2], n, new_tokens, label, card)
     return counts
+
+
+def wait_until(done, timeout: float = 120.0) -> None:
+    deadline = time.perf_counter() + timeout
+    while not done():
+        if time.perf_counter() > deadline:
+            raise AssertionError("timed out waiting for the server")
+        time.sleep(0.001)
+
+
+def observe_server(engine, request, n: int, new_tokens: int, label: str, card: str) -> None:
+    """The server's own readings on an engine that has just served a burst of
+    `n` requests (its `ServingMetrics` reset before the burst), through a
+    fresh server with a profile dir: GET /health "ok"; GET /metrics, whose
+    request, TTFT and TPOT counts must be `n`; one GET
+    /debug/profile?seconds=1 while `request` (session id, question) is in
+    flight, whose trace file must exist and hold the card's kernels; then a
+    drain while `request` is in flight again: that request ends with HTTP 200
+    and all its tokens, the next POST gets 503, /health reads "draining"
+    (503) and `drain()` returns True. The engine is closed at the end."""
+    import shutil
+    import tempfile
+
+    profile_dir = tempfile.mkdtemp(prefix="vzt_profile_")
+    server, thread = start_server(engine, profile_dir=profile_dir)
+    port = server.server_address[1]
+    payload = {"session_id": request[0], "question": request[1]}
+    try:
+        status, body = post_json(port, "GET", "/health")
+        health = (status, json.loads(body))
+        summary = json.loads(post_json(port, "GET", "/metrics")[1])
+        counted = (summary["requests"], summary["ttft_ms"]["count"],
+                   summary["tpot_ms"]["count"])
+        with ThreadPoolExecutor(1) as pool:
+            reply = pool.submit(post_chat, port, payload)
+            wait_until(lambda: engine._inflight > 0)
+            t0 = time.perf_counter()
+            profile_status, body = post_json(port, "GET", "/debug/profile?seconds=1")
+            profile_s = time.perf_counter() - t0
+            profiled = reply.result()
+        trace = json.loads(body).get("trace_file") if profile_status == 200 else None
+        trace_bytes = os.path.getsize(trace) if trace and os.path.exists(trace) else 0
+        # The card's kernels are traced process-wide; of the host's operators
+        # only the handler thread's (torch.profiler records the thread that
+        # starts it).
+        kernels = (sum(e.get("cat") == "kernel" for e in json.load(open(trace))["traceEvents"])
+                   if trace_bytes else 0)
+        with ThreadPoolExecutor(2) as pool:
+            reply = pool.submit(post_chat, port, payload)
+            wait_until(lambda: engine._inflight > 0)
+            drained = pool.submit(engine.drain, 300.0)
+            wait_until(lambda: engine._draining)
+            in_flight = engine._inflight
+            refused = post_chat(port, payload)[0]
+            status, body = post_json(port, "GET", "/health")
+            health_draining = (status, json.loads(body))
+            last, clean = reply.result(), drained.result()
+    finally:
+        stop_server(server, thread)
+        engine.close()
+        shutil.rmtree(profile_dir, ignore_errors=True)
+    checks = dict(health=health == (200, {"status": "ok"}), metrics=counted == (n, n, n),
+                  profile=trace_bytes > 0 and kernels > 0 and profiled[0] == 200,
+                  drain=(clean and in_flight == 1 and last[0] == 200
+                         and len(last[1].split()) == new_tokens and refused == 503
+                         and health_draining == (503, {"status": "draining"})))
+    print(f"{label} observability: GET /health {health}; GET /metrics requests, TTFT and TPOT "
+          f"counts {counted} (want {n} each), TTFT p50 {summary['ttft_ms']['p50']} ms, TPOT "
+          f"mean {summary['tpot_ms']['mean']} ms; GET /debug/profile?seconds=1 with a request "
+          f"in flight: HTTP {profile_status} in {profile_s:.2f} s, trace "
+          f"{trace_bytes} bytes holding {kernels} kernel events; drain with {in_flight} request in flight: it ended HTTP "
+          f"{last[0]} with {len(last[1].split())} tokens, drain() {clean}, the next POST HTTP "
+          f"{refused}, /health {health_draining}: {checks} [{card}]", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: the server's observability failed: {checks}")
 
 
 def admitted_batcher(model, cfg, requests, max_slots: int, prefill_chunk=None,
@@ -4898,9 +5012,376 @@ def run_openai(model, cfg, seed: int, card: str) -> dict:
     return counts
 
 
+DRAFT_LAYERS = 2   # the small draft's decoder depth, at the published widths
+# The draft phase's paged slots and requests: a draft keeps a dense cache of
+# its own, which for the target drafting for itself is 17.2 GiB at 16 slots
+# of 2048 rows (34.4 at the paged phase's 32).
+DRAFT_SLOTS = 16
+DRAFT_PAGED_FLAGS = ["--continuous-batching", "--kv-cache", "paged", "--kv-quant", "--max-slots",
+                     str(DRAFT_SLOTS)]
+DRAFT_ROUNDS = 3   # proposal rounds held bit for bit: the capture's warm-up, then replays
+
+
+def write_small_draft(seed: int, cfg, root: str) -> str:
+    """A random draft model dir beside the target: decoder depth DRAFT_LAYERS
+    at the published widths and the same vocabulary, its vision tower cut to
+    the 21 layers the fusion selects and its Q-Former to one block (only its
+    decoder runs); the port's params-only `state/state.pt`, `config.json`
+    and the Zephyr-form `tokenizer.json`."""
+    from vis_zephyr_tpu_torch.models.vis_zephyr import init_vis_zephyr
+
+    dcfg = cfg.replace(
+        vision=dataclasses.replace(cfg.vision, num_layers=cfg.vision.num_selected_layers),
+        projector=dataclasses.replace(cfg.projector, num_blocks=1),
+        decoder=dataclasses.replace(cfg.decoder, num_layers=DRAFT_LAYERS))
+    draft = init_vis_zephyr(dcfg, torch.Generator("cuda").manual_seed(seed + 11), device="cuda",
+                            dtype=torch.bfloat16)
+    path = os.path.join(root, "draft")
+    os.makedirs(os.path.join(path, "state"))
+    t0 = time.perf_counter()
+    torch.save({"params": draft.state_dict()}, os.path.join(path, "state", "state.pt"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        f.write(dcfg.to_json())
+    write_zephyr_tokenizer(os.path.join(path, "tokenizer.json"), dcfg.decoder.vocab_size)
+    n_params = sum(p.numel() for p in draft.parameters())
+    n_decoder = sum(p.numel() for p in draft.decoder.parameters())
+    print(f"draft: a random draft model (decoder {DRAFT_LAYERS} layers at the published widths, "
+          f"{n_decoder / 1e9:.3f} B of its {n_params / 1e9:.3f} B params; vision cut to "
+          f"{dcfg.vision.num_layers} layers, Q-Former to 1 block) saved as state/state.pt "
+          f"({dir_bytes(os.path.join(path, 'state')) / 2**30:.2f} GiB) with config.json and "
+          f"tokenizer.json in {time.perf_counter() - t0:.2f} s")
+    return path
+
+
+def draft_histories(cfg, seed: int, n: int) -> list:
+    """`n` slot histories as the batchers hand them to a draft: a request's
+    vocabulary tokens (image sentinels dropped), then a pending token."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 12)
+    return [[int(t) for t in ids if t >= 0] + [int(rng.integers(3, cfg.decoder.vocab_size))]
+            for ids, _, _ in direct_requests(cfg, seed, n)]
+
+
+def draft_state(d) -> list:
+    return [d.cache["k"], d.cache["v"], d.cache["length"], d.token]
+
+
+def eager_draft_burst(d, single: bool = False) -> None:
+    """Make DraftModel `d` run its proposal bursts as eager kernel-path
+    `_batch_step`s where a served draft replays its captured step: with the
+    carry on the device, or (`single`) one step at a time with the host
+    taking each step's logits, choosing every token (greedy) and writing it
+    back before the next step."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.serve.batching import _batch_step
+
+    pad = d.cfg.decoder.pad_token_id
+
+    def burst(n):
+        alive, left = d._active_dev.clone(), d._left_dev.clone()
+        toks = []
+        for _ in range(n):
+            tok, logits = _batch_step(d.model, d.cache, d.token, alive, None, d.cfg, d.SAMPLING)
+            left -= 1
+            if single:
+                live = alive.cpu().numpy()
+                chosen = np.where(live, logits.cpu().numpy().argmax(-1), pad)
+                tok = torch.from_numpy(chosen).to(d.device)
+                d.token.copy_(tok)
+                alive = torch.from_numpy(live & (left.cpu().numpy() > 0)).to(d.device)
+            else:
+                alive = alive & (left > 0)
+            toks.append(tok.clone())
+        return torch.stack(toks)
+
+    d._burst = burst
+
+
+def time_draft_burst(d, active, pending, label: str, card: str) -> dict:
+    """One proposal round of DraftModel `d` (already admitted), every active
+    slot allowed SPEC_LOOKAHEAD proposals: its first call the capture, then
+    its wall, device busy and idle share (a round re-proposes from the same
+    committed mirror, so the state does not move)."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.experiments.step_profile import profile_step
+
+    caps = np.where(active, SPEC_LOOKAHEAD, 0)
+    got = profile_step(lambda: d.propose(active, pending, caps, SPEC_LOOKAHEAD), warm=2, timed=8,
+                       profiled=3)
+    n = SPEC_LOOKAHEAD + 1
+    print(f"draft burst, {label}: {int(active.sum())} slots, {n} steps a round (span "
+          f"{SPEC_LOOKAHEAD} + the feed): wall {got['wall_ms']:.3f} ms a round "
+          f"({got['wall_min_ms']:.3f}-{got['wall_max_ms']:.3f}), device busy "
+          f"{got['device_ms']:.3f} ms, idle share {got['idle_share']:.2f}, "
+          f"{got['launches'] / n:.1f} launches a step; captures {d.graphs.captures} in "
+          f"{d.graphs.capture_seconds:.3f} s [{card}]", flush=True)
+    return {k: v for k, v in got.items() if k != "items"}
+
+
+def check_draft_bursts(small, cfg, seed: int, card: str) -> dict:
+    """The small draft's proposal bursts held bit for bit: three DraftModels
+    over DRAFT_SLOTS slots admitted with the same histories (one slot idle),
+    one served (each round a replay of its captured burst after the first,
+    the capture's warm-up), one with eager bursts and the carry on the
+    device, one stepping singly with the host choosing each token. Over
+    DRAFT_ROUNDS rounds (caps 1 to SPEC_LOOKAHEAD, one slot capped at 0 in
+    round 2, which stops drafting it; a seeded accepted prefix and a new
+    pending token each round) every round's proposals, the length mirror and
+    the draft cache (K, V, lengths, tokens) are equal; K1 = layers x
+    admissions and K2 = layers x draft steps exactly; then the served
+    draft's round timed."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.serve.draft import DraftModel
+
+    dmodel, dcfg = small
+    Ld = dcfg.decoder.num_layers
+    hists = draft_histories(cfg, seed, DRAFT_SLOTS)
+    drafts = [DraftModel(dmodel, dcfg, DRAFT_SLOTS) for _ in range(3)]
+    eager_draft_burst(drafts[1])
+    eager_draft_burst(drafts[2], single=True)
+    active = np.arange(DRAFT_SLOTS) < DRAFT_SLOTS - 1
+    fa.launches = kv_cache.launches = 0
+    for d in drafts:
+        for slot in np.flatnonzero(active):
+            d.admit(int(slot), hists[slot])
+    admitted = all(torch.equal(x, y) for d in drafts[1:]
+                   for x, y in zip(draft_state(drafts[0]), draft_state(d)))
+    rng = np.random.default_rng(seed + 13)
+    pending = np.array([h[-1] for h in hists])
+    rounds = []
+    for r in range(DRAFT_ROUNDS):
+        caps = np.where(active, rng.integers(1, SPEC_LOOKAHEAD + 1, DRAFT_SLOTS), 0)
+        if r == 1:
+            caps[1] = 0
+        props = [[None if p is None else p.tolist() for p in d.propose(active, pending, caps,
+                                                                       SPEC_LOOKAHEAD)]
+                 for d in drafts]
+        torch.cuda.synchronize()
+        rounds.append(dict(
+            proposals=props[0] == props[1] == props[2],
+            cache=all(torch.equal(x, y) for d in drafts[1:]
+                      for x, y in zip(draft_state(drafts[0]), draft_state(d))),
+            drafted=sum(p is not None for p in props[0])))
+        for slot in np.flatnonzero(active):
+            prop = props[0][slot]
+            n_ok = int(rng.integers(0, len(prop) + 1)) if prop is not None else 0
+            for d in drafts:
+                d.commit(int(slot), 1 + n_ok)
+            pending[slot] = int(rng.integers(3, cfg.decoder.vocab_size))
+        for d in drafts:
+            d.rollback()
+        rounds[-1]["mirror"] = (drafts[0].len.tolist() == drafts[1].len.tolist()
+                                == drafts[2].len.tolist())
+    counts = (fa.launches, kv_cache.launches)
+    want = (Ld * sum(d.admissions for d in drafts), Ld * sum(d.steps for d in drafts))
+    equal = {key: all(r[key] for r in rounds) for key in ("proposals", "cache", "mirror")}
+    print(f"draft bursts: {DRAFT_ROUNDS} rounds over {DRAFT_SLOTS} slots (one idle; "
+          f"{[r['drafted'] for r in rounds]} drafting), served (the capture's warm-up, then "
+          f"replays) against eager bursts and against single steps with the host choosing each "
+          f"token, from the same admitted state (equal: {admitted}): bit-equal {equal}; K1 "
+          f"{counts[0]}, K2 {counts[1]} (want {Ld} x {want[0] // Ld} admissions, {Ld} x "
+          f"{want[1] // Ld} draft steps) [{card}]", flush=True)
+    if not (admitted and all(equal.values()) and counts == want
+            and rounds[1]["drafted"] < rounds[0]["drafted"]):
+        raise AssertionError(f"draft: the replayed proposal burst disagrees: {rounds}")
+    timed = time_draft_burst(drafts[0], active & (drafts[0].len > 0), pending,
+                             f"the small draft ({Ld} layers)", card)
+    del drafts
+    torch.cuda.empty_cache()
+    return timed
+
+
+def run_draft_server(model, cfg, seed: int, new_tokens: int, card: str, flags, label: str,
+                     draft, n: int) -> dict:
+    """The server built from `flags` through `serve/api.py`'s argument path
+    (`check_engine_args`, then `engine_from_args` with `draft`, the (model,
+    cfg) that `load_draft` gave) under `n` concurrent POST /v1/completions
+    of text prompts of about 40, 300 and 600 words (text, so that a draft,
+    which sees a prompt's vocabulary tokens alone, conditions on all of it),
+    after one warm-up request (the captures) outside the counted run: every
+    answer HTTP 200 with all its tokens; launches exact: K1 = draft layers x
+    draft admissions (the target admits in chunks), K2 = 32 x the target's
+    chunks (and, dense, its verify or decode steps) + draft layers x draft
+    steps, paged K3 = 32 x steps with K4 or paged_kv_update as the step;
+    every request a draft admission; GET /metrics' requests, TTFT count and
+    proposals those of the batcher; every slot (and page) free at the end."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.data.tokenization import tokenize_with_images
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+    from vis_zephyr_tpu_torch.serve import api
+    from vis_zephyr_tpu_torch.utils.metrics import ServingMetrics
+
+    L = cfg.decoder.num_layers
+    tok = WordTokenizer(cfg.decoder.vocab_size)
+    parser = argparse.ArgumentParser()
+    api.add_engine_args(parser)
+    a = parser.parse_args(flags + ["--max-new-tokens", str(new_tokens)])
+    api.check_engine_args(parser, a)
+    engine = api.engine_from_args(model, cfg, tok, a, draft)
+    b, d = engine.batcher, engine.batcher.draft
+    Ld = 0 if d is None else d.cfg.decoder.num_layers
+    paged = hasattr(b, "kp")
+    rng = np.random.default_rng(seed + 5)
+    prompts = [make_question(rng, QUESTION_WORDS[(i // 3) % 3]) for i in range(n)]
+    chunks = sum(-(-len(tokenize_with_images(p, tok)) // b.prefill_chunk) for p in prompts)
+    server, thread = start_server(engine)
+    port = server.server_address[1]
+
+    def complete(prompt):
+        status, body = post_json(port, "POST", "/v1/completions",
+                                 {"prompt": prompt, "max_tokens": new_tokens})
+        answer = json.loads(body) if status == 200 else {}
+        return status, answer
+
+    try:
+        complete(prompts[0])  # the captures, outside the counted run
+        # The reply ends inside the pump's last step, which counts itself
+        # after: stop the pump before the counts go to 0 (the burst starts
+        # another).
+        engine.close()
+        fa.launches = kv_cache.launches = pa.attn_launches = pa.rows_launches = 0
+        pa.update_launches = 0
+        b.steps = b.slots_stepped = b.verify_steps = b.proposed = b.accepted = b.bursts = 0
+        if d is not None:
+            d.admissions = d.steps = 0
+        engine.metrics = b.metrics = ServingMetrics()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(n) as pool:
+            results = list(pool.map(complete, prompts))
+        wall = time.perf_counter() - t0
+        counts = dict(k1=fa.launches, k2=kv_cache.launches, k3=pa.attn_launches,
+                      k4=pa.rows_launches, kvu=pa.update_launches)
+        summary = json.loads(post_json(port, "GET", "/metrics")[1])
+    finally:
+        stop_server(server, thread)
+        engine.close()
+    streams = []
+    for i, (status, answer) in enumerate(results):
+        words = answer["choices"][0]["text"].split() if status == 200 else []
+        if len(words) != new_tokens or answer["usage"]["completion_tokens"] != new_tokens:
+            raise AssertionError(f"{label} request {i}: HTTP {status}, {len(words)} tokens "
+                                 f"(want {new_tokens}): {answer}")
+        streams.append(words)
+    spec = b.lookahead > 0
+    steps = b.verify_steps if spec else b.steps
+    admissions, draft_steps = (0, 0) if d is None else (d.admissions, d.steps)
+    want = dict(k1=Ld * admissions, k2=L * chunks + (0 if paged else L * steps) + Ld * draft_steps,
+                k3=L * steps if paged else 0, k4=steps if paged and not spec else 0,
+                kvu=L * steps if paged and spec else 0)
+    proposed = summary.get("speculation", {}).get("proposed", 0)
+    acceptance = summary.get("speculation", {}).get("acceptance_rate")
+    kind = f"verify steps (S = {b.lookahead + 1})" if spec else "decode steps"
+    line = (f"{label}: {n} completions, all HTTP 200 with {new_tokens} tokens; {steps} {kind}, "
+            f"{b.slots_stepped / steps:.2f} of {b.max_slots} slots a step; launches {counts} "
+            f"(want {want}: K1 {Ld} x {admissions} draft admissions, K2 {L} x {chunks} chunks"
+            f"{'' if paged else f' + {L} x {steps} steps'} + {Ld} x {draft_steps} draft steps); "
+            f"server TTFT p50 {summary['ttft_ms']['p50']} ms, mean {summary['ttft_ms']['mean']} "
+            f"ms, TPOT mean {summary['tpot_ms']['mean']} ms; {n * new_tokens / wall:.1f} "
+            f"tokens/s over all slots")
+    if spec:
+        line += (f"; {b.proposed} proposed, {b.accepted} accepted; GET /metrics acceptance rate "
+                 f"{acceptance}")
+    print(f"{line} [{card}]", flush=True)
+    if (counts != want or (d is not None and admissions != n) or (spec and (b.steps or not steps))
+            or summary["requests"] != n or summary["ttft_ms"]["count"] != n
+            or proposed != b.proposed or b.has_work or b.active.any()
+            or (paged and b.allocator.available != b.num_pages - 1)):
+        raise AssertionError(f"{label}: miscounted, or the metrics or slots disagree: {counts}, "
+                             f"{want}, {summary}")
+    return dict(counts, tokens_per_s=n * new_tokens / wall, acceptance=acceptance,
+                draft_steps=draft_steps, steps=steps, streams=streams)
+
+
+def run_draft(model, cfg, seed: int, new_tokens: int, card: str) -> dict:
+    """Two-model speculation (the draft phase): the small draft written,
+    loaded through the server's flags and held bit for bit
+    (`check_draft_bursts`); the target's own burst as a draft timed; then
+    each batcher served without speculation, with prompt lookup, with the
+    target as its own draft and with the small draft (`run_draft_server`),
+    and what the four give printed side by side. Returns each batcher's
+    launches summed over its four runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.serve import api
+    from vis_zephyr_tpu_torch.serve.draft import DraftModel
+
+    lookahead = ["--lookahead", str(SPEC_LOOKAHEAD)]
+    root = tempfile.mkdtemp(prefix="vzt_draft_")
+    try:
+        path = write_small_draft(seed, cfg, root)
+        parser = argparse.ArgumentParser()
+        api.add_engine_args(parser)
+        a = parser.parse_args(DRAFT_PAGED_FLAGS + ["--draft-model", path])
+        api.check_engine_args(parser, a)
+        t0 = time.perf_counter()
+        small = api.load_draft(a, "cuda")
+        torch.cuda.synchronize()
+        print(f"draft: --draft-model loaded by `load_draft` in {time.perf_counter() - t0:.2f} s: "
+              f"{small[1].decoder.num_layers} decoder layers, {small[0].dtype}; --lookahead "
+              f"{a.lookahead} (the flag's default with a draft)", flush=True)
+        if (a.lookahead != SPEC_LOOKAHEAD or small[1].decoder.num_layers != DRAFT_LAYERS
+                or small[0].dtype != torch.bfloat16):
+            raise AssertionError("draft: the flags did not load the draft as written")
+        check_draft_bursts(small, cfg, seed, card)
+
+        # The target drafting for itself: its burst at the paged run's slots.
+        d = DraftModel(model, cfg, DRAFT_SLOTS)
+        hists = draft_histories(cfg, seed, DRAFT_SLOTS)
+        for slot, hist in enumerate(hists):
+            d.admit(slot, hist)
+        time_draft_burst(d, np.ones(DRAFT_SLOTS, bool), np.array([h[-1] for h in hists]),
+                         "the target as its own draft (32 layers)", card)
+        del d
+        torch.cuda.empty_cache()
+
+        out = {}
+        for name, flags, n in (("paged", DRAFT_PAGED_FLAGS, DRAFT_SLOTS),
+                               ("dense", DENSE_FLAGS, DENSE_SLOTS)):
+            runs = {}
+            for kind, extra, draft in (("neither", [], (None, None)),
+                                       ("lookup", lookahead, (None, None)),
+                                       ("self", lookahead, (model, cfg)),
+                                       ("small", ["--draft-model", path], small)):
+                runs[kind] = run_draft_server(model, cfg, seed, new_tokens, card, flags + extra,
+                                              f"draft {name}, {kind}", draft, n)
+                gc.collect()  # the servers' handler classes hold their engines in cycles
+                torch.cuda.empty_cache()
+            agree = {f"{kind} vs {ref}": sorted(map(first_divergence, runs[kind]["streams"],
+                                                    runs[ref]["streams"]))
+                     for kind in ("self", "small") for ref in ("lookup", "neither")}
+            print(f"draft {name}: tokens/s over all slots, no speculation "
+                  f"{runs['neither']['tokens_per_s']:.1f}, prompt lookup "
+                  f"{runs['lookup']['tokens_per_s']:.1f}, the target as its own draft "
+                  f"{runs['self']['tokens_per_s']:.1f}, the {DRAFT_LAYERS}-layer draft "
+                  f"{runs['small']['tokens_per_s']:.1f}; GET /metrics acceptance rate: lookup "
+                  f"{runs['lookup']['acceptance']}, self {runs['self']['acceptance']}, small "
+                  f"{runs['small']['acceptance']}; verify steps {runs['lookup']['steps']} / "
+                  f"{runs['self']['steps']} / {runs['small']['steps']} against "
+                  f"{runs['neither']['steps']} decode steps; first divergence of each request's "
+                  f"{new_tokens} tokens: {agree} (bf16: a verify's S-row append and a decode "
+                  f"step round differently, so greedy ties may break apart) [{card}]", flush=True)
+            out[name] = {key: sum(run[key] for run in runs.values())
+                         for key in ("k1", "k2", "k3", "k4", "kvu")}
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "multistep",
-          "dense_batch", "sampled", "openai", "profile", "precision", "int8", "mlp_probe", "int4",
-          "train", "load", "attn_probes")
+          "dense_batch", "sampled", "openai", "draft", "profile", "precision", "int8",
+          "mlp_probe", "int4", "train", "load", "attn_probes")
 
 
 def main(argv=None) -> None:
@@ -4967,7 +5448,7 @@ def main(argv=None) -> None:
         dense = run_slice(model, cfg, args.seed, args.max_new_tokens, card)
         done("slice1")
     if "paged" in phases:
-        paged = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card)
+        paged = run_paged_server(model, cfg, args.seed, args.max_new_tokens, card, observe=True)
         done("paged")
     if "batch" in phases:
         batch = run_fixed_batch(model, cfg, args.seed)
@@ -5013,6 +5494,9 @@ def main(argv=None) -> None:
     if "openai" in phases:
         openai = run_openai(model, cfg, args.seed, card)
         done("openai")
+    if "draft" in phases:
+        drafted = run_draft(model, cfg, args.seed, args.max_new_tokens, card)
+        done("draft")
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
         run_profile(model, cfg, args.seed, card, label="spec profile", lookahead=SPEC_LOOKAHEAD)
@@ -5132,7 +5616,8 @@ def main(argv=None) -> None:
     # The counts of the served runs (bf16, int8 and int4 weights on each
     # path, speculation on each path, multi-step bursts on each path, the
     # dense batcher on bf16 and int8 weights, per-request sampling on both
-    # batchers and the OpenAI endpoints), each set to 0 just before its run
+    # batchers, the OpenAI endpoints and each batcher's four runs of the draft
+    # phase), each set to 0 just before its run
     # and read just after it. `launches` is their sum and `launches_by_path`
     # says which run gave what.
     runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
@@ -5141,6 +5626,7 @@ def main(argv=None) -> None:
             "multistep_paged": multistep_paged, "dense_batch": dense_batch,
             "dense_batch_int8": dense_batch8, "sampled_dense": sampled["dense"],
             "sampled_paged": sampled["paged"], "openai": openai,
+            "draft_paged": drafted["paged"], "draft_dense": drafted["dense"],
             "writefirst": writefirst, "mlp_probe": mlp_probe,
             "train": trained["train"], "train_lora": trained["train_lora"],
             "load": loads["load"], "load_int8": loads["load_int8"], "attn_probes": attn}
@@ -5168,6 +5654,10 @@ def main(argv=None) -> None:
                "sampled_dense": ("flash_fwd", "dense_cache_append"),
                "sampled_paged": ("flash_fwd", "paged_attn_decode", "paged_kv_rows"),
                "openai": ("dense_cache_append",),
+               # The drafts admit whole (K1) and step their dense caches (K2).
+               "draft_paged": ("flash_fwd", "dense_cache_append", "paged_attn_decode",
+                               "paged_kv_update"),
+               "draft_dense": ("flash_fwd", "dense_cache_append"),
                "writefirst": ("paged_attn_decode", "paged_kv_update"),
                "mlp_probe": ("fused_mlp_matvec",),
                "train": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),

@@ -4,12 +4,14 @@ A fresh interpreter, with both blocked by an import hook, imports every module
 of `vis_zephyr_tpu_torch` (the ported experiment probes among them, whose
 numerics checks it runs) and serves a chat through a serialized, a dense-batching
 and a paged `ChatEngine` on the CPU, with float and with int8 weights, and an
-OpenAI chat completion with logprobs and penalties, and takes one stage-1 and
+OpenAI chat completion with logprobs and penalties, a chat on each batcher
+with a draft model and `ServingMetrics`, then drains, and takes one stage-1 and
 one stage-2 train step, whose state the builder serves back through the
 native tokenizer; a source scan finds no such import in the port or in
 `chip_smoke.py`. The modules the port copied instead of importing
 (`config`, `constants`, `conversation`, `data/anyres`, `data/tokenization`,
-the sampler of `data/dataset`, `StopMatcher` and the vocabulary's byte
+the sampler of `data/dataset`, `MetricsLogger` and `ServingMetrics`,
+`StopMatcher` and the vocabulary's byte
 strings of the OpenAI endpoints, `data/tokenizer_native` and `data/native`)
 give what the JAX package's give on the same inputs; the port builds its
 native libraries into its own build directory, never into `native/`.
@@ -131,6 +133,26 @@ err, out = chat_completion(engine, {"messages": [{"role": "user", "content": "hi
 engine.close()
 assert err is None and out["usage"]["completion_tokens"] == 6, (err, out)
 assert all(len(c["logprobs"]["content"]) == 3 for c in out["choices"]), out
+
+# Two-model speculation with ServingMetrics on both batchers, then a drain.
+from vis_zephyr_tpu_torch.serve.engine import EngineDraining
+from vis_zephyr_tpu_torch.utils.metrics import ServingMetrics
+
+for cache in ("dense", "paged"):
+    metrics = ServingMetrics()
+    engine = ChatEngine(model, cfg, Tokenizer(), max_new_tokens=4, continuous_batching=True,
+                        kv_cache=cache, max_slots=2, cache_len=256, page_size=16, lookahead=3,
+                        draft_model=model, draft_cfg=cfg, metrics=metrics)
+    engine.attach_pixels("s", pixels, valid, (112, 56))
+    assert len(engine.chat_text("s", "<image>\nwhat is this").split()) == 4
+    assert engine.drain(timeout=30) and engine.batcher.draft.admissions == 1
+    assert metrics.summary()["requests"] == 1 and metrics.spec_proposed > 0, metrics.summary()
+    try:
+        engine.chat("s", "again")
+        raise AssertionError("a draining engine took a request")
+    except EngineDraining:
+        pass
+    engine.close()
 
 # One stage-1 and one stage-2 train step on the CPU.
 from vis_zephyr_tpu_torch.constants import IMAGE_TOKEN_INDEX
@@ -302,6 +324,20 @@ def test_stop_matcher_matches(stops, deltas):
         m = cls(stops)
         runs.append(([m.feed(d) for d in deltas], m.flush(), m.stopped))
     assert runs[0] == runs[1]
+
+
+def test_metrics_copies_match():
+    """`utils/metrics.py`'s `MetricsLogger` and `ServingMetrics` are copies,
+    line for line (`tests/test_torch_serving_obs.py` holds their output)."""
+    import inspect
+
+    import vis_zephyr_tpu.utils.metrics as jmetrics
+    import vis_zephyr_tpu_torch.utils.metrics as tmetrics
+
+    for name in ("MetricsLogger", "ServingMetrics"):
+        assert inspect.getsource(getattr(tmetrics, name)) == inspect.getsource(
+            getattr(jmetrics, name)), name
+    assert tmetrics.ServingMetrics.BUCKETS_MS == jmetrics.ServingMetrics.BUCKETS_MS
 
 
 def test_token_strings_match():

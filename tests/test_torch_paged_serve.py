@@ -343,13 +343,12 @@ def test_sampled_decoding_is_seeded_and_in_range(models):
 def test_left_out_options_raise_not_implemented(models):
     port = models[1]
     kw = dict(GEOMETRY, sampling=tgen.SamplingConfig(max_new_tokens=2))
-    for option in (dict(mesh=object()), dict(metrics=object()), dict(draft=object()),
-                   dict(draft=object(), lookahead=2), dict(prefix_cache=True),
+    for option in (dict(mesh=object()), dict(prefix_cache=True),
                    dict(mlora=object()), dict(adapter_names={"a": 1}), dict(lazy_alloc=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpaged.PagedBatcher(port, TCFG, **kw, **option)
     # The dense batcher is ported; it refuses what the paged one refuses.
-    for option in (dict(mesh=object()), dict(draft=object()), dict(mlora=object())):
+    for option in (dict(mesh=object()), dict(mlora=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbatching.ContinuousBatcher(port, TCFG, cache_len=64, **option)
     b = tpaged.PagedBatcher(port, TCFG, **kw)
@@ -369,9 +368,7 @@ def test_left_out_options_raise_not_implemented(models):
     with pytest.raises(ValueError, match="selfterm"):
         tpaged._paged_step(*step, mode="write-first")
     for option in (dict(continuous_batching=True, kv_cache="dense", mlora=object()),
-                   dict(draft_params=object(), lookahead=2),
-                   dict(mesh=object()), dict(metrics=object()),
-                   dict(continuous_batching=True, kv_cache="paged", draft_params=object()),
+                   dict(mesh=object()), dict(mlora=object()),
                    dict(continuous_batching=True, kv_cache="paged", prefix_cache=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tengine.ChatEngine(port, TCFG, MockTokenizer(), **option)

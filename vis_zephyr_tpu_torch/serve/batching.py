@@ -6,7 +6,10 @@ activation, emit / finish / cancel, the per-slot sampling state (temperature
 and top-p overrides, logprobs, frequency / presence penalties), multi-step
 bursts, the host side of prompt-lookup speculation (`lookahead`: per-slot
 lookup histories and `_step_verify`, the acceptance loop around the
-batcher's `_verify_device`), and `ContinuousBatcher` itself on one dense
+batcher's `_verify_device`, with a draft model's proposals when one is given:
+`serve/draft.py::DraftModel`), the `ServingMetrics` hooks (TTFT / TPOT at
+finish, proposals and acceptance each verify step), and `ContinuousBatcher`
+itself on one dense
 cache `[L, slots, cache_len, Hkv, D]` (`_admit`, `_batch_step`,
 `_batch_multi_step`, the dense verify step). The paged batcher
 (`serve/paged.py::PagedBatcher`) inherits the scheduler.
@@ -32,7 +35,7 @@ the device state is updated in place, so exactly one thread may call `step`.
 `active`, `budget`, `slot_len` stay on the host as numpy, as there.
 
 Not ported yet, each raising `NotImplementedError` when asked for: meshes,
-metrics, multi-LoRA adapters, grammars and a draft model.
+multi-LoRA adapters and grammars.
 """
 
 from __future__ import annotations
@@ -59,10 +62,18 @@ from .graphs import StepGraphs, addresses
 def _prefill_kv(model: VisZephyr, input_ids, images, patch_valid, cfg: VisZephyrConfig):
     """Single-request prefill → (last_logits [V], k/v [L, T, Hkv, D], length).
     On a CUDA device the spliced length is padded to a multiple of 128, the
-    flash kernel's tile."""
+    flash kernel's tile; a text-only prompt too (pad tokens marked invalid),
+    which is how a draft model's admission reaches the kernel."""
     pad_mult = 128 if input_ids.device.type == "cuda" else None
+    text_valid = None
+    if images is None and pad_mult and input_ids.shape[1] % pad_mult:
+        T = input_ids.shape[1]
+        input_ids = torch.nn.functional.pad(input_ids, (0, (-T) % pad_mult),
+                                            value=cfg.decoder.pad_token_id)
+        text_valid = torch.arange(input_ids.shape[1], device=input_ids.device)[None] < T
     logits, aux = vis_zephyr_forward(model, input_ids, images, patch_valid, cfg,
-                                     return_kv=True, pad_to_multiple=pad_mult)
+                                     text_valid=text_valid, return_kv=True,
+                                     pad_to_multiple=pad_mult)
     k, v = aux["kv"]
     length = int(aux["lengths"][0])
     return logits[0, length - 1], k[:, 0], v[:, 0], length
@@ -271,13 +282,20 @@ class ContinuousBatcher:
 
     `prefill_chunk`: admit prompts in chunks of this many tokens, one chunk
     per scheduler step; None prefills a whole prompt at admission.
-    `lookahead`: prompt-lookup speculation, greedy only (`_step_verify`
-    each scheduler step, the dense verify step `generate.verify_step`).
+    `lookahead`: speculation, greedy only (`_step_verify` each scheduler
+    step, the dense verify step `generate.verify_step`): proposals from
+    `draft` (a `serve/draft.py::DraftModel`, kept only when lookahead > 0),
+    else, and for the slots it declines, from prompt lookup. `metrics`: a
+    `utils/metrics.py::ServingMetrics` that records each finished request's
+    TTFT and TPOT and each verify step's proposals and acceptance.
     `multi_step`: a scheduler step with no admission work waiting, and no
     slot asking for logprobs or penalties, runs a burst of this many decode
     steps, else a burst of one (`_batch_multi_step`, replayed as CUDA
     graphs on the card); ignored under `lookahead`. Requests carry their
     own temperature, top-p, logprobs and penalties (`submit`)."""
+
+    draft = None    # the proposer under `lookahead`, else prompt lookup alone
+    metrics = None  # where finished requests and verify steps are recorded
 
     def __init__(self, model: VisZephyr, cfg: VisZephyrConfig, max_slots: int = 8,
                  cache_len: int = 2048, sampling: SamplingConfig = SamplingConfig(),
@@ -297,8 +315,6 @@ class ContinuousBatcher:
                         mlora=None, adapter_names=None) -> None:
         for value, what, step in (
                 (mesh, "a device mesh (tensor-parallel serving)", "Queue A step 13"),
-                (metrics, "ServingMetrics", "Queue A step 10"),
-                (draft, "a draft model", "Queue A step 9"),
                 (mlora, "multi-LoRA serving", "Queue A step 10"),
                 (adapter_names, "multi-LoRA serving", "Queue A step 10")):
             if value:
@@ -314,6 +330,8 @@ class ContinuousBatcher:
         # multi-step is ignored while it is on), as in the JAX batcher.
         self.lookahead = lookahead if sampling.temperature <= 0.0 else 0
         self.multi_step = max(1, int(multi_step)) if self.lookahead == 0 else 1
+        self.draft = draft if self.lookahead > 0 else None
+        self.metrics = metrics
         self._prefilling = None
         self._reserved_slot = None
         self.token = torch.full((B,), cfg.decoder.pad_token_id, dtype=torch.int64, device=dev)
@@ -553,6 +571,8 @@ class ContinuousBatcher:
         # Lookup history: image sentinels (< 0) are placeholders, and an
         # n-gram crossing one is meaningless.
         self.slot_hist[slot] = LookupHistory([int(t) for t in req.input_ids if t >= 0] + [tok])
+        if self.draft is not None:
+            self.draft.admit(slot, self.slot_hist[slot].tokens)
         if req.max_new_tokens <= 0:
             # Explicit zero-token request: prefill ran (and sampled), but
             # nothing is emitted, as on the serialized path.
@@ -648,11 +668,22 @@ class ContinuousBatcher:
         req.out.put(tok)
 
     def _finish(self, slot: int) -> None:
+        """Free the slot and end its request's stream; `metrics` records the
+        request before its stream ends (the JAX batcher records it just
+        after), so a client that has read its reply finds it counted."""
         req = self.slot_req[slot]
         if req is not None:
+            if self.metrics is not None and req.first_token_at is not None:
+                now = time.perf_counter()
+                ttft = (req.first_token_at - req.submitted_at) * 1e3
+                tpot = ((now - req.first_token_at) / (req.n_tokens - 1) * 1e3
+                        if req.n_tokens > 1 else 0.0)
+                self.metrics.record_request(req.request_id, ttft, tpot, req.n_tokens)
             req.out.put(None)
         self.slot_req[slot] = None
         self.active[slot] = False
+        if self.draft is not None:
+            self.draft.release(slot)
 
     def step(self) -> int:
         """Admit pending requests (one chunk's worth under chunked prefill),
@@ -753,11 +784,12 @@ class ContinuousBatcher:
     def _step_verify(self) -> int:
         """One speculative scheduler step: column 0 of the verify batch is
         every slot's pending token (what a decode step would have decoded),
-        later columns that slot's prompt-lookup proposals, capped by its
-        budget and the cache. All slots verify in one multi-token append;
-        each commits its accepted prefix and carries the first mismatching
-        greedy token as its next pending token, so the tokens equal plain
-        greedy decoding's. Returns the number of active slots stepped."""
+        later columns that slot's proposals, capped by its budget and the
+        cache: the draft's (one burst for all slots), else prompt lookup's.
+        All slots verify in one multi-token append; each commits its
+        accepted prefix and carries the first mismatching greedy token as
+        its next pending token, so the tokens equal plain greedy decoding's.
+        Returns the number of active slots stepped."""
         S = self.lookahead + 1
         B = self.max_slots
         toks = np.full((B, S), self.cfg.decoder.pad_token_id, np.int64)
@@ -766,16 +798,24 @@ class ContinuousBatcher:
         valid = np.zeros((B, S), bool)
         valid[:, 0] = True
         token_host = self.token.cpu().numpy().copy()
+        caps = np.zeros(B, np.int64)
+        for slot in range(B):
+            if self.active[slot]:
+                caps[slot] = max(0, min(self.lookahead, int(self.budget[slot]) - 1,
+                                        self.cache_len - int(self.slot_len[slot]) - 1))
+        draft_props = (self.draft.propose(self.active, token_host, caps, self.lookahead)
+                       if self.draft is not None else [None] * B)
         props: List[Optional[np.ndarray]] = [None] * B
         for slot in range(B):
             if not self.active[slot]:
                 continue
             toks[slot, 0] = token_host[slot]
-            cap = max(0, min(self.lookahead, int(self.budget[slot]) - 1,
-                             self.cache_len - int(self.slot_len[slot]) - 1))
+            cap = int(caps[slot])
             if cap <= 0:
                 continue
-            prop = self.slot_hist[slot].propose(cap)
+            prop = draft_props[slot]
+            if prop is None or not len(prop):
+                prop = self.slot_hist[slot].propose(cap)
             if prop is None or not len(prop):
                 continue
             prop = np.asarray(prop[:cap], np.int64)
@@ -796,6 +836,8 @@ class ContinuousBatcher:
                 n_ok += 1
             self.proposed += len(prop)
             self.accepted += n_ok
+            if self.metrics is not None and len(prop):
+                self.metrics.record_speculation(len(prop), n_ok)
             emitted = [int(t) for t in prop[:n_ok]] + [int(greedy[slot, n_ok])]
             # The pools now hold pending + accepted proposals; the last
             # emitted token is the NEW pending one (not yet written).
@@ -812,12 +854,18 @@ class ContinuousBatcher:
                     finished = True
                     break
             if finished:
-                self._finish(slot)
+                self._finish(slot)  # releases the draft's slot too
             else:
                 token_host[slot] = emitted[-1]
+                if self.draft is not None:
+                    # The draft holds pending + accepted now; the corrected
+                    # token is the new pending one, kept out of its cache.
+                    self.draft.commit(slot, 1 + n_ok)
         # The host is the source of truth for lengths: every slot rolls back
         # to its accepted prefix (and the inactive slots' dummy rows go).
         self._verify_rollback()
+        if self.draft is not None:
+            self.draft.rollback()
         self.token.copy_(torch.as_tensor(token_host, device=self.device))
         self.verify_steps += 1
         return stepped

@@ -12,12 +12,16 @@ Port of `vis_zephyr_tpu/serve/engine.py`. Two modes:
 
 `lookahead` (prompt-lookup speculation, greedy only) and `multi_step`
 (bursts of decode steps, replayed as CUDA graphs on the card; ignored under
-`lookahead`) reach every mode. A session's image is preprocessed once and
-kept on the device. `generate_request` is the session-free entry of the
-OpenAI endpoints (`serve/openai_api.py`): per-request budget, temperature,
-top-p, logprobs and penalties on every mode. Not ported yet, each raising
-`NotImplementedError` when asked for: a draft model, meshes, adapters,
-grammars, metrics, the prefix cache, lazy allocation and draining.
+`lookahead`) reach every mode; a draft model (`draft_model`, `draft_cfg`:
+`serve/draft.py::DraftModel`) proposes for both batchers under
+`lookahead`. A session's image is preprocessed once and kept on the device.
+`generate_request` is the session-free entry of the OpenAI endpoints
+(`serve/openai_api.py`): per-request budget, temperature, top-p, logprobs
+and penalties on every mode. `metrics` (a `ServingMetrics`) is what GET
+/metrics reads; the batchers record into it. `drain` refuses new requests
+(`EngineDraining`) and waits for those in flight. Not ported yet, each
+raising `NotImplementedError` when asked for: meshes, adapters, grammars,
+the prefix cache and lazy allocation.
 """
 
 from __future__ import annotations
@@ -43,6 +47,12 @@ from .batching import ContinuousBatcher, not_ported
 from .generate import SamplingConfig, generate_stream
 
 
+class EngineDraining(RuntimeError):
+    """Raised for NEW requests while the engine is draining for shutdown
+    (in-flight requests run to completion); the HTTP layer maps it to
+    503."""
+
+
 class ChatEngine:
     def __init__(
         self,
@@ -62,7 +72,7 @@ class ChatEngine:
         metrics=None,
         prefill_chunk: Optional[int] = None,
         lookahead: int = 0,
-        draft_params=None,
+        draft_model=None,
         draft_cfg=None,
         multi_step: int = 1,
         kv_fused: bool = False,
@@ -74,6 +84,7 @@ class ChatEngine:
     ):
         self.model = model
         self.cfg = cfg
+        self.metrics = metrics
         self.tokenizer = tokenizer
         self.conv_mode = conv_mode
         self.device = model.device
@@ -92,6 +103,9 @@ class ChatEngine:
         self.sessions: Dict[str, Dict] = {}
         self._sessions_lock = threading.Lock()
         self._lock = threading.Lock()  # one generation at a time
+        self._draining = False
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
 
         # Optional continuous batching: concurrent requests share decode
         # steps instead of serializing on the lock.
@@ -103,9 +117,15 @@ class ChatEngine:
             raise ValueError(f"kv_cache must be 'dense' or 'paged', got {kv_cache!r}")
         if lazy_alloc and (not continuous_batching or kv_cache != "paged"):
             raise ValueError("lazy_alloc requires continuous batching with kv_cache='paged'")
-        if draft_params is not None or draft_cfg is not None:
-            raise not_ported("a draft model", "Queue A step 9")
         if continuous_batching:
+            draft = None
+            if draft_model is not None and lookahead > 0:
+                from .draft import DraftModel
+
+                # The draft's own dense cache proposes for every slot,
+                # whatever the target's cache layout.
+                draft = DraftModel(draft_model, draft_cfg, max_slots=max_slots,
+                                   cache_len=cache_len)
             if kv_cache == "paged":
                 from .paged import PagedBatcher
 
@@ -113,20 +133,22 @@ class ChatEngine:
                     model, cfg, max_slots=max_slots, cache_len=cache_len,
                     sampling=self.sampling, num_pages=num_pages, mesh=mesh, metrics=metrics,
                     prefill_chunk=prefill_chunk, kv_quant=kv_quant, lookahead=lookahead,
-                    multi_step=multi_step, kv_fused=kv_fused, prefix_cache=prefix_cache,
-                    page_size=page_size, mlora=mlora, adapter_names=adapter_names,
-                    lazy_alloc=lazy_alloc)
+                    draft=draft, multi_step=multi_step, kv_fused=kv_fused,
+                    prefix_cache=prefix_cache, page_size=page_size, mlora=mlora,
+                    adapter_names=adapter_names, lazy_alloc=lazy_alloc)
             else:
                 self.batcher = ContinuousBatcher(
                     model, cfg, max_slots=max_slots, cache_len=cache_len,
                     sampling=self.sampling, mesh=mesh, metrics=metrics,
-                    prefill_chunk=prefill_chunk, lookahead=lookahead, multi_step=multi_step,
-                    mlora=mlora, adapter_names=adapter_names)
+                    prefill_chunk=prefill_chunk, lookahead=lookahead, draft=draft,
+                    multi_step=multi_step, mlora=mlora, adapter_names=adapter_names)
         else:
-            # The serialized path has none of these; say so instead of ignoring them.
+            # The serialized path has none of these; say so instead of ignoring
+            # them. It records no metrics (as in the JAX engine: the batchers
+            # do) and takes no draft model (the server refuses
+            # --draft-model without --continuous-batching).
             for value, what, step in (
                     (mesh, "a device mesh", "Queue A step 13"),
-                    (metrics, "ServingMetrics", "Queue A step 10"),
                     (mlora, "multi-LoRA serving", "Queue A step 10")):
                 if value:
                     raise not_ported(what, step)
@@ -234,10 +256,19 @@ class ChatEngine:
         return tokenize_with_images(conv.get_prompt(), self.tokenizer)
 
     def chat(self, session_id: str, question: str, pil_image=None) -> Iterator[str]:
-        """Append the user turn, stream back the assistant reply text."""
-        sess = self.get_session(session_id)
-        with sess["lock"]:
-            yield from self._chat_locked(sess, session_id, question, pil_image)
+        """Append the user turn, stream back the assistant reply text. The
+        request is counted in flight at once (`EngineDraining` raises here
+        while the engine drains), before the stream is first read."""
+        self._admit_inflight()
+        return self._chat_stream(session_id, question, pil_image)
+
+    def _chat_stream(self, session_id: str, question: str, pil_image) -> Iterator[str]:
+        try:
+            sess = self.get_session(session_id)
+            with sess["lock"]:
+                yield from self._chat_locked(sess, session_id, question, pil_image)
+        finally:
+            self._release_inflight()
 
     def _chat_locked(self, sess, session_id: str, question: str, pil_image) -> Iterator[str]:
         conv = sess["conversation"]
@@ -284,10 +315,43 @@ class ChatEngine:
     def chat_text(self, session_id: str, question: str, pil_image=None) -> str:
         return "".join(self.chat(session_id, question, pil_image))
 
+    def _admit_inflight(self) -> None:
+        """Register a request EAGERLY and atomically with the draining
+        check: a request accepted before `drain()` flips the flag is always
+        counted, so `drain()` never reports idle while an accepted request
+        has not started streaming yet."""
+        with self._inflight_lock:
+            if self._draining:
+                raise EngineDraining("engine is draining; not accepting requests")
+            self._inflight += 1
+
+    def _release_inflight(self) -> None:
+        with self._inflight_lock:
+            self._inflight -= 1
+
+    def _track(self, it: Iterator[int]) -> Iterator[int]:
+        """Stream `it`, releasing this request's in-flight registration
+        (taken eagerly by `_admit_inflight`) when the iterator is exhausted
+        or closed."""
+        try:
+            yield from it
+        finally:
+            self._release_inflight()
+
     def drain(self, timeout: float = 120.0) -> bool:
-        """Graceful shutdown (refuse new requests, wait for the in-flight
-        ones): not ported yet."""
-        raise not_ported("graceful drain", "Queue A step 10")
+        """Graceful shutdown, phase 1: refuse NEW requests (`chat` and
+        `generate_request` raise `EngineDraining`; the HTTP layer maps it
+        to 503) and wait for every in-flight request (streaming iterators
+        and batcher slots) to finish, up to `timeout` seconds. Returns True
+        when fully drained. Call `close()` afterwards to retire the pump."""
+        self._draining = True
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            busy = self._inflight > 0 or (self.batcher is not None and self.batcher.has_work)
+            if not busy:
+                return True
+            time.sleep(0.05)
+        return False
 
     # -- stateless generation (the OpenAI endpoints) ---------------------------
 
@@ -334,11 +398,23 @@ class ChatEngine:
         appended before the token is yielded. Submission is eager: under
         continuous batching the request is queued before this returns (so
         several calls decode together: the OpenAI `n`), and refusals raise
-        here. Adapters and grammars are not ported (Queue A step 10)."""
+        here, `EngineDraining` too while the engine drains. Adapters and
+        grammars are not ported (Queue A step 10)."""
         if adapter is not None and adapter != "base":
             raise not_ported("a per-request adapter", "Queue A step 10")
         if grammar is not None:
             raise not_ported("structured output (grammar)", "Queue A step 10")
+        self._admit_inflight()
+        try:
+            return self._track(self._start_request(
+                prompt, pil_image, max_new_tokens, temperature, top_p, logprobs, lp_sink,
+                frequency_penalty, presence_penalty))
+        except BaseException:
+            self._release_inflight()  # refused before streaming started
+            raise
+
+    def _start_request(self, prompt, pil_image, max_new_tokens, temperature, top_p, logprobs,
+                       lp_sink, frequency_penalty, presence_penalty) -> Iterator[int]:
         images = patch_valid = None
         if pil_image is not None:
             if DEFAULT_IMAGE_TOKEN not in prompt:

@@ -55,11 +55,14 @@ The JAX programs return new pools and rely on donation. Here pools,
 (the engine's pump) may call `step`.
 
 Per-request temperature and top-p, logprobs and penalties ride every
-decode step as the scheduler base's fixed per-slot buffers (`serve/batching.py`).
+decode step as the scheduler base's fixed per-slot buffers (`serve/batching.py`),
+and the base's draft-model proposals (`draft`, `serve/draft.py`: its own
+dense cache, whatever the pools) and `ServingMetrics` hooks serve this
+batcher as they serve the dense one.
 
 Not ported yet, each raising `NotImplementedError` when asked for: meshes and
-the TP wrappers, multi-LoRA, grammars, a draft model, the prefix cache, lazy
-allocation with host swap, and metrics.
+the TP wrappers, multi-LoRA, grammars, the prefix cache, and lazy allocation
+with host swap (so `ServingMetrics`' swap counters stay 0).
 """
 
 from __future__ import annotations
@@ -453,8 +456,9 @@ class PagedBatcher(ContinuousBatcher):
     then its V rows; token-exact with the split layout. `prefill_chunk`:
     admit prompts in chunks of this many tokens, one chunk per scheduler
     step; None prefills a whole prompt at admission. `lookahead`:
-    prompt-lookup speculation, greedy only (`_paged_verify_step` each
-    scheduler step). `multi_step`: a scheduler step with no admission work
+    speculation, greedy only (`_paged_verify_step` each scheduler step),
+    proposals from `draft` where given, else prompt lookup. `metrics`: a
+    `ServingMetrics`, as on the dense batcher. `multi_step`: a scheduler step with no admission work
     waiting, and no slot asking for logprobs or penalties, runs a burst of
     this many decode steps, else a burst of one (`_paged_multi_step`,
     replayed as CUDA graphs on the card); ignored under `lookahead`."""
