@@ -6,8 +6,10 @@ each with multi-step bursts replayed as CUDA graphs (`--multi-step`);
 continuous batching over one dense cache; per-request sampling, logprobs
 and penalties in the replayed steps of both batchers; the OpenAI
 endpoints; two-model speculation (`--draft-model`) on both batchers, the
-draft's proposal bursts replayed as CUDA graphs; the server's /health,
-/metrics, /debug/profile and drain; the writefirst paged decode step; the fused int8 MLP probe; the
+draft's proposal bursts replayed as CUDA graphs; the paged batcher's prefix
+cache (`--prefix-cache`) and lazy allocation with host swap (`--lazy-alloc`);
+the server's /health, /metrics, /debug/profile and drain; the writefirst
+paged decode step; the fused int8 MLP probe; the
 trainer, stage 1 and stage 2; the load paths (the trainer's own checkpoint,
 the peft artifact, the consolidated dir, the native tokenizer); and the
 batched-head and slot-grouped attention probes.
@@ -248,6 +250,27 @@ toolkit; exits non-zero on a machine without a card. Phases:
              of the four, each draft's acceptance rate from /metrics, and
              the first divergence of each speculative run's streams from
              the lookup-only and unspeculated ones;
+12g. prefix_swap — the paged batcher's page sharing and page growth: eight
+             text prompts on one 1024-token prefix (8 pages; suffixes of 40
+             to 200 words, chunks of 256), the first run to its end, then
+             the other seven, through PagedBatchers on KV-fused pools with
+             and without `prefix_cache`: on bf16 pools the warm streams
+             equal the cold ones bit for bit, hits >= 7 and pages reused >=
+             56, K2 = 32 x (chunks - 4 a warm admission), K3 = 32 x decode
+             steps, K4 = decode steps; on int8 pools two warm runs equal bit
+             for bit, the first divergence from the cold run and the prefill
+             logits' cosine printed; each run's admission wall (the first of
+             the seven, submit to first token). Then lazy allocation: 24
+             requests of 512 tokens with budgets of 64 to 256 on 16 slots
+             (int8 fused pools), lazy on 80 usable pages against eager on the
+             default pool: every stream equal bit for bit with every step a
+             replay (the same captures), swaps out and in >= 1 each, the raw
+             pool rows' bytes and the swaps' times printed, launches exact,
+             every page back. Then the server with `--prefix-cache
+             --lazy-alloc --kv-quant --max-slots 16 --num-pages 48` under 16
+             concurrent /v1/completions on an 1100-word prefix: every reply
+             HTTP 200 with all its tokens, GET /metrics' prefix_cache hits
+             and swaps out and in >= 1, K3 and K4 exact;
 13. profile — only with --profile: wall, device-busy and idle share of one
              batched decode step at B=32, of one verify step (S = 5) and of
              one dense decode step (B = 1), their kernel launches per step
@@ -347,8 +370,9 @@ toolkit; exits non-zero on a machine without a card. Phases:
              timed call's output gated against the plain version.
 
 `--phases` runs a subset (kernels, slice1, paged, batch, writefirst, spec,
-multistep, dense_batch, sampled, openai, draft, profile, precision, int8,
-mlp_probe, int4, train, load, attn_probes) and then prints no result line. After a full run the line before
+multistep, dense_batch, sampled, openai, draft, prefix_swap, profile,
+precision, int8, mlp_probe, int4, train, load, attn_probes) and then prints
+no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
 """
@@ -5379,9 +5403,292 @@ def run_draft(model, cfg, seed: int, new_tokens: int, card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+PREFIX_TOKENS = 1024  # the shared prefix: 8 pages of 128, 4 chunks of 256
+PREFIX_SUFFIXES = (40, 63, 86, 109, 131, 154, 177, 200)  # distinct suffixes: prompts pad to 1280
+PREFIX_NEW_TOKENS = 16
+LAZY_SLOTS, LAZY_REQUESTS, LAZY_PROMPT = 16, 24, 512
+# 80 usable pages: 16 admissions of 5 pages (512 tokens + one row) fill the
+# pool, so every slot that grows into its 6th page forces a swap.
+LAZY_PAGES = 81
+SWAP_SERVER_FLAGS = ["--continuous-batching", "--kv-cache", "paged", "--kv-quant", "--max-slots",
+                     "16", "--prefix-cache", "--lazy-alloc", "--num-pages", "48"]
+SWAP_SERVER_TOKENS = 200
+
+
+def reset_paged_counts() -> None:
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    fa.launches = kv_cache.launches = pa.attn_launches = pa.rows_launches = 0
+    pa.update_launches = 0
+
+
+def read_paged_counts() -> dict:
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.ops import paged_attention as pa
+
+    return dict(k1=fa.launches, k2=kv_cache.launches, k3=pa.attn_launches, k4=pa.rows_launches,
+                kvu=pa.update_launches)
+
+
+def ended_streams(handles) -> list:
+    """Each drained request's tokens, read without blocking: a stream that
+    did not end raises instead of waiting for ever."""
+    outs = [list(h.out.queue) for h in handles]
+    if not all(out and out[-1] is None for out in outs):
+        raise AssertionError("a request's stream did not end")
+    return [out[:-1] for out in outs]
+
+
+def prefix_requests(cfg, seed: int) -> list:
+    """Eight text-only prompts from `WordTokenizer`: one 1024-token prefix
+    (BOS and 1023 words), then a distinct suffix of 40 to 200 words each."""
+    import numpy as np
+
+    tok = WordTokenizer(cfg.decoder.vocab_size)
+    rng = np.random.default_rng(seed + 9)
+    prefix = tok(make_question(rng, PREFIX_TOKENS)).input_ids[:PREFIX_TOKENS]
+    return [np.asarray(prefix + tok(make_question(rng, n)).input_ids[1:], np.int64)
+            for n in PREFIX_SUFFIXES]
+
+
+def drive_prefix(model, cfg, requests, warm: bool, quant: bool) -> dict:
+    """A PagedBatcher on KV-fused pools (page 128, chunk 256), with the
+    prefix cache when `warm`: the first request run to its end, then the
+    other seven at once. Returns the streams, each request's prefill logits,
+    the launches, the cache's counters and the first of the seven's admission
+    wall (submit to first token on the host clock; the first token's copy to
+    the host synchronizes)."""
+    from vis_zephyr_tpu_torch.serve.generate import SamplingConfig
+    from vis_zephyr_tpu_torch.serve.paged import PagedBatcher
+
+    b = PagedBatcher(model, cfg, max_slots=8, cache_len=2048, prefill_chunk=256, kv_fused=True,
+                     kv_quant=quant, prefix_cache=warm,
+                     sampling=SamplingConfig(max_new_tokens=PREFIX_NEW_TOKENS, eos_token_id=-1))
+    logits = {}
+    install = b._install
+
+    def recording_install(req, slot, last_logits, *rest):
+        logits[req.request_id] = last_logits.float().clone()
+        return install(req, slot, last_logits, *rest)
+
+    b._install = recording_install
+    reset_paged_counts()
+    handles = [b.submit(requests[0])]
+    b.run_until_drained()
+    handles += [b.submit(ids) for ids in requests[1:]]
+    b.run_until_drained()
+    torch.cuda.synchronize()
+    counts = read_paged_counts()
+    first = handles[1]
+    return dict(streams=ended_streams(handles),
+                logits=[logits[h.request_id] for h in handles], counts=counts, steps=b.steps,
+                hits=b.prefix_cache.hits if warm else 0,
+                pages_reused=b.prefix_cache.pages_reused if warm else 0,
+                admission_s=first.first_token_at - first.submitted_at, batcher=b)
+
+
+def drive_lazy(model, cfg, prompts, budgets, lazy: bool) -> dict:
+    """24 requests on 16 slots (int8 fused pools, chunks of 256): lazy on a
+    pool of 80 usable pages, or eager on the default pool (128, room for every
+    full span). Every decode step is a replay of the captured step. Returns
+    the streams, launches, steps, captures and the swaps' counts, bytes and
+    times (each swap timed on the host clock between two synchronizes)."""
+    from vis_zephyr_tpu_torch.serve.generate import SamplingConfig
+    from vis_zephyr_tpu_torch.serve.paged import PagedBatcher
+    from vis_zephyr_tpu_torch.utils.metrics import ServingMetrics
+
+    b = PagedBatcher(model, cfg, max_slots=LAZY_SLOTS, cache_len=2048, prefill_chunk=256,
+                     kv_fused=True, kv_quant=True, lazy_alloc=lazy,
+                     num_pages=LAZY_PAGES if lazy else None, metrics=ServingMetrics(),
+                     sampling=SamplingConfig(eos_token_id=-1))
+    swaps = {"out": [0, 0.0], "in": [0, 0.0]}  # bytes of raw pool rows, seconds
+
+    def snapshot_bytes(slot) -> int:
+        return sum(t.nbytes for key, t in b._swapped[slot].items() if key not in ("n", "token"))
+
+    def timed(kind, fn):
+        def run(slot, *args):
+            if kind == "in":
+                swaps[kind][0] += snapshot_bytes(slot)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(slot, *args)
+            torch.cuda.synchronize()
+            swaps[kind][1] += time.perf_counter() - t0
+            if kind == "out":
+                swaps[kind][0] += snapshot_bytes(slot)
+        return run
+
+    b._swap_out, b._swap_in = timed("out", b._swap_out), timed("in", b._swap_in)
+    reset_paged_counts()
+    t0 = time.perf_counter()
+    handles = [b.submit(ids, max_new_tokens=int(n)) for ids, n in zip(prompts, budgets)]
+    b.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(streams=ended_streams(handles), counts=read_paged_counts(),
+                steps=b.steps, captures=b.graphs.captures, wall=wall, swaps=swaps,
+                swap_out=b.metrics.preempt_swap_out, swap_in=b.metrics.preempt_swap_in,
+                free=b.allocator.available, num_pages=b.num_pages,
+                clean=not b.has_work and not b.page_table.any())
+
+
+def run_prefix_swap(model, cfg, seed: int, card: str) -> dict:
+    """The paged batcher's prefix cache and lazy allocation at full width
+    (the prefix_swap phase): warm against cold admission on bf16 and int8
+    fused pools, lazy against eager allocation over 24 requests on 16 slots,
+    and the server with `--prefix-cache --lazy-alloc --kv-quant` under
+    concurrent /v1/completions. Returns the launches summed over its runs."""
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.serve import api
+
+    L = cfg.decoder.num_layers
+    total = dict(k1=0, k2=0, k3=0, k4=0, kvu=0)
+
+    def add(counts):
+        for key in total:
+            total[key] += counts[key]
+
+    # -- the prefix cache -------------------------------------------------------
+    requests = prefix_requests(cfg, seed)
+    chunks = [-(-len(ids) // 256) for ids in requests]
+    skipped = PREFIX_TOKENS // 256  # chunks a warm admission skips
+    runs = {}
+    for name, warm, quant in (("bf16 cold", False, False), ("bf16 warm", True, False),
+                              ("int8 cold", False, True), ("int8 warm", True, True),
+                              ("int8 warm again", True, True)):
+        runs[name] = run = drive_prefix(model, cfg, requests, warm, quant)
+        add(run["counts"])
+        k2_want = L * (sum(chunks) - (skipped * (len(requests) - 1) if warm else 0))
+        c = run["counts"]
+        b = run["batcher"]
+        ok = (c["k2"] == k2_want and c["k3"] == L * run["steps"] and c["k4"] == run["steps"]
+              and c["k1"] == 0 and all(len(s) == PREFIX_NEW_TOKENS for s in run["streams"])
+              and not b.active.any() and not b.page_table.any())
+        print(f"prefix_swap {name}: {len(requests)} prompts of {[len(r) for r in requests]} "
+              f"tokens ({PREFIX_TOKENS} shared), {run['steps']} decode steps; K2 "
+              f"dense_cache_append {c['k2']} (want {L} x {k2_want // L} chunks = {k2_want}), K3 "
+              f"{c['k3']} (want {L} x steps), K4 {c['k4']} (want steps), K1 {c['k1']} (want 0); "
+              f"cache hits {run['hits']}, pages reused {run['pages_reused']}; admission wall of "
+              f"the first of the seven (submit to first token): "
+              f"{run['admission_s'] * 1e3:.1f} ms [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"prefix_swap {name}: launches or streams not as counted")
+        run.pop("batcher")
+        del b
+    cold, warm = runs["bf16 cold"], runs["bf16 warm"]
+    same_logits = [torch.equal(a, b) for a, b in zip(cold["logits"], warm["logits"])]
+    print(f"prefix_swap bf16: warm tokens equal cold on {sum(a == b for a, b in zip(warm['streams'], cold['streams']))} "
+          f"of {len(requests)} requests; prefill logits bit-equal on {sum(same_logits)}; "
+          f"hits {warm['hits']} (want >= 7), pages reused {warm['pages_reused']} (want >= 56); "
+          f"admission wall {warm['admission_s'] * 1e3:.1f} ms warm, "
+          f"{cold['admission_s'] * 1e3:.1f} ms cold [{card}]", flush=True)
+    if (warm["streams"] != cold["streams"] or warm["hits"] < len(requests) - 1
+            or warm["pages_reused"] < (len(requests) - 1) * PREFIX_TOKENS // 128):
+        raise AssertionError("prefix_swap: a warm admission on bf16 pools did not give the "
+                             "cold tokens, or the cache did not hit")
+    q_cold, q_warm, q_again = runs["int8 cold"], runs["int8 warm"], runs["int8 warm again"]
+    diverge = [first_divergence(a, b) for a, b in zip(q_warm["streams"], q_cold["streams"])]
+    cosines = [cosine(a, b) for a, b in zip(q_warm["logits"], q_cold["logits"])]
+    repeat = (q_warm["streams"] == q_again["streams"]
+              and all(torch.equal(a, b) for a, b in zip(q_warm["logits"], q_again["logits"])))
+    print(f"prefix_swap int8: two warm runs equal bit for bit (tokens and prefill logits): "
+          f"{repeat}; warm against cold (the suffix attends the int8-rounded prefix): first "
+          f"divergence per request {diverge} of {PREFIX_NEW_TOKENS}, prefill last-logit cosine "
+          f"min {min(cosines):.6f}; hits {q_warm['hits']}, pages reused "
+          f"{q_warm['pages_reused']} [{card}]", flush=True)
+    if not repeat or q_warm["hits"] < len(requests) - 1:
+        raise AssertionError("prefix_swap: two warm runs on int8 pools differ, or no hit")
+
+    # -- lazy allocation and host swap --------------------------------------------
+    tok = WordTokenizer(cfg.decoder.vocab_size)
+    rng = np.random.default_rng(seed + 10)
+    prompts = [np.asarray(tok(make_question(rng, LAZY_PROMPT)).input_ids[:LAZY_PROMPT], np.int64)
+               for _ in range(LAZY_REQUESTS)]
+    budgets = rng.integers(64, 257, LAZY_REQUESTS)
+    spans = [-(-(LAZY_PROMPT + int(n)) // 128) for n in budgets]
+    eager = drive_lazy(model, cfg, prompts, budgets, lazy=False)
+    torch.cuda.empty_cache()
+    lazy = drive_lazy(model, cfg, prompts, budgets, lazy=True)
+    for run in (eager, lazy):
+        add(run["counts"])
+    same = sum(a == b for a, b in zip(lazy["streams"], eager["streams"]))
+    (out_bytes, out_s), (in_bytes, in_s) = lazy["swaps"]["out"], lazy["swaps"]["in"]
+    print(f"prefix_swap lazy: {LAZY_REQUESTS} requests of {LAZY_PROMPT} tokens, budgets "
+          f"{int(budgets.min())}-{int(budgets.max())}, on {LAZY_SLOTS} slots; full spans of the "
+          f"first {LAZY_SLOTS}: {sum(spans[:LAZY_SLOTS])} pages against {lazy['num_pages'] - 1} "
+          f"usable (eager: {eager['num_pages'] - 1}); swaps out {lazy['swap_out']}, in "
+          f"{lazy['swap_in']}; {out_bytes / 2**20:.1f} MiB of raw pool rows swapped out in "
+          f"{out_s * 1e3:.1f} ms ({out_bytes / max(out_s, 1e-9) / 1e9:.2f} GB/s), "
+          f"{in_bytes / 2**20:.1f} MiB in in {in_s * 1e3:.1f} ms "
+          f"({in_bytes / max(in_s, 1e-9) / 1e9:.2f} GB/s); tokens equal to eager allocation's "
+          f"on {same} of {LAZY_REQUESTS}; decode steps {lazy['steps']} lazy, {eager['steps']} "
+          f"eager, captured steps {lazy['captures']} and {eager['captures']}; wall "
+          f"{lazy['wall']:.2f} s lazy, {eager['wall']:.2f} s eager [{card}]", flush=True)
+    for name, run in (("eager", eager), ("lazy", lazy)):
+        c = run["counts"]
+        want = (L * 2 * LAZY_REQUESTS, L * run["steps"], run["steps"])
+        print(f"prefix_swap {name} counters: K2 {c['k2']}, K3 {c['k3']}, K4 {c['k4']} (want "
+              f"{want}); allocator {run['free']} of {run['num_pages'] - 1} free, table clear "
+              f"{run['clean']}")
+        if (c["k2"], c["k3"], c["k4"]) != want or not run["clean"] or \
+                run["free"] != run["num_pages"] - 1:
+            raise AssertionError(f"prefix_swap {name}: launches not as counted, or pages leaked")
+    if (lazy["streams"] != eager["streams"] or lazy["swap_out"] < 1 or lazy["swap_in"] < 1
+            or lazy["captures"] != eager["captures"]):
+        raise AssertionError("prefix_swap: lazy allocation did not give eager allocation's "
+                             "tokens, did not swap, or recaptured its step")
+
+    # -- the server -------------------------------------------------------------------
+    parser = argparse.ArgumentParser()
+    api.add_engine_args(parser)
+    flags = parser.parse_args(SWAP_SERVER_FLAGS + ["--max-new-tokens", str(SWAP_SERVER_TOKENS)])
+    engine = api.engine_from_args(model, cfg, WordTokenizer(cfg.decoder.vocab_size), flags)
+    b = engine.batcher
+    rng = np.random.default_rng(seed + 11)
+    shared = make_question(rng, 1100)
+    prompts = [f"{shared} {make_question(rng, 20 + 3 * i)}" for i in range(b.max_slots)]
+    server, thread = start_server(engine)
+    port = server.server_address[1]
+    try:
+        reset_paged_counts()
+        b.steps = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            replies = list(pool.map(lambda p: post_json(port, "POST", "/v1/completions", {
+                "prompt": p, "max_tokens": SWAP_SERVER_TOKENS}), prompts))
+        wall = time.perf_counter() - t0
+        counts = read_paged_counts()
+        summary = json.loads(post_json(port, "GET", "/metrics")[1])
+    finally:
+        stop_server(server, thread)
+        engine.close()
+    add(counts)
+    done = [status == 200 and json.loads(body)["usage"]["completion_tokens"] == SWAP_SERVER_TOKENS
+            for status, body in replies]
+    pc, pre = summary.get("prefix_cache", {}), summary.get("preemption", {})
+    print(f"prefix_swap server: flags {' '.join(SWAP_SERVER_FLAGS)} -> {b.num_pages} pages of "
+          f"{b.page_size}, chunk {b.prefill_chunk}; {len(prompts)} concurrent /v1/completions on "
+          f"a 1100-word prefix: {sum(done)} HTTP 200 with {SWAP_SERVER_TOKENS} tokens; GET "
+          f"/metrics prefix_cache {pc}, preemption {pre}, requests {summary.get('requests')}; "
+          f"{b.steps} decode steps, K2 {counts['k2']}, K3 {counts['k3']} (want {L} x steps), K4 "
+          f"{counts['k4']} (want steps); {len(prompts) * SWAP_SERVER_TOKENS / wall:.1f} tokens/s "
+          f"over all slots in {wall:.2f} s [{card}]", flush=True)
+    if (not all(done) or pc.get("hits", 0) < 1 or pre.get("swap_out", 0) < 1
+            or pre.get("swap_in", 0) < 1 or counts["k3"] != L * b.steps
+            or counts["k4"] != b.steps or counts["k2"] == 0):
+        raise AssertionError("prefix_swap server: a request failed, or /metrics shows no cache "
+                             "hit or no swap, or the launches are not as counted")
+    return total
+
+
 PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "multistep",
-          "dense_batch", "sampled", "openai", "draft", "profile", "precision", "int8",
-          "mlp_probe", "int4", "train", "load", "attn_probes")
+          "dense_batch", "sampled", "openai", "draft", "prefix_swap", "profile", "precision",
+          "int8", "mlp_probe", "int4", "train", "load", "attn_probes")
 
 
 def main(argv=None) -> None:
@@ -5497,6 +5804,11 @@ def main(argv=None) -> None:
     if "draft" in phases:
         drafted = run_draft(model, cfg, args.seed, args.max_new_tokens, card)
         done("draft")
+    if "prefix_swap" in phases:
+        prefix_swap = run_prefix_swap(model, cfg, args.seed, card)
+        gc.collect()  # the server's handler class holds its engine in a cycle
+        torch.cuda.empty_cache()
+        done("prefix_swap")
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
         run_profile(model, cfg, args.seed, card, label="spec profile", lookahead=SPEC_LOOKAHEAD)
@@ -5616,8 +5928,9 @@ def main(argv=None) -> None:
     # The counts of the served runs (bf16, int8 and int4 weights on each
     # path, speculation on each path, multi-step bursts on each path, the
     # dense batcher on bf16 and int8 weights, per-request sampling on both
-    # batchers, the OpenAI endpoints and each batcher's four runs of the draft
-    # phase), each set to 0 just before its run
+    # batchers, the OpenAI endpoints, each batcher's four runs of the draft
+    # phase and the prefix cache and lazy allocation's runs), each set to 0
+    # just before its run
     # and read just after it. `launches` is their sum and `launches_by_path`
     # says which run gave what.
     runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
@@ -5627,6 +5940,7 @@ def main(argv=None) -> None:
             "dense_batch_int8": dense_batch8, "sampled_dense": sampled["dense"],
             "sampled_paged": sampled["paged"], "openai": openai,
             "draft_paged": drafted["paged"], "draft_dense": drafted["dense"],
+            "prefix_swap": prefix_swap,
             "writefirst": writefirst, "mlp_probe": mlp_probe,
             "train": trained["train"], "train_lora": trained["train_lora"],
             "load": loads["load"], "load_int8": loads["load_int8"], "attn_probes": attn}
@@ -5658,6 +5972,9 @@ def main(argv=None) -> None:
                "draft_paged": ("flash_fwd", "dense_cache_append", "paged_attn_decode",
                                "paged_kv_update"),
                "draft_dense": ("flash_fwd", "dense_cache_append"),
+               # Warm admissions' suffix chunks (K2), decode steps over shared
+               # and grown pages (K3, K4).
+               "prefix_swap": paged_kernels,
                "writefirst": ("paged_attn_decode", "paged_kv_update"),
                "mlp_probe": ("fused_mlp_matvec",),
                "train": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),

@@ -26,7 +26,8 @@ import torch
 from PIL import Image
 
 from conftest import MockTokenizer
-from torch_port_util import jax_params_numpy, port_config, port_model
+from torch_port_util import (assert_same_state, drive, jax_params_numpy, jax_snapshot,
+                             port_config, port_model, port_snapshot)
 from vis_zephyr_tpu.config import tiny_config
 from vis_zephyr_tpu.constants import IMAGE_TOKEN_INDEX
 from vis_zephyr_tpu.serve import engine as jengine
@@ -75,56 +76,6 @@ def scenario():
 
     return [request(5, True), request(9, False), request(20, False), request(7, False, 1),
             request(6, False, 0), request(8, True, at=3), request(11, False, at=3)]
-
-
-def drive(batcher, requests, snapshot, max_steps=200):
-    """Run the scripted scenario; returns (tokens per request, snapshots
-    before each step, snapshots after each step)."""
-    handles = {}
-    before, after = [], []
-    for step in range(max_steps):
-        for i, (ids, images, valid, max_new, at) in enumerate(requests):
-            if at == step:
-                handles[i] = batcher.submit(ids, images, valid, max_new_tokens=max_new)
-        if len(handles) == len(requests) and not batcher.has_work:
-            break
-        before.append(snapshot(batcher))
-        batcher.step()
-        after.append(snapshot(batcher))
-    assert not batcher.has_work
-    return [list(batcher.stream(handles[i])) for i in range(len(requests))], before, after
-
-
-def jax_snapshot(b):
-    return dict(pools=tuple(None if a is None else np.asarray(a)
-                            for a in (b.kp, b.vp, b.ksp, b.vsp)),
-                table=np.asarray(b.page_table), lengths=np.asarray(b.lengths),
-                token=np.asarray(b.token), active=b.active.copy())
-
-
-def port_snapshot(b):
-    pools = tpa.pools_to_jax_layout(*(None if a is None else a.numpy().copy()
-                                      for a in (b.kp, b.vp, b.ksp, b.vsp)))
-    return dict(pools=pools, table=b.page_table.numpy().copy(),
-                lengths=b.lengths.numpy().copy(), token=b.token.numpy().copy(),
-                active=b.active.copy())
-
-
-def assert_same_state(got, want, where):
-    np.testing.assert_array_equal(got["table"], want["table"], err_msg=where)
-    np.testing.assert_array_equal(got["lengths"], want["lengths"], err_msg=where)
-    np.testing.assert_array_equal(got["active"], want["active"], err_msg=where)
-    np.testing.assert_array_equal(got["token"], want["token"], err_msg=where)
-    for name, g, w in zip(("k_pages", "v_pages", "k_scales", "v_scales"),
-                          got["pools"], want["pools"]):
-        assert (g is None) == (w is None), (where, name)
-        if g is None:
-            continue
-        if g.dtype == np.int8:
-            diff = np.abs(g.astype(np.int32) - w.astype(np.int32))
-            assert diff.max() <= 1 and (diff != 0).mean() < 1e-3, (where, name, diff.max())
-        else:
-            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=f"{where} {name}")
 
 
 @pytest.fixture(scope="module")
@@ -343,8 +294,9 @@ def test_sampled_decoding_is_seeded_and_in_range(models):
 def test_left_out_options_raise_not_implemented(models):
     port = models[1]
     kw = dict(GEOMETRY, sampling=tgen.SamplingConfig(max_new_tokens=2))
-    for option in (dict(mesh=object()), dict(prefix_cache=True),
-                   dict(mlora=object()), dict(adapter_names={"a": 1}), dict(lazy_alloc=True)):
+    # The prefix cache and lazy allocation are served (test_torch_prefix_cache.py,
+    # test_torch_paged_swap.py).
+    for option in (dict(mesh=object()), dict(mlora=object()), dict(adapter_names={"a": 1})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpaged.PagedBatcher(port, TCFG, **kw, **option)
     # The dense batcher is ported; it refuses what the paged one refuses.
@@ -369,7 +321,7 @@ def test_left_out_options_raise_not_implemented(models):
         tpaged._paged_step(*step, mode="write-first")
     for option in (dict(continuous_batching=True, kv_cache="dense", mlora=object()),
                    dict(mesh=object()), dict(mlora=object()),
-                   dict(continuous_batching=True, kv_cache="paged", prefix_cache=True)):
+                   dict(continuous_batching=True, kv_cache="paged", mlora=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tengine.ChatEngine(port, TCFG, MockTokenizer(), **option)
 

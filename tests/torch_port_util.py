@@ -2,7 +2,9 @@
 
 The PyTorch port keeps its own config dataclasses; the tests build the JAX
 package's config and rebuild the port's from it field by field, so both
-packages run the same model.
+packages run the same model. The paged batchers' scripted drive and state
+snapshots (`drive`, `jax_snapshot`, `port_snapshot`, `assert_same_state`)
+serve the paged serving and prefix-cache tests.
 """
 
 import dataclasses
@@ -11,6 +13,7 @@ import jax
 import numpy as np
 
 from vis_zephyr_tpu_torch import config as tconfig
+from vis_zephyr_tpu_torch.ops import paged_attention as tpa
 
 
 def port_config(jax_cfg) -> tconfig.VisZephyrConfig:
@@ -69,3 +72,62 @@ def assert_state_matches(got: dict, want: dict, **tol):
         assert got[key].shape == value.shape, key
         np.testing.assert_allclose(got[key].float().numpy(), value.float().numpy(),
                                    err_msg=key, **tol)
+
+
+def drive(batcher, requests, snapshot, max_steps=200):
+    """Run a scripted scenario, [(ids, images, patch_valid, max_new_tokens,
+    submit before step N)], through either package's paged batcher; returns
+    (tokens per request, snapshots before each step, snapshots after each
+    step)."""
+    handles = {}
+    before, after = [], []
+    for step in range(max_steps):
+        for i, (ids, images, valid, max_new, at) in enumerate(requests):
+            if at == step:
+                handles[i] = batcher.submit(ids, images, valid, max_new_tokens=max_new)
+        if len(handles) == len(requests) and not batcher.has_work:
+            break
+        before.append(snapshot(batcher))
+        batcher.step()
+        after.append(snapshot(batcher))
+    assert not batcher.has_work
+    return [list(batcher.stream(handles[i])) for i in range(len(requests))], before, after
+
+
+def jax_snapshot(b):
+    """A JAX paged batcher's pools, scales, table, lengths, tokens and active set."""
+    return dict(pools=tuple(None if a is None else np.asarray(a)
+                            for a in (b.kp, b.vp, b.ksp, b.vsp)),
+                table=np.asarray(b.page_table), lengths=np.asarray(b.lengths),
+                token=np.asarray(b.token), active=b.active.copy())
+
+
+def port_snapshot(b):
+    """The port's paged batcher's state as `jax_snapshot` gives it (the pools
+    through the layout converters)."""
+    pools = tpa.pools_to_jax_layout(*(None if a is None else a.numpy().copy()
+                                      for a in (b.kp, b.vp, b.ksp, b.vsp)))
+    return dict(pools=pools, table=b.page_table.numpy().copy(),
+                lengths=b.lengths.numpy().copy(), token=b.token.numpy().copy(),
+                active=b.active.copy())
+
+
+def assert_same_state(got, want, where):
+    """Table, lengths, active set and tokens equal; f32 pools and scales to
+    1e-4; int8 values within 1 and almost all equal (the two frameworks' f32
+    matmuls round differently through the layers, which can move a value
+    across a rounding boundary)."""
+    np.testing.assert_array_equal(got["table"], want["table"], err_msg=where)
+    np.testing.assert_array_equal(got["lengths"], want["lengths"], err_msg=where)
+    np.testing.assert_array_equal(got["active"], want["active"], err_msg=where)
+    np.testing.assert_array_equal(got["token"], want["token"], err_msg=where)
+    for name, g, w in zip(("k_pages", "v_pages", "k_scales", "v_scales"),
+                          got["pools"], want["pools"]):
+        assert (g is None) == (w is None), (where, name)
+        if g is None:
+            continue
+        if g.dtype == np.int8:
+            diff = np.abs(g.astype(np.int32) - w.astype(np.int32))
+            assert diff.max() <= 1 and (diff != 0).mean() < 1e-3, (where, name, diff.max())
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=f"{where} {name}")

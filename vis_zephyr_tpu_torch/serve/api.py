@@ -8,8 +8,9 @@ the image unless one is already attached), and the OpenAI endpoints
 (one JSON body, or SSE with ``"stream": true``) and GET /v1/models. With
 `--continuous-batching` requests share decode steps: over one dense cache
 (`--kv-cache dense`, the default) or over paged KV pools (`--kv-cache paged`
-with `--kv-quant`, `--kv-fused`, `--page-size`, `--num-pages`), with
-`--max-slots` and `--prefill-chunk`, defaults as in the JAX server.
+with `--kv-quant`, `--kv-fused`, `--page-size`, `--num-pages`, the prefix
+cache `--prefix-cache` and lazy allocation with host swap `--lazy-alloc`),
+with `--max-slots` and `--prefill-chunk`, defaults as in the JAX server.
 `--lookahead N` (prompt-lookup speculation) and `--multi-step N` (bursts of
 N decode steps) reach every path; `--draft-model DIR` gives both batchers a
 second, smaller decoder's proposals (bf16, whatever the target's weights).
@@ -18,7 +19,8 @@ port's own; default `cuda`) runs it on the CPU when asked.
 
 Observability, as in the JAX server: GET /health (200 "ok", 503 "draining"),
 GET /metrics (`ServingMetrics.summary()`: TTFT and TPOT histograms,
-speculation's proposals and acceptance; `--metrics-path` adds a JSONL row a
+speculation's proposals and acceptance, lazy allocation's swap counts, and
+the prefix cache's hits and reused pages; `--metrics-path` adds a JSONL row a
 request), GET /debug/profile?seconds=N (with `--profile-dir`: a
 `torch.profiler` Chrome trace of live traffic written there; 409 while a
 capture runs), and SIGTERM / SIGINT drain: new requests get 503 while those
@@ -122,7 +124,11 @@ class ChatHandler(BaseHTTPRequestHandler):
             self._json(200, openai_api.list_models(self.engine))
         elif path == "/metrics":
             metrics = self.engine.metrics
-            self._json(200, metrics.summary() if metrics is not None else {})
+            out = metrics.summary() if metrics is not None else {}
+            cache = getattr(self.engine.batcher, "prefix_cache", None)
+            if cache is not None:
+                out["prefix_cache"] = {"hits": cache.hits, "pages_reused": cache.pages_reused}
+            self._json(200, out)
         elif path == "/debug/profile":
             self._profile()
         else:
@@ -267,6 +273,15 @@ def add_engine_args(p) -> None:
     p.add_argument("--metrics-path", default=None,
                    help="JSONL file for per-request TTFT/TPOT rows; aggregate histograms at "
                         "GET /metrics")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="automatic prefix caching (paged only): requests sharing a page-aligned "
+                        "prompt prefix (system prompts, multi-turn continuations) reuse its pool "
+                        "pages and prefill only the suffix; needs --prefill-chunk (on by default)")
+    p.add_argument("--lazy-alloc", action="store_true",
+                   help="incremental page allocation (paged only): slots reserve pages as they "
+                        "grow instead of their full max-tokens span, raising concurrency; under "
+                        "pool pressure the youngest slot is preempted to host memory (bit-exact "
+                        "KV swap) and resumes FIFO")
     p.add_argument("--multi-step", type=int, default=1,
                    help="decode steps per burst (multi-step scheduling): the serialized path "
                         "ramps 1, 2, 4, N; the paged batcher bursts when no admission work "
@@ -314,7 +329,8 @@ def engine_from_args(model, cfg, tokenizer, a, draft=(None, None)) -> ChatEngine
                       kv_cache=a.kv_cache, kv_quant=a.kv_quant, num_pages=a.num_pages,
                       metrics=metrics, prefill_chunk=a.prefill_chunk or None,
                       kv_fused=a.kv_fused, page_size=a.page_size, lookahead=a.lookahead,
-                      draft_model=draft[0], draft_cfg=draft[1], multi_step=a.multi_step)
+                      draft_model=draft[0], draft_cfg=draft[1], multi_step=a.multi_step,
+                      prefix_cache=a.prefix_cache, lazy_alloc=a.lazy_alloc)
 
 
 def main(args=None):

@@ -597,6 +597,10 @@ class ContinuousBatcher:
     def _pump_prefill(self) -> None:
         st = self._prefilling
         if st is not None and st["req"].cancelled:
+            # Abandon the prefill; shared prefix pages (the paged batcher's
+            # warm admission) go back to their other holders.
+            if st.get("shared"):
+                self.allocator.release(st["shared"])
             st["req"].out.put(None)
             self._prefilling = None
             self._reserved_slot = None
@@ -692,12 +696,15 @@ class ContinuousBatcher:
         `multi_step` when no admission work waits and no slot wants logprobs
         or penalties (they need the host between steps), else of one.
         Returns the number of slot steps taken (a slot counts once a step it
-        was alive in)."""
+        was alive in). `_before_admission` and `_before_round` are the paged
+        batcher's hooks (swap-in, page growth)."""
         self._reap_cancelled()
+        self._before_admission()
         if self.prefill_chunk:
             self._pump_prefill()
         else:
             self._admit_pending()
+        self._before_round()
         if not self.active.any():
             return 0
         if self.lookahead > 0:
@@ -707,6 +714,14 @@ class ContinuousBatcher:
         single = (self._has_admission_work() or self._live(self._lp_slots)
                   or self._live(self._penalty_slots))
         return self._step_burst(1 if single else self.multi_step)
+
+    def _before_admission(self) -> None:
+        """Runs each scheduler step after the cancelled slots are reaped and
+        before admission; nothing on the dense cache."""
+
+    def _before_round(self) -> None:
+        """Runs each scheduler step after admission and before the slots are
+        advanced; nothing on the dense cache."""
 
     # -- multi-step bursts --------------------------------------------------------
 

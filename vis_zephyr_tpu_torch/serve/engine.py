@@ -19,9 +19,11 @@ Port of `vis_zephyr_tpu/serve/engine.py`. Two modes:
 (`serve/openai_api.py`): per-request budget, temperature, top-p, logprobs
 and penalties on every mode. `metrics` (a `ServingMetrics`) is what GET
 /metrics reads; the batchers record into it. `drain` refuses new requests
-(`EngineDraining`) and waits for those in flight. Not ported yet, each
-raising `NotImplementedError` when asked for: meshes, adapters, grammars,
-the prefix cache and lazy allocation.
+(`EngineDraining`) and waits for those in flight. The paged batcher's
+prefix cache (`prefix_cache`) and lazy allocation with host swap
+(`lazy_alloc`, paged continuous batching only) reach it from here. Not
+ported yet, each raising `NotImplementedError` when asked for: meshes,
+adapters and grammars.
 """
 
 from __future__ import annotations
