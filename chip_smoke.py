@@ -271,6 +271,29 @@ toolkit; exits non-zero on a machine without a card. Phases:
              concurrent /v1/completions on an 1100-word prefix: every reply
              HTTP 200 with all its tokens, GET /metrics' prefix_cache hits
              and swaps out and in >= 1, K3 and K4 exact;
+12h. mlora  — multi-LoRA serving: two random adapters at the published
+             widths (r = 128, alpha = 256, all seven targets in every layer)
+             written as peft dirs and loaded by `--lora-adapters`; a fixed
+             batch of six slots (base, a, b twice) on the paged batcher
+             (int8 KV-fused pools, page 128) and on the dense batcher, 8
+             replayed steps each, held against each request alone with its
+             adapter's leaves attached (`attach_lora`), fed the same tokens:
+             logits cosine >= 0.999 (prefill included), greedy tokens equal
+             wherever the logits decide them (a token may differ only at a
+             tie: the solo margin within twice the rows' largest logit
+             difference; the count is printed); the base slots bit
+             for bit the batch served with no pack; a new adapter mix in the
+             same buffer replays without a new capture, and so do 4 verify
+             steps (`--lookahead 4`) on each batcher; a 700-word prompt
+             under a, b, a with `--prefix-cache`: b reuses no page, a's
+             repeat hits and gives a's tokens; the server with the flag:
+             GET /v1/models lists a and b, /v1/completions routes `model` a,
+             b and base (three different texts), /chat takes `adapter`, an
+             unknown name is a 400 on both; the replayed 32-slot decode
+             step's wall and device time with the pack (base, a, b mixed)
+             and without it, and the pack's bytes. In the int8 phase the
+             fixed batch again on `--load-8bit` weights (K5), each slot
+             against the same request alone under the same adapter;
 13. profile — only with --profile: wall, device-busy and idle share of one
              batched decode step at B=32, of one verify step (S = 5) and of
              one dense decode step (B = 1), their kernel launches per step
@@ -370,7 +393,7 @@ toolkit; exits non-zero on a machine without a card. Phases:
              timed call's output gated against the plain version.
 
 `--phases` runs a subset (kernels, slice1, paged, batch, writefirst, spec,
-multistep, dense_batch, sampled, openai, draft, prefix_swap, profile,
+multistep, dense_batch, sampled, openai, draft, prefix_swap, mlora, profile,
 precision, int8, mlp_probe, int4, train, load, attn_probes) and then prints
 no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
@@ -5686,9 +5709,386 @@ def run_prefix_swap(model, cfg, seed: int, card: str) -> dict:
     return total
 
 
+MLORA_RANK, MLORA_ALPHA = 128, 256   # the reference's stage-2 r and alpha (LOAD_LORA)
+MLORA_NAMES = ("a", "b")
+MLORA_MIX = (0, 1, 2, 0, 1, 2)       # the fixed batch's adapters a slot: base, a, b twice
+MLORA_STEPS = 8                       # the fixed batch's compared decode steps
+MLORA_SERVER_FLAGS = ["--continuous-batching", "--kv-cache", "paged", "--kv-quant",
+                      "--max-slots", "8", "--max-new-tokens", "16"]
+MLORA_PREFIX_WORDS = 700              # the prefix cache's prompt: 5 pages of 128
+_mlora_state: dict = {}               # the pack, kept for the int8 part
+
+
+def write_adapter_dirs(cfg, seed: int, root: str) -> dict:
+    """Two random peft adapters at the published widths, all seven targets in
+    every layer (r = 128, alpha = 256; A ~ N(0, 1/K), B ~ N(0, 0.02^2), drawn
+    in f32 on the card and saved in bf16 as `adapter_model.bin`, since the
+    card's machine has no safetensors). Returns {name: dir}."""
+    from vis_zephyr_tpu_torch.ops.mlora import MODULES, target_dims
+
+    gen = torch.Generator("cuda").manual_seed(seed + 21)
+    dims = target_dims(cfg)
+    dirs = {}
+    for name in MLORA_NAMES:
+        sd = {}
+        for i in range(cfg.decoder.num_layers):
+            for target, (K, M) in dims.items():
+                pre = f"base_model.model.model.layers.{i}.{MODULES[target]}"
+                a = torch.randn((MLORA_RANK, K), generator=gen, device="cuda") / math.sqrt(K)
+                b = torch.randn((M, MLORA_RANK), generator=gen, device="cuda") * 0.02
+                sd[f"{pre}.lora_A.weight"] = a.to(torch.bfloat16).cpu()
+                sd[f"{pre}.lora_B.weight"] = b.to(torch.bfloat16).cpu()
+        dirs[name] = os.path.join(root, name)
+        os.makedirs(dirs[name])
+        torch.save(sd, os.path.join(dirs[name], "adapter_model.bin"))
+        with open(os.path.join(dirs[name], "adapter_config.json"), "w") as f:
+            json.dump({"r": MLORA_RANK, "lora_alpha": MLORA_ALPHA}, f)
+    return dirs
+
+
+def mlora_flags(dirs: dict, extra=()):
+    """The server's flags with `--lora-adapters a=DIR,b=DIR`, parsed and
+    checked as `serve/api.py::main` parses them."""
+    from vis_zephyr_tpu_torch.serve import api
+
+    parser = argparse.ArgumentParser()
+    api.add_engine_args(parser)
+    flags = parser.parse_args(MLORA_SERVER_FLAGS + list(extra) + [
+        "--lora-adapters", ",".join(f"{n}={d}" for n, d in dirs.items())])
+    api.check_engine_args(parser, flags)
+    return flags
+
+
+class LaunchSum:
+    """The paged counters summed over the runs that served with the pack:
+    each run resets them just before and reads them just after."""
+
+    def __init__(self):
+        self.total: dict = {}
+
+    def __enter__(self):
+        reset_paged_counts()
+        from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
+
+        qmm.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        from vis_zephyr_tpu_torch.ops import quant_matmul as qmm
+
+        torch.cuda.synchronize()
+        got = dict(read_paged_counts(), k5=qmm.launches)
+        for key, n in got.items():
+            self.total[key] = self.total.get(key, 0) + n
+        return False
+
+
+def mlora_batcher(model, cfg, requests, slots: int, **kw):
+    """`admitted_batcher` that also keeps each slot's prefill logits (the
+    first token's), as `b.first_logits` [slots, V] f32."""
+    from vis_zephyr_tpu_torch.serve.batching import ContinuousBatcher
+
+    seen = {}
+    activate = ContinuousBatcher._activate
+
+    def recording(self, req, slot, last_logits):
+        seen[slot] = last_logits.float().clone()
+        return activate(self, req, slot, last_logits)
+
+    ContinuousBatcher._activate = recording
+    try:
+        b = admitted_batcher(model, cfg, requests, slots, **kw)
+    finally:
+        ContinuousBatcher._activate = activate
+    b.first_logits = torch.stack([seen[s] for s in range(slots)])
+    return b
+
+
+def fed_steps(b, steps: int, feed=None) -> tuple:
+    """`steps` decode steps of an admitted batcher (`mlora_batcher`); with
+    `feed` (tokens [steps + 1, B]) each step starts from feed[j]. Returns
+    (tokens [steps + 1, B]: the admission's first tokens, then each
+    step's; logits [steps + 1, B, V]: the ones each token was taken from)."""
+    toks, logits = [b.token.clone()], [b.first_logits]
+    for j in range(steps):
+        if feed is not None:
+            b.token.copy_(feed[j])
+        if b.step() != b.max_slots:
+            raise AssertionError("mlora: a slot finished inside the compared steps")
+        toks.append(b.token.clone())
+        logits.append(b.last_logits.float().clone())
+    return torch.stack(toks), torch.stack(logits)
+
+
+def solo_runs(model, cfg, requests, mixed_toks, dense: bool, pack=None, names=None,
+              attach: bool = True) -> dict:
+    """Each request of the fixed batch alone (one slot), fed the mixed batch's
+    tokens: under its adapter's leaves attached to the model
+    (`train/lora.py::attach_lora`, the single-LoRA path; `attach`) or
+    through the pack in a batcher of one slot (the quantized base, which
+    attach_lora refuses). Returns {slot: (tokens, logits)}."""
+    from vis_zephyr_tpu_torch.ops.mlora import lora_leaves_for_adapter
+    from vis_zephyr_tpu_torch.train.lora import attach_lora, split_lora
+
+    out = {}
+    kw = dict(kv_quant=True, kv_fused=True) if not dense else {}
+    for idx in sorted(set(MLORA_MIX)):
+        if attach and idx:
+            attach_lora(model, lora_leaves_for_adapter(pack, idx))
+        try:
+            for slot, aidx in enumerate(MLORA_MIX):
+                if aidx != idx:
+                    continue
+                extra = {} if attach else dict(mlora=pack, adapter_names=names)
+                options = None if attach or not idx else [{"adapter": MLORA_NAMES[idx - 1]}]
+                b = mlora_batcher(model, cfg, [requests[slot]], 1, dense=dense,
+                                  options=options, **kw, **extra)
+                out[slot] = fed_steps(b, MLORA_STEPS, mixed_toks[:, slot:slot + 1])
+                del b
+        finally:
+            if attach and idx:
+                split_lora(model)
+    return out
+
+
+def hold_solo(label: str, mixed: tuple, solo: dict, card: str) -> None:
+    """Every slot's logits' cosine with its solo run's >= 0.999 at every
+    step (both fed the same tokens), and its greedy tokens equal the solo
+    run's wherever the two runs' logits can decide them: a token may differ
+    only where the solo run's margin between its own token and the mixed
+    run's is within twice the largest logit difference of the two rows (a
+    tie under bf16's rounding: random weights put the top logits of 32000
+    closer than a batch of 6 and a batch of 1 round apart)."""
+    toks, logits = mixed
+    worst, equal, ties, total = 1.0, 0, [], 0
+    for slot, (s_toks, s_logits) in solo.items():
+        worst = min(worst, float(slot_cosines(s_logits[:, 0], logits[:, slot]).min()))
+        for j in range(toks.shape[0]):
+            total += 1
+            got, want = int(toks[j, slot]), int(s_toks[j, 0])
+            if got == want:
+                equal += 1
+                continue
+            row, s_row = logits[j, slot], s_logits[j, 0]
+            margin = float(s_row[want] - s_row[got])
+            noise = float((row - s_row).abs().max())
+            ties.append((slot, j, round(margin, 4), round(noise, 4)))
+    decided = all(m <= 2 * n for _, _, m, n in ties)
+    print(f"mlora {label}: {len(solo)} slots ({MLORA_MIX}: 0 base, 1 a, 2 b) over "
+          f"{MLORA_STEPS} replayed steps against each request alone, fed the same tokens: "
+          f"greedy tokens equal {equal} of {total}; the others (slot, step, solo margin, "
+          f"largest logit difference) {ties}, all ties: {decided}; logits cosine min "
+          f"{worst:.6f} (>= 0.999) [{card}]", flush=True)
+    if not (decided and worst >= 0.999):
+        raise AssertionError(f"mlora {label}: a slot disagrees with its solo run")
+
+
+def run_mlora(model, cfg, seed: int, card: str) -> dict:
+    """Multi-LoRA serving at full width (the mlora phase): two random r = 128
+    adapters written as peft dirs and loaded by `--lora-adapters`; a fixed
+    batch of base, a and b slots on the paged batcher (int8 KV-fused pools,
+    page 128) and on the dense batcher held against each request alone with
+    its adapter attached, base rows bit for bit against the batch served
+    with no pack; the prefix cache kept apart per adapter; the server with
+    the flag; the 32-slot replayed step with and without the pack. Returns
+    the launches of the runs that served with the pack."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.ops.mlora import pack_bytes
+    from vis_zephyr_tpu_torch.serve import api
+    from vis_zephyr_tpu_torch.serve.generate import SamplingConfig
+    from vis_zephyr_tpu_torch.serve.paged import PagedBatcher
+
+    root = tempfile.mkdtemp(prefix="vzt_mlora_")
+    t0 = time.perf_counter()
+    dirs = write_adapter_dirs(cfg, seed, root)
+    t_write = time.perf_counter() - t0
+    flags = mlora_flags(dirs)
+    t0 = time.perf_counter()
+    pack, names = api.load_adapters(flags, cfg, "cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    shutil.rmtree(root)  # the pack is on the card; the server below takes it as loaded
+    _mlora_state.update(pack=pack, names=names)
+    print(f"mlora: two adapters (r={MLORA_RANK}, alpha={MLORA_ALPHA}, 7 targets x "
+          f"{cfg.decoder.num_layers} layers) written as peft dirs in {t_write:.1f} s, loaded "
+          f"by --lora-adapters in {t_load:.1f} s; the pack on the card: "
+          f"{pack_bytes(pack) / 2**30:.3f} GiB (names {names}) [{card}]", flush=True)
+    counts = LaunchSum()
+    requests = direct_requests(cfg, seed + 5, len(MLORA_MIX))
+    options = [{"adapter": None if i == 0 else MLORA_NAMES[i - 1]} for i in MLORA_MIX]
+    base_slots = [s for s, i in enumerate(MLORA_MIX) if i == 0]
+    for dense in (False, True):
+        label = "dense batcher" if dense else "paged batcher (int8 fused pools, page 128)"
+        kw = {} if dense else dict(kv_quant=True, kv_fused=True)
+        with counts:
+            b = mlora_batcher(model, cfg, requests, len(MLORA_MIX), dense=dense,
+                              options=options, mlora=pack, adapter_names=names, **kw)
+            mixed = fed_steps(b, MLORA_STEPS)
+            captures = b.graphs.captures
+            # Another mix in the same buffer: the step replays, no new capture.
+            b.slot_adapter.copy_(b.slot_adapter.flip(0))
+            fed_steps(b, 2)
+            same_graph = b.graphs.captures == captures
+        bare = mlora_batcher(model, cfg, requests, len(MLORA_MIX), dense=dense, **kw)
+        bare_run = fed_steps(bare, MLORA_STEPS, mixed[0])
+        exact = (torch.equal(bare_run[1][:, base_slots], mixed[1][:, base_slots])
+                 and torch.equal(bare_run[0][:, base_slots], mixed[0][:, base_slots]))
+        del b, bare
+        print(f"mlora {label}: captures {captures} over {MLORA_STEPS} steps, none more after the "
+              f"adapter mix changed: {same_graph}; base slots {base_slots} bit for bit the "
+              f"batch served with no pack: {exact}", flush=True)
+        if not (same_graph and captures >= 1 and exact):
+            raise AssertionError(f"mlora {label}: the mix changed the graph, or a base row "
+                                 "moved under the pack")
+        hold_solo(label, mixed, solo_runs(model, cfg, requests, mixed[0], dense, pack), card)
+
+    # Verify steps under the pack (`--lookahead 4`) on both batchers: each a
+    # replay of one capture, none more after the mix changes.
+    for dense in (False, True):
+        label = "dense" if dense else "paged"
+        kw = {} if dense else dict(kv_quant=True, kv_fused=True)
+        with counts:
+            b = mlora_batcher(model, cfg, requests, len(MLORA_MIX), dense=dense,
+                              options=options, mlora=pack, adapter_names=names,
+                              lookahead=SPEC_LOOKAHEAD, **kw)
+            for _ in range(3):
+                b.step()
+            captures = b.graphs.captures
+            b.slot_adapter.copy_(b.slot_adapter.flip(0))
+            b.step()
+        replayed = (b.verify_steps == 4 and captures >= 1 and b.graphs.captures == captures
+                    and bool(torch.isfinite(b.last_logits).all()))
+        print(f"mlora {label} verify steps (S={SPEC_LOOKAHEAD + 1}, 6 slots, the pack): "
+              f"{b.verify_steps} steps, captures {captures}, none more after the mix changed: "
+              f"{b.graphs.captures == captures}; accepted {b.accepted} of {b.proposed} "
+              f"proposals", flush=True)
+        del b
+        if not replayed:
+            raise AssertionError(f"mlora {label}: the verify steps under the pack did not replay")
+
+    # The prefix cache: one 700-word prompt under a, b, then a again (bf16
+    # fused pools, where a warm admission gives the cold one's tokens).
+    tok = WordTokenizer(cfg.decoder.vocab_size)
+    ids = np.asarray(tok(make_question(np.random.default_rng(seed + 6), MLORA_PREFIX_WORDS))
+                     .input_ids, np.int64)
+    b = PagedBatcher(model, cfg, max_slots=2, cache_len=2048, prefill_chunk=256, kv_fused=True,
+                     prefix_cache=True, mlora=pack, adapter_names=names,
+                     sampling=SamplingConfig(max_new_tokens=8, eos_token_id=-1))
+    streams, reused = [], []
+    with counts:
+        for name in ("a", "b", "a"):
+            h = b.submit(ids, adapter=name)
+            b.run_until_drained()
+            streams.append(ended_streams([h])[0])
+            reused.append(b.prefix_cache.pages_reused)
+    apart = (reused[:2] == [0, 0] and reused[2] > 0 and b.prefix_cache.hits == 1
+             and streams[2] == streams[0] and streams[1] != streams[0])
+    print(f"mlora prefix cache: {len(ids)} tokens under a, b, a: pages reused after each "
+          f"{reused}, hits {b.prefix_cache.hits}; a's repeat gives a's tokens: "
+          f"{streams[2] == streams[0]}; b's differ: {streams[1] != streams[0]}", flush=True)
+    del b
+    if not apart:
+        raise AssertionError("mlora: the prefix cache shared pages across adapters, or a's "
+                             "repeat did not hit")
+
+    # The server with --lora-adapters (its pack is the one loaded above).
+    engine = api.engine_from_args(model, cfg, tok, flags, adapters=(pack, names))
+    server, thread = start_server(engine)
+    port = server.server_address[1]
+    checks, texts = {}, {}
+    prompt = {"prompt": make_question(np.random.default_rng(seed + 7), 60), "max_tokens": 12}
+    try:
+        with counts:
+            status, body = post_json(port, "GET", "/v1/models")
+            checks["models"] = (status == 200 and [m["id"] for m in json.loads(body)["data"]]
+                                == ["vis-zephyr-tpu", "a", "b"])
+            for model_id in ("a", "b", "base"):
+                status, body = post_json(port, "POST", "/v1/completions",
+                                         dict(prompt, model=model_id))
+                out = json.loads(body)
+                checks[f"model {model_id}"] = (status == 200
+                                               and out["usage"]["completion_tokens"] == 12)
+                texts[model_id] = out["choices"][0]["text"]
+            checks["adapters differ"] = len(set(texts.values())) == 3
+            status, body = post_json(port, "POST", "/v1/completions", dict(prompt, model="zzz"))
+            checks["unknown model 400"] = status == 400 and "unknown model" in body
+            px, valid = session_pixels(np.random.default_rng(seed + 8), cfg.vision.image_size, 1)
+            engine.attach_pixels("m", px, valid, (cfg.vision.image_size,) * 2)
+            status, text, _, _ = post_chat(port, {"session_id": "m", "adapter": "b",
+                                                  "question": "what is in the picture"})
+            checks["/chat adapter"] = status == 200 and len(text.split()) > 0
+            status, text, _, _ = post_chat(port, {"session_id": "m", "adapter": "zzz",
+                                                  "question": "and now"})
+            checks["/chat unknown 400"] = status == 400 and "unknown adapter" in text
+    finally:
+        stop_server(server, thread)
+        engine.close()
+    print(f"mlora server ({' '.join(MLORA_SERVER_FLAGS)} --lora-adapters a=...,b=...): "
+          f"{checks} [{card}]", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"mlora server: {checks}")
+
+    # The 32-slot replayed step with the pack (base, a, b in turn) and without.
+    from vis_zephyr_tpu_torch.experiments.step_profile import profile_step
+
+    reqs = direct_requests(cfg, seed, 32)
+    rows = {}
+    for with_pack in (True, False):
+        extra = dict(mlora=pack, adapter_names=names,
+                     options=[{"adapter": (None, "a", "b")[i % 3]} for i in range(32)]) \
+            if with_pack else {}
+        b = admitted_batcher(model, cfg, reqs, 32, kv_quant=True, kv_fused=True, **extra)
+        rows[with_pack] = got = profile_step(b.step)
+        if int(b.active.sum()) != 32:
+            raise AssertionError("mlora: a slot finished inside the timed steps")
+        print(f"mlora step: the replayed 32-slot decode step (int8 fused pools, lengths about "
+              f"{int(b.slot_len.mean())}) {'with the pack (base, a, b mixed)' if with_pack else 'without a pack'}: "
+              f"wall {got['wall_ms']:.2f} ms (min {got['wall_min_ms']:.2f}), device busy "
+              f"{got['device_ms']:.2f} ms, idle share {got['idle_share']:.2f}, "
+              f"{got['launches']:.1f} kernel launches a step [{card}]", flush=True)
+        del b
+    print(f"mlora step: the pack adds {rows[True]['device_ms'] - rows[False]['device_ms']:.2f} ms "
+          f"of device time a step ({pack_bytes(pack) / 2**30:.3f} GiB of panels, read once a "
+          f"step at best: {pack_bytes(pack) / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM peak) "
+          f"[{card}]", flush=True)
+    torch.cuda.empty_cache()
+    print(f"mlora: launches with the pack {counts.total}", flush=True)
+    if min(counts.total[k] for k in ("k1", "k2", "k3", "k4", "kvu")) <= 0:
+        raise AssertionError(f"mlora: a kernel of the path was not launched: {counts.total}")
+    return counts.total
+
+
+def run_mlora_int8(model, cfg, seed: int, card: str) -> dict:
+    """The mlora phase's fixed batch on `--load-8bit` weights (K5 under every
+    projection, the pack's deltas added to its output): each slot against
+    the same request alone in a one-slot batcher under the same adapter
+    (attach_lora refuses a quantized base). Returns the launches."""
+    state = _mlora_state
+    pack, names = state["pack"], state["names"]  # built for the bf16 model; any base takes it
+    requests = direct_requests(cfg, seed + 5, len(MLORA_MIX))
+    options = [{"adapter": None if i == 0 else MLORA_NAMES[i - 1]} for i in MLORA_MIX]
+    counts = LaunchSum()
+    with counts:
+        b = mlora_batcher(model, cfg, requests, len(MLORA_MIX), options=options, mlora=pack,
+                          adapter_names=names, kv_quant=True, kv_fused=True)
+        mixed = fed_steps(b, MLORA_STEPS)
+        del b
+        solo = solo_runs(model, cfg, requests, mixed[0], False, pack, names, attach=False)
+    hold_solo("int8 weights, paged batcher", mixed, solo, card)
+    print(f"mlora int8: launches {counts.total}", flush=True)
+    if counts.total["k5"] <= 0 or counts.total["k3"] <= 0:
+        raise AssertionError(f"mlora int8: K5 or K3 not launched: {counts.total}")
+    state.clear()
+    return counts.total
+
+
 PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "multistep",
-          "dense_batch", "sampled", "openai", "draft", "prefix_swap", "profile", "precision",
-          "int8", "mlp_probe", "int4", "train", "load", "attn_probes")
+          "dense_batch", "sampled", "openai", "draft", "prefix_swap", "mlora", "profile",
+          "precision", "int8", "mlp_probe", "int4", "train", "load", "attn_probes")
 
 
 def main(argv=None) -> None:
@@ -5809,6 +6209,11 @@ def main(argv=None) -> None:
         gc.collect()  # the server's handler class holds its engine in a cycle
         torch.cuda.empty_cache()
         done("prefix_swap")
+    if "mlora" in phases:
+        mlora = run_mlora(model, cfg, args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        done("mlora")
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
         run_profile(model, cfg, args.seed, card, label="spec profile", lookahead=SPEC_LOOKAHEAD)
@@ -5839,6 +6244,8 @@ def main(argv=None) -> None:
         run_verify_routes(model, cfg, args.seed, card)
         if "dense_batch" in phases:
             dense_batch8 = run_dense_batch_quant(model, cfg, args.seed, card)
+        if "mlora" in phases:
+            mlora8 = run_mlora_int8(model, cfg, args.seed, card)
         if "multistep" in phases:
             run_burst_timing(model, cfg, args.seed, card, label="int8 multistep",
                              sizes=(BURST_STEPS,), dense=False)
@@ -5929,7 +6336,8 @@ def main(argv=None) -> None:
     # path, speculation on each path, multi-step bursts on each path, the
     # dense batcher on bf16 and int8 weights, per-request sampling on both
     # batchers, the OpenAI endpoints, each batcher's four runs of the draft
-    # phase and the prefix cache and lazy allocation's runs), each set to 0
+    # phase, the prefix cache and lazy allocation's runs and the runs with a
+    # multi-LoRA pack on bf16 and int8 weights), each set to 0
     # just before its run
     # and read just after it. `launches` is their sum and `launches_by_path`
     # says which run gave what.
@@ -5940,7 +6348,7 @@ def main(argv=None) -> None:
             "dense_batch_int8": dense_batch8, "sampled_dense": sampled["dense"],
             "sampled_paged": sampled["paged"], "openai": openai,
             "draft_paged": drafted["paged"], "draft_dense": drafted["dense"],
-            "prefix_swap": prefix_swap,
+            "prefix_swap": prefix_swap, "mlora": mlora, "mlora_int8": mlora8,
             "writefirst": writefirst, "mlp_probe": mlp_probe,
             "train": trained["train"], "train_lora": trained["train_lora"],
             "load": loads["load"], "load_int8": loads["load_int8"], "attn_probes": attn}
@@ -5975,6 +6383,13 @@ def main(argv=None) -> None:
                # Warm admissions' suffix chunks (K2), decode steps over shared
                # and grown pages (K3, K4).
                "prefix_swap": paged_kernels,
+               # With the pack loaded: whole admissions (K1), the dense
+               # batcher's steps and chunked admissions (K2), the paged steps
+               # (K3, K4) and verify steps (K4's other entry), and K5 under
+               # every projection on int8 weights.
+               "mlora": ("flash_fwd",) + paged_kernels + ("paged_kv_update",),
+               "mlora_int8": ("flash_fwd", "paged_attn_decode", "paged_kv_rows",
+                              "quant_matmul_int8"),
                "writefirst": ("paged_attn_decode", "paged_kv_update"),
                "mlp_probe": ("fused_mlp_matvec",),
                "train": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),

@@ -23,6 +23,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from vis_zephyr_tpu_torch.config import tiny_config
 from vis_zephyr_tpu_torch.experiments import fused_mlp_matvec_probe as tprobe
 from vis_zephyr_tpu_torch.models.mistral import MistralMLP

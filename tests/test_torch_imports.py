@@ -3,7 +3,8 @@
 A fresh interpreter, with both blocked by an import hook, imports every module
 of `vis_zephyr_tpu_torch` (the ported experiment probes among them, whose
 numerics checks it runs) and serves a chat through a serialized, a dense-batching
-and a paged `ChatEngine` on the CPU, with float and with int8 weights, and an
+and a paged `ChatEngine` on the CPU, with float and with int8 weights, a chat
+under a multi-LoRA adapter (`ops/mlora.py`) on int8 weights, and an
 OpenAI chat completion with logprobs and penalties, a chat on each batcher
 with a draft model and `ServingMetrics`, then drains, and takes one stage-1 and
 one stage-2 train step, whose state the builder serves back through the
@@ -26,6 +27,7 @@ import sys
 
 import pytest
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 import vis_zephyr_tpu.config as jconfig
 import vis_zephyr_tpu.constants as jconstants
 import vis_zephyr_tpu.conversation as jconversation
@@ -59,11 +61,13 @@ import numpy as np
 import torch
 import vis_zephyr_tpu_torch
 
+torch.set_num_threads(1)  # one of several test workers on a few cores
 names = [m.name for m in pkgutil.walk_packages(vis_zephyr_tpu_torch.__path__,
                                                "vis_zephyr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 25, names
+assert "vis_zephyr_tpu_torch.ops.mlora" in names, names
 for probe in ("fused_mlp_matvec_probe", "batched_paged_attention_probe",
               "paired_slot_attention_probe"):
     assert f"vis_zephyr_tpu_torch.experiments.{probe}" in names, names
@@ -121,6 +125,17 @@ for load_8bit in (False, True):
         replies.append(engine.chat_text("s", "<image>\nwhat is this"))
         engine.close()
 assert len(replies) == 6 and all(len(r.split()) == 3 for r in replies), replies
+
+# Multi-LoRA serving on the int8 weights: two random adapters, one request.
+from vis_zephyr_tpu_torch.ops.mlora import make_random_pack
+
+pack = make_random_pack(cfg, 2, 4, torch.Generator().manual_seed(0))
+engine = ChatEngine(model, cfg, Tokenizer(), max_new_tokens=3, continuous_batching=True,
+                    kv_cache="paged", max_slots=2, cache_len=256, page_size=16, mlora=pack,
+                    adapter_names={"a": 1, "b": 2})
+engine.attach_pixels("s", pixels, valid, (112, 56))
+assert len(engine.chat_text("s", "<image>\nwhat is this", adapter="b").split()) == 3
+engine.close()
 
 # An OpenAI chat completion through the dense batcher.
 from vis_zephyr_tpu_torch.serve.openai_api import chat_completion
@@ -276,6 +291,7 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     for probe in ("fused_mlp_matvec_probe", "batched_paged_attention_probe",
                   "paired_slot_attention_probe"):
         assert os.path.join(REPO, "vis_zephyr_tpu_torch", "experiments", f"{probe}.py") in files
+    assert os.path.join(REPO, "vis_zephyr_tpu_torch", "ops", "mlora.py") in files
     hits = [f"{os.path.relpath(path, REPO)}:{n}: {line.strip()}"
             for path in files
             for n, line in enumerate(open(path, encoding="utf-8"), 1) if pattern.match(line)]

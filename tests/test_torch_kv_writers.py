@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from vis_zephyr_tpu.models.mistral import apply_rope as jax_apply_rope
 from vis_zephyr_tpu.ops import paged_attention as jpa
 from vis_zephyr_tpu.ops.kv_cache import dense_cache_update as jax_cache_update

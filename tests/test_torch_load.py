@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from test_torch_train import _with_lora
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_util import (assert_state_matches, jax_params_numpy, port_config,
                              port_model, word_list, word_tokenizer)
 from vis_zephyr_tpu.config import tiny_config

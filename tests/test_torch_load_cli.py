@@ -9,6 +9,7 @@ import os
 
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from conftest import MockTokenizer
 from test_torch_train import _train_args, pil_fixture  # noqa: F401 — a fixture
 from torch_port_util import jax_params_numpy, port_config, port_model, word_list, word_tokenizer

@@ -17,6 +17,7 @@ import torch
 
 from test_builder import TINY_DEC, hf_dirs  # noqa: F401 — hf_dirs is a fixture
 from test_vision_parity import TINY_PROJ, TINY_VISION
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_util import assert_state_matches, port_config
 from vis_zephyr_tpu.config import VisZephyrConfig as JaxConfig
 from vis_zephyr_tpu.models import builder as jbuilder

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from vis_zephyr_tpu.config import tiny_config
 from vis_zephyr_tpu.constants import IMAGE_TOKEN_INDEX
 from vis_zephyr_tpu.models import clip_vit as jclip

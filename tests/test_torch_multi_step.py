@@ -32,6 +32,7 @@ import pytest
 import torch
 from PIL import Image
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from conftest import MockTokenizer
 from torch_port_util import jax_params_numpy, port_config, port_model
 from vis_zephyr_tpu.config import tiny_config

@@ -21,6 +21,7 @@ PIL = pytest.importorskip("PIL")
 from PIL import Image  # noqa: E402
 from tokenizers import Tokenizer, decoders, models, normalizers, trainers  # noqa: E402
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from conftest import MockTokenizer  # noqa: E402
 from vis_zephyr_tpu_torch.data import native, tokenizer_native  # noqa: E402
 from vis_zephyr_tpu_torch.data.image_pipeline import anyres_preprocess_host  # noqa: E402

@@ -15,7 +15,11 @@ against the JAX package's, on the CPU at `tiny_config`.
   paged batching): the same text, logprobs within 1e-4;
 - the port's /v1 endpoints over its HTTP server in this process, as
   `tests/test_openai_api.py` holds the JAX server's, and the refusals of
-  what is not ported, each naming its ROADMAP step.
+  what is not ported, each naming its ROADMAP step;
+- multi-LoRA through the `model` field: an adapter's name routes to it (the
+  completion of the model with its leaves attached), `GET /v1/models`
+  lists the adapters as the JAX `list_models` does, and an unknown name is
+  a 400 with the JAX `_resolve_adapter` message.
 """
 
 import base64
@@ -33,6 +37,7 @@ import pytest
 import torch
 from PIL import Image
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from conftest import MockTokenizer
 from torch_port_util import jax_params_numpy, port_config, port_model
 from vis_zephyr_tpu.config import tiny_config
@@ -330,7 +335,8 @@ def test_unknown_model_rejected(server):
         "model": "not-a-model", "messages": [{"role": "user", "content": "x"}]})
     assert status == 400
     message = json.loads(body)["error"]["message"]
-    assert "unknown model" in message and "Queue A step 10" in message
+    # The JAX message: the served id and the loaded adapters (none here).
+    assert message == "unknown model 'not-a-model'; available: ['vis-zephyr-tpu']"
 
 
 def test_invalid_messages_rejected(server):
@@ -482,7 +488,7 @@ def test_max_tokens_zero_yields_zero_tokens(server):
     {"tool_choice": {"type": "function", "function": {"name": "f"}}},
     {"response_format": {"type": "json_schema", "json_schema": {"schema": {"type": "object"}}}},
     {"response_format": {"type": "regex", "regex": "a+"}},
-    {"model": "lora-a"},
+    {"response_format": {"type": "json_object"}},
 ])
 def test_left_out_fields_refused_by_name(server, extra):
     status, body = _post(server, "/v1/chat/completions",
@@ -537,3 +543,80 @@ def test_stream_text_matches_jax(tokenizer):
     got = deltas(tengine.ChatEngine)
     assert got == deltas(jengine.ChatEngine)
     assert "".join(got) == tokenizer.decode(ids, skip_special_tokens=True)
+
+
+# -- multi-LoRA adapters through the `model` field -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def lora_server(models, tokenizer):
+    """(base URL, engine, pack): a dense-batching engine with two random
+    adapters, "a" and "b", behind the port's HTTP server."""
+    from vis_zephyr_tpu_torch.ops import mlora as tmlora
+
+    pack = tmlora.make_random_pack(TCFG, 2, 4, torch.Generator().manual_seed(5))
+    engine = tengine.ChatEngine(models[1], TCFG, tokenizer, max_new_tokens=6,
+                                continuous_batching=True, max_slots=4, cache_len=256,
+                                mlora=pack, adapter_names={"a": 1, "b": 2})
+    srv = tapi.serve(engine, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{srv.server_address[1]}", engine, pack
+    srv.shutdown()
+    srv.server_close()
+    thread.join(timeout=30)
+    engine.close()
+
+
+def test_model_field_routes_to_an_adapter(models, tokenizer, lora_server):
+    """`model` "a" gives the completion of the model with adapter a attached,
+    "base" and the served id that of the base model."""
+    import copy
+
+    from vis_zephyr_tpu_torch.ops import mlora as tmlora
+    from vis_zephyr_tpu_torch.train.lora import attach_lora
+
+    base_url, _, pack = lora_server
+    prompt = {"prompt": "Some prefix text", "max_tokens": 5}
+    alone = tengine.ChatEngine(
+        attach_lora(copy.deepcopy(models[1]), tmlora.lora_leaves_for_adapter(pack, 1)), TCFG,
+        tokenizer, max_new_tokens=6)
+    plain = tengine.ChatEngine(models[1], TCFG, tokenizer, max_new_tokens=6)
+    want_a = topenai.completion(alone, dict(prompt))[1]["choices"][0]["text"]
+    want_base = topenai.completion(plain, dict(prompt))[1]["choices"][0]["text"]
+    texts = {}
+    for model in ("a", "base", "vis-zephyr-tpu"):
+        status, body = _post(base_url, "/v1/completions", dict(prompt, model=model))
+        assert status == 200
+        out = json.loads(body)
+        assert out["model"] == model
+        texts[model] = out["choices"][0]["text"]
+    assert texts == {"a": want_a, "base": want_base, "vis-zephyr-tpu": want_base}
+    assert want_a != want_base
+    status, body = _post(base_url, "/v1/chat/completions", {
+        "model": "b", "messages": [{"role": "user", "content": "hello"}], "max_tokens": 3})
+    assert status == 200 and json.loads(body)["usage"]["completion_tokens"] <= 3
+
+
+def test_models_lists_the_adapters_as_jax_does(lora_server):
+    base_url, engine, _ = lora_server
+    with urllib.request.urlopen(base_url + "/v1/models", timeout=30) as resp:
+        body = json.loads(resp.read())
+    want = jopenai.list_models(engine)  # the JAX function on the same engine
+    for entry in body["data"] + want["data"]:
+        entry.pop("created")
+    assert [e["id"] for e in body["data"]] == ["vis-zephyr-tpu", "a", "b"]
+    assert body == want
+
+
+def test_unknown_adapter_is_a_400_with_the_jax_body(lora_server):
+    base_url, engine, _ = lora_server
+    for path, payload in (("/v1/completions", {"prompt": "x"}),
+                          ("/v1/chat/completions",
+                           {"messages": [{"role": "user", "content": "x"}]})):
+        status, body = _post(base_url, path, dict(payload, model="nope"))
+        assert status == 400
+        want = jopenai._resolve_adapter(engine, "nope")[1]
+        assert json.loads(body)["error"]["message"] == want
+        assert "'a', 'b'" in want
+

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from vis_zephyr_tpu.ops import attention as jattn
 from vis_zephyr_tpu.ops.flash_attention import flash_attention as jax_flash
 from vis_zephyr_tpu.ops.kv_cache import dense_cache_update as jax_cache_update

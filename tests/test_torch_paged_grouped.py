@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from vis_zephyr_tpu.ops import paged_attention as jpa
 from vis_zephyr_tpu_torch.experiments import batched_paged_attention_probe as tbatched
 from vis_zephyr_tpu_torch.experiments import paired_slot_attention_probe as tpaired

@@ -25,6 +25,7 @@ import pytest
 import torch
 from PIL import Image
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from conftest import MockTokenizer
 from torch_port_util import (assert_same_state, drive, jax_params_numpy, jax_snapshot,
                              port_config, port_model, port_snapshot)
@@ -294,36 +295,33 @@ def test_sampled_decoding_is_seeded_and_in_range(models):
 def test_left_out_options_raise_not_implemented(models):
     port = models[1]
     kw = dict(GEOMETRY, sampling=tgen.SamplingConfig(max_new_tokens=2))
-    # The prefix cache and lazy allocation are served (test_torch_prefix_cache.py,
-    # test_torch_paged_swap.py).
-    for option in (dict(mesh=object()), dict(mlora=object()), dict(adapter_names={"a": 1})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpaged.PagedBatcher(port, TCFG, **kw, **option)
+    # The prefix cache, lazy allocation (test_torch_prefix_cache.py,
+    # test_torch_paged_swap.py) and multi-LoRA adapters (test_torch_mlora.py)
+    # are served.
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpaged.PagedBatcher(port, TCFG, **kw, mesh=object())
     # The dense batcher is ported; it refuses what the paged one refuses.
-    for option in (dict(mesh=object()), dict(mlora=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbatching.ContinuousBatcher(port, TCFG, cache_len=64, **option)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbatching.ContinuousBatcher(port, TCFG, cache_len=64, mesh=object())
     b = tpaged.PagedBatcher(port, TCFG, **kw)
     ids = np.array([5, 6, 7])
-    # Per-request temperature, top-p, logprobs and penalties are served.
-    for option in (dict(adapter="lora-a"), dict(grammar=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            b.submit(ids, **option)
+    # Per-request temperature, top-p, logprobs, penalties and adapters are
+    # served; an adapter the batcher has not loaded is a KeyError.
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        b.submit(ids, grammar=object())
+    with pytest.raises(KeyError, match="lora-a"):
+        b.submit(ids, adapter="lora-a")
     step = (port, b.kp, b.vp, (b.ksp, b.vsp), b.page_table, b.lengths, b.token,
             torch.zeros(4, dtype=torch.bool), None, TCFG, kw["sampling"])
-    for option in (dict(mesh=object()), dict(mlora=object()),
-                   dict(adapter_idx=object()), dict(grammar=(1, 1))):
+    for option in (dict(mesh=object()), dict(grammar=(1, 1))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpaged._paged_step(*step, **option)
     # Two modes exist (writefirst is held in test_torch_paged_single.py); an
     # unknown one is refused, where the JAX step would take it as writefirst.
     with pytest.raises(ValueError, match="selfterm"):
         tpaged._paged_step(*step, mode="write-first")
-    for option in (dict(continuous_batching=True, kv_cache="dense", mlora=object()),
-                   dict(mesh=object()), dict(mlora=object()),
-                   dict(continuous_batching=True, kv_cache="paged", mlora=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tengine.ChatEngine(port, TCFG, MockTokenizer(), **option)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tengine.ChatEngine(port, TCFG, MockTokenizer(), mesh=object())
 
 
 # -- /chat with the paged flags, concurrent clients ------------------------------------

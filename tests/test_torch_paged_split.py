@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from vis_zephyr_tpu.ops import paged_attention as jpa
 from vis_zephyr_tpu_torch.ops import paged_attention as tpa
 

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from conftest import MockTokenizer
 from torch_port_util import jax_params_numpy, port_config, port_model
 from vis_zephyr_tpu.config import tiny_config
@@ -44,17 +45,6 @@ TCFG = port_config(CFG)
 # pages, and growth then forces swaps again and again.
 GEOMETRY = dict(max_slots=4, cache_len=64, page_size=16)
 SMALL, AMPLE = 9, 64
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the shapes are tiny, and under the suite's
-    parallel workers a thread pool a process spins the cores away (a test of
-    half a second alone took over a minute)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_util import (assert_same_state, drive, jax_params_numpy, jax_snapshot,
                              port_config, port_model, port_snapshot)
 from vis_zephyr_tpu.config import tiny_config
@@ -40,17 +41,6 @@ TCFG = port_config(CFG)
 V = CFG.decoder.vocab_size
 # The JAX package's prefix-cache tests' geometry: pages of 16, chunks of 16.
 GEOMETRY = dict(max_slots=3, cache_len=96, page_size=16, num_pages=48, prefill_chunk=16)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the shapes are tiny, and under the suite's
-    parallel workers a thread pool a process spins the cores away (a test of
-    half a second alone took over a minute)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_util import jax_params_numpy, port_config, port_model
 from vis_zephyr_tpu.config import tiny_config
 from vis_zephyr_tpu.constants import IMAGE_TOKEN_INDEX

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from vis_zephyr_tpu.ops import quant as jquant
 from vis_zephyr_tpu_torch.ops import quant as tquant
 from vis_zephyr_tpu_torch.ops import quant_matmul as tqmm

@@ -5,9 +5,12 @@ Greedy decoding is compared token for token: `generate` and
 tokenizer, and the port's `/chat` server streaming that same text. Both
 packages run the same f32 `tiny_config` weights (the port loads them through
 the weight bridge). Host image preprocessing is compared bit for bit, and
-sampled tokens are held to the top-p nucleus. A last test checks, in a fresh
+sampled tokens are held to the top-p nucleus. A test checks, in a fresh
 interpreter, that the port's serving modules and a generation never import
-jax.
+jax. `/chat`'s multi-LoRA `adapter` picks the adapter (the reply of the
+model with its leaves attached), an unknown one is the JAX handler's 400,
+and `--lora-adapters` without `--continuous-batching` is refused before any
+load.
 """
 
 import base64
@@ -25,6 +28,7 @@ import pytest
 import torch
 from PIL import Image
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from conftest import MockTokenizer
 from vis_zephyr_tpu.config import tiny_config
 from vis_zephyr_tpu.constants import IMAGE_TOKEN_INDEX
@@ -175,3 +179,55 @@ def test_serving_modules_leave_jax_unimported():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+# -- multi-LoRA adapters on /chat ----------------------------------------------------
+
+
+def test_chat_takes_an_adapter_and_refuses_an_unknown_one_as_jax_does(models, image):
+    """/chat's `adapter` picks the request's adapter (its reply is the reply of
+    the model with that adapter's leaves attached); an unknown name is a 400
+    whose body is the JAX handler's on the same engine."""
+    import copy
+
+    from vis_zephyr_tpu.serve import api as japi
+    from vis_zephyr_tpu_torch.ops import mlora as tmlora
+    from vis_zephyr_tpu_torch.train.lora import attach_lora
+
+    pack = tmlora.make_random_pack(TCFG, 2, 4, torch.Generator().manual_seed(3))
+    names = {"a": 1, "b": 2}
+    engine = tengine.ChatEngine(models[1], TCFG, MockTokenizer(), max_new_tokens=6,
+                                continuous_batching=True, max_slots=2, cache_len=512,
+                                mlora=pack, adapter_names=names)
+    alone = tengine.ChatEngine(
+        attach_lora(copy.deepcopy(models[1]), tmlora.lora_leaves_for_adapter(pack, 2)), TCFG,
+        MockTokenizer(), max_new_tokens=6)
+    server = tapi.serve(engine, "127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        buf = io.BytesIO()
+        image.save(buf, format="PNG")
+        b64 = base64.b64encode(buf.getvalue()).decode()
+        unknown = {"session_id": "u", "question": "hi", "image_base64": b64, "adapter": "z"}
+        status, body = _post(port, unknown)
+        want, _ = japi._handle_chat(engine, dict(unknown, session_id="u2"))
+        assert status == 400 and json.loads(body) == want
+        status, body = _post(port, {"session_id": "s", "question": TURNS[0],
+                                    "image_base64": b64, "adapter": "b"})
+        assert (status, body) == (200, alone.chat_text("s", TURNS[0], pil_image=image))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        engine.close()
+
+
+def test_lora_adapters_flag_needs_continuous_batching_before_any_load(tmp_path):
+    """`--lora-adapters` without `--continuous-batching` is an argument error,
+    raised before the (missing) model dir is read."""
+    missing = str(tmp_path / "no-model")
+    with pytest.raises(SystemExit) as exc:
+        tapi.main(["--model-path", missing, "--device", "cpu", "--lora-adapters", f"a={missing}"])
+    assert exc.value.code == 2

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from conftest import MockTokenizer
 from vis_zephyr_tpu.utils.metrics import MetricsLogger as JMetricsLogger
 from vis_zephyr_tpu.utils.metrics import ServingMetrics as JServingMetrics

@@ -40,6 +40,7 @@ import pytest
 import torch
 from PIL import Image
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from conftest import MockTokenizer
 from torch_port_util import jax_params_numpy, port_config, port_model
 from vis_zephyr_tpu.config import tiny_config
@@ -305,9 +306,11 @@ def test_paged_batcher_verify_steps_run_through_fixed_buffers(models, image, mon
     calls = []
     verify = tpaged._paged_verify_step
 
-    def recording(model, kp, vp, scales, table, lengths, toks, active, cfg, graphs=None):
+    def recording(model, kp, vp, scales, table, lengths, toks, active, cfg, graphs=None,
+                  **adapters):
         calls.append((toks.data_ptr(), active.data_ptr(), graphs, toks.clone(), active.clone()))
-        return verify(model, kp, vp, scales, table, lengths, toks, active, cfg, graphs)
+        return verify(model, kp, vp, scales, table, lengths, toks, active, cfg, graphs,
+                      **adapters)
 
     monkeypatch.setattr(tpaged, "_paged_verify_step", recording)
     kw = dict(max_slots=3, cache_len=64, page_size=16, num_pages=14)

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_util import jax_params_numpy, port_config, port_model
 from vis_zephyr_tpu.config import tiny_config
 from vis_zephyr_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
@@ -143,10 +144,15 @@ def test_cross_entropy_matches_jax():
     assert float(got_loss) == 0.0 and int(got_n) == 0
 
 
+# The JAX reference jitted once for both cases: op by op, its first call
+# compiles every primitive on its own (19 s against 4 s jitted).
+_jax_loss = jax.jit(jsteps.loss_fn, static_argnums=(2,), static_argnames=("remat",))
+
+
 @pytest.mark.parametrize("images", [True, False], ids=["multimodal", "text_only"])
 def test_loss_fn_matches_jax(params, images):
     batch = _batch(3, images=images)
-    want, wmet = jsteps.loss_fn(params, _jnp(batch), CFG, remat=False)
+    want, wmet = _jax_loss(params, _jnp(batch), CFG, remat=False)
     with torch.no_grad():
         got, gmet = tsteps.loss_fn(port_model(params, CFG), _torch(batch), TCFG, remat=False)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-4)

@@ -4,16 +4,32 @@ The PyTorch port keeps its own config dataclasses; the tests build the JAX
 package's config and rebuild the port's from it field by field, so both
 packages run the same model. The paged batchers' scripted drive and state
 snapshots (`drive`, `jax_snapshot`, `port_snapshot`, `assert_same_state`)
-serve the paged serving and prefix-cache tests.
+serve the paged serving and prefix-cache tests. `one_torch_thread` is the
+autouse fixture that every port test file imports.
 """
 
 import dataclasses
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from vis_zephyr_tpu_torch import config as tconfig
 from vis_zephyr_tpu_torch.ops import paged_attention as tpa
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread while a port test module runs. The suite
+    runs several pytest workers on a few cores, and each worker's default
+    pool (a thread a core) oversubscribes them: tiny models' small ops then
+    spend their time waiting for threads. A module imports this fixture to
+    take it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def port_config(jax_cfg) -> tconfig.VisZephyrConfig:

@@ -50,8 +50,8 @@ Q-Former's int8 (`ops/quant.py`, the reference's bitsandbytes options
 mapped as in the JAX builder). Both run after the merge, on the device, one
 layer at a time.
 
-Not ported yet: multi-LoRA packs (`load_lora_pack`, ROADMAP.md Queue A
-step 10).
+`load_lora_pack` reads many peft adapter dirs into one multi-LoRA pack
+(`ops/mlora.py`) for serving them side by side on one base.
 
 Returns `(tokenizer, model, cfg, context_len)`.
 """
@@ -188,6 +188,22 @@ def _read_adapter(model_path: str, num_layers: int, dtype) -> Dict:
     else:
         asd = torch.load(afile, map_location="cpu", weights_only=True)
     return lora_from_peft(asd, num_layers, r=r, alpha=alpha, dtype=dtype)
+
+
+def load_lora_pack(adapter_dirs: Dict[str, str], cfg: VisZephyrConfig,
+                   dtype: torch.dtype = torch.float32, device=None):
+    """Load many peft adapter dirs for multi-LoRA serving (the JAX
+    `load_lora_pack`): `adapter_dirs` is an ordered {name: dir}, each read by
+    `lora_from_peft` (r and α from its `adapter_config.json`). Returns
+    (pack on `device` in `dtype`, {name: index >= 1}); index 0 is the base.
+    Adapters may differ in rank (zero-padded) and in targets (the union)."""
+    from ..ops.mlora import build_pack
+
+    adapters, names = [], {}
+    for i, (name, d) in enumerate(adapter_dirs.items(), start=1):
+        adapters.append(_read_adapter(d, cfg.decoder.num_layers, torch.float32))
+        names[name] = i
+    return build_pack(adapters, cfg.decoder.num_layers, dtype=dtype, device=device), names
 
 
 def _load_lora_artifact(model_path: str, model_base: str, vision_tower_path: Optional[str],

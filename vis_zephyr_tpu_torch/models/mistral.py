@@ -21,8 +21,12 @@ Each dropout mask is drawn from a generator seeded from (dropout_rng, layer,
 projection), as the JAX package folds keys in, never from a generator that
 advances: the recompute in the backward pass then draws the same masks.
 
-Not ported: multi-LoRA and the fused qkv / gate_up layout
-(`load_pretrained_model` does not fuse).
+Multi-LoRA serving (`mlora`, an `ops/mlora.py` pack, with `adapter_idx`
+[B]): every adapted projection of both branches adds its row's adapter
+delta (`ops/mlora.py::mlora_add`), its grouping computed once a call.
+
+Not ported: the fused qkv / gate_up layout (`load_pretrained_model` does not
+fuse; the JAX server never fuses either).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..config import DecoderConfig
 from ..ops.attention import attention_mask, dot_product_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.kv_cache import apply_rope, dense_cache_update_rope
+from ..ops.mlora import layer_targets, mlora_add, mlora_ctx
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -187,6 +192,35 @@ def _dropout_proj(layer_seed: int, rate: float) -> Callable:
     return proj
 
 
+def adapted_proj(proj: Callable, targets: Optional[Dict[int, Dict]]) -> Callable:
+    """`proj` plus the multi-LoRA delta of each adapted projection
+    (`targets`: `ops/mlora.py::layer_targets` of one layer, None without a
+    pack)."""
+    if targets is None:
+        return proj
+
+    def adapted(module: nn.Module, x: torch.Tensor, index: int) -> torch.Tensor:
+        out = proj(module, x, index)
+        target = targets.get(index)
+        return out if target is None else mlora_add(out, x, target)
+    return adapted
+
+
+def step_mlora_ctx(mlora, adapter_idx: Optional[torch.Tensor], B: int, dtype, device):
+    """The call's multi-LoRA grouping (`ops/mlora.py::mlora_ctx`; every row
+    the base when `adapter_idx` is None), or None without a pack."""
+    if mlora is None:
+        return None
+    if adapter_idx is None:
+        adapter_idx = torch.zeros((B,), dtype=torch.int32, device=device)
+    return mlora_ctx(mlora, adapter_idx, dtype)
+
+
+def mlp_forward(mlp: MistralMLP, x: torch.Tensor, proj: Callable = _plain_proj) -> torch.Tensor:
+    """The SiLU-gated MLP through `proj` (projections 4, 5, 6)."""
+    return proj(mlp.down_proj, F.silu(proj(mlp.gate_proj, x, 4)) * proj(mlp.up_proj, x, 5), 6)
+
+
 def _project_qkv(h, attn: MistralAttention, cfg: DecoderConfig, cos, sin,
                  proj: Callable = _plain_proj, rotate_k: bool = True):
     """(q, k, v) [B, T, heads, D], q rotated; k rotated unless `rotate_k` is
@@ -206,9 +240,7 @@ def _decoder_layer(layer: MistralDecoderLayer, h, cfg: DecoderConfig, cos, sin,
     q, k, v = _project_qkv(hn, layer.self_attn, cfg, cos, sin, proj)
     h = h + proj(layer.self_attn.o_proj, attend(q, k, v).reshape(B, T, -1), 3)
     hn = rms_norm(h, layer.post_attention_layernorm.weight, cfg.rms_norm_eps)
-    mlp = layer.mlp
-    inter = F.silu(proj(mlp.gate_proj, hn, 4)) * proj(mlp.up_proj, hn, 5)
-    return h + proj(mlp.down_proj, inter, 6), k, v
+    return h + mlp_forward(layer.mlp, hn, proj), k, v
 
 
 def mistral_forward(
@@ -223,8 +255,14 @@ def mistral_forward(
     remat: bool = False,
     lora_dropout: float = 0.0,
     dropout_rng: Optional[int] = None,
+    mlora=None,
+    adapter_idx: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[object]]:
     """Run the decoder stack.
+
+    `mlora` / `adapter_idx`: multi-LoRA serving, an `ops/mlora.py` pack and
+    each row's adapter [B] int (0 = base; all rows the base when None).
+    Every adapted projection of either mode adds its row's delta.
 
     Two modes:
       - cache=None: self-contained forward over [B, T] (prefill). Mask =
@@ -251,6 +289,7 @@ def mistral_forward(
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     layers = decoder.model.layers
     h = inputs_embeds
+    mctx = step_mlora_ctx(mlora, adapter_idx, B, h.dtype, h.device)
 
     if cache is None:
         if (h.device.type == "cuda" and T % 128 == 0 and cfg.head_dim % 128 == 0
@@ -272,6 +311,7 @@ def mistral_forward(
         for i, layer in enumerate(layers):
             proj = (_dropout_proj(fold_seed(dropout_rng, i), lora_dropout) if use_dropout
                     else _plain_proj)
+            proj = adapted_proj(proj, layer_targets(mlora, i, mctx))
             if remat and torch.is_grad_enabled():
                 # Masks come from seeds, not from the default generators, so
                 # the recompute needs no RNG state stashed.
@@ -301,13 +341,14 @@ def mistral_forward(
         mask &= new_token_mask(lengths, new_valid, S)[:, None, :]
 
         for i, layer in enumerate(layers):
+            proj = adapted_proj(_plain_proj, layer_targets(mlora, i, mctx))
             hn = rms_norm(h, layer.input_layernorm.weight, cfg.rms_norm_eps)
-            q, k, v = _project_qkv(hn, layer.self_attn, cfg, cos, sin, rotate_k=False)
+            q, k, v = _project_qkv(hn, layer.self_attn, cfg, cos, sin, proj, rotate_k=False)
             dense_cache_update_rope(ck, cv, k, v, cos, sin, lengths, i)
             attn = dot_product_attention(q, ck[i].to(q.dtype), cv[i].to(q.dtype), mask=mask)
-            h = h + layer.self_attn.o_proj(attn.reshape(B, T, -1))
+            h = h + proj(layer.self_attn.o_proj, attn.reshape(B, T, -1), 3)
             hn = rms_norm(h, layer.post_attention_layernorm.weight, cfg.rms_norm_eps)
-            h = h + layer.mlp(hn)
+            h = h + mlp_forward(layer.mlp, hn, proj)
         # In place: a captured decode step reads and advances one buffer.
         lengths.add_(new_valid.sum(dim=1).to(lengths.dtype))
         new_cache = {"k": ck, "v": cv, "length": lengths}

@@ -227,11 +227,14 @@ def vis_zephyr_forward(
     remat: bool = False,
     lora_dropout: float = 0.0,
     dropout_rng: Optional[int] = None,
+    mlora=None,
+    adapter_idx: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Full multimodal forward (prefill or training step). Returns (logits,
     aux) where aux carries the spliced labels (when `labels` is given) and
     valid/positions/lengths and, with `return_kv`, the per-layer "kv".
-    `remat`, `lora_dropout` and `dropout_rng` go to `mistral_forward`."""
+    `remat`, `lora_dropout`, `dropout_rng` and the multi-LoRA `mlora` /
+    `adapter_idx` go to `mistral_forward`."""
     if images is None:
         B, T = input_ids.shape
         valid = (torch.ones((B, T), dtype=torch.bool, device=input_ids.device)
@@ -253,7 +256,8 @@ def vis_zephyr_forward(
     logits, extra = mistral_forward(
         model.decoder, prepared["embeds"], cfg.decoder, prepared["positions"],
         attn_valid=prepared["valid"], return_kv=return_kv, remat=remat,
-        lora_dropout=lora_dropout, dropout_rng=dropout_rng,
+        lora_dropout=lora_dropout, dropout_rng=dropout_rng, mlora=mlora,
+        adapter_idx=adapter_idx,
     )
     aux = {k: v for k, v in prepared.items() if k != "embeds"}
     if extra is not None:

@@ -68,7 +68,15 @@ def _handle_chat(engine: ChatEngine, payload: dict):
             image = decode_base64_image(image_b64)
         except ValueError as e:
             return {"error": str(e)}, None
-    return None, engine.chat(session_id, question, pil_image=image)
+    adapter = payload.get("adapter")  # multi-LoRA adapter name (optional)
+    if adapter and adapter != "base":
+        # Checked here: engine.chat is a generator, which would raise only
+        # once streaming starts, after the 200 header.
+        names = getattr(getattr(engine, "batcher", None), "adapter_names", None) or {}
+        if adapter not in names:
+            return {"error": f"unknown adapter {adapter!r}; loaded: "
+                             f"{sorted(names)} (plus 'base')"}, None
+    return None, engine.chat(session_id, question, pil_image=image, adapter=adapter)
 
 
 class ChatHandler(BaseHTTPRequestHandler):
@@ -287,12 +295,20 @@ def add_engine_args(p) -> None:
                         "ramps 1, 2, 4, N; the paged batcher bursts when no admission work "
                         "waits; one copy to the host a burst, each step a CUDA-graph replay "
                         "on the card; token-exact under greedy. Ignored with --lookahead")
+    p.add_argument("--lora-adapters", default=None,
+                   help="multi-LoRA serving: comma-separated name=dir peft adapter dirs served "
+                        "concurrently on the one base model; requests pick one via the /chat "
+                        "'adapter' field or the OpenAI 'model' field (default: base). Requires "
+                        "--continuous-batching")
 
 
 def check_engine_args(p: argparse.ArgumentParser, a) -> None:
     """The flags' checks before anything loads (the JAX server's): a draft
     model that the engine would drop is an argument error, and
-    `--draft-model` without `--lookahead` takes 4."""
+    `--draft-model` without `--lookahead` takes 4. `--lora-adapters` needs a
+    batcher too (the serialized path serves the base only)."""
+    if a.lora_adapters and not a.continuous_batching:
+        p.error("--lora-adapters requires --continuous-batching")
     if a.draft_model:
         if not a.continuous_batching:
             p.error("--draft-model requires --continuous-batching")
@@ -315,10 +331,27 @@ def load_draft(a, device):
     return model, cfg
 
 
-def engine_from_args(model, cfg, tokenizer, a, draft=(None, None)) -> ChatEngine:
+def load_adapters(a, cfg, device):
+    """--lora-adapters' (pack, {name: index}) in bf16 on `device`
+    (`models/builder.py::load_lora_pack`), or (None, None) without the flag."""
+    if not a.lora_adapters:
+        return None, None
+    import torch
+
+    from ..models.builder import load_lora_pack
+
+    dirs = dict(pair.split("=", 1) for pair in a.lora_adapters.split(","))
+    pack, names = load_lora_pack(dirs, cfg, dtype=torch.bfloat16, device=device)
+    print(f"multi-LoRA: serving adapters {sorted(names)} + base")
+    return pack, names
+
+
+def engine_from_args(model, cfg, tokenizer, a, draft=(None, None),
+                     adapters=(None, None)) -> ChatEngine:
     """The `ChatEngine` the parsed flags `a` ask for, with a fresh
-    `ServingMetrics` (and its JSONL rows under `--metrics-path`) and the
-    draft (model, cfg) that `load_draft` gave."""
+    `ServingMetrics` (and its JSONL rows under `--metrics-path`), the draft
+    (model, cfg) that `load_draft` gave and the multi-LoRA (pack, names)
+    that `load_adapters` gave."""
     from ..utils.metrics import MetricsLogger, ServingMetrics
 
     metrics = ServingMetrics(MetricsLogger(a.metrics_path, echo=False) if a.metrics_path
@@ -330,7 +363,8 @@ def engine_from_args(model, cfg, tokenizer, a, draft=(None, None)) -> ChatEngine
                       metrics=metrics, prefill_chunk=a.prefill_chunk or None,
                       kv_fused=a.kv_fused, page_size=a.page_size, lookahead=a.lookahead,
                       draft_model=draft[0], draft_cfg=draft[1], multi_step=a.multi_step,
-                      prefix_cache=a.prefix_cache, lazy_alloc=a.lazy_alloc)
+                      prefix_cache=a.prefix_cache, lazy_alloc=a.lazy_alloc,
+                      mlora=adapters[0], adapter_names=adapters[1])
 
 
 def main(args=None):
@@ -369,7 +403,8 @@ def main(args=None):
     if tokenizer is None:
         raise SystemExit("could not load a tokenizer; pass --model-base or a "
                          "--model-path with tokenizer files")
-    engine = engine_from_args(model, cfg, tokenizer, a, load_draft(a, a.device))
+    engine = engine_from_args(model, cfg, tokenizer, a, load_draft(a, a.device),
+                              load_adapters(a, cfg, a.device))
     server = serve(engine, a.host, a.port, profile_dir=a.profile_dir)
     print(f"serving on {a.host}:{a.port}")
 

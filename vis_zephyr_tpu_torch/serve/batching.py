@@ -8,7 +8,9 @@ bursts, the host side of prompt-lookup speculation (`lookahead`: per-slot
 lookup histories and `_step_verify`, the acceptance loop around the
 batcher's `_verify_device`, with a draft model's proposals when one is given:
 `serve/draft.py::DraftModel`), the `ServingMetrics` hooks (TTFT / TPOT at
-finish, proposals and acceptance each verify step), and `ContinuousBatcher`
+finish, proposals and acceptance each verify step), multi-LoRA serving (a
+pack of adapters, `ops/mlora.py`, and each slot's adapter index in a fixed
+device buffer that every forward reads), and `ContinuousBatcher`
 itself on one dense
 cache `[L, slots, cache_len, Hkv, D]` (`_admit`, `_batch_step`,
 `_batch_multi_step`, the dense verify step). The paged batcher
@@ -34,8 +36,8 @@ The JAX batcher is functional (its jitted programs return new caches). Here
 the device state is updated in place, so exactly one thread may call `step`.
 `active`, `budget`, `slot_len` stay on the host as numpy, as there.
 
-Not ported yet, each raising `NotImplementedError` when asked for: meshes,
-multi-LoRA adapters and grammars.
+Not ported yet, each raising `NotImplementedError` when asked for: meshes
+and grammars.
 """
 
 from __future__ import annotations
@@ -56,14 +58,17 @@ from ..models.vis_zephyr import VisZephyr, prepare_multimodal, vis_zephyr_forwar
 from ..ops import _kernels
 from .generate import (LP_TOPK, LookupHistory, SamplingConfig, _logprobs, _logprobs_host,
                        _sample, _sample_tail, decode_step, not_ported, verify_step, weight_form)
-from .graphs import StepGraphs, addresses
+from .graphs import StepGraphs, addresses, mlora_key
 
 @torch.no_grad()
-def _prefill_kv(model: VisZephyr, input_ids, images, patch_valid, cfg: VisZephyrConfig):
+def _prefill_kv(model: VisZephyr, input_ids, images, patch_valid, cfg: VisZephyrConfig,
+                mlora=None, adapter_idx=None):
     """Single-request prefill → (last_logits [V], k/v [L, T, Hkv, D], length).
     On a CUDA device the spliced length is padded to a multiple of 128, the
     flash kernel's tile; a text-only prompt too (pad tokens marked invalid),
-    which is how a draft model's admission reaches the kernel."""
+    which is how a draft model's admission reaches the kernel. `mlora` /
+    `adapter_idx` [1]: the request's multi-LoRA adapter, which shapes its
+    prompt's K/V."""
     pad_mult = 128 if input_ids.device.type == "cuda" else None
     text_valid = None
     if images is None and pad_mult and input_ids.shape[1] % pad_mult:
@@ -73,7 +78,8 @@ def _prefill_kv(model: VisZephyr, input_ids, images, patch_valid, cfg: VisZephyr
         text_valid = torch.arange(input_ids.shape[1], device=input_ids.device)[None] < T
     logits, aux = vis_zephyr_forward(model, input_ids, images, patch_valid, cfg,
                                      text_valid=text_valid, return_kv=True,
-                                     pad_to_multiple=pad_mult)
+                                     pad_to_multiple=pad_mult, mlora=mlora,
+                                     adapter_idx=adapter_idx)
     k, v = aux["kv"]
     length = int(aux["lengths"][0])
     return logits[0, length - 1], k[:, 0], v[:, 0], length
@@ -106,12 +112,15 @@ def _splice_embeds(model: VisZephyr, input_ids, images, patch_valid, cfg: VisZep
 
 
 @torch.no_grad()
-def _chunk_extend(decoder, embeds, positions, valid, cache, cfg: VisZephyrConfig):
+def _chunk_extend(decoder, embeds, positions, valid, cache, cfg: VisZephyrConfig,
+                  mlora=None, adapter_idx=None):
     """Append one prefill chunk to a B = 1 scratch cache (the decoder's
     cache-extension mode: the chunk attends causally over all earlier
-    chunks). The cache is updated in place."""
+    chunks), under the request's multi-LoRA adapter when `mlora` is given.
+    The cache is updated in place."""
     return mistral_forward(decoder, embeds, cfg.decoder, positions, attn_valid=valid,
-                           cache=cache, logits_slice="all")
+                           cache=cache, logits_slice="all", mlora=mlora,
+                           adapter_idx=adapter_idx)
 
 
 @torch.no_grad()
@@ -137,20 +146,17 @@ def _batch_step(model: VisZephyr, cache, token, active, generator: Optional[torc
     `sample_overrides`: optional (temps [B], top_ps [B]) per-slot sampling
     parameters (`generate._sample_per_slot`). `penalties`: optional (freq
     [B], pres [B], counts [B, V] f32) frequency / presence penalties over
-    emitted tokens; the counts gain the step's tokens in place. The JAX
-    step's logprobs (`want_logprobs`) are `_logprobs` of the raw logits it
-    returns, which `_run_burst` takes; its grammar and multi-LoRA arguments
-    come with those features (Queue A step 10).
+    emitted tokens; the counts gain the step's tokens in place. `mlora` /
+    `adapter_idx` [B]: each slot's multi-LoRA adapter. The JAX step's
+    logprobs (`want_logprobs`) are `_logprobs` of the raw logits it returns,
+    which `_run_burst` takes; its grammar argument comes with grammars
+    (Queue A step 10).
 
     `cache` (lengths included) and `token` are updated IN PLACE. Returns
     (next_token [B], logits [B, V] f32)."""
-    for value, what, step in (
-            (mlora is not None or adapter_idx is not None, "multi-LoRA serving",
-             "Queue A step 10"),
-            (grammar, "structured output (grammar)", "Queue A step 10")):
-        if value:
-            raise not_ported(what, step)
-    logits, _ = decode_step(model, cache, token, cfg)
+    if grammar:
+        raise not_ported("structured output (grammar)", "Queue A step 10")
+    logits, _ = decode_step(model, cache, token, cfg, mlora=mlora, adapter_idx=adapter_idx)
     # The decode step advanced every slot's length; inactive slots keep theirs.
     cache["length"].sub_((~active).to(cache["length"].dtype))
     next_token = _sample_tail(logits, generator, sampling, active, cfg.decoder.pad_token_id,
@@ -222,18 +228,21 @@ def _run_burst(step, key, token, active, steps_left, eos: int, n: int,
 def _batch_multi_step(model: VisZephyr, cache, token, active, steps_left,
                       generator: Optional[torch.Generator], cfg: VisZephyrConfig,
                       sampling: SamplingConfig, n: int = 4, graphs: Optional[StepGraphs] = None,
-                      sample_overrides=None, penalties=None, lp_out=None):
+                      sample_overrides=None, penalties=None, lp_out=None, mlora=None,
+                      adapter_idx=None):
     """`n` chained `_batch_step`s in one burst (`_run_burst`): on the card
-    each a replay of the step captured over the cache, `token`, the carry
-    and the sampling operands, which must keep their tensors for the graphs'
-    life. The cache and `token` are updated IN PLACE. Returns (toks [n, B],
-    entry_alive [n, B], logits [B, V] f32 of the last step)."""
+    each a replay of the step captured over the cache, `token`, the carry,
+    the sampling operands and the multi-LoRA operands (`mlora` and the
+    per-slot `adapter_idx` buffer), which must keep their tensors for the
+    graphs' life. The cache and `token` are updated IN PLACE. Returns (toks
+    [n, B], entry_alive [n, B], logits [B, V] f32 of the last step)."""
     def step(alive):
-        return _batch_step(model, cache, token, alive, generator, cfg, sampling,
-                           sample_overrides=sample_overrides, penalties=penalties)
+        return _batch_step(model, cache, token, alive, generator, cfg, sampling, mlora=mlora,
+                           adapter_idx=adapter_idx, sample_overrides=sample_overrides,
+                           penalties=penalties)
 
     key = ("dense", token.shape[0], weight_form(model), sampling.temperature, sampling.top_p,
-           sampling.eos_token_id, generator, lp_out is not None,
+           sampling.eos_token_id, generator, lp_out is not None, *mlora_key(mlora, adapter_idx),
            *addresses(cache["k"], cache["v"], cache["length"], token,
                   *(sample_overrides or (None, None)), *(penalties or (None, None, None))))
     return _run_burst(step, key, token, active, steps_left, sampling.eos_token_id, n, graphs,
@@ -255,6 +264,7 @@ class _Request:
     images: Optional[np.ndarray]
     patch_valid: Optional[np.ndarray]
     max_new_tokens: int
+    adapter: int = 0  # multi-LoRA index (0 = the base model)
     # Per-request sampling overrides (None = the batcher's SamplingConfig).
     temperature: Optional[float] = None
     top_p: Optional[float] = None
@@ -292,10 +302,20 @@ class ContinuousBatcher:
     slot asking for logprobs or penalties, runs a burst of this many decode
     steps, else a burst of one (`_batch_multi_step`, replayed as CUDA
     graphs on the card); ignored under `lookahead`. Requests carry their
-    own temperature, top-p, logprobs and penalties (`submit`)."""
+    own temperature, top-p, logprobs and penalties (`submit`).
+
+    `mlora` / `adapter_names`: multi-LoRA serving, an `ops/mlora.py` pack and
+    {name: index >= 1}; `submit(adapter=name)` picks a request's adapter
+    (None or "base": the base model). Every forward of a slot (admission
+    prefill, whole or chunked, decode steps and bursts, verify steps) adds
+    its adapter's deltas, so each slot gives what the one-adapter model
+    gives. The steps read the slots' indices from `slot_adapter`, a fixed
+    device buffer [max_slots] int32 (0 while a slot is free), so a captured
+    step serves any mix of adapters."""
 
     draft = None    # the proposer under `lookahead`, else prompt lookup alone
     metrics = None  # where finished requests and verify steps are recorded
+    mlora = None    # the multi-LoRA pack, when adapters are served
 
     def __init__(self, model: VisZephyr, cfg: VisZephyrConfig, max_slots: int = 8,
                  cache_len: int = 2048, sampling: SamplingConfig = SamplingConfig(),
@@ -313,12 +333,8 @@ class ContinuousBatcher:
                         prefill_chunk: Optional[int], mesh=None, metrics=None,
                         lookahead: int = 0, draft=None, multi_step: int = 1,
                         mlora=None, adapter_names=None) -> None:
-        for value, what, step in (
-                (mesh, "a device mesh (tensor-parallel serving)", "Queue A step 13"),
-                (mlora, "multi-LoRA serving", "Queue A step 10"),
-                (adapter_names, "multi-LoRA serving", "Queue A step 10")):
-            if value:
-                raise not_ported(what, step)
+        if mesh:
+            raise not_ported("a device mesh (tensor-parallel serving)", "Queue A step 13")
         self.model = model
         self.cfg = cfg
         self.device = dev = model.device
@@ -332,6 +348,9 @@ class ContinuousBatcher:
         self.multi_step = max(1, int(multi_step)) if self.lookahead == 0 else 1
         self.draft = draft if self.lookahead > 0 else None
         self.metrics = metrics
+        self.mlora = mlora
+        self.adapter_names = dict(adapter_names or {})
+        self.slot_adapter = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._prefilling = None
         self._reserved_slot = None
         self.token = torch.full((B,), cfg.decoder.pad_token_id, dtype=torch.int64, device=dev)
@@ -396,10 +415,15 @@ class ContinuousBatcher:
         alternatives in the handle's `lp_log`. `frequency_penalty` /
         `presence_penalty`: OpenAI penalties over the request's emitted
         tokens. Logprobs and penalties are refused under speculation (a
-        ValueError, as in the JAX batcher); adapters and grammars are not
-        ported (Queue A step 10)."""
+        ValueError, as in the JAX batcher). `adapter`: a multi-LoRA adapter
+        name of `adapter_names` (None or "base": the base model); any other
+        raises `KeyError`. Grammars are not ported (Queue A step 10)."""
+        aidx = 0
         if adapter is not None and adapter != "base":
-            raise not_ported("a per-request adapter", "Queue A step 10")
+            if adapter not in self.adapter_names:
+                raise KeyError(f"unknown adapter {adapter!r}; loaded: "
+                               f"{sorted(self.adapter_names)} (plus 'base')")
+            aidx = self.adapter_names[adapter]
         if grammar is not None:
             raise not_ported("structured output (grammar)", "Queue A step 10")
         if logprobs is not None and self.lookahead > 0:
@@ -420,6 +444,7 @@ class ContinuousBatcher:
             patch_valid if patch_valid is None else np.asarray(patch_valid),
             (self.sampling.max_new_tokens if max_new_tokens is None
              else max_new_tokens),  # an explicit 0 means zero tokens
+            adapter=aidx,
             temperature=temperature,
             top_p=top_p,
             frequency_penalty=float(frequency_penalty or 0.0),
@@ -490,7 +515,8 @@ class ContinuousBatcher:
                 req.out.put(None)
                 continue
             ids, images, pv = self._request_tensors(req)
-            last_logits, k, v, length = _prefill_kv(self.model, ids, images, pv, self.cfg)
+            last_logits, k, v, length = _prefill_kv(self.model, ids, images, pv, self.cfg,
+                                                    self.mlora, self._req_aidx(req))
             if length + req.max_new_tokens > self.cache_len:
                 req.out.put(None)  # too long for a slot; reject
                 continue
@@ -507,6 +533,18 @@ class ContinuousBatcher:
         self.slot_len[slot] = int(length)
         self._activate(req, slot, last_logits)
         return True
+
+    def _req_aidx(self, req: _Request) -> Optional[torch.Tensor]:
+        """A request's adapter index [1] on the device for its admission
+        prefill, or None without a pack."""
+        if self.mlora is None:
+            return None
+        return torch.tensor([req.adapter], dtype=torch.int32, device=self.device)
+
+    def _slot_aidx(self) -> Optional[torch.Tensor]:
+        """Every slot's adapter index [max_slots] (the fixed buffer the steps
+        read; free slots at 0, the base), or None without a pack."""
+        return None if self.mlora is None else self.slot_adapter
 
     def _live(self, held: set) -> bool:
         """Whether an active slot is in `held`."""
@@ -540,6 +578,8 @@ class ContinuousBatcher:
         from its prefill logits at its own temperature and top-p (its
         logprobs from the host copy of those logits). `max_new_tokens` of 0
         or 1 and an EOS first token finish at once."""
+        if self.mlora is not None:
+            self.slot_adapter[slot] = req.adapter
         self._set_slot_sampling(req, slot)
         if req.logprobs is not None:
             self._lp_slots.add(slot)
@@ -629,7 +669,7 @@ class ContinuousBatcher:
             sl = slice(c * C, (c + 1) * C)
             logits, st["cache"] = _chunk_extend(
                 self.model.decoder, st["embeds"][:, sl], st["positions"][:, sl],
-                st["valid"][:, sl], st["cache"], self.cfg)
+                st["valid"][:, sl], st["cache"], self.cfg, self.mlora, self._req_aidx(st["req"]))
             if (st["length"] - 1) // C == c:  # the chunk holding the last real token
                 st["last_logits"] = logits[0, (st["length"] - 1) % C]
             st["chunk"] += 1
@@ -686,6 +726,8 @@ class ContinuousBatcher:
             req.out.put(None)
         self.slot_req[slot] = None
         self.active[slot] = False
+        if self.mlora is not None:
+            self.slot_adapter[slot] = 0
         if self.draft is not None:
             self.draft.release(slot)
 
@@ -766,7 +808,8 @@ class ContinuousBatcher:
         return _batch_multi_step(self.model, self.cache, self.token, self._active_dev,
                                  self._left_dev, self.generator, self.cfg, self.sampling, n=n,
                                  graphs=self.graphs, sample_overrides=overrides,
-                                 penalties=penalties, lp_out=lp_out)
+                                 penalties=penalties, lp_out=lp_out, mlora=self.mlora,
+                                 adapter_idx=self._slot_aidx())
 
     def _process_burst(self, toks: np.ndarray, alive: np.ndarray, lp=None) -> int:
         """The host side of a burst: toks / alive [n, B], token (j, slot)
@@ -893,7 +936,7 @@ class ContinuousBatcher:
         host. `PagedBatcher` overrides it."""
         greedy, self.last_logits = verify_step(
             self.model, self.cache, torch.from_numpy(toks), torch.from_numpy(valid), self.cfg,
-            self.graphs)
+            self.graphs, mlora=self.mlora, adapter_idx=self._slot_aidx())
         return greedy.cpu().numpy()
 
     def _verify_rollback(self) -> None:

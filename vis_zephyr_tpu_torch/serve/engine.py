@@ -21,9 +21,12 @@ and penalties on every mode. `metrics` (a `ServingMetrics`) is what GET
 /metrics reads; the batchers record into it. `drain` refuses new requests
 (`EngineDraining`) and waits for those in flight. The paged batcher's
 prefix cache (`prefix_cache`) and lazy allocation with host swap
-(`lazy_alloc`, paged continuous batching only) reach it from here. Not
-ported yet, each raising `NotImplementedError` when asked for: meshes,
-adapters and grammars.
+(`lazy_alloc`, paged continuous batching only) reach it from here, as
+multi-LoRA serving does (`mlora`, `adapter_names`: either batcher; `chat`'s
+and `generate_request`'s `adapter` names a request's adapter, and the
+serialized path refuses any but the base with the JAX `ValueError`). Not
+ported yet, each raising `NotImplementedError` when asked for: meshes and
+grammars.
 """
 
 from __future__ import annotations
@@ -145,15 +148,12 @@ class ChatEngine:
                     prefill_chunk=prefill_chunk, lookahead=lookahead, draft=draft,
                     multi_step=multi_step, mlora=mlora, adapter_names=adapter_names)
         else:
-            # The serialized path has none of these; say so instead of ignoring
-            # them. It records no metrics (as in the JAX engine: the batchers
-            # do) and takes no draft model (the server refuses
-            # --draft-model without --continuous-batching).
-            for value, what, step in (
-                    (mesh, "a device mesh", "Queue A step 13"),
-                    (mlora, "multi-LoRA serving", "Queue A step 10")):
-                if value:
-                    raise not_ported(what, step)
+            # The serialized path records no metrics (as in the JAX engine:
+            # the batchers do), takes no draft model (the server refuses
+            # --draft-model without --continuous-batching) and, as in JAX,
+            # ignores a pack: its requests refuse adapters.
+            if mesh:
+                raise not_ported("a device mesh", "Queue A step 13")
 
     def _ensure_pump(self) -> None:
         """Background thread advancing the batcher while work exists. Exactly
@@ -257,22 +257,29 @@ class ChatEngine:
         conv.append_message(conv.roles[1], None)
         return tokenize_with_images(conv.get_prompt(), self.tokenizer)
 
-    def chat(self, session_id: str, question: str, pil_image=None) -> Iterator[str]:
+    def chat(self, session_id: str, question: str, pil_image=None,
+             adapter: Optional[str] = None) -> Iterator[str]:
         """Append the user turn, stream back the assistant reply text. The
         request is counted in flight at once (`EngineDraining` raises here
-        while the engine drains), before the stream is first read."""
+        while the engine drains), before the stream is first read.
+        `adapter`: the request's multi-LoRA adapter name (continuous
+        batching only; None or "base": the base model)."""
         self._admit_inflight()
-        return self._chat_stream(session_id, question, pil_image)
+        return self._chat_stream(session_id, question, pil_image, adapter)
 
-    def _chat_stream(self, session_id: str, question: str, pil_image) -> Iterator[str]:
+    def _chat_stream(self, session_id: str, question: str, pil_image,
+                     adapter: Optional[str]) -> Iterator[str]:
         try:
             sess = self.get_session(session_id)
             with sess["lock"]:
-                yield from self._chat_locked(sess, session_id, question, pil_image)
+                yield from self._chat_locked(sess, session_id, question, pil_image, adapter)
         finally:
             self._release_inflight()
 
-    def _chat_locked(self, sess, session_id: str, question: str, pil_image) -> Iterator[str]:
+    def _chat_locked(self, sess, session_id: str, question: str, pil_image,
+                     adapter: Optional[str] = None) -> Iterator[str]:
+        if self.batcher is None:
+            _refuse_serialized_adapter(adapter)  # before the turn is recorded
         conv = sess["conversation"]
         if pil_image is not None and sess["images"] is None:
             self.attach_image(session_id, pil_image)
@@ -289,7 +296,8 @@ class ChatEngine:
             handle = self.batcher.submit(
                 np.asarray(ids, np.int64),
                 None if images is None else images[0].cpu().numpy(),
-                None if images is None else sess["patch_valid"][0].cpu().numpy())
+                None if images is None else sess["patch_valid"][0].cpu().numpy(),
+                adapter=adapter)
             self._ensure_pump()
             stream = self.batcher.stream(handle)
         else:
@@ -314,8 +322,9 @@ class ChatEngine:
             # the next turn's prompt.
             conv.messages[-1][1] = emitted_text
 
-    def chat_text(self, session_id: str, question: str, pil_image=None) -> str:
-        return "".join(self.chat(session_id, question, pil_image))
+    def chat_text(self, session_id: str, question: str, pil_image=None,
+                  adapter: Optional[str] = None) -> str:
+        return "".join(self.chat(session_id, question, pil_image, adapter=adapter))
 
     def _admit_inflight(self) -> None:
         """Register a request EAGERLY and atomically with the draining
@@ -400,23 +409,26 @@ class ChatEngine:
         appended before the token is yielded. Submission is eager: under
         continuous batching the request is queued before this returns (so
         several calls decode together: the OpenAI `n`), and refusals raise
-        here, `EngineDraining` too while the engine drains. Adapters and
-        grammars are not ported (Queue A step 10)."""
-        if adapter is not None and adapter != "base":
-            raise not_ported("a per-request adapter", "Queue A step 10")
+        here, `EngineDraining` too while the engine drains. `adapter`: the
+        request's multi-LoRA adapter name (an unknown one raises `KeyError`;
+        the serialized path refuses any but the base with `ValueError`).
+        Grammars are not ported (Queue A step 10)."""
         if grammar is not None:
             raise not_ported("structured output (grammar)", "Queue A step 10")
         self._admit_inflight()
         try:
             return self._track(self._start_request(
                 prompt, pil_image, max_new_tokens, temperature, top_p, logprobs, lp_sink,
-                frequency_penalty, presence_penalty))
+                frequency_penalty, presence_penalty, adapter))
         except BaseException:
             self._release_inflight()  # refused before streaming started
             raise
 
     def _start_request(self, prompt, pil_image, max_new_tokens, temperature, top_p, logprobs,
-                       lp_sink, frequency_penalty, presence_penalty) -> Iterator[int]:
+                       lp_sink, frequency_penalty, presence_penalty,
+                       adapter: Optional[str] = None) -> Iterator[int]:
+        if self.batcher is None:
+            _refuse_serialized_adapter(adapter)
         images = patch_valid = None
         if pil_image is not None:
             if DEFAULT_IMAGE_TOKEN not in prompt:
@@ -426,7 +438,7 @@ class ChatEngine:
         if self.batcher is not None:
             handle = self.batcher.submit(
                 ids, images, patch_valid, max_new_tokens=max_new_tokens,
-                temperature=temperature, top_p=top_p, logprobs=logprobs,
+                adapter=adapter, temperature=temperature, top_p=top_p, logprobs=logprobs,
                 frequency_penalty=frequency_penalty, presence_penalty=presence_penalty)
             self._ensure_pump()
             return self._stream_handle(handle, logprobs, lp_sink)
@@ -515,3 +527,10 @@ def token_strings_from_tokenizer(tokenizer, vocab_size: Optional[int] = None) ->
         except Exception:  # noqa: BLE001 — an id the tokenizer cannot decode adds nothing
             out.append(b"")
     return out
+
+
+def _refuse_serialized_adapter(adapter: Optional[str]) -> None:
+    """The serialized path serves the base only (the JAX engine's refusal)."""
+    if adapter is not None and adapter != "base":
+        raise ValueError("per-request adapters need --continuous-batching "
+                         "(serialized engines merge one adapter at load)")

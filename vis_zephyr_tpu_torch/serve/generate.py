@@ -41,7 +41,7 @@ from ..config import VisZephyrConfig
 from ..models.mistral import embed, init_cache, mistral_forward
 from ..models.vis_zephyr import VisZephyr, vis_zephyr_forward
 from ..ops import _kernels
-from .graphs import StepGraphs, addresses
+from .graphs import StepGraphs, addresses, mlora_key
 
 # Speculation counts of the dense path in this process (reset by callers that
 # count): verify calls, tokens proposed, proposals accepted. `verify_calls`
@@ -247,14 +247,17 @@ def decode_step(
     cache: Dict,
     token: torch.Tensor,  # [B]
     cfg: VisZephyrConfig,
+    mlora=None,
+    adapter_idx: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
-    """One decode step; the cache is updated in place. Returns (logits
-    [B, V], cache)."""
+    """One decode step; the cache is updated in place. `mlora` /
+    `adapter_idx`: each row's multi-LoRA adapter (`mistral_forward`).
+    Returns (logits [B, V], cache)."""
     positions = cache["length"][:, None]
     embeds = embed(model.decoder, token[:, None])
     logits, new_cache = mistral_forward(
         model.decoder, embeds, cfg.decoder, positions,
-        cache=cache, logits_slice="last",
+        cache=cache, logits_slice="last", mlora=mlora, adapter_idx=adapter_idx,
     )
     return logits[:, 0], new_cache
 
@@ -362,18 +365,22 @@ def decode_verify(
     tokens: torch.Tensor,  # [B, S]
     valid: torch.Tensor,   # [B, S] bool: padded proposal slots are False
     cfg: VisZephyrConfig,
+    mlora=None,
+    adapter_idx: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Speculative verify: append S tokens (the pending accepted token plus
     S − 1 proposed) in ONE cached forward (K2 writes the S rows of each
     layer) and return per-position logits [B, S, V] f32. The caller rolls
     `cache["length"]` back to the accepted prefix; rejected rows hold K/V
-    that the next append overwrites (attention masks keys off `length`)."""
+    that the next append overwrites (attention masks keys off `length`).
+    `mlora` / `adapter_idx`: each row's multi-LoRA adapter."""
     global verify_calls
     positions = cache["length"][:, None] + torch.cumsum(valid.to(torch.int32), dim=1) - 1
     embeds = embed(model.decoder, tokens)
     logits, new_cache = mistral_forward(
         model.decoder, embeds, cfg.decoder, positions,
-        attn_valid=valid, cache=cache, logits_slice="all",
+        attn_valid=valid, cache=cache, logits_slice="all", mlora=mlora,
+        adapter_idx=adapter_idx,
     )
     verify_calls += 1
     return logits, new_cache
@@ -387,6 +394,8 @@ def verify_step(
     valid: torch.Tensor,   # [B, S] bool
     cfg: VisZephyrConfig,
     graphs: Optional[StepGraphs] = None,
+    mlora=None,
+    adapter_idx: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`decode_verify` with the greedy token of every position: returns
     (greedy [B, S], logits [B, S, V] f32) on the cache's device, and
@@ -398,11 +407,14 @@ def verify_step(
     (`graphs`, a `StepGraphs`; a throwaway one when None); `cache` must keep
     its tensors for the graphs' life (`burst_cache`), and the returned
     tensors are the graph's, overwritten by its next replay. Elsewhere
-    `decode_verify` runs eagerly."""
+    `decode_verify` runs eagerly. `mlora` / `adapter_idx`: each row's
+    multi-LoRA adapter, `adapter_idx` a fixed device buffer that the
+    captured step reads (the continuous batcher's `slot_adapter`)."""
     length = cache["length"]
     dev = length.device
     if not _kernels.use_kernel(length):
-        logits, _ = decode_verify(model, cache, tokens.to(dev), valid.to(dev), cfg)
+        logits, _ = decode_verify(model, cache, tokens.to(dev), valid.to(dev), cfg, mlora,
+                                  adapter_idx)
         return torch.argmax(logits, dim=-1), logits
     if graphs is None:
         graphs = StepGraphs()
@@ -414,10 +426,11 @@ def verify_step(
     valid_buf.copy_(valid)
 
     def step():
-        logits = decode_verify(model, cache, tok_buf, valid_buf, cfg)[0]
+        logits = decode_verify(model, cache, tok_buf, valid_buf, cfg, mlora, adapter_idx)[0]
         return torch.argmax(logits, dim=-1), logits
 
-    key = ("verify", B, S, *addresses(cache["k"], cache["v"], cache["length"]))
+    key = ("verify", B, S, *mlora_key(mlora, adapter_idx),
+           *addresses(cache["k"], cache["v"], cache["length"]))
     return graphs.run(key, step, dev)
 
 

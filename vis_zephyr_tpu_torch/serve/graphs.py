@@ -55,6 +55,17 @@ def addresses(*tensors) -> tuple:
     return tuple(None if t is None else t.data_ptr() for t in tensors)
 
 
+def mlora_key(mlora, adapter_idx) -> tuple:
+    """A captured step's key for its multi-LoRA operands: the index buffer's
+    and the pack's addresses, empty without a pack. The batch's adapter mix
+    is data in the buffer, never part of the key."""
+    if mlora is None:
+        return ()
+    return ("mlora", *addresses(adapter_idx, *(t for group in mlora.values()
+                                               for target in group.values()
+                                               for t in target.values())))
+
+
 class StepGraph:
     """One step, run eagerly once and then captured; `replay()` runs it again."""
 

@@ -8,13 +8,15 @@ Port of `vis_zephyr_tpu/serve/openai_api.py`:
   ``logprobs`` / ``top_logprobs`` and frequency / presence penalties;
 - ``POST /v1/completions``: a bare prompt, the same knobs (legacy integer
   ``logprobs``);
-- ``GET /v1/models``: the base model.
+- ``GET /v1/models``: the base model and every loaded LoRA adapter.
+
+The ``model`` field routes multi-LoRA serving: an adapter's name selects it,
+``base`` or the served model id the base weights.
 
 Requests are stateless: each carries its whole message history. Left out,
 each refused with an error that names its ROADMAP.md step (never ignored):
 ``tools`` / ``tool_choice`` and ``response_format``, which need the
-grammars of `serve/structured.py`, and adapter names in ``model`` (multi-LoRA
-serving). An image data URL is decoded with PIL; where PIL is not installed
+grammars of `serve/structured.py`. An image data URL is decoded with PIL; where PIL is not installed
 the request is refused with a 400 that says so.
 
 Transport-agnostic: `chat_completion` / `completion` return an error or
@@ -158,12 +160,20 @@ def render_chat_prompt(messages: List[dict], conv_mode: str) -> Tuple[str, objec
     return conv.get_prompt(), image
 
 
+def _resolve_adapter(engine, model: Optional[str]):
+    """The OpenAI `model` field routes multi-LoRA: an adapter name selects
+    that adapter; 'base', None and the served id select the base weights.
+    Returns (adapter, error)."""
+    if not model or model in ("base", "vis-zephyr", MODEL_ID):
+        return None, None
+    names = getattr(getattr(engine, "batcher", None), "adapter_names", None) or {}
+    if model in names:
+        return model, None
+    return None, f"unknown model {model!r}; available: {[MODEL_ID] + sorted(names)}"
+
+
 def _refusal(payload: dict, chat: bool) -> Optional[str]:
     """The error for a field this port does not serve yet, naming its step."""
-    model = payload.get("model")
-    if model and model not in ("base", "vis-zephyr", MODEL_ID):
-        return (f"unknown model {model!r}; available: [{MODEL_ID!r}] (adapters by name, "
-                f"multi-LoRA serving, are not ported to PyTorch yet: {STEP_10})")
     if chat and payload.get("tools") and payload.get("tool_choice", "auto") != "none":
         return f"tools / tool_choice (function calling) are not ported to PyTorch yet ({STEP_10})"
     if chat and payload.get("tool_choice") not in (None, "none", "auto"):
@@ -177,7 +187,8 @@ def _refusal(payload: dict, chat: bool) -> Optional[str]:
 def _parse_request(engine, payload: dict, chat: bool):
     """Shared validation → (dict of generation arguments, None), or (None,
     error)."""
-    err = _refusal(payload, chat)
+    adapter, err = _resolve_adapter(engine, payload.get("model"))
+    err = err or _refusal(payload, chat)
     if err:
         return None, err
     try:
@@ -230,6 +241,7 @@ def _parse_request(engine, payload: dict, chat: bool):
     return {
         "prompt": prompt,
         "image": image,
+        "adapter": adapter,
         "stop": stop,
         "max_new_tokens": None if max_tokens is None else int(max_tokens),
         "temperature": None if temperature is None else float(temperature),
@@ -248,7 +260,8 @@ def _run(engine, spec):
     lp_sink = [] if spec["logprobs"] is not None else None
     tokens = engine.generate_request(
         spec["prompt"], pil_image=spec["image"], max_new_tokens=spec["max_new_tokens"],
-        temperature=spec["temperature"], top_p=spec["top_p"], logprobs=spec["logprobs"],
+        temperature=spec["temperature"], top_p=spec["top_p"], adapter=spec["adapter"],
+        logprobs=spec["logprobs"],
         lp_sink=lp_sink, frequency_penalty=spec["frequency_penalty"],
         presence_penalty=spec["presence_penalty"])
     return tokens, len(ids), budget, lp_sink
@@ -492,7 +505,11 @@ def _completion(engine, payload: dict, chat: bool):
 
 
 def list_models(engine) -> dict:
-    """GET /v1/models: the base model (adapters come with multi-LoRA
-    serving, Queue A step 10)."""
-    return {"object": "list", "data": [{"id": MODEL_ID, "object": "model",
-                                        "created": int(time.time()), "owned_by": MODEL_ID}]}
+    """GET /v1/models: the base model plus every loaded LoRA adapter."""
+    created = int(time.time())
+    names = getattr(getattr(engine, "batcher", None), "adapter_names", None) or {}
+    data = [{"id": MODEL_ID, "object": "model", "created": created, "owned_by": MODEL_ID}]
+    for name in sorted(names):
+        data.append({"id": name, "object": "model", "created": created, "owned_by": MODEL_ID,
+                     "parent": MODEL_ID})
+    return {"object": "list", "data": data}

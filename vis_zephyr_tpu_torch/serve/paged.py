@@ -67,6 +67,9 @@ The JAX programs return new pools and rely on donation. Here pools,
 
 Per-request temperature and top-p, logprobs and penalties ride every
 decode step as the scheduler base's fixed per-slot buffers (`serve/batching.py`),
+as do the slots' multi-LoRA adapters (`slot_adapter`: every step, verify
+step and admission chunk adds each row's adapter delta, and the prefix
+cache shares pages only within one adapter),
 and the base's draft-model proposals (`draft`, `serve/draft.py`: its own
 dense cache, whatever the pools) and `ServingMetrics` hooks serve this
 batcher as they serve the dense one.
@@ -77,7 +80,7 @@ swap-out and swap-in write those tensors in place (the JAX batcher rebinds
 them); a new tensor would leave the captured graphs reading freed memory.
 
 Not ported yet, each raising `NotImplementedError` when asked for: meshes and
-the TP wrappers, multi-LoRA and grammars.
+the TP wrappers, and grammars.
 """
 
 from __future__ import annotations
@@ -93,15 +96,17 @@ import torch
 
 from ..config import VisZephyrConfig
 from ..constants import IMAGE_TOKEN_INDEX
-from ..models.mistral import _project_qkv, embed, rms_norm, rope_cos_sin
+from ..models.mistral import (_plain_proj, _project_qkv, adapted_proj, embed, mlp_forward,
+                              rms_norm, rope_cos_sin, step_mlora_ctx)
 from ..models.vis_zephyr import VisZephyr
 from ..ops import _kernels
+from ..ops.mlora import layer_targets
 from ..ops.paged_attention import (KV_QUANT_MAX, paged_attention, paged_attention_fa,
                                    paged_kv_update_layer, paged_kv_update_layer_q,
                                    paged_kv_update_rows, paged_kv_update_rows_q, quantize_kv)
 from .batching import ContinuousBatcher, _Request, _run_burst, not_ported
 from .generate import SamplingConfig, _sample_tail, weight_form
-from .graphs import StepGraphs, addresses
+from .graphs import StepGraphs, addresses, mlora_key
 
 
 class PageAllocator:
@@ -450,14 +455,13 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
     (temps [B], top_ps [B]) and `penalties` (freq [B], pres [B], counts
     [B, V] f32, counted in place); the logprobs of the JAX step's
     `want_logprobs` are `_logprobs` of the returned raw logits, which
-    `_paged_multi_step` takes.
+    `_paged_multi_step` takes. `mlora` / `adapter_idx` [B]: each slot's
+    multi-LoRA adapter (every adapted projection adds its delta).
 
     The pools, `lengths` and `token` are updated IN PLACE. Returns
     (next_token [B], logits [B, V] f32)."""
     for value, what, step in (
             (mesh, "a device mesh (tensor-parallel paged step)", "Queue A step 13"),
-            (mlora is not None or adapter_idx is not None, "multi-LoRA serving",
-             "Queue A step 10"),
             (grammar, "structured output (grammar)", "Queue A step 10")):
         if value:
             raise not_ported(what, step)
@@ -474,6 +478,7 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
     positions = lengths_eff[:, None]  # the new token's position
     cos, sin = rope_cos_sin(positions, dec.head_dim, dec.rope_theta)
     h = embed(decoder, token[:, None])
+    mctx = step_mlora_ctx(mlora, adapter_idx, B, h.dtype, h.device)
 
     # Where the new token's K/V lands: inactive slots write the trash page.
     row_idx = torch.clamp(lengths_eff // ps, max=page_table.shape[1] - 1)
@@ -493,8 +498,9 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
     lengths_next = lengths_eff + 1 if mode == "writefirst" else None
     ks_rows, vs_rows = [], []
     for i, layer in enumerate(decoder.model.layers):
+        proj = adapted_proj(_plain_proj, layer_targets(mlora, i, mctx))
         hn = rms_norm(h, layer.input_layernorm.weight, dec.rms_norm_eps)
-        q, k, v = _project_qkv(hn, layer.self_attn, dec, cos, sin)
+        q, k, v = _project_qkv(hn, layer.self_attn, dec, cos, sin, proj)
         k_new, v_new = k[:, 0], v[:, 0]
         if mode == "selfterm":
             attn = paged_attention_fa(q, kp, vp, page_table, lengths_eff, lengths_eff,
@@ -512,9 +518,9 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
             attn = paged_attention(q[:, 0], kp, vp, page_table, lengths_next,
                                    sliding_window=window, k_scales=ksp, v_scales=vsp,
                                    page_offset=i * P)
-        h = h + layer.self_attn.o_proj(attn.reshape(B, 1, -1))
+        h = h + proj(layer.self_attn.o_proj, attn.reshape(B, 1, -1), 3)
         hn = rms_norm(h, layer.post_attention_layernorm.weight, dec.rms_norm_eps)
-        h = h + layer.mlp(hn)
+        h = h + mlp_forward(layer.mlp, hn, proj)
     if mode == "selfterm":
         ks_rows, vs_rows = torch.stack(ks_rows), torch.stack(vs_rows)   # [L, B, Hkv, D]
         if ksp is None:
@@ -536,7 +542,7 @@ def _paged_multi_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengt
                       active, steps_left, generator: Optional[torch.Generator],
                       cfg: VisZephyrConfig, sampling: SamplingConfig, mode: str = "selfterm",
                       n: int = 4, graphs: Optional[StepGraphs] = None, sample_overrides=None,
-                      penalties=None, lp_out=None):
+                      penalties=None, lp_out=None, mlora=None, adapter_idx=None):
     """`n` chained `_paged_step`s in one burst (`batching._run_burst`: the
     EOS and budget carry on the device, token-exact with single-stepping;
     with temperature > 0 the draws come from `generator` in the single-step
@@ -545,22 +551,23 @@ def _paged_multi_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengt
     On a CUDA tensor (outside `_kernels.plain_versions()`) every step is a
     replay of the step captured over these buffers, the sampling operands
     and the carry's (`graphs`, a `StepGraphs`; a throwaway one when None):
-    the pools, `page_table`, `lengths`, `token` and the operands must keep
-    their tensors for the graphs' life. Elsewhere the same step runs
+    the pools, `page_table`, `lengths`, `token` and the operands (the
+    multi-LoRA pack and the per-slot `adapter_idx` buffer among them) must
+    keep their tensors for the graphs' life. Elsewhere the same step runs
     eagerly.
 
     The pools, `lengths` and `token` are updated IN PLACE. Returns (toks
     [n, B], entry_alive [n, B] bool, logits [B, V] f32 of the last step),
     all on the device: token (j, b) counts iff entry_alive[j, b]. (The JAX
-    function's mesh and multi-LoRA arguments come with those features,
-    Queue A steps 13 and 10.)"""
+    function's mesh argument comes with meshes, Queue A step 13.)"""
     def step(alive):
         return _paged_step(model, kp, vp, scales, page_table, lengths, token, alive, generator,
-                           cfg, sampling, mode=mode, sample_overrides=sample_overrides,
-                           penalties=penalties)
+                           cfg, sampling, mode=mode, mlora=mlora, adapter_idx=adapter_idx,
+                           sample_overrides=sample_overrides, penalties=penalties)
 
     key = ("paged", mode, token.shape[0], weight_form(model), sampling.temperature,
            sampling.top_p, sampling.eos_token_id, generator, lp_out is not None,
+           *mlora_key(mlora, adapter_idx),
            *addresses(kp, vp, *scales, page_table, lengths, token,
                   *(sample_overrides or (None, None)), *(penalties or (None, None, None))))
     return _run_burst(step, key, token, active, steps_left, sampling.eos_token_id, n, graphs,
@@ -569,28 +576,34 @@ def _paged_multi_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengt
 
 @torch.no_grad()
 def _paged_verify_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, toks,
-                       active, cfg: VisZephyrConfig, graphs: Optional[StepGraphs] = None):
+                       active, cfg: VisZephyrConfig, graphs: Optional[StepGraphs] = None,
+                       mlora=None, adapter_idx=None):
     """`_paged_verify_body` as the batcher runs it. On a CUDA tensor (outside
     `_kernels.plain_versions()`) the step is a replay of the step captured
     over these buffers (`graphs`, a `StepGraphs`; a throwaway one when
     None): the pools, `page_table`, `lengths`, `toks` and `active` must keep
     their tensors for the graphs' life, and the returned tensors are the
     graph's outputs, overwritten by its next replay. Elsewhere the step runs
-    eagerly. Returns (greedy [B, S], logits [B, S, V] f32) on the device."""
+    eagerly. `mlora` / `adapter_idx` [B]: each slot's multi-LoRA adapter
+    (the index a fixed buffer too). Returns (greedy [B, S], logits
+    [B, S, V] f32) on the device."""
     if not _kernels.use_kernel(toks):
-        return _paged_verify_body(model, kp, vp, scales, page_table, lengths, toks, active, cfg)
+        return _paged_verify_body(model, kp, vp, scales, page_table, lengths, toks, active, cfg,
+                                  mlora, adapter_idx)
     if graphs is None:
         graphs = StepGraphs()
     B, S = toks.shape
     # The step reads no sampler: greedy tokens only.
-    key = ("verify", B, S, *addresses(kp, vp, *scales, page_table, lengths, toks, active))
+    key = ("verify", B, S, *mlora_key(mlora, adapter_idx),
+           *addresses(kp, vp, *scales, page_table, lengths, toks, active))
     return graphs.run(key, lambda: _paged_verify_body(model, kp, vp, scales, page_table, lengths,
-                                                      toks, active, cfg), toks.device)
+                                                      toks, active, cfg, mlora, adapter_idx),
+                      toks.device)
 
 
 @torch.no_grad()
 def _paged_verify_body(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, toks,
-                       active, cfg: VisZephyrConfig):
+                       active, cfg: VisZephyrConfig, mlora=None, adapter_idx=None):
     """Batched speculative verify over the paged pools: append S candidate
     rows per slot (column 0 the slot's pending token, later columns its
     proposals) in ONE cached forward and return the greedy token of every
@@ -610,9 +623,10 @@ def _paged_verify_body(model: VisZephyr, kp, vp, scales: Tuple, page_table, leng
     Where two rows meet on a trash-page row, the last in (s, b) order is
     written, as S sequential calls leave it.
     The caller overwrites `lengths` with the accepted prefix. The pools are
-    updated IN PLACE; `lengths` is not. Returns (greedy [B, S], logits
-    [B, S, V] f32). (The JAX step's mesh and multi-LoRA arguments come with
-    those features, Queue A steps 13 and 10.)"""
+    updated IN PLACE; `lengths` is not. `mlora` / `adapter_idx` [B]: each
+    slot's multi-LoRA adapter. Returns (greedy [B, S], logits [B, S, V]
+    f32). (The JAX step's mesh argument comes with meshes, Queue A step
+    13.)"""
     dec = cfg.decoder
     decoder = model.decoder
     L = dec.num_layers
@@ -626,6 +640,7 @@ def _paged_verify_body(model: VisZephyr, kp, vp, scales: Tuple, page_table, leng
     pos = lengths_eff[:, None] + torch.arange(S, dtype=lengths.dtype, device=dev)[None, :]
     cos, sin = rope_cos_sin(pos, dec.head_dim, dec.rope_theta)
     h = embed(decoder, toks)
+    mctx = step_mlora_ctx(mlora, adapter_idx, B, h.dtype, h.device)
 
     cache_len = pps * ps
     row_idx = pos // ps
@@ -642,8 +657,9 @@ def _paged_verify_body(model: VisZephyr, kp, vp, scales: Tuple, page_table, leng
 
     ksp, vsp = scales
     for i, layer in enumerate(decoder.model.layers):
+        proj = adapted_proj(_plain_proj, layer_targets(mlora, i, mctx))
         hn = rms_norm(h, layer.input_layernorm.weight, dec.rms_norm_eps)
-        q, k, v = _project_qkv(hn, layer.self_attn, dec, cos, sin)
+        q, k, v = _project_qkv(hn, layer.self_attn, dec, cos, sin, proj)
         if ksp is None:
             paged_kv_update_layer(kp, vp, k, v, pages, offsets, i * P)
         else:
@@ -651,9 +667,9 @@ def _paged_verify_body(model: VisZephyr, kp, vp, scales: Tuple, page_table, leng
         attn = paged_attention_fa(q, kp, vp, page_table, lengths_attn, lengths_eff,
                                   sliding_window=window, k_scales=ksp, v_scales=vsp,
                                   page_offset=i * P)
-        h = h + layer.self_attn.o_proj(attn.reshape(B, S, -1))
+        h = h + proj(layer.self_attn.o_proj, attn.reshape(B, S, -1), 3)
         hn = rms_norm(h, layer.post_attention_layernorm.weight, dec.rms_norm_eps)
-        h = h + layer.mlp(hn)
+        h = h + mlp_forward(layer.mlp, hn, proj)
 
     h = rms_norm(h, decoder.model.norm.weight, dec.rms_norm_eps)
     logits = decoder.lm_head(h).float()
@@ -778,10 +794,8 @@ class PagedBatcher(ContinuousBatcher):
 
     def _pc_salt(self, req: _Request) -> bytes:
         """The prefix cache's key salt: an adapter changes the prompt's K/V,
-        so pages are shared only within one adapter. Requests carry no
-        adapter until multi-LoRA serving is ported (ROADMAP.md, Queue A step
-        10), so it is empty."""
-        return b""
+        so pages are shared only within one adapter (empty for the base)."""
+        return (b"a%d|" % req.adapter) if req.adapter else b""
 
     def _install(self, req: _Request, slot: int, last_logits, k, v, length: int) -> bool:
         """Allocate the request's pages and write its K/V: its full span, or
@@ -1015,7 +1029,7 @@ class PagedBatcher(ContinuousBatcher):
             self.model, self.kp, self.vp, (self.ksp, self.vsp), self.page_table, self.lengths,
             self.token, self._active_dev, self._left_dev, self.generator, self.cfg,
             self.sampling, n=n, graphs=self.graphs, sample_overrides=overrides,
-            penalties=penalties, lp_out=lp_out)
+            penalties=penalties, lp_out=lp_out, mlora=self.mlora, adapter_idx=self._slot_aidx())
 
     def _verify_device(self, toks: np.ndarray, valid: np.ndarray) -> np.ndarray:
         """The paged verify: all S rows of every slot are written (rows past
@@ -1028,7 +1042,8 @@ class PagedBatcher(ContinuousBatcher):
         active_dev.copy_(torch.from_numpy(self.active))
         greedy, self.last_logits = _paged_verify_step(
             self.model, self.kp, self.vp, (self.ksp, self.vsp), self.page_table, self.lengths,
-            toks_dev, active_dev, self.cfg, graphs=self.graphs)
+            toks_dev, active_dev, self.cfg, graphs=self.graphs, mlora=self.mlora,
+            adapter_idx=self._slot_aidx())
         return greedy.cpu().numpy()
 
     def verify_buffers(self, S: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -16,8 +16,9 @@ adapter parameters; the decoder's training forward drops the branch's input
 The JAX `add_lora` seeds each adapter with Python's `hash(prefix)`, which
 differs from process to process; tests carry adapters across with the
 weight bridge and never compare initializations. LoRA on an int8 or int4
-base (the JAX `qdot`'s QLoRA route) is not ported: it comes with multi-LoRA
-(ROADMAP Queue A step 10).
+base (the JAX `qdot`'s QLoRA route) is not ported: it stays in ROADMAP
+Queue A step 10, after multi-LoRA serving (which adds its deltas on any base
+weight form, `ops/mlora.py`).
 """
 
 from __future__ import annotations
