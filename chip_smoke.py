@@ -8,6 +8,8 @@ and penalties in the replayed steps of both batchers; the OpenAI
 endpoints; two-model speculation (`--draft-model`) on both batchers, the
 draft's proposal bursts replayed as CUDA graphs; the paged batcher's prefix
 cache (`--prefix-cache`) and lazy allocation with host swap (`--lazy-alloc`);
+multi-LoRA serving; structured output (grammar-masked decoding) on all three
+paths with the OpenAI `response_format` and `tools`;
 the server's /health, /metrics, /debug/profile and drain; the writefirst
 paged decode step; the fused int8 MLP probe; the
 trainer, stage 1 and stage 2; the load paths (the trainer's own checkpoint,
@@ -223,7 +225,7 @@ toolkit; exits non-zero on a machine without a card. Phases:
              (the dense batcher, the stand-in tokenizer, text prompts):
              /v1/models, a chat completion as one body and as SSE (the same
              text), n = 2, a stop string, logprobs (top 3: the greedy token
-             the top-1), sampling with penalties, `tools` refused by name;
+             the top-1), sampling with penalties, `tools` under "auto";
 12f. draft — two-model speculation at full width (bf16 target): a random
              draft of the same vocabulary and tokenizer, decoder depth 2 at
              the published widths, saved as the port's `state/state.pt`
@@ -294,6 +296,23 @@ toolkit; exits non-zero on a machine without a card. Phases:
              and without it, and the pack's bytes. In the int8 phase the
              fixed batch again on `--load-8bit` weights (K5), each slot
              against the same request alone under the same adapter;
+12i. grammar — structured output at full width (bf16 weights): the token
+             strings of the Zephyr-form `tokenizer.json` (32000 pieces) read
+             through the port's `NativeTokenizer`, a regex and a JSON schema
+             (a patterned string, an integer of an enum, an enum) compiled
+             over them (host ms printed); the paged server (`--kv-quant`,
+             32 slots, chunked admission) under a burst of 16
+             /v1/completions requests (4 regex, 4 schema, 8 free), then the
+             same 16 free: the free requests' tokens equal in both runs,
+             every constrained reply matches its grammar (the schema's
+             parses with its three fields), the masked steps are replays of
+             one capture that launch K3 and K4; the dense batcher and the
+             serialized path with 2 constrained and 2 free requests each
+             (the free ones equal their own run, the masked steps replays of
+             one capture that launch K2, the admissions K1); a json_schema chat completion and a forced
+             tool call (`tools`, `tool_choice` "required") on the server;
+             the 16-slot step's wall masked against unmasked, and the mask
+             gather's device time;
 13. profile — only with --profile: wall, device-busy and idle share of one
              batched decode step at B=32, of one verify step (S = 5) and of
              one dense decode step (B = 1), their kernel launches per step
@@ -393,8 +412,8 @@ toolkit; exits non-zero on a machine without a card. Phases:
              timed call's output gated against the plain version.
 
 `--phases` runs a subset (kernels, slice1, paged, batch, writefirst, spec,
-multistep, dense_batch, sampled, openai, draft, prefix_swap, mlora, profile,
-precision, int8, mlp_probe, int4, train, load, attn_probes) and then prints
+multistep, dense_batch, sampled, openai, draft, prefix_swap, mlora, grammar,
+profile, precision, int8, mlp_probe, int4, train, load, attn_probes) and then prints
 no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
@@ -4617,20 +4636,20 @@ def eager_bursts(b) -> None:
     from vis_zephyr_tpu_torch.serve.generate import _logprobs
     from vis_zephyr_tpu_torch.serve.paged import _paged_step
 
-    def step(alive, overrides, penalties):
+    def step(alive, overrides, penalties, grammar):
         if hasattr(b, "kp"):
             return _paged_step(b.model, b.kp, b.vp, (b.ksp, b.vsp), b.page_table, b.lengths,
                                b.token, alive, b.generator, b.cfg, b.sampling,
-                               sample_overrides=overrides, penalties=penalties)
+                               sample_overrides=overrides, penalties=penalties, grammar=grammar)
         return _batch_step(b.model, b.cache, b.token, alive, b.generator, b.cfg, b.sampling,
-                           sample_overrides=overrides, penalties=penalties)
+                           sample_overrides=overrides, penalties=penalties, grammar=grammar)
 
-    def burst(n, overrides, penalties, lp_out):
+    def burst(n, overrides, penalties, lp_out, grammar=None):
         alive, left = b._active_dev.clone(), b._left_dev.clone()
         toks, entry = [], []
         for j in range(n):
             entry.append(alive.clone())
-            tok, logits = step(alive, overrides, penalties)
+            tok, logits = step(alive, overrides, penalties, grammar)
             if lp_out is not None:
                 for out, got in zip(lp_out, _logprobs(logits, tok)):
                     out[j].copy_(got)
@@ -4987,7 +5006,7 @@ def run_openai(model, cfg, seed: int, card: str) -> dict:
     as one body and as SSE (the same text, [DONE] last); n = 2 (equal
     greedy choices); a stop string (the text cut before it, finish_reason
     "stop"); logprobs (one entry a token, the greedy token the top-1);
-    penalties; `tools` refused by name."""
+    penalties; `tools` under tool_choice "auto" (free text, no call)."""
     import numpy as np
 
     from vis_zephyr_tpu_torch.ops import kv_cache
@@ -5045,14 +5064,16 @@ def run_openai(model, cfg, seed: int, card: str) -> dict:
         status, body = post_json(port, "POST", "/v1/chat/completions",
                                  dict(chat, tools=[{"type": "function",
                                                     "function": {"name": "f"}}]))
-        checks["tools_refused"] = status == 400 and "Queue A step 10" in body
+        auto = json.loads(body) if status == 200 else {}
+        checks["tools_auto"] = (status == 200 and auto["usage"]["completion_tokens"] <= 12
+                                and "tool_calls" not in auto["choices"][0]["message"])
         wall = time.perf_counter() - t0
         counts = dict(k2=kv_cache.launches)
     finally:
         stop_server(server, thread)
         engine.close()
     print(f"openai: /v1/models, /v1/chat/completions plain, SSE, n = 2, stop {stop!r}, logprobs "
-          f"(top 3), sampled with penalties, tools refused: {checks}; K2 {counts['k2']}; "
+          f"(top 3), sampled with penalties, tools (auto): {checks}; K2 {counts['k2']}; "
           f"{wall:.2f} s for the 8 requests [{card}]", flush=True)
     if not all(checks.values()) or counts["k2"] == 0:
         raise AssertionError(f"openai: {checks}")
@@ -6086,8 +6107,319 @@ def run_mlora_int8(model, cfg, seed: int, card: str) -> dict:
     return counts.total
 
 
+GRAMMAR_REGEX = "[0-9]{3}-[a-z]{4}"
+# The integer field is held to an enum of integers: under greedy decoding
+# random weights repeat a digit to the budget inside an unbounded integer
+# (the integer's own regex is held on the CPU, tests/test_torch_structured.py).
+GRAMMAR_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string", "pattern": "[a-z]{3,8}"},
+    "age": {"type": "integer", "enum": [18, 30, 45, 60]},
+    "color": {"enum": ["red", "green", "blue"]}}}
+GRAMMAR_TOOLS = [
+    {"type": "function", "function": {
+        "name": "get_weather", "description": "Weather for a city",
+        "parameters": {"type": "object", "properties": {"city": {"enum": ["Paris", "Tokyo"]}}}}},
+    {"type": "function", "function": {"name": "noop", "parameters": {}}},
+]
+GRAMMAR_BURST = 16   # the paged server's burst: 4 regex, 4 schema, 8 unconstrained
+GRAMMAR_TOKENS = 64  # each request's budget
+GRAMMAR_STEPS = 10   # timed steps of each form
+
+
+class MaskedLaunches:
+    """The paged counters' changes over the calls of a wrapped device step
+    that ran with a grammar mask (`mask_of(args, kwargs)` not None), and how
+    many such calls there were."""
+
+    def __init__(self):
+        self.total = {}
+        self.calls = 0
+
+    def wrap(self, fn, mask_of):
+        def wrapped(*args, **kw):
+            if mask_of(args, kw) is None:
+                return fn(*args, **kw)
+            before = read_paged_counts()
+            out = fn(*args, **kw)
+            self.calls += 1
+            for key, n in read_paged_counts().items():
+                self.total[key] = self.total.get(key, 0) + n - before[key]
+            return out
+        return wrapped
+
+
+def record_keys(graphs) -> list:
+    """The keys of every step `graphs` (a `StepGraphs`) runs from now on
+    (`run` wrapped on the instance); a grammar step's key holds "grammar"."""
+    keys = []
+    run = graphs.run
+
+    def recording(key, *args, **kw):
+        keys.append(key)
+        return run(key, *args, **kw)
+
+    graphs.run = recording
+    return keys
+
+
+def grammar_text(strings, tokens) -> bytes:
+    return b"".join(strings[t] for t in tokens)
+
+
+def record_tokens(batcher) -> list:
+    """[{prompt ids: emitted tokens}]: the batcher's `_emit` (wrapped on the
+    instance) files each emitted token in the last dict of the list; append
+    a dict to start a new record."""
+    record = [{}]
+    emit = batcher._emit
+
+    def recording(req, tok):
+        record[-1].setdefault(tuple(int(t) for t in req.input_ids), []).append(tok)
+        return emit(req, tok)
+
+    batcher._emit = recording
+    return record
+
+
+def check_constrained(label: str, grammar, strings, tokens, text: str, schema: bool) -> None:
+    if not grammar.dfa.matches(grammar_text(strings, tokens)):
+        raise AssertionError(f"grammar {label}: {text!r} does not match its grammar")
+    if schema:
+        doc = json.loads(text)
+        if set(doc) != set(GRAMMAR_SCHEMA["properties"]) or doc["color"] not in (
+                "red", "green", "blue") or not isinstance(doc["age"], int):
+            raise AssertionError(f"grammar {label}: {doc} lacks the schema's fields")
+
+
+def run_grammar(model, cfg, seed: int, card: str) -> dict:
+    """Structured output at full width: the token strings of the Zephyr-form
+    `tokenizer.json` (32000 pieces, written by the script) read through the
+    port's `NativeTokenizer`, each grammar compiled over them (timed); the
+    paged server (`--kv-quant`, 32 slots) under a burst of 16 /v1/completions
+    requests, 4 under a regex, 4 under a JSON schema (a patterned string, an
+    integer of an enum, an enum) and 8 free, then the same 16 with no grammar (the free
+    requests' tokens equal in both runs); the dense batcher and the
+    serialized path with 2 constrained and 2 free requests each (the free
+    ones equal a run of their own); every constrained reply matches its
+    grammar (the schema's parses with its fields); the masked steps are
+    replays of one capture on each path and launch K3 and K4 (paged) or K2
+    (dense, serialized), K1 at admission; a json_schema chat completion and
+    a forced tool call (`tools`, `tool_choice` "required") on the server;
+    the 16-slot step's wall time masked against unmasked and the mask
+    gather's device time. Returns the launches."""
+    import tempfile
+
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.data.tokenization import tokenize_with_images
+    from vis_zephyr_tpu_torch.data.tokenizer_native import NativeTokenizer
+    from vis_zephyr_tpu_torch.serve import api, generate
+    from vis_zephyr_tpu_torch.serve.structured import token_strings_from_tokenizer
+
+    with tempfile.TemporaryDirectory() as root:
+        write_zephyr_tokenizer(os.path.join(root, "tokenizer.json"), cfg.decoder.vocab_size)
+        tok = NativeTokenizer(root)
+    t0 = time.perf_counter()
+    strings = token_strings_from_tokenizer(tok, cfg.decoder.vocab_size)
+    strings_s = time.perf_counter() - t0
+
+    def engine_for(flags):
+        parser = argparse.ArgumentParser()
+        api.add_engine_args(parser)
+        return api.engine_from_args(model, cfg, tok, parser.parse_args(
+            flags + ["--max-new-tokens", str(GRAMMAR_TOKENS)]))
+
+    paged = engine_for(PAGED_FLAGS)
+    paged._token_strings = strings
+    compile_s = {}
+    for name, kw in (("regex", dict(pattern=GRAMMAR_REGEX)),
+                     ("schema", dict(json_schema=GRAMMAR_SCHEMA))):
+        t0 = time.perf_counter()
+        grammar = paged.compile_grammar(**kw)
+        compile_s[name] = (time.perf_counter() - t0, grammar.n_states)
+    regex_g = paged.compile_grammar(GRAMMAR_REGEX)
+    schema_g = paged.compile_grammar(json_schema=GRAMMAR_SCHEMA)
+    print(f"grammar: token strings of {len(strings)} ids in {strings_s * 1e3:.1f} ms; compiled "
+          + ", ".join(f"{name} ({n} DFA states) in {sec * 1e3:.1f} ms"
+                      for name, (sec, n) in compile_s.items())
+          + f" (host) [{card}]", flush=True)
+
+    rng = np.random.default_rng(seed + 21)
+    questions = [make_question(rng, (20, 60, 120)[i % 3]) for i in range(GRAMMAR_BURST)]
+    kinds = ["regex" if i % 4 == 0 else "schema" if i % 4 == 1 else None
+             for i in range(GRAMMAR_BURST)]
+    formats = {"regex": {"type": "regex", "regex": GRAMMAR_REGEX},
+               "schema": {"type": "json_schema", "json_schema": {"schema": GRAMMAR_SCHEMA}}}
+    grammars = {"regex": regex_g, "schema": schema_g}
+    launches = {}
+
+    def add(counts):
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+
+    checks = {}
+    # The paged server: the burst with grammars, then the same 16 without.
+    b = paged.batcher
+    masked = MaskedLaunches()
+    b._burst_device = masked.wrap(b._burst_device, lambda a, kw: kw.get("grammar",
+                                                                       a[4] if len(a) > 4 else None))
+    keys = record_keys(b.graphs)
+    record = record_tokens(b)
+    ids = [tuple(int(t) for t in tokenize_with_images(q, tok)) for q in questions]
+    server, thread = start_server(paged)
+    port = server.server_address[1]
+    walls = {}
+    try:
+        for constrained in (True, False):
+            record.append({})
+            payloads = [dict({"prompt": q, "max_tokens": GRAMMAR_TOKENS},
+                             **({"response_format": formats[k]} if constrained and k else {}))
+                        for q, k in zip(questions, kinds)]
+            reset_paged_counts()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(payloads)) as pool:
+                replies = list(pool.map(lambda p: post_json(port, "POST", "/v1/completions", p),
+                                        payloads))
+            walls[constrained] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            add(read_paged_counts())
+            if any(status != 200 for status, _ in replies):
+                raise AssertionError(f"grammar: a burst request failed: {replies}")
+            texts = [json.loads(body)["choices"][0]["text"] for _, body in replies]
+            tokens = [record[-1].get(i, []) for i in ids]
+            if constrained:
+                for i, kind in enumerate(kinds):
+                    if kind:
+                        check_constrained(f"paged {kind}", grammars[kind], strings, tokens[i],
+                                          texts[i], kind == "schema")
+                served = tokens
+        free = [i for i, k in enumerate(kinds) if k is None]
+        checks["paged_free_equal"] = all(served[i] == tokens[i] and tokens[i] for i in free)
+        grammar_keys = [k for k in keys if "grammar" in k]
+        checks["paged_replays"] = (len(grammar_keys) > 1 and len(set(grammar_keys)) == 1
+                                   and masked.calls == len(grammar_keys))
+        paged_masked = dict(masked.total, steps=masked.calls)  # the burst's masked steps
+        checks["paged_masked_k3_k4"] = paged_masked.get("k3", 0) > 0 and paged_masked.get(
+            "k4", 0) > 0
+        # The OpenAI surfaces on the same server.
+        chat = {"messages": [{"role": "user", "content": questions[0]}], "max_tokens": 96}
+        status, body = post_json(port, "POST", "/v1/chat/completions",
+                                 dict(chat, response_format=formats["schema"]))
+        doc = json.loads(json.loads(body)["choices"][0]["message"]["content"])
+        checks["openai_json_schema"] = status == 200 and set(doc) == set(
+            GRAMMAR_SCHEMA["properties"])
+        status, body = post_json(port, "POST", "/v1/chat/completions",
+                                 dict(chat, tools=GRAMMAR_TOOLS, tool_choice="required"))
+        choice = json.loads(body)["choices"][0]
+        calls = choice["message"].get("tool_calls") or []
+        checks["openai_tool_call"] = (status == 200 and choice["finish_reason"] == "tool_calls"
+                                      and len(calls) == 1 and calls[0]["function"]["name"] in (
+                                          "get_weather", "noop"))
+        tool_call = calls[0]["function"] if calls else None
+    finally:
+        stop_server(server, thread)
+        paged.close()  # the pump stops: this thread steps the batcher from here on
+    # The masked and the unmasked 16-slot step, timed on the idle batcher.
+    step_ms = {}
+    handles = [b.submit(np.asarray(i, np.int64), max_new_tokens=1024) for i in ids]
+    while b._has_admission_work():  # the server's chunked admission, a chunk a step
+        b.step()
+    if int(b.active.sum()) != GRAMMAR_BURST:
+        raise AssertionError(f"grammar: {int(b.active.sum())} of the timed batch's "
+                             f"{GRAMMAR_BURST} requests admitted")
+    for form in ("unmasked", "masked"):
+        if form == "masked":
+            for slot in np.flatnonzero(b.active):
+                b.grammar_slots.attach(int(slot), schema_g)
+        b.step()  # the form's capture
+        times = []
+        for _ in range(GRAMMAR_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b.step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[form] = (statistics.median(times), int(b.active.sum()))
+    gather = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    gather_ms = []
+    for _ in range(20):
+        gather[0].record()
+        b.grammar_slots.gather()
+        gather[1].record()
+        torch.cuda.synchronize()
+        gather_ms.append(gather[0].elapsed_time(gather[1]))
+    for h in handles:
+        b.cancel(h)
+    while b.has_work:
+        b.step()
+    print(f"grammar paged: burst of {GRAMMAR_BURST} (4 regex, 4 schema, 8 free) "
+          f"{walls[True]:.2f} s, the same without grammars {walls[False]:.2f} s; its masked "
+          f"steps {paged_masked.pop('steps')}, one capture ({len(set(grammar_keys))} key), "
+          f"their launches {paged_masked}; json_schema reply {doc}; tool call {tool_call}; step at "
+          f"{step_ms['unmasked'][1]} active slots of 32: unmasked "
+          f"{step_ms['unmasked'][0]:.3f} ms, masked {step_ms['masked'][0]:.3f} ms "
+          f"({step_ms['masked'][1]} active; wall, median of {GRAMMAR_STEPS}), the mask gather "
+          f"{statistics.median(gather_ms):.4f} ms on the device [{card}]", flush=True)
+
+    # The dense batcher and the serialized path: 2 constrained, 2 free each.
+    picks = [0, 1, 2, 3]  # regex, schema, free, free
+    # Whole admission on the dense batcher: a text prompt is padded to K1's
+    # tile there (chunked admission attends its scratch cache in plain
+    # attention).
+    for label, flags in (("dense", DENSE_FLAGS + ["--prefill-chunk", "0"]),
+                         ("serialized", [])):
+        engine = engine_for(flags)
+        masked = MaskedLaunches()
+        if engine.batcher is not None:
+            engine.batcher._burst_device = masked.wrap(
+                engine.batcher._burst_device,
+                lambda a, kw: kw.get("grammar", a[4] if len(a) > 4 else None))
+            step_fn, graphs = None, engine.batcher.graphs
+        else:
+            step_fn = generate.decode_multi_step
+            generate.decode_multi_step = masked.wrap(step_fn, lambda a, kw: kw.get("mask"))
+            # The model's fixed B = 1 cache (2048 slots, larger than any
+            # request here needs), whose graphs the serialized steps replay.
+            graphs = generate.burst_cache(model, cfg, 1, 2048, torch.zeros(
+                1, dtype=torch.long, device=engine.device))[1]
+        keys = [] if graphs is None else record_keys(graphs)  # no graphs on the CPU
+        try:
+            reset_paged_counts()
+            streams = [engine.generate_request(questions[i], max_new_tokens=GRAMMAR_TOKENS,
+                                               grammar=grammars[kinds[i]] if kinds[i] else None)
+                       for i in picks]
+            got = [list(s) for s in streams]
+            alone = [list(engine.generate_request(questions[i], max_new_tokens=GRAMMAR_TOKENS))
+                     for i in picks[2:]]
+            torch.cuda.synchronize()
+            add(read_paged_counts())
+        finally:
+            if step_fn is not None:
+                generate.decode_multi_step = step_fn
+            if graphs is not None:
+                graphs.__dict__.pop("run")  # the class's `run` again
+            engine.close()
+        for i, tokens in zip(picks[:2], got[:2]):
+            check_constrained(f"{label} {kinds[i]}", grammars[kinds[i]], strings, tokens,
+                              tok.decode(tokens), kinds[i] == "schema")
+        checks[f"{label}_free_equal"] = got[2:] == alone and all(alone)
+        checks[f"{label}_masked_k2"] = masked.calls > 0 and masked.total.get("k2", 0) > 0
+        grammar_keys = [k for k in keys if "grammar" in k]
+        checks[f"{label}_replays"] = (len(grammar_keys) == masked.calls > 1
+                                      and len(set(grammar_keys)) == 1)
+        print(f"grammar {label}: masked steps {masked.calls} (one capture: "
+              f"{len(set(grammar_keys))} key), their launches {masked.total}; replies "
+              f"{[tok.decode(t) for t in got[:2]]} [{card}]", flush=True)
+    print(f"grammar: checks {checks}; launches {launches} [{card}]", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"grammar: {checks}")
+    if min(launches.get(k, 0) for k in ("k1", "k2", "k3", "k4")) <= 0:
+        raise AssertionError(f"grammar: a kernel of the path was not launched: {launches}")
+    return launches
+
+
 PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "multistep",
-          "dense_batch", "sampled", "openai", "draft", "prefix_swap", "mlora", "profile",
+          "dense_batch", "sampled", "openai", "draft", "prefix_swap", "mlora", "grammar",
+          "profile",
           "precision", "int8", "mlp_probe", "int4", "train", "load", "attn_probes")
 
 
@@ -6214,6 +6546,11 @@ def main(argv=None) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         done("mlora")
+    if "grammar" in phases:
+        grammar = run_grammar(model, cfg, args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        done("grammar")
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
         run_profile(model, cfg, args.seed, card, label="spec profile", lookahead=SPEC_LOOKAHEAD)
@@ -6337,9 +6674,9 @@ def main(argv=None) -> None:
     # dense batcher on bf16 and int8 weights, per-request sampling on both
     # batchers, the OpenAI endpoints, each batcher's four runs of the draft
     # phase, the prefix cache and lazy allocation's runs and the runs with a
-    # multi-LoRA pack on bf16 and int8 weights), each set to 0
-    # just before its run
-    # and read just after it. `launches` is their sum and `launches_by_path`
+    # multi-LoRA pack on bf16 and int8 weights, and the grammar phase's runs
+    # on its three paths), each set to 0 just before its run and read just
+    # after it. `launches` is their sum and `launches_by_path`
     # says which run gave what.
     runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
             "dense_int4": dense4, "paged_int4": paged4, "spec_dense": spec_dense,
@@ -6349,6 +6686,7 @@ def main(argv=None) -> None:
             "sampled_paged": sampled["paged"], "openai": openai,
             "draft_paged": drafted["paged"], "draft_dense": drafted["dense"],
             "prefix_swap": prefix_swap, "mlora": mlora, "mlora_int8": mlora8,
+            "grammar": grammar,
             "writefirst": writefirst, "mlp_probe": mlp_probe,
             "train": trained["train"], "train_lora": trained["train_lora"],
             "load": loads["load"], "load_int8": loads["load_int8"], "attn_probes": attn}
@@ -6390,6 +6728,9 @@ def main(argv=None) -> None:
                "mlora": ("flash_fwd",) + paged_kernels + ("paged_kv_update",),
                "mlora_int8": ("flash_fwd", "paged_attn_decode", "paged_kv_rows",
                               "quant_matmul_int8"),
+               # The grammar phase's admissions (K1), the dense and serialized
+               # masked steps (K2) and the paged ones (K3, K4).
+               "grammar": ("flash_fwd",) + paged_kernels,
                "writefirst": ("paged_attn_decode", "paged_kv_update"),
                "mlp_probe": ("fused_mlp_matvec",),
                "train": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),

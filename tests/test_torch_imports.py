@@ -8,12 +8,14 @@ under a multi-LoRA adapter (`ops/mlora.py`) on int8 weights, and an
 OpenAI chat completion with logprobs and penalties, a chat on each batcher
 with a draft model and `ServingMetrics`, then drains, and takes one stage-1 and
 one stage-2 train step, whose state the builder serves back through the
-native tokenizer; a source scan finds no such import in the port or in
-`chip_smoke.py`. The modules the port copied instead of importing
+native tokenizer, and a regex-constrained OpenAI reply on the serialized
+path and the paged batcher (`serve/structured.py`); a source scan finds no
+such import in the port or in `chip_smoke.py`. The modules the port copied instead of importing
 (`config`, `constants`, `conversation`, `data/anyres`, `data/tokenization`,
 the sampler of `data/dataset`, `MetricsLogger` and `ServingMetrics`,
 `StopMatcher` and the vocabulary's byte
-strings of the OpenAI endpoints, `data/tokenizer_native` and `data/native`)
+strings of the OpenAI endpoints and grammars, `data/tokenizer_native` and
+`data/native`)
 give what the JAX package's give on the same inputs; the port builds its
 native libraries into its own build directory, never into `native/`.
 """
@@ -148,6 +150,21 @@ err, out = chat_completion(engine, {"messages": [{"role": "user", "content": "hi
 engine.close()
 assert err is None and out["usage"]["completion_tokens"] == 6, (err, out)
 assert all(len(c["logprobs"]["content"]) == 3 for c in out["choices"]), out
+
+# Structured output (serve/structured.py): a regex reply on the serialized
+# path and on the paged batcher (the token strings are the ids' decodes).
+from vis_zephyr_tpu_torch.serve.structured import compile_regex
+
+assert "vis_zephyr_tpu_torch.serve.structured" in names, names
+for flags in ({}, dict(continuous_batching=True, kv_cache="paged", max_slots=2, cache_len=256,
+                       page_size=16)):
+    engine = ChatEngine(model, cfg, Tokenizer(), max_new_tokens=4, **flags)
+    err, out = chat_completion(engine, {"messages": [{"role": "user", "content": "hi there"}],
+                                        "response_format": {"type": "regex",
+                                                            "regex": "(w1[0-9]){2}"}})
+    engine.close()
+    reply = out["choices"][0]["message"]["content"]
+    assert err is None and compile_regex("(w1[0-9]){2}").matches(reply.replace(" ", "")), out
 
 # Two-model speculation with ServingMetrics on both batchers, then a drain.
 from vis_zephyr_tpu_torch.serve.engine import EngineDraining
@@ -357,11 +374,14 @@ def test_metrics_copies_match():
 
 
 def test_token_strings_match():
-    """`serve/engine.py::token_strings_from_tokenizer`, the copy of the JAX
-    structured module's, on a decode-only tokenizer and on one with
-    sentencepiece-style pieces."""
+    """`serve/structured.py::token_strings_from_tokenizer` (which the engine
+    imports), the copy of the JAX structured module's, on a decode-only
+    tokenizer and on one with sentencepiece-style pieces."""
     from vis_zephyr_tpu.serve.structured import token_strings_from_tokenizer as jts
-    from vis_zephyr_tpu_torch.serve.engine import token_strings_from_tokenizer as tts
+    from vis_zephyr_tpu_torch.serve import engine
+    from vis_zephyr_tpu_torch.serve.structured import token_strings_from_tokenizer as tts
+
+    assert engine.token_strings_from_tokenizer is tts
 
     class Pieces:
         def convert_ids_to_tokens(self, ids):

@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from test_torch_train import _losses, _train_args, pil_fixture  # noqa: F401 — a fixture
+from test_torch_train_loop import _losses, _train_args, pil_fixture  # noqa: F401 — a fixture
 from torch_port_util import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 from torch_port_util import jax_params_numpy, port_config, port_model, word_list, word_tokenizer
 from vis_zephyr_tpu.config import tiny_config

@@ -44,6 +44,7 @@ from vis_zephyr_tpu_torch.serve import batching as tbatching
 from vis_zephyr_tpu_torch.serve import engine as tengine
 from vis_zephyr_tpu_torch.serve import generate as tgen
 from vis_zephyr_tpu_torch.serve import paged as tpaged
+from vis_zephyr_tpu_torch.serve.structured import GrammarSlots
 
 CFG = tiny_config(vocab_size=256)
 TCFG = port_config(CFG)
@@ -229,6 +230,7 @@ def test_process_burst_emits_like_single_steps():
     b.slot_len = np.array([10, 20, 0])
     reqs = [tbatching._Request(i, np.zeros(1, np.int64), None, None, 5) for i in range(3)]
     b.slot_req = list(reqs)
+    b.grammar_slots = GrammarSlots(3, 16)  # no slot holds a grammar
     toks = np.array([[4, 5, 0], [6, 9, 0], [7, 8, 0]])
     alive = np.array([[True, True, False], [True, True, False], [False, False, False]])
     assert b._process_burst(toks, alive) == 4

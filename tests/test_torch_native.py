@@ -109,6 +109,26 @@ def test_bos_vocab_and_call(tok_pair):
     assert tok.vocab_size == hf.get_vocab_size()
 
 
+@needs_tokenizer
+def test_convert_ids_to_tokens_matches_hf(tok_pair):
+    """The pieces read back from the binary are the tokenizer.json's, so the
+    grammars' token strings (the JAX `token_strings_from_tokenizer`) are an
+    HF tokenizer's: ``▁`` as a space and ``<0xNN>`` as one raw byte."""
+    from vis_zephyr_tpu.serve.structured import token_strings_from_tokenizer
+
+    hf, tok = tok_pair
+    ids = list(range(hf.get_vocab_size()))
+    assert tok.convert_ids_to_tokens(ids) == [hf.id_to_token(i) for i in ids]
+
+    class HFPieces:
+        def convert_ids_to_tokens(self, ids):
+            return [hf.id_to_token(i) for i in ids]
+
+    strings = token_strings_from_tokenizer(tok, len(ids))
+    assert strings == token_strings_from_tokenizer(HFPieces(), len(ids))
+    assert bytes([0xC3]) in strings and any(s.startswith(b" ") for s in strings)
+
+
 # -- the image pipeline ----------------------------------------------------------------
 
 

@@ -14,8 +14,12 @@ against the JAX package's, on the CPU at `tiny_config`.
   serialized path and from the port's three engines (serialized, dense and
   paged batching): the same text, logprobs within 1e-4;
 - the port's /v1 endpoints over its HTTP server in this process, as
-  `tests/test_openai_api.py` holds the JAX server's, and the refusals of
-  what is not ported, each naming its ROADMAP step;
+  `tests/test_openai_api.py` holds the JAX server's;
+- structured output and function calling on a character vocabulary
+  (`response_format` regex and json_schema, `json_object` refused, `tools`
+  under each `tool_choice`, streamed `tool_calls`, the forced-choice
+  conflict): each request's reply from the port's three engines against the
+  JAX engine's on the same request;
 - multi-LoRA through the `model` field: an adapter's name routes to it (the
   completion of the model with its leaves attached), `GET /v1/models`
   lists the adapters as the JAX `list_models` does, and an unknown name is
@@ -490,11 +494,20 @@ def test_max_tokens_zero_yields_zero_tokens(server):
     {"response_format": {"type": "regex", "regex": "a+"}},
     {"response_format": {"type": "json_object"}},
 ])
-def test_left_out_fields_refused_by_name(server, extra):
-    status, body = _post(server, "/v1/chat/completions",
-                         dict(extra, messages=[{"role": "user", "content": "x"}]))
-    assert status == 400
-    assert "not ported to PyTorch yet" in body and "Queue A step 10" in body
+def test_left_out_fields_refused_by_name(server, engines, extra):
+    """The fields this port once refused are served now; each of these
+    requests gets the JAX module's answer: its refusal (a free-form object
+    schema, `json_object`, a grammar the mock vocabulary cannot decode), or
+    the JAX reading of a field that changes nothing (`tool_choice` without
+    `tools`, `tools` under "auto")."""
+    payload = dict(extra, messages=[{"role": "user", "content": "x"}], max_tokens=3)
+    want = jopenai._parse_request(engines["dense"], dict(payload), chat=True)[1]
+    status, body = _post(server, "/v1/chat/completions", payload)
+    if want is None:
+        assert status == 200
+    else:
+        assert status == 400 and json.loads(body)["error"]["message"] == want
+    assert "not ported to PyTorch yet" not in body
 
 
 def test_fields_that_change_nothing_are_served(server):
@@ -620,3 +633,197 @@ def test_unknown_adapter_is_a_400_with_the_jax_body(lora_server):
         assert json.loads(body)["error"]["message"] == want
         assert "'a', 'b'" in want
 
+
+
+# -- structured output and function calling ---------------------------------------------
+
+
+class CharTokenizer:
+    """A character tokenizer with the HF surface the grammars read
+    (`convert_ids_to_tokens`): ids 10..104 are the printable ASCII
+    characters, 0..3 specials (the JAX `tests/test_structured.py` one)."""
+
+    bos_token_id = 1
+    eos_token_id = 2
+    pad_token_id = 0
+    vocab_size = CFG.decoder.vocab_size
+    model_max_length = 4096
+
+    class _Out:
+        def __init__(self, ids):
+            self.input_ids = ids
+
+    def __call__(self, text, **kwargs):
+        return self._Out([self.bos_token_id] + [10 + ord(ch) - 32 if 32 <= ord(ch) < 127 else 3
+                                                for ch in text])
+
+    def convert_ids_to_tokens(self, ids):
+        return [chr(22 + i) if 10 <= i < 105 else "<sp>" for i in ids]
+
+    def decode(self, ids, skip_special_tokens=False):
+        return "".join(chr(22 + i) for i in ids if 10 <= i < 105)
+
+
+TOOLS = [
+    {"type": "function", "function": {
+        "name": "get_weather", "description": "Weather for a city",
+        "parameters": {"type": "object", "properties": {"city": {"enum": ["Paris", "Tokyo"]}}}}},
+    {"type": "function", "function": {"name": "noop", "parameters": {}}},
+]
+ASK = [{"role": "user", "content": "pick"}]
+GRAMMAR_REQUESTS = {
+    "regex": {"messages": ASK, "response_format": {"type": "regex", "regex": "[0-9]{3}-[a-z]{2}"},
+              "max_tokens": 12},
+    "json_schema": {"messages": ASK, "max_tokens": 40, "response_format": {
+        "type": "json_schema", "json_schema": {"name": "ans", "schema": {
+            "type": "object", "properties": {"c": {"enum": ["red", "green"]},
+                                             "ok": {"type": "boolean"}}}}}},
+    "tools_none": {"messages": ASK, "tools": TOOLS, "tool_choice": "none", "max_tokens": 4},
+    "tools_auto": {"messages": ASK, "tools": TOOLS, "max_tokens": 4},
+    "tools_required": {"messages": ASK, "tools": TOOLS, "tool_choice": "required",
+                       "max_tokens": 64},
+    "tools_named": {"messages": ASK, "tools": TOOLS, "max_tokens": 64,
+                    "tool_choice": {"type": "function", "function": {"name": "get_weather"}}},
+}
+GRAMMAR_REFUSED = {
+    "json_object": {"messages": ASK, "response_format": {"type": "json_object"}},
+    "forced_conflict": {"messages": ASK, "tools": TOOLS, "tool_choice": "required",
+                        "response_format": {"type": "regex", "regex": "a"}},
+    "unknown_function": {"messages": ASK, "tools": TOOLS,
+                         "tool_choice": {"type": "function", "function": {"name": "missing"}}},
+}
+
+
+# A character a token: the chat template and a tools directory make prompts
+# of 400 to 800 tokens.
+CHAR_ENGINES = {"serialized": {},
+                "dense": dict(continuous_batching=True, max_slots=2, cache_len=1024),
+                "paged": dict(continuous_batching=True, kv_cache="paged", max_slots=2,
+                              cache_len=1024, page_size=64, num_pages=33)}
+
+
+@pytest.fixture(scope="module")
+def char_engines(models):
+    """The JAX serialized engine and the port's three engines on the
+    character tokenizer."""
+    made = {name: tengine.ChatEngine(models[1], TCFG, CharTokenizer(), max_new_tokens=64, **kw)
+            for name, kw in CHAR_ENGINES.items()}
+    yield jengine.ChatEngine(models[0], CFG, CharTokenizer(), max_new_tokens=64), made
+    for engine in made.values():
+        engine.close()
+
+
+def without_ids(out: dict) -> dict:
+    """A reply with its random ids taken out (the response's and each tool
+    call's)."""
+    out = json.loads(json.dumps(out))
+    for key in ("id", "created"):
+        out.pop(key, None)
+    for choice in out.get("choices", []):
+        for call in (choice.get("message") or {}).get("tool_calls") or []:
+            assert call.pop("id").startswith("call_")
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_grammar_replies(char_engines):
+    jax_engine = char_engines[0]
+    return {name: jopenai.chat_completion(jax_engine, json.loads(json.dumps(payload)))
+            for name, payload in GRAMMAR_REQUESTS.items()}
+
+
+@pytest.mark.parametrize("engine", sorted(CHAR_ENGINES))
+def test_grammar_replies_match_jax(char_engines, jax_grammar_replies, engine):
+    """Each request's reply from the port's engine equals the JAX engine's:
+    the constrained text, a forced call's `tool_calls` and `finish_reason`
+    "tool_calls", the usage."""
+    port = char_engines[1][engine]
+    for name, payload in GRAMMAR_REQUESTS.items():
+        err, want = jax_grammar_replies[name]
+        assert err is None, (name, err)
+        err, got = topenai.chat_completion(port, json.loads(json.dumps(payload)))
+        assert err is None, (name, err)
+        assert without_ids(got) == without_ids(want), name
+    calls = without_ids(want)["choices"][0]["message"]["tool_calls"]
+    assert calls[0]["function"]["name"] == "get_weather"
+    assert json.loads(calls[0]["function"]["arguments"])["city"] in ("Paris", "Tokyo")
+
+
+def test_grammar_reply_contents(jax_grammar_replies):
+    """What the grammars promise, on the JAX replies the port's equal."""
+    msg = {name: out[1]["choices"][0]["message"] for name, out in jax_grammar_replies.items()}
+    reason = {name: out[1]["choices"][0]["finish_reason"]
+              for name, out in jax_grammar_replies.items()}
+    from vis_zephyr_tpu_torch.serve.structured import compile_regex
+
+    assert compile_regex("[0-9]{3}-[a-z]{2}").matches(msg["regex"]["content"])
+    assert set(json.loads(msg["json_schema"]["content"])) <= {"c", "ok"}
+    assert reason["regex"] == reason["json_schema"] == "stop"
+    for name in ("tools_required", "tools_named"):
+        assert msg[name]["content"] is None and reason[name] == "tool_calls"
+    assert "tool_calls" not in msg["tools_none"] and "tool_calls" not in msg["tools_auto"]
+
+
+@pytest.mark.parametrize("name", sorted(GRAMMAR_REFUSED))
+def test_grammar_refusals_match_jax(char_engines, name):
+    jax_engine, ports = char_engines
+    want, _ = jopenai.chat_completion(jax_engine, dict(GRAMMAR_REFUSED[name]))
+    got, _ = topenai.chat_completion(ports["dense"], dict(GRAMMAR_REFUSED[name]))
+    assert got == want and "message" in got["error"]
+
+
+def test_streamed_tool_calls_and_grammar_match_jax(char_engines):
+    """A forced call streams as one `tool_calls` delta and a "tool_calls"
+    finish; a regex reply streams the text of the whole reply; both as the
+    JAX module streams them."""
+    jax_engine, ports = char_engines
+
+    def events(module, engine, payload):
+        err, stream = module.chat_completion(engine, dict(payload, stream=True))
+        assert err is None
+        out = [json.loads(e[len("data: "):]) for e in stream if e != "data: [DONE]\n\n"]
+        for e in out:
+            e.pop("id"), e.pop("created")
+            for c in e["choices"]:
+                for call in c.get("delta", {}).get("tool_calls", []):
+                    call.pop("id")
+        return out
+
+    streams = {}
+    for engine in ("serialized", "paged"):
+        for name in ("tools_required", "regex"):
+            want = events(jopenai, jax_engine, GRAMMAR_REQUESTS[name])
+            got = streams[name] = events(topenai, ports[engine], GRAMMAR_REQUESTS[name])
+            assert got == want, (engine, name)
+    forced = streams["tools_required"]
+    assert [c["finish_reason"] for e in forced for c in e["choices"] if c["finish_reason"]] \
+        == ["tool_calls"]
+    assert len([c for e in forced for c in e["choices"] if c["delta"].get("tool_calls")]) == 1
+    text = "".join(c["delta"].get("content", "") for e in streams["regex"] for c in e["choices"])
+    err, whole = topenai.chat_completion(ports["dense"], dict(GRAMMAR_REQUESTS["regex"]))
+    assert text == whole["choices"][0]["message"]["content"]
+
+
+def test_tools_render_into_the_prompt_as_in_jax():
+    messages = [{"role": "user", "content": "weather?"},
+                {"role": "assistant", "content": None, "tool_calls": [
+                    {"id": "call_1", "type": "function", "function": {
+                        "name": "get_weather", "arguments": '{"city": "Paris"}'}}]},
+                {"role": "tool", "name": "get_weather", "content": "sunny"}]
+    got = topenai.render_chat_prompt(messages, "zephyr_v1", tools=TOOLS)
+    assert got == jopenai.render_chat_prompt(messages, "zephyr_v1", tools=TOOLS)
+    assert "You can call these functions" in got[0]
+
+
+def test_compile_grammar_is_an_lru_of_32(char_engines):
+    engine = char_engines[1]["serialized"]
+    first = engine.compile_grammar("[0-9]")
+    assert engine.compile_grammar("[0-9]") is first
+    assert engine.compile_grammar(json_schema={"type": "boolean"}) is \
+        engine.compile_grammar("(true|false)")
+    for i in range(tengine.GRAMMAR_CACHE):
+        engine.compile_grammar(f"a{{{i + 1}}}")
+    assert engine.compile_grammar("[0-9]") is not first
+    assert len(engine._grammar_cache) == tengine.GRAMMAR_CACHE
+    with pytest.raises(ValueError, match="needs a regex"):
+        engine.compile_grammar()

@@ -14,7 +14,10 @@ package's `native/vzt_tokenizer.cpp`, read in place and built by
   strings, merge triples (left_id, right_id, merged_id) in rank order,
   special ids and normalizer flags.
 - `NativeTokenizer` wraps the C ABI; encode and decode release the GIL, so
-  serving threads tokenize concurrently.
+  serving threads tokenize concurrently. `convert_ids_to_tokens` reads the
+  pieces back from the binary (the HF method, which the grammars' token
+  strings take: ``▁`` pieces and ``<0xNN>`` bytes as written, where a
+  decode of one id strips the leading space and mangles a lone byte).
 """
 
 from __future__ import annotations
@@ -183,6 +186,20 @@ class NativeTokenizer:
     @property
     def vocab_size(self) -> int:
         return self._lib.vzt_tok_vocab_size(self._h)
+
+    def convert_ids_to_tokens(self, ids) -> List[str]:
+        """The vocabulary pieces of `ids` as the tokenizer.json holds them,
+        read back from the binary (after its 8-word header, whose fourth
+        word is the vocabulary's size: a length-prefixed piece an id)."""
+        if not hasattr(self, "_pieces"):
+            n = struct.unpack_from("<I", self._blob, 12)[0]
+            pieces, off = [], 32
+            for _ in range(n):
+                (length,) = struct.unpack_from("<I", self._blob, off)
+                pieces.append(self._blob[off + 4: off + 4 + length].decode("utf-8"))
+                off += 4 + length
+            self._pieces = pieces
+        return [self._pieces[int(i)] for i in ids]
 
     def encode(self, text: str, add_bos: bool = True) -> List[int]:
         raw = text.encode("utf-8")

@@ -4,10 +4,12 @@ Port of `vis_zephyr_tpu/serve/batching.py`: requests, the pending queue,
 whole-prompt and chunked prefill admission, first-token sampling on
 activation, emit / finish / cancel, the per-slot sampling state (temperature
 and top-p overrides, logprobs, frequency / presence penalties), multi-step
-bursts, the host side of prompt-lookup speculation (`lookahead`: per-slot
-lookup histories and `_step_verify`, the acceptance loop around the
-batcher's `_verify_device`, with a draft model's proposals when one is given:
-`serve/draft.py::DraftModel`), the `ServingMetrics` hooks (TTFT / TPOT at
+bursts, structured output (each slot's grammar, `serve/structured.py`:
+its mask row in a fixed device buffer that a masked step reads, its state
+advanced on the host), the host side of prompt-lookup speculation
+(`lookahead`: per-slot lookup histories and `_step_verify`, the acceptance
+loop around the batcher's `_verify_device`, with a draft model's proposals
+when one is given: `serve/draft.py::DraftModel`), the `ServingMetrics` hooks (TTFT / TPOT at
 finish, proposals and acceptance each verify step), multi-LoRA serving (a
 pack of adapters, `ops/mlora.py`, and each slot's adapter index in a fixed
 device buffer that every forward reads), and `ContinuousBatcher`
@@ -25,19 +27,20 @@ cache `[L, slots, cache_len, Hkv, D]` (`_admit`, `_batch_step`,
 
 Every decode step runs in a burst (`_run_burst`: n steps with the EOS and
 budget carry on the device, one copy to the host; n is one while admission
-work waits or a slot wants logprobs or penalties). On the card each step of
-a burst, and each verify step, is a replay of the step captured over the
-batcher's fixed buffers (`serve/graphs.py`): the cache or pools, lengths,
+work waits or a slot wants logprobs, penalties or a grammar). On the card
+each step of a burst, and each verify step, is a replay of the step
+captured over the batcher's fixed buffers (`serve/graphs.py`): the cache or pools, lengths,
 tokens, the carry and the per-slot sampling operands (temperatures and
 top-p [slots], frequency and presence [slots], counts [slots, V] f32, the
-logprobs' outputs).
+logprobs' outputs, the grammar mask [slots, V] bool). A step with a
+constrained slot is its own capture; a batch without one replays the
+unmasked step.
 
 The JAX batcher is functional (its jitted programs return new caches). Here
 the device state is updated in place, so exactly one thread may call `step`.
 `active`, `budget`, `slot_len` stay on the host as numpy, as there.
 
-Not ported yet, each raising `NotImplementedError` when asked for: meshes
-and grammars.
+Not ported yet, raising `NotImplementedError` when asked for: meshes.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ from ..models.vis_zephyr import VisZephyr, prepare_multimodal, vis_zephyr_forwar
 from ..ops import _kernels
 from .generate import (LP_TOPK, LookupHistory, SamplingConfig, _logprobs, _logprobs_host,
                        _sample, _sample_tail, decode_step, not_ported, verify_step, weight_form)
-from .graphs import StepGraphs, addresses, mlora_key
+from .graphs import StepGraphs, addresses, grammar_key, mlora_key
+from .structured import GrammarSlots
 
 @torch.no_grad()
 def _prefill_kv(model: VisZephyr, input_ids, images, patch_valid, cfg: VisZephyrConfig,
@@ -147,20 +151,20 @@ def _batch_step(model: VisZephyr, cache, token, active, generator: Optional[torc
     parameters (`generate._sample_per_slot`). `penalties`: optional (freq
     [B], pres [B], counts [B, V] f32) frequency / presence penalties over
     emitted tokens; the counts gain the step's tokens in place. `mlora` /
-    `adapter_idx` [B]: each slot's multi-LoRA adapter. The JAX step's
-    logprobs (`want_logprobs`) are `_logprobs` of the raw logits it returns,
-    which `_run_burst` takes; its grammar argument comes with grammars
-    (Queue A step 10).
+    `adapter_idx` [B]: each slot's multi-LoRA adapter. `grammar`: optional
+    bool [B, V], each slot's grammar mask row (`GrammarSlots.gather`; the
+    JAX step takes the table and the rows and gathers inside); the sampler
+    drops the tokens it rules out. The JAX step's logprobs
+    (`want_logprobs`) are `_logprobs` of the raw logits it returns, which
+    `_run_burst` takes.
 
     `cache` (lengths included) and `token` are updated IN PLACE. Returns
     (next_token [B], logits [B, V] f32)."""
-    if grammar:
-        raise not_ported("structured output (grammar)", "Queue A step 10")
     logits, _ = decode_step(model, cache, token, cfg, mlora=mlora, adapter_idx=adapter_idx)
     # The decode step advanced every slot's length; inactive slots keep theirs.
     cache["length"].sub_((~active).to(cache["length"].dtype))
     next_token = _sample_tail(logits, generator, sampling, active, cfg.decoder.pad_token_id,
-                              sample_overrides, penalties)
+                              sample_overrides, penalties, mask=grammar)
     token.copy_(next_token)
     return next_token, logits
 
@@ -229,22 +233,24 @@ def _batch_multi_step(model: VisZephyr, cache, token, active, steps_left,
                       generator: Optional[torch.Generator], cfg: VisZephyrConfig,
                       sampling: SamplingConfig, n: int = 4, graphs: Optional[StepGraphs] = None,
                       sample_overrides=None, penalties=None, lp_out=None, mlora=None,
-                      adapter_idx=None):
+                      adapter_idx=None, grammar=None):
     """`n` chained `_batch_step`s in one burst (`_run_burst`): on the card
     each a replay of the step captured over the cache, `token`, the carry,
-    the sampling operands and the multi-LoRA operands (`mlora` and the
-    per-slot `adapter_idx` buffer), which must keep their tensors for the
-    graphs' life. The cache and `token` are updated IN PLACE. Returns (toks
-    [n, B], entry_alive [n, B], logits [B, V] f32 of the last step)."""
+    the sampling operands, the grammar mask buffer and the multi-LoRA
+    operands (`mlora` and the per-slot `adapter_idx` buffer), which must
+    keep their tensors for the graphs' life. The cache and `token` are
+    updated IN PLACE. Returns (toks [n, B], entry_alive [n, B], logits
+    [B, V] f32 of the last step)."""
     def step(alive):
         return _batch_step(model, cache, token, alive, generator, cfg, sampling, mlora=mlora,
                            adapter_idx=adapter_idx, sample_overrides=sample_overrides,
-                           penalties=penalties)
+                           grammar=grammar, penalties=penalties)
 
     key = ("dense", token.shape[0], weight_form(model), sampling.temperature, sampling.top_p,
            sampling.eos_token_id, generator, lp_out is not None, *mlora_key(mlora, adapter_idx),
            *addresses(cache["k"], cache["v"], cache["length"], token,
-                  *(sample_overrides or (None, None)), *(penalties or (None, None, None))))
+                  *(sample_overrides or (None, None)), *(penalties or (None, None, None))),
+           *grammar_key(grammar))
     return _run_burst(step, key, token, active, steps_left, sampling.eos_token_id, n, graphs,
                       generator, lp_out)
 
@@ -277,6 +283,9 @@ class _Request:
     # consumer reading token i may index lp_log[i]).
     logprobs: Optional[int] = None
     lp_log: List[tuple] = dataclasses.field(default_factory=list)
+    # Structured output: a `serve/structured.py::TokenGrammar` constraining
+    # this request's decoding (None = unconstrained).
+    grammar: object = None
     cancelled: bool = False  # set by cancel(); slot freed at the next step
     out: "queue.Queue[Optional[int]]" = dataclasses.field(default_factory=queue.Queue)
     # Wall-clock trace of the request.
@@ -299,10 +308,11 @@ class ContinuousBatcher:
     `utils/metrics.py::ServingMetrics` that records each finished request's
     TTFT and TPOT and each verify step's proposals and acceptance.
     `multi_step`: a scheduler step with no admission work waiting, and no
-    slot asking for logprobs or penalties, runs a burst of this many decode
-    steps, else a burst of one (`_batch_multi_step`, replayed as CUDA
-    graphs on the card); ignored under `lookahead`. Requests carry their
-    own temperature, top-p, logprobs and penalties (`submit`).
+    slot asking for logprobs, penalties or a grammar, runs a burst of this
+    many decode steps, else a burst of one (`_batch_multi_step`, replayed
+    as CUDA graphs on the card); ignored under `lookahead`. Requests carry
+    their own temperature, top-p, logprobs, penalties and grammar
+    (`submit`).
 
     `mlora` / `adapter_names`: multi-LoRA serving, an `ops/mlora.py` pack and
     {name: index >= 1}; `submit(adapter=name)` picks a request's adapter
@@ -311,7 +321,13 @@ class ContinuousBatcher:
     its adapter's deltas, so each slot gives what the one-adapter model
     gives. The steps read the slots' indices from `slot_adapter`, a fixed
     device buffer [max_slots] int32 (0 while a slot is free), so a captured
-    step serves any mix of adapters."""
+    step serves any mix of adapters.
+
+    `submit(grammar=...)`: structured output (`grammar_slots`, a
+    `GrammarSlots`). The first token is masked at activation, every step
+    while any slot holds a grammar is a burst of one whose mask buffer
+    [max_slots, V] is refilled before it, and each emitted token advances
+    its slot's state on the host."""
 
     draft = None    # the proposer under `lookahead`, else prompt lookup alone
     metrics = None  # where finished requests and verify steps are recorded
@@ -375,6 +391,9 @@ class ContinuousBatcher:
         # Emitted-token counts [B, V] f32, made with the first penalized
         # request; rows reset at activation.
         self.counts: Optional[torch.Tensor] = None
+        # Structured output: each slot's grammar and DFA state, the combined
+        # mask table and the fixed mask buffer the masked steps read.
+        self.grammar_slots = GrammarSlots(B, cfg.decoder.vocab_size, dev)
         # Per-slot token history for n-gram lookup (vocabulary tokens only).
         self.slot_hist: List[LookupHistory] = [LookupHistory() for _ in range(B)]
         self.verify_steps = 0  # speculative scheduler steps run
@@ -417,15 +436,19 @@ class ContinuousBatcher:
         tokens. Logprobs and penalties are refused under speculation (a
         ValueError, as in the JAX batcher). `adapter`: a multi-LoRA adapter
         name of `adapter_names` (None or "base": the base model); any other
-        raises `KeyError`. Grammars are not ported (Queue A step 10)."""
+        raises `KeyError`. `grammar`: a `serve/structured.py::TokenGrammar`,
+        structured output; refused under speculation (a ValueError, as in
+        the JAX batcher: the verify step commits unmasked greedy tokens)."""
         aidx = 0
         if adapter is not None and adapter != "base":
             if adapter not in self.adapter_names:
                 raise KeyError(f"unknown adapter {adapter!r}; loaded: "
                                f"{sorted(self.adapter_names)} (plus 'base')")
             aidx = self.adapter_names[adapter]
-        if grammar is not None:
-            raise not_ported("structured output (grammar)", "Queue A step 10")
+        if grammar is not None and self.lookahead > 0:
+            raise ValueError("structured output is incompatible with speculative "
+                             "decoding (--lookahead); serve grammars from a "
+                             "non-speculative engine")
         if logprobs is not None and self.lookahead > 0:
             raise ValueError("logprobs are incompatible with speculative decoding "
                              "(--lookahead); serve logprobs from a non-speculative engine")
@@ -450,6 +473,7 @@ class ContinuousBatcher:
             frequency_penalty=float(frequency_penalty or 0.0),
             presence_penalty=float(presence_penalty or 0.0),
             logprobs=logprobs,
+            grammar=grammar,
         )
         req.submitted_at = time.perf_counter()
         self.pending.put(req)
@@ -574,13 +598,15 @@ class ContinuousBatcher:
             self._override_slots.discard(slot)
 
     def _activate(self, req: _Request, slot: int, last_logits: torch.Tensor) -> None:
-        """Open the slot: its sampling state, then its first token, sampled
-        from its prefill logits at its own temperature and top-p (its
-        logprobs from the host copy of those logits). `max_new_tokens` of 0
-        or 1 and an EOS first token finish at once."""
+        """Open the slot: its sampling state and grammar, then its first
+        token, sampled from its prefill logits at its own temperature and
+        top-p under its grammar's start row (its logprobs from the host copy
+        of those logits). `max_new_tokens` of 0 or 1 and an EOS first token
+        finish at once."""
         if self.mlora is not None:
             self.slot_adapter[slot] = req.adapter
         self._set_slot_sampling(req, slot)
+        self.grammar_slots.attach(slot, req.grammar)
         if req.logprobs is not None:
             self._lp_slots.add(slot)
         else:
@@ -598,7 +624,10 @@ class ContinuousBatcher:
         if slot in self._override_slots:
             overrides = tuple(torch.tensor([x[slot]], device=self.device)
                               for x in (self.slot_temp, self.slot_topp))
-        first = _sample(last_logits[None], self.generator, self.sampling, overrides=overrides)
+        mask = (None if req.grammar is None
+                else self.grammar_slots.first_token_mask(req.grammar)[None])
+        first = _sample(last_logits[None], self.generator, self.sampling, overrides=overrides,
+                        mask=mask)
         tok = int(first[0])
         if req.logprobs is not None and tok != self.sampling.eos_token_id:
             req.lp_log.append(_logprobs_host(last_logits.float().cpu().numpy(), tok))
@@ -620,6 +649,7 @@ class ContinuousBatcher:
         elif tok == self.sampling.eos_token_id:
             self._finish(slot)
         else:
+            self.grammar_slots.advance(slot, tok)
             self._emit(req, tok)
             # max_new_tokens == 1: the first token exhausts the budget; finish
             # now, or the next step would emit a second token.
@@ -726,6 +756,7 @@ class ContinuousBatcher:
             req.out.put(None)
         self.slot_req[slot] = None
         self.active[slot] = False
+        self.grammar_slots.release(slot)
         if self.mlora is not None:
             self.slot_adapter[slot] = 0
         if self.draft is not None:
@@ -735,8 +766,9 @@ class ContinuousBatcher:
         """Admit pending requests (one chunk's worth under chunked prefill),
         then advance every active slot: a speculative verify step under
         `lookahead`, else a burst of decode steps (`_step_burst`), of
-        `multi_step` when no admission work waits and no slot wants logprobs
-        or penalties (they need the host between steps), else of one.
+        `multi_step` when no admission work waits and no slot wants logprobs,
+        penalties or a grammar (they need the host between steps), else of
+        one; bursts resume once no slot holds a grammar.
         Returns the number of slot steps taken (a slot counts once a step it
         was alive in). `_before_admission` and `_before_round` are the paged
         batcher's hooks (swap-in, page growth)."""
@@ -754,7 +786,7 @@ class ContinuousBatcher:
             self.slots_stepped += stepped
             return stepped
         single = (self._has_admission_work() or self._live(self._lp_slots)
-                  or self._live(self._penalty_slots))
+                  or self._live(self._penalty_slots) or self.grammar_slots.any_active)
         return self._step_burst(1 if single else self.multi_step)
 
     def _before_admission(self) -> None:
@@ -779,7 +811,8 @@ class ContinuousBatcher:
         (`_burst_device`: on the card every decode step, a burst of one too,
         is a replay of the captured step), one copy of its tokens (and
         logprobs) to the host, then the host's transitions
-        (`_process_burst`)."""
+        (`_process_burst`). While a slot holds a grammar, n is 1 and the
+        mask buffer is refilled from the slots' states first."""
         self._active_dev.copy_(torch.from_numpy(self.active))
         self._left_dev.copy_(torch.from_numpy(self.budget.astype(np.int32)))
         overrides, penalties = self._sample_overrides(), self._penalty_operand()
@@ -793,7 +826,9 @@ class ContinuousBatcher:
                 torch.zeros((n, B), device=dev),
                 torch.zeros((n, B, LP_TOPK), dtype=torch.int32, device=dev),
                 torch.zeros((n, B, LP_TOPK), device=dev)))
-        toks, alive, self.last_logits = self._burst_device(n, overrides, penalties, lp_out)
+        grammar = self.grammar_slots.gather()
+        toks, alive, self.last_logits = self._burst_device(n, overrides, penalties, lp_out,
+                                                           grammar)
         host = torch.stack((toks, alive.to(toks.dtype))).cpu().numpy()
         lp_host = None if lp_out is None else [t.cpu().numpy().copy() for t in lp_out]
         stepped = self._process_burst(host[0], host[1].astype(bool), lp_host)
@@ -802,14 +837,14 @@ class ContinuousBatcher:
         self.slots_stepped += stepped
         return stepped
 
-    def _burst_device(self, n: int, overrides, penalties, lp_out):
+    def _burst_device(self, n: int, overrides, penalties, lp_out, grammar=None):
         """The device side of a burst: (toks [n, B], entry_alive [n, B],
         logits [B, V]) of `_batch_multi_step` over the dense cache."""
         return _batch_multi_step(self.model, self.cache, self.token, self._active_dev,
                                  self._left_dev, self.generator, self.cfg, self.sampling, n=n,
                                  graphs=self.graphs, sample_overrides=overrides,
                                  penalties=penalties, lp_out=lp_out, mlora=self.mlora,
-                                 adapter_idx=self._slot_aidx())
+                                 adapter_idx=self._slot_aidx(), grammar=grammar)
 
     def _process_burst(self, toks: np.ndarray, alive: np.ndarray, lp=None) -> int:
         """The host side of a burst: toks / alive [n, B], token (j, slot)
@@ -828,6 +863,7 @@ class ContinuousBatcher:
                     self._finish(slot)
                     continue
                 req = self.slot_req[slot]
+                self.grammar_slots.advance(slot, tok)
                 if lp is not None and slot in self._lp_slots:
                     req.lp_log.append((float(lp[0][j, slot]), lp[1][j, slot], lp[2][j, slot]))
                 self._emit(req, tok)

@@ -24,9 +24,12 @@ prefix cache (`prefix_cache`) and lazy allocation with host swap
 (`lazy_alloc`, paged continuous batching only) reach it from here, as
 multi-LoRA serving does (`mlora`, `adapter_names`: either batcher; `chat`'s
 and `generate_request`'s `adapter` names a request's adapter, and the
-serialized path refuses any but the base with the JAX `ValueError`). Not
-ported yet, each raising `NotImplementedError` when asked for: meshes and
-grammars.
+serialized path refuses any but the base with the JAX `ValueError`).
+Structured output: `compile_grammar` (a regex or a JSON schema → a
+`serve/structured.py::TokenGrammar` over the tokenizer's vocabulary, in an
+LRU of 32 keyed on the pattern) and `generate_request(grammar=...)` on
+every mode. Not ported yet, raising `NotImplementedError` when asked for:
+meshes.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import dataclasses
 import threading
 import time
 import warnings
+from collections import OrderedDict
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -50,6 +54,9 @@ from ..data.image_pipeline import anyres_preprocess_host, preprocess_mode_host
 from ..models.vis_zephyr import VisZephyr
 from .batching import ContinuousBatcher, not_ported
 from .generate import SamplingConfig, generate_stream
+from .structured import TokenGrammar, schema_to_regex, token_strings_from_tokenizer
+
+GRAMMAR_CACHE = 32  # compiled grammars kept (each holds an [S+1, V] mask)
 
 
 class EngineDraining(RuntimeError):
@@ -111,6 +118,8 @@ class ChatEngine:
         self._draining = False
         self._inflight = 0
         self._inflight_lock = threading.Lock()
+        self._grammar_cache: "OrderedDict[str, TokenGrammar]" = OrderedDict()
+        self._grammar_lock = threading.Lock()
 
         # Optional continuous batching: concurrent requests share decode
         # steps instead of serializing on the lock.
@@ -366,9 +375,33 @@ class ChatEngine:
 
     # -- stateless generation (the OpenAI endpoints) ---------------------------
 
+    def compile_grammar(self, pattern: Optional[str] = None,
+                        json_schema: Optional[dict] = None) -> TokenGrammar:
+        """Compile (and cache) a structured-output grammar for this engine's
+        tokenizer: a regex pattern or a JSON schema → a `TokenGrammar`. The
+        vocabulary walk runs once a distinct pattern; repeats hit the cache,
+        a bounded LRU (each entry holds an [S+1, V] mask, and patterns come
+        from unauthenticated requests)."""
+        if json_schema is not None:
+            pattern = schema_to_regex(json_schema)
+        if not pattern:
+            raise ValueError("grammar needs a regex pattern or a JSON schema")
+        cache = self._grammar_cache
+        with self._grammar_lock:
+            if pattern in cache:
+                cache.move_to_end(pattern)
+                return cache[pattern]
+        grammar = TokenGrammar.from_regex(pattern, self.token_strings(),
+                                          self.sampling.eos_token_id)
+        with self._grammar_lock:
+            cache[pattern] = grammar
+            while len(cache) > GRAMMAR_CACHE:
+                cache.popitem(last=False)
+        return grammar
+
     def token_strings(self) -> List[bytes]:
-        """The raw bytes each vocabulary id contributes to decoded text (cached),
-        for the logprobs' `bytes`."""
+        """The raw bytes each vocabulary id contributes to decoded text
+        (cached), for grammars and the logprobs' `bytes`."""
         if not hasattr(self, "_token_strings"):
             self._token_strings = token_strings_from_tokenizer(self.tokenizer,
                                                                self.cfg.decoder.vocab_size)
@@ -412,21 +445,20 @@ class ChatEngine:
         here, `EngineDraining` too while the engine drains. `adapter`: the
         request's multi-LoRA adapter name (an unknown one raises `KeyError`;
         the serialized path refuses any but the base with `ValueError`).
-        Grammars are not ported (Queue A step 10)."""
-        if grammar is not None:
-            raise not_ported("structured output (grammar)", "Queue A step 10")
+        `grammar`: a `TokenGrammar` (`compile_grammar`) that every step's
+        sampling obeys; a speculative batcher refuses it with `ValueError`."""
         self._admit_inflight()
         try:
             return self._track(self._start_request(
                 prompt, pil_image, max_new_tokens, temperature, top_p, logprobs, lp_sink,
-                frequency_penalty, presence_penalty, adapter))
+                frequency_penalty, presence_penalty, adapter, grammar))
         except BaseException:
             self._release_inflight()  # refused before streaming started
             raise
 
     def _start_request(self, prompt, pil_image, max_new_tokens, temperature, top_p, logprobs,
                        lp_sink, frequency_penalty, presence_penalty,
-                       adapter: Optional[str] = None) -> Iterator[int]:
+                       adapter: Optional[str] = None, grammar=None) -> Iterator[int]:
         if self.batcher is None:
             _refuse_serialized_adapter(adapter)
         images = patch_valid = None
@@ -438,8 +470,9 @@ class ChatEngine:
         if self.batcher is not None:
             handle = self.batcher.submit(
                 ids, images, patch_valid, max_new_tokens=max_new_tokens,
-                adapter=adapter, temperature=temperature, top_p=top_p, logprobs=logprobs,
-                frequency_penalty=frequency_penalty, presence_penalty=presence_penalty)
+                adapter=adapter, temperature=temperature, top_p=top_p, grammar=grammar,
+                logprobs=logprobs, frequency_penalty=frequency_penalty,
+                presence_penalty=presence_penalty)
             self._ensure_pump()
             return self._stream_handle(handle, logprobs, lp_sink)
         overrides = {name: value for name, value in (
@@ -449,7 +482,8 @@ class ChatEngine:
         penalties = ((frequency_penalty, presence_penalty)
                      if (frequency_penalty or presence_penalty) else None)
         return self._generate_serialized(ids, images, patch_valid, sampling,
-                                         lp_sink if logprobs is not None else None, penalties)
+                                         lp_sink if logprobs is not None else None, penalties,
+                                         grammar)
 
     def _stream_handle(self, handle, logprobs, lp_sink) -> Iterator[int]:
         if logprobs is None or lp_sink is None:
@@ -462,7 +496,7 @@ class ChatEngine:
             yield tok
 
     def _generate_serialized(self, ids, images, patch_valid, sampling, lp_sink,
-                             penalties=None) -> Iterator[int]:
+                             penalties=None, grammar=None) -> Iterator[int]:
         with self._lock:
             dev = self.device
             yield from generate_stream(
@@ -470,7 +504,7 @@ class ChatEngine:
                 None if images is None else torch.as_tensor(images, device=dev)[None],
                 None if patch_valid is None else torch.as_tensor(patch_valid, device=dev)[None],
                 self.cfg, sampling, lookahead=self.lookahead, multi_step=self.multi_step,
-                lp_sink=lp_sink, penalties=penalties)
+                grammar=grammar, lp_sink=lp_sink, penalties=penalties)
 
     def stream_text(self, token_iter: Iterator[int]) -> Iterator[str]:
         """Detokenize a token stream into stable text deltas, re-decoding only
@@ -497,36 +531,6 @@ class ChatEngine:
             full = self.tokenizer.decode(produced[prefix:], skip_special_tokens=True)
             if len(full) > len(ctx):
                 yield full[len(ctx):]
-
-
-def token_strings_from_tokenizer(tokenizer, vocab_size: Optional[int] = None) -> List[bytes]:
-    """The RAW BYTES each vocabulary id contributes to decoded text (the port's
-    copy of `vis_zephyr_tpu/serve/structured.py::token_strings_from_tokenizer`).
-
-    HF sentencepiece-style tokenizers: `convert_ids_to_tokens` with the
-    ``▁`` → space and ``<0xNN>`` → byte conventions; other tokenizers: a
-    `decode` per id. Bytes, not str: a byte-fallback token ``<0xC3>`` is the
-    single byte 0xC3."""
-    V = vocab_size or getattr(tokenizer, "vocab_size", None) or len(tokenizer.get_vocab())
-    conv = getattr(tokenizer, "convert_ids_to_tokens", None)
-    out: List[bytes] = []
-    if conv is not None:
-        for t in conv(list(range(V))):
-            if t is None:
-                out.append(b"")
-            elif len(t) == 6 and t.startswith("<0x") and t.endswith(">"):
-                out.append(bytes([int(t[3:5], 16)]))
-            elif t.startswith("<") and t.endswith(">"):
-                out.append(b"")  # special tokens contribute no text
-            else:
-                out.append(t.replace("\u2581", " ").encode("utf-8"))
-        return out
-    for i in range(V):
-        try:
-            out.append(tokenizer.decode([i], skip_special_tokens=True).encode("utf-8"))
-        except Exception:  # noqa: BLE001 — an id the tokenizer cannot decode adds nothing
-            out.append(b"")
-    return out
 
 
 def _refuse_serialized_adapter(adapter: Optional[str]) -> None:

@@ -24,7 +24,11 @@ of the probabilities, so that a captured step replays the draw. The JAX
 package draws through Gumbel noise: sampled tokens are the same
 distribution, not the same bits.
 
-Grammars (`mask`) and beams are not ported yet.
+Grammars (structured output, `serve/structured.py`): `_sample` drops the
+tokens a bool `mask` [B, V] rules out before any selection, and
+`generate_stream` masks every step with its grammar's row (single steps,
+the state advanced on the host); on the card the row is copied into a fixed
+buffer that the captured step reads. Beams are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from ..config import VisZephyrConfig
 from ..models.mistral import embed, init_cache, mistral_forward
 from ..models.vis_zephyr import VisZephyr, vis_zephyr_forward
 from ..ops import _kernels
-from .graphs import StepGraphs, addresses, mlora_key
+from .graphs import StepGraphs, addresses, grammar_key, mlora_key
 
 # Speculation counts of the dense path in this process (reset by callers that
 # count): verify calls, tokens proposed, proposals accepted. `verify_calls`
@@ -95,9 +99,11 @@ def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
 
     `overrides`: optional (temps [B], top_ps [B]) per-slot parameters
     (`_sample_per_slot`), which take precedence over `sampling`'s scalars.
-    `mask` (grammars, Queue A step 10) is refused."""
+    `mask`: optional bool [B, V] grammar mask (`serve/structured.py`): the
+    tokens it rules out are dropped before greedy OR sampled selection, so
+    every emitted token keeps its row inside its grammar."""
     if mask is not None:
-        raise not_ported("structured output (grammar)", "Queue A step 10")
+        logits = logits.masked_fill(~mask, float("-inf"))
     if overrides is not None:
         return _sample_per_slot(logits, generator, overrides[0], overrides[1])
     if sampling.temperature <= 0.0:
@@ -169,14 +175,16 @@ def _logprobs_host(logits_row: np.ndarray, token: int):
 
 def _sample_tail(logits: torch.Tensor, generator: Optional[torch.Generator],
                  sampling: SamplingConfig, active: Optional[torch.Tensor] = None,
-                 pad_id: int = 0, overrides=None, penalties=None) -> torch.Tensor:
+                 pad_id: int = 0, overrides=None, penalties=None,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A decode step's sampling, the JAX steps' tail: logits [B, V] f32 →
     next token [B]. Penalties (freq [B], pres [B], counts [B, V]) shape the
-    sampled logits; rows not `active` take `pad_id`; the counts gain the
-    active rows' tokens in place."""
+    sampled logits, then the grammar `mask` [B, V] bool drops tokens; rows
+    not `active` take `pad_id`; the counts gain the active rows' tokens in
+    place."""
     if penalties is not None:
         logits = _apply_penalties(logits, penalties[2], penalties[0], penalties[1])
-    token = _sample(logits, generator, sampling, overrides=overrides)
+    token = _sample(logits, generator, sampling, overrides=overrides, mask=mask)
     if active is not None:
         token = torch.where(active, token, torch.full_like(token, pad_id))
     if penalties is not None:
@@ -214,12 +222,19 @@ def prefill(
     into a fresh decode cache of `cache_len` slots, or into `cache` (a
     `burst_cache` buffer of at least that many: rows past the prompt keep
     what they held, which the decode mask never lets through). On a CUDA
-    device the
-    spliced length is padded to a multiple of 128, the flash kernel's tile.
+    device the spliced length is padded to a multiple of 128, the flash
+    kernel's tile; a text-only prompt too (pad tokens invalid), as the
+    batchers' admission pads it (`batching._prefill_kv`).
 
     Returns (last_logits [B, V] f32, cache, lengths [B])."""
     B = input_ids.shape[0]
     pad_mult = 128 if input_ids.device.type == "cuda" else None
+    if images is None and pad_mult and input_ids.shape[1] % pad_mult:
+        pad = (-input_ids.shape[1]) % pad_mult
+        valid = (torch.ones(input_ids.shape, dtype=torch.bool, device=input_ids.device)
+                 if text_valid is None else text_valid.bool())
+        input_ids = torch.nn.functional.pad(input_ids, (0, pad), value=cfg.decoder.pad_token_id)
+        text_valid = torch.nn.functional.pad(valid, (0, pad))
     logits, aux = vis_zephyr_forward(
         model, input_ids, images, patch_valid, cfg,
         text_valid=text_valid, return_kv=True, pad_to_multiple=pad_mult,
@@ -305,6 +320,7 @@ def decode_multi_step(
     overrides=None,
     penalties=None,
     lp_out=None,
+    mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
     """`n` chained `decode_step`s with sampling (the serialized path's
     multi-step burst): step j decodes the token step j − 1 sampled. Returns
@@ -314,9 +330,11 @@ def decode_multi_step(
 
     The sampling operands (`_sample_tail`): `overrides` (temps [B], top_ps
     [B]), `penalties` (freq [B], pres [B], counts [B, V] f32, counted in
-    place) and `lp_out`, three tensors [n, B], [n, B, LP_TOPK] int32,
-    [n, B, LP_TOPK] that take step j's `_logprobs` at row j; each is a fixed
-    buffer that a captured step reads or writes.
+    place), `lp_out`, three tensors [n, B], [n, B, LP_TOPK] int32,
+    [n, B, LP_TOPK] that take step j's `_logprobs` at row j, and `mask`, a
+    grammar mask [B, V] bool (its rows are rewritten between steps, so a
+    masked burst is one step); each is a fixed buffer that a captured step
+    reads or writes, and a masked step is its own capture.
 
     On a CUDA tensor (outside `_kernels.plain_versions()`) each step is a
     replay of one captured step (`graphs`, a `StepGraphs`; a throwaway one
@@ -339,7 +357,7 @@ def decode_multi_step(
     def step():
         logits = decode_step(model, cache, buf, cfg)[0]
         nxt = _sample_tail(logits, generator, sampling, overrides=overrides,
-                           penalties=penalties)
+                           penalties=penalties, mask=mask)
         buf.copy_(nxt)
         return None if lp_out is None else _logprobs(logits, nxt)
 
@@ -348,7 +366,8 @@ def decode_multi_step(
     key = ("decode", B, weight_form(model), sampling.temperature, sampling.top_p, generator,
            lp_out is not None, *addresses(cache["k"], cache["v"], cache["length"],
                                           *(overrides or (None, None)),
-                                          *(penalties or (None, None, None))))
+                                          *(penalties or (None, None, None))),
+           *grammar_key(mask))
     for j in range(n):
         lp = graphs.run(key, step, dev, generator) if graphed else step()
         toks[j].copy_(buf)
@@ -559,16 +578,17 @@ def generate_stream(
     `lp_sink`: when not None, one `(chosen_lp, top_ids, top_lps)` entry
     (`_logprobs`, the raw distribution) is appended per yielded token, before
     it is yielded. `penalties`: optional (frequency_penalty,
-    presence_penalty) over this stream's emitted tokens. Either turns
-    speculation and bursts off, as in the JAX function; on the card their
-    counts and outputs are the captured step's fixed buffers. `grammar`
-    (Queue A step 10) is refused."""
+    presence_penalty) over this stream's emitted tokens. `grammar` (a
+    `serve/structured.py::TokenGrammar`): every step masks the logits to the
+    tokens legal from the grammar's current state (`grammar.mask[state]`),
+    which advances on the host. Each of the three turns speculation and
+    bursts off, as in the JAX function (their steps need the host between
+    tokens); on the card their counts, outputs and mask row are the
+    captured step's fixed buffers."""
     global proposed, accepted
     if input_ids.shape[0] != 1:
         raise ValueError(f"streaming path is single-sequence, got batch {input_ids.shape[0]}")
-    if grammar is not None:
-        raise not_ported("structured output (grammar)", "Queue A step 10")
-    if lp_sink is not None or penalties is not None:
+    if grammar is not None or lp_sink is not None or penalties is not None:
         lookahead, multi_step = 0, 1
     speculate = lookahead > 0 and sampling.temperature <= 0.0
     cache_len = _cache_len(input_ids.shape[1], images, cfg, sampling.max_new_tokens, lookahead)
@@ -621,20 +641,26 @@ def generate_stream(
     if sampling.max_new_tokens <= 0:
         return  # a zero budget yields no token, as the JAX function's step loop
     # Bursts of decode steps (bursts of one when multi_step is 1).
-    token = _sample(logits, generator, sampling)
+    dev, V = logits.device, cfg.decoder.vocab_size
+    gstate = 0
+    table = None if grammar is None else grammar.mask_on(dev)
+    token = _sample(logits, generator, sampling, mask=None if table is None else table[:1])
     tok = int(token[0])
     if tok == sampling.eos_token_id:
         return
+    if grammar is not None:
+        gstate = grammar.advance(gstate, tok)
     if lp_sink is not None:
         chosen, ids, lps = (t.cpu().numpy() for t in _logprobs(logits, token))
         lp_sink.append((float(chosen[0]), ids[0], lps[0]))
     yield tok
-    dev, V = token.device, cfg.decoder.vocab_size
 
     def fixed(key, make):  # a captured step's buffers outlive the request
         return make() if graphs is None else graphs.buffers(key, make)
 
-    pen = lp_out = None
+    pen = lp_out = mask = None
+    if grammar is not None:
+        mask = fixed(("grammar", 1), lambda: torch.zeros((1, V), dtype=torch.bool, device=dev))
     if penalties is not None:
         pen = fixed(("penalties", 1), lambda: (
             torch.zeros(1, device=dev), torch.zeros(1, device=dev),
@@ -652,13 +678,17 @@ def generate_stream(
     ramp = [1, 2, 4]
     while remaining > 0:
         n = min(ramp.pop(0) if ramp else multi_step, multi_step, remaining)
+        if mask is not None:
+            mask[0].copy_(table[gstate])
         toks, cache, token = decode_multi_step(model, cache, token, generator, cfg,
                                                sampling, n, graphs, penalties=pen,
-                                               lp_out=lp_out)
+                                               lp_out=lp_out, mask=mask)
         lp_host = None if lp_out is None else [t.cpu().numpy().copy() for t in lp_out]
         for j, t in enumerate(toks[:, 0].tolist()):  # the burst's one copy to the host
             if t == sampling.eos_token_id:
                 return
+            if grammar is not None:
+                gstate = grammar.advance(gstate, t)
             if lp_host is not None:
                 lp_sink.append((float(lp_host[0][j, 0]), lp_host[1][j, 0], lp_host[2][j, 0]))
             yield t

@@ -66,6 +66,13 @@ def mlora_key(mlora, adapter_idx) -> tuple:
                                                for t in target.values())))
 
 
+def grammar_key(mask) -> tuple:
+    """A captured step's key for its grammar mask buffer: empty without one,
+    so an unconstrained step keeps its key and its capture. The batch's
+    grammars and states are data in the buffer, never part of the key."""
+    return () if mask is None else ("grammar", mask.data_ptr())
+
+
 class StepGraph:
     """One step, run eagerly once and then captured; `replay()` runs it again."""
 

@@ -5,7 +5,13 @@ Port of `vis_zephyr_tpu/serve/openai_api.py`:
 - ``POST /v1/chat/completions``: messages (with image data-URL content
   parts), streaming SSE or one JSON body, per-request ``max_tokens`` /
   ``temperature`` / ``top_p`` / ``stop`` strings, ``n`` choices,
-  ``logprobs`` / ``top_logprobs`` and frequency / presence penalties;
+  ``logprobs`` / ``top_logprobs``, frequency / presence penalties,
+  structured output (``response_format``: ``text``, ``regex``,
+  ``json_schema``) and function calling (``tools`` with ``tool_choice``
+  ``none``, ``auto``, ``required`` or a named function: the forced choices
+  decode under the call grammar, ``auto`` detects a call in free text;
+  replies carry ``tool_calls`` and ``finish_reason: "tool_calls"``, whole
+  and streamed);
 - ``POST /v1/completions``: a bare prompt, the same knobs (legacy integer
   ``logprobs``);
 - ``GET /v1/models``: the base model and every loaded LoRA adapter.
@@ -13,11 +19,10 @@ Port of `vis_zephyr_tpu/serve/openai_api.py`:
 The ``model`` field routes multi-LoRA serving: an adapter's name selects it,
 ``base`` or the served model id the base weights.
 
-Requests are stateless: each carries its whole message history. Left out,
-each refused with an error that names its ROADMAP.md step (never ignored):
-``tools`` / ``tool_choice`` and ``response_format``, which need the
-grammars of `serve/structured.py`. An image data URL is decoded with PIL; where PIL is not installed
-the request is refused with a 400 that says so.
+Requests are stateless: each carries its whole message history. The
+grammars are `serve/structured.py`'s, compiled by `ChatEngine.compile_grammar`.
+An image data URL is decoded with PIL; where PIL is not installed the
+request is refused with a 400 that says so.
 
 Transport-agnostic: `chat_completion` / `completion` return an error or
 either a response dict or an SSE event-string iterator; `serve/api.py` wires
@@ -36,9 +41,9 @@ from ..constants import DEFAULT_IMAGE_TOKEN
 from ..conversation import templates
 from ..data.tokenization import tokenize_with_images
 from .generate import LP_TOPK
+from .structured import _regex_escape, schema_to_regex
 
 MODEL_ID = "vis-zephyr-tpu"
-STEP_10 = "ROADMAP.md, Queue A step 10"
 
 
 class StopMatcher:
@@ -102,7 +107,8 @@ def _decode_data_url(url: str):
         raise ValueError(f"failed to decode image data URL: {e}") from e
 
 
-def render_chat_prompt(messages: List[dict], conv_mode: str) -> Tuple[str, object]:
+def render_chat_prompt(messages: List[dict], conv_mode: str,
+                       tools: Optional[List[dict]] = None) -> Tuple[str, object]:
     """OpenAI `messages` → (rendered prompt in the engine's template, PIL
     image | None).
 
@@ -112,7 +118,9 @@ def render_chat_prompt(messages: List[dict], conv_mode: str) -> Tuple[str, objec
     URL). One image a request; the turn that carries it gets the ``<image>``
     sentinel, as `ChatEngine.chat` does. Earlier tool-calling turns render
     into the two roles as the JAX module renders them: an assistant message
-    with `tool_calls` as the call JSON, a `tool` result as a user turn."""
+    with `tool_calls` as the call JSON, a `tool` result as a user turn.
+    `tools` appends a function directory and the call format to the system
+    prompt (the model's side of the contract `_tools_grammar` enforces)."""
     conv = templates[conv_mode].copy()
     image = None
     for msg in messages:
@@ -156,6 +164,15 @@ def render_chat_prompt(messages: List[dict], conv_mode: str) -> Tuple[str, objec
                                 f"[tool result{' ' + name if name else ''}] {text}")
         else:
             raise ValueError(f"unsupported message role {role!r}")
+    if tools:
+        directory = "\n".join(
+            json.dumps({"name": f["name"], "description": f.get("description", ""),
+                        "parameters": f.get("parameters", {})})
+            for f in (t.get("function", t) for t in tools))
+        conv.system = ((conv.system + "\n\n" if conv.system else "")
+                       + "You can call these functions. To call one, reply with ONLY a "
+                         'JSON object {"name": <function name>, "arguments": '
+                         "<arguments object>}:\n" + directory)
     conv.append_message(conv.roles[1], None)  # the assistant's turn
     return conv.get_prompt(), image
 
@@ -172,31 +189,22 @@ def _resolve_adapter(engine, model: Optional[str]):
     return None, f"unknown model {model!r}; available: {[MODEL_ID] + sorted(names)}"
 
 
-def _refusal(payload: dict, chat: bool) -> Optional[str]:
-    """The error for a field this port does not serve yet, naming its step."""
-    if chat and payload.get("tools") and payload.get("tool_choice", "auto") != "none":
-        return f"tools / tool_choice (function calling) are not ported to PyTorch yet ({STEP_10})"
-    if chat and payload.get("tool_choice") not in (None, "none", "auto"):
-        return f"tool_choice is not ported to PyTorch yet ({STEP_10})"
-    rf = payload.get("response_format")
-    if rf and not (isinstance(rf, dict) and rf.get("type") in (None, "text")):
-        return f"response_format (structured output) is not ported to PyTorch yet ({STEP_10})"
-    return None
-
-
 def _parse_request(engine, payload: dict, chat: bool):
     """Shared validation → (dict of generation arguments, None), or (None,
     error)."""
     adapter, err = _resolve_adapter(engine, payload.get("model"))
-    err = err or _refusal(payload, chat)
     if err:
         return None, err
+    tools = payload.get("tools") if chat else None
+    tool_choice = payload.get("tool_choice", "auto" if tools else "none")
+    if tool_choice == "none":
+        tools = None
     try:
         if chat:
             messages = payload.get("messages")
             if not isinstance(messages, list) or not messages:
                 return None, "messages must be a non-empty list"
-            prompt, image = render_chat_prompt(messages, engine.conv_mode)
+            prompt, image = render_chat_prompt(messages, engine.conv_mode, tools=tools)
         else:
             prompt = payload.get("prompt")
             if not isinstance(prompt, str) or not prompt:
@@ -222,6 +230,35 @@ def _parse_request(engine, payload: dict, chat: bool):
     for name, v in (("frequency_penalty", freq_pen), ("presence_penalty", pres_pen)):
         if v is not None and not -2.0 <= v <= 2.0:
             return None, f"{name} must be in [-2, 2]"
+    grammar = None
+    rf = payload.get("response_format")
+    if rf:
+        try:
+            grammar = _compile_response_format(engine, rf)
+        except ValueError as e:
+            return None, str(e)
+    # Tool calling (chat only): "required" and a named function constrain
+    # decoding to the call grammar; "auto" decodes free text and detects a
+    # call in the reply (free text or a call is not a regular language, so
+    # a mask cannot enforce it).
+    tool_mode = None
+    tool_names: List[str] = []
+    if tools:
+        try:
+            forced = tool_choice == "required" or isinstance(tool_choice, dict)
+            if forced:
+                if grammar is not None:
+                    return None, "response_format cannot be combined with a forced tool_choice"
+                # Only the forced modes compile (and so need a decodable)
+                # call grammar; auto detects calls by parsing.
+                grammar, tool_names = _tools_grammar(engine, tools, tool_choice)
+            else:
+                tool_names = [t.get("function", t).get("name") or "" for t in tools]
+                if not all(tool_names):
+                    return None, "tool missing function.name"
+            tool_mode = "forced" if forced else "auto"
+        except ValueError as e:
+            return None, str(e)
     # logprobs: chat = bool `logprobs` + int `top_logprobs`; legacy
     # completions = int `logprobs` (top-N; the chosen token is always
     # reported). Capped at LP_TOPK, the OpenAI limit and the step's top-k.
@@ -246,10 +283,83 @@ def _parse_request(engine, payload: dict, chat: bool):
         "max_new_tokens": None if max_tokens is None else int(max_tokens),
         "temperature": None if temperature is None else float(temperature),
         "top_p": None if top_p is None else float(top_p),
+        "grammar": grammar,
         "logprobs": lp_n,
         "frequency_penalty": float(freq_pen or 0.0),
         "presence_penalty": float(pres_pen or 0.0),
+        "tool_mode": tool_mode,
+        "tool_names": tool_names,
     }, None
+
+
+def _tools_grammar(engine, tools: List[dict], tool_choice):
+    """tools + tool_choice → (the grammar of the call JSON, the legal
+    function names). A call is `{"name": "<fn>", "arguments": {...}}` with
+    the arguments held to the tool's `parameters` JSON schema."""
+    chosen = None
+    if isinstance(tool_choice, dict):
+        chosen = (tool_choice.get("function") or {}).get("name")
+        if not chosen:
+            raise ValueError("tool_choice.function.name missing")
+    alts, names = [], []
+    for t in tools:
+        fn = t.get("function", t)
+        name = fn.get("name")
+        if not name:
+            raise ValueError("tool missing function.name")
+        names.append(name)
+        if chosen is not None and name != chosen:
+            continue
+        params = fn.get("parameters")
+        args_re = schema_to_regex(params) if params and params.get("properties") else "\\{\\}"
+        alts.append(f'\\{{"name": "{_regex_escape(name)}", "arguments": {args_re}\\}}')
+    if not alts:
+        raise ValueError(f"tool_choice names unknown function {chosen!r}; available: {names}")
+    return engine.compile_grammar("(" + "|".join(alts) + ")"), names
+
+
+def _detect_tool_calls(text: str, tool_names: List[str]):
+    """Reply text → the OpenAI `tool_calls` list, or None where the reply is
+    not a function call. The forced modes' grammar admits only call JSON;
+    auto mode detects a call by parsing."""
+    try:
+        obj = json.loads(text)
+    except (ValueError, TypeError):
+        return None
+    if (not isinstance(obj, dict) or "name" not in obj or "arguments" not in obj
+            or obj["name"] not in tool_names):
+        return None
+    return [{"id": "call_" + uuid.uuid4().hex[:24], "type": "function",
+             "function": {"name": obj["name"], "arguments": json.dumps(obj["arguments"])}}]
+
+
+def _compile_response_format(engine, rf: dict):
+    """OpenAI `response_format` → a grammar (structured output):
+    - {"type": "json_schema", "json_schema": {"schema": {...}}} (the OpenAI
+      nesting) or {"type": "json_schema", "schema": {...}},
+    - {"type": "regex", "regex": "..."} (a full-match pattern),
+    - {"type": "text"} or no type → unconstrained (None).
+    Free-form {"type": "json_object"} is refused: unbounded JSON is not
+    regular; a schema is."""
+    rtype = rf.get("type")
+    if rtype in (None, "text"):
+        return None
+    if rtype == "regex":
+        pattern = rf.get("regex")
+        if not pattern:
+            raise ValueError("response_format.regex missing")
+        return engine.compile_grammar(pattern=pattern)
+    if rtype == "json_schema":
+        schema = rf.get("schema")
+        if schema is None:
+            schema = (rf.get("json_schema") or {}).get("schema")
+        if not schema:
+            raise ValueError("response_format.json_schema.schema missing")
+        return engine.compile_grammar(json_schema=schema)
+    if rtype == "json_object":
+        raise ValueError("response_format json_object is unsupported (unbounded JSON is "
+                         "not regular) — pass a json_schema instead")
+    raise ValueError(f"unsupported response_format type {rtype!r}")
 
 
 def _run(engine, spec):
@@ -261,7 +371,7 @@ def _run(engine, spec):
     tokens = engine.generate_request(
         spec["prompt"], pil_image=spec["image"], max_new_tokens=spec["max_new_tokens"],
         temperature=spec["temperature"], top_p=spec["top_p"], adapter=spec["adapter"],
-        logprobs=spec["logprobs"],
+        grammar=spec["grammar"], logprobs=spec["logprobs"],
         lp_sink=lp_sink, frequency_penalty=spec["frequency_penalty"],
         presence_penalty=spec["presence_penalty"])
     return tokens, len(ids), budget, lp_sink
@@ -407,9 +517,34 @@ def _completion_events(engine, spec, rid: str, created: int, model: str, chat: b
                                   lp=state.take_lp(engine, lp_n, chat)))
             yield event(chunk(state, {}, state.finish_reason()))
 
+    def usage() -> str:
+        n_out = sum(s.counted.count for s in states)
+        return event({"id": rid, "object": kind, "created": created, "model": model,
+                      "choices": [],
+                      "usage": {"prompt_tokens": states[0].n_prompt, "completion_tokens": n_out,
+                                "total_tokens": states[0].n_prompt + n_out}})
+
     if chat:
         for state in states:
             yield event(chunk(state, {"role": "assistant", "content": ""}, None))
+    if chat and spec["tool_mode"] == "forced":
+        # A forced call streams as ONE tool_calls delta a choice: the grammar
+        # admits only call JSON, which is short and only meaningful whole.
+        for state in states:
+            parts = []
+            while not state.done:
+                emit = state.next_emit()
+                if emit:
+                    parts.append(emit)
+            parts.append(state.tail())
+            calls = _detect_tool_calls("".join(parts), spec["tool_names"])
+            yield event(chunk(state, {"tool_calls": [dict(c, index=i)
+                                                     for i, c in enumerate(calls or [])]},
+                              None))
+            yield event(chunk(state, {}, "tool_calls"))
+        yield usage()
+        yield "data: [DONE]\n\n"
+        return
     if engine.batcher is not None:
         while any(not s.done for s in states):
             for state in states:
@@ -420,11 +555,7 @@ def _completion_events(engine, spec, rid: str, created: int, model: str, chat: b
             while not state.done:
                 yield from drain_one(state)
 
-    n_out = sum(s.counted.count for s in states)
-    yield event({"id": rid, "object": kind, "created": created, "model": model,
-                 "choices": [],
-                 "usage": {"prompt_tokens": states[0].n_prompt, "completion_tokens": n_out,
-                           "total_tokens": states[0].n_prompt + n_out}})
+    yield usage()
     yield "data: [DONE]\n\n"
 
 
@@ -483,7 +614,14 @@ def _completion(engine, payload: dict, chat: bool):
             n_out += state.counted.count
             choice = {"index": state.index, "finish_reason": state.finish_reason()}
             if chat:
-                choice["message"] = {"role": "assistant", "content": text}
+                calls = (_detect_tool_calls(text, spec["tool_names"]) if spec["tool_mode"]
+                         else None)
+                if calls:
+                    choice["message"] = {"role": "assistant", "content": None,
+                                         "tool_calls": calls}
+                    choice["finish_reason"] = "tool_calls"
+                else:
+                    choice["message"] = {"role": "assistant", "content": text}
             else:
                 choice["text"] = text
             if state.lp_sink is not None:

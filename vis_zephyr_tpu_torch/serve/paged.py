@@ -65,8 +65,10 @@ The JAX programs return new pools and rely on donation. Here pools,
 `page_table`, `lengths` and `token` are updated in place, and only one thread
 (the engine's pump) may call `step`.
 
-Per-request temperature and top-p, logprobs and penalties ride every
-decode step as the scheduler base's fixed per-slot buffers (`serve/batching.py`),
+Per-request temperature and top-p, logprobs, penalties and grammars ride
+every decode step as the scheduler base's fixed per-slot buffers
+(`serve/batching.py`; a grammar's mask rows in one fixed [slots, V] buffer
+that a masked step reads, its own capture),
 as do the slots' multi-LoRA adapters (`slot_adapter`: every step, verify
 step and admission chunk adds each row's adapter delta, and the prefix
 cache shares pages only within one adapter),
@@ -79,8 +81,8 @@ captured over `page_table`, `lengths`, `token` and the pools, so page growth,
 swap-out and swap-in write those tensors in place (the JAX batcher rebinds
 them); a new tensor would leave the captured graphs reading freed memory.
 
-Not ported yet, each raising `NotImplementedError` when asked for: meshes and
-the TP wrappers, and grammars.
+Not ported yet, raising `NotImplementedError` when asked for: meshes and the
+TP wrappers.
 """
 
 from __future__ import annotations
@@ -106,7 +108,7 @@ from ..ops.paged_attention import (KV_QUANT_MAX, paged_attention, paged_attentio
                                    paged_kv_update_rows, paged_kv_update_rows_q, quantize_kv)
 from .batching import ContinuousBatcher, _Request, _run_burst, not_ported
 from .generate import SamplingConfig, _sample_tail, weight_form
-from .graphs import StepGraphs, addresses, mlora_key
+from .graphs import StepGraphs, addresses, grammar_key, mlora_key
 
 
 class PageAllocator:
@@ -456,15 +458,14 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
     [B, V] f32, counted in place); the logprobs of the JAX step's
     `want_logprobs` are `_logprobs` of the returned raw logits, which
     `_paged_multi_step` takes. `mlora` / `adapter_idx` [B]: each slot's
-    multi-LoRA adapter (every adapted projection adds its delta).
+    multi-LoRA adapter (every adapted projection adds its delta). `grammar`:
+    optional bool [B, V], each slot's grammar mask row
+    (`GrammarSlots.gather`), applied after the penalties.
 
     The pools, `lengths` and `token` are updated IN PLACE. Returns
     (next_token [B], logits [B, V] f32)."""
-    for value, what, step in (
-            (mesh, "a device mesh (tensor-parallel paged step)", "Queue A step 13"),
-            (grammar, "structured output (grammar)", "Queue A step 10")):
-        if value:
-            raise not_ported(what, step)
+    if mesh:
+        raise not_ported("a device mesh (tensor-parallel paged step)", "Queue A step 13")
     if mode not in ("selfterm", "writefirst"):
         raise ValueError(f"_paged_step: mode must be 'selfterm' or 'writefirst', got {mode!r}")
     dec = cfg.decoder
@@ -531,7 +532,7 @@ def _paged_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengths, to
     h = rms_norm(h, decoder.model.norm.weight, dec.rms_norm_eps)
     logits = decoder.lm_head(h[:, -1:]).float()[:, 0]
     next_token = _sample_tail(logits, generator, sampling, active, dec.pad_token_id,
-                              sample_overrides, penalties)
+                              sample_overrides, penalties, mask=grammar)
     token.copy_(next_token)
     lengths.add_(active.to(lengths.dtype))
     return next_token, logits
@@ -542,7 +543,8 @@ def _paged_multi_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengt
                       active, steps_left, generator: Optional[torch.Generator],
                       cfg: VisZephyrConfig, sampling: SamplingConfig, mode: str = "selfterm",
                       n: int = 4, graphs: Optional[StepGraphs] = None, sample_overrides=None,
-                      penalties=None, lp_out=None, mlora=None, adapter_idx=None):
+                      penalties=None, lp_out=None, mlora=None, adapter_idx=None,
+                      grammar=None):
     """`n` chained `_paged_step`s in one burst (`batching._run_burst`: the
     EOS and budget carry on the device, token-exact with single-stepping;
     with temperature > 0 the draws come from `generator` in the single-step
@@ -552,9 +554,9 @@ def _paged_multi_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengt
     replay of the step captured over these buffers, the sampling operands
     and the carry's (`graphs`, a `StepGraphs`; a throwaway one when None):
     the pools, `page_table`, `lengths`, `token` and the operands (the
-    multi-LoRA pack and the per-slot `adapter_idx` buffer among them) must
-    keep their tensors for the graphs' life. Elsewhere the same step runs
-    eagerly.
+    multi-LoRA pack, the per-slot `adapter_idx` buffer and the grammar mask
+    buffer among them) must keep their tensors for the graphs' life.
+    Elsewhere the same step runs eagerly.
 
     The pools, `lengths` and `token` are updated IN PLACE. Returns (toks
     [n, B], entry_alive [n, B] bool, logits [B, V] f32 of the last step),
@@ -563,13 +565,15 @@ def _paged_multi_step(model: VisZephyr, kp, vp, scales: Tuple, page_table, lengt
     def step(alive):
         return _paged_step(model, kp, vp, scales, page_table, lengths, token, alive, generator,
                            cfg, sampling, mode=mode, mlora=mlora, adapter_idx=adapter_idx,
-                           sample_overrides=sample_overrides, penalties=penalties)
+                           sample_overrides=sample_overrides, grammar=grammar,
+                           penalties=penalties)
 
     key = ("paged", mode, token.shape[0], weight_form(model), sampling.temperature,
            sampling.top_p, sampling.eos_token_id, generator, lp_out is not None,
            *mlora_key(mlora, adapter_idx),
            *addresses(kp, vp, *scales, page_table, lengths, token,
-                  *(sample_overrides or (None, None)), *(penalties or (None, None, None))))
+                  *(sample_overrides or (None, None)), *(penalties or (None, None, None))),
+           *grammar_key(grammar))
     return _run_burst(step, key, token, active, steps_left, sampling.eos_token_id, n, graphs,
                       generator, lp_out)
 
@@ -692,9 +696,9 @@ class PagedBatcher(ContinuousBatcher):
     proposals from `draft` where given, else prompt lookup. `metrics`: a
     `ServingMetrics`, as on the dense batcher (it counts swaps too).
     `multi_step`: a scheduler step with no admission work waiting, and no
-    slot asking for logprobs or penalties, runs a burst of this many decode
-    steps, else a burst of one (`_paged_multi_step`, replayed as CUDA graphs
-    on the card); ignored under `lookahead`.
+    slot asking for logprobs, penalties or a grammar, runs a burst of this
+    many decode steps, else a burst of one (`_paged_multi_step`, replayed as
+    CUDA graphs on the card); ignored under `lookahead`.
 
     `prefix_cache`: prompts that share a page-aligned prefix (system prompts,
     multi-turn continuations) reuse the earlier prompt's pool pages and
@@ -921,9 +925,10 @@ class PagedBatcher(ContinuousBatcher):
     def _swap_out(self, slot: int) -> None:
         """Preempt `slot`: copy its raw pool rows (and scale rows) to host
         memory, release its pages, clear its table row and deactivate it.
-        The host state of the slot (history, penalties, budget, draft rows)
-        stays as it is. The pending token is saved: a step writes the pad
-        token into inactive slots' `token` entries."""
+        The host state of the slot (history, penalties, grammar and its DFA
+        state, budget, draft rows) stays as it is. The pending token is
+        saved: a step writes the pad token into inactive slots' `token`
+        entries."""
         pages = self.slot_pages[slot]
         idx = self._swap_idx(pages)
         snap = {"n": len(pages), "token": int(self.token[slot])}
@@ -1023,13 +1028,14 @@ class PagedBatcher(ContinuousBatcher):
                 return None
             self._swap_out(max(victims, key=lambda s: self.slot_seq[s]))
 
-    def _burst_device(self, n: int, overrides, penalties, lp_out):
+    def _burst_device(self, n: int, overrides, penalties, lp_out, grammar=None):
         """The device side of a burst: `_paged_multi_step` over the pools."""
         return _paged_multi_step(
             self.model, self.kp, self.vp, (self.ksp, self.vsp), self.page_table, self.lengths,
             self.token, self._active_dev, self._left_dev, self.generator, self.cfg,
             self.sampling, n=n, graphs=self.graphs, sample_overrides=overrides,
-            penalties=penalties, lp_out=lp_out, mlora=self.mlora, adapter_idx=self._slot_aidx())
+            penalties=penalties, lp_out=lp_out, mlora=self.mlora, adapter_idx=self._slot_aidx(),
+            grammar=grammar)
 
     def _verify_device(self, toks: np.ndarray, valid: np.ndarray) -> np.ndarray:
         """The paged verify: all S rows of every slot are written (rows past
