@@ -9,7 +9,8 @@ endpoints; two-model speculation (`--draft-model`) on both batchers, the
 draft's proposal bursts replayed as CUDA graphs; the paged batcher's prefix
 cache (`--prefix-cache`) and lazy allocation with host swap (`--lazy-alloc`);
 multi-LoRA serving; structured output (grammar-masked decoding) on all three
-paths with the OpenAI `response_format` and `tools`;
+paths with the OpenAI `response_format` and `tools`; the evaluation
+harness's batched greedy decoding and beam search;
 the server's /health, /metrics, /debug/profile and drain; the writefirst
 paged decode step; the fused int8 MLP probe; the
 trainer, stage 1 and stage 2; the load paths (the trainer's own checkpoint,
@@ -313,6 +314,24 @@ toolkit; exits non-zero on a machine without a card. Phases:
              tool call (`tools`, `tool_choice` "required") on the server;
              the 16-slot step's wall masked against unmasked, and the mask
              gather's device time;
+12j. eval  — the evaluation entry point (`eval/eval_vqa.py`) after
+             preparation, at full width (bf16 weights): 8 VCR items (4 boxes
+             with polygon masks each, prompts from the port's `vcr_qa_eval`
+             in the `zephyr_vcr` template, seeded pixels with 1 to 4 crops;
+             the smoke does not rely on PIL for the overlay) through
+             `score_items` greedily at batch 8, then 2 of them with
+             `--num-beams 4`, 16 tokens each: the answers JSONL whole, K1 = 32
+             a prefill and K2 = 32 a decode step exactly; each row of the
+             right-padded batched prefill against its item alone and the
+             batch against `plain_versions()` (first logits' cosine >= 0.999);
+             the replayed beam search (the fixed K-row cache, one captured
+             step) against eager steps on a cache of the same slots, the
+             same hypotheses and scores bit for bit; `num_beams` 1 equal to
+             greedy `generate`; the best hypothesis's score against a
+             teacher-forced one (the prompt's prefill, then the hypothesis in
+             one verify pass; within 2 %);
+             printed: items/s, a beam step's wall replayed and eager, the
+             reorder's time, the captures and a smaller last batch's cost;
 13. profile — only with --profile: wall, device-busy and idle share of one
              batched decode step at B=32, of one verify step (S = 5) and of
              one dense decode step (B = 1), their kernel launches per step
@@ -413,7 +432,7 @@ toolkit; exits non-zero on a machine without a card. Phases:
 
 `--phases` runs a subset (kernels, slice1, paged, batch, writefirst, spec,
 multistep, dense_batch, sampled, openai, draft, prefix_swap, mlora, grammar,
-profile, precision, int8, mlp_probe, int4, train, load, attn_probes) and then prints
+eval, profile, precision, int8, mlp_probe, int4, train, load, attn_probes) and then prints
 no result line. After a full run the line before
 last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Any failed check raises.
@@ -2043,7 +2062,8 @@ def build_model(seed: int):
 
 def session_pixels(rng, side: int, crops: int):
     """Seeded pixels [4, side, side, 3] with `crops` valid patches, as
-    `attach_image` stores a preprocessed image (no PIL on the card's host)."""
+    `attach_image` stores a preprocessed image (the smoke does not rely on
+    PIL on the card's host)."""
     import numpy as np
 
     px = rng.standard_normal((4, side, side, 3)).astype(np.float32)
@@ -3753,7 +3773,7 @@ class CaptionDataset:
     """Stage-1 records in memory for `train(dataset=...)`: `<image>` and a
     caption of CAPTION_WORDS words, through the port's `preprocess` (the
     plain template) and WordTokenizer, with seeded pixels of 4 anyres crops
-    in place of an image file (the card's machine has no PIL). Long enough
+    in place of an image file (the smoke does not rely on PIL). Long enough
     that `model_max_length` 2048 truncates the spliced sequence, as
     `bench.py`'s train cell does: only then is the length a multiple of 128
     and the flash kernels run."""
@@ -6417,9 +6437,256 @@ def run_grammar(model, cfg, seed: int, card: str) -> dict:
     return launches
 
 
+EVAL_ITEMS = 8      # the VCR items of the greedy batch
+EVAL_BATCH = 8      # its batch size (the harness's default --batch-size)
+EVAL_TOKENS = 16    # each answer's budget (the harness's default --max-new-tokens)
+EVAL_BEAMS = 4      # --num-beams of the beam-search items
+EVAL_BEAM_ITEMS = 2
+EVAL_LAST_BATCH = 6  # a batch size that leaves a smaller last batch (6, then 2)
+
+
+def vcr_eval_items(cfg, seed: int, tokenizer) -> list:
+    """EVAL_ITEMS prepared VCR items without PIL: each a raw VCR record (4
+    detector boxes with polygon masks, a question and 4 answer choices whose
+    entity tags name the boxes), its prompt from the port's `vcr_qa_eval`
+    (constant point style, seeded) in the `zephyr_vcr` template, and seeded
+    pixels with 1 to 4 valid crops (`session_pixels`). The masks' polygons
+    are read as `visual_prompt_process` reads them, and each must lie in its
+    box; the overlay itself (PIL) is held on the CPU by the tests."""
+    import random
+
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.data.vip.geometry import PolygonSet
+    from vis_zephyr_tpu_torch.data.vip.processor import _extract_segmentations, vcr_qa_eval
+    from vis_zephyr_tpu_torch.eval.eval_vqa import prompt_item
+
+    rng = np.random.default_rng(seed + 23)
+    words = WORDS
+    items = []
+    for i in range(EVAL_ITEMS):
+        boxes, segms = [], []
+        for _ in range(4):
+            x0, y0 = rng.uniform(0, 400, 2)
+            x1, y1 = x0 + rng.uniform(30, 200), y0 + rng.uniform(30, 200)
+            boxes.append([float(x0), float(y0), float(x1), float(y1), float(rng.uniform())])
+            cx, cy = (x0 + x1) / 2, (y0 + y1) / 2
+            segms.append([[[float(x0), float(cy)], [float(cx), float(y0)], [float(x1), float(cy)],
+                           [float(cx), float(y1)]]])
+        meta = {"boxes": boxes, "segms": segms}
+
+        def corpus(k):
+            picks = [str(w) for w in rng.choice(words, k)]
+            picks.insert(int(rng.integers(0, k)), sorted({int(e) for e in rng.choice(4, 2)}))
+            return picks + ["?"]
+
+        record = {"id": f"vcr-val-{i}", "question": corpus(8),
+                  "answer_choices": [corpus(10) for _ in range(4)],
+                  "answer_label": int(rng.integers(0, 4)),
+                  "class_names": ["person", "person", "dog", "car"]}
+        assignments, entities, convs = vcr_qa_eval(record, random.Random(seed + i))
+        for entity in entities:
+            x0, y0, x1, y1 = PolygonSet.from_flat(_extract_segmentations(meta, entity)).bounds
+            bx = meta["boxes"][entity]
+            if not (bx[0] <= x0 and bx[1] <= y0 and x1 <= bx[2] and y1 <= bx[3]):
+                raise AssertionError(f"eval: the mask of entity {entity} leaves its box")
+        px, valid = session_pixels(rng, cfg.vision.image_size, 1 + i % 4)
+        items.append(prompt_item(convs[0]["value"], px, valid, tokenizer, gold=convs[1]["value"],
+                                 question_id=record["id"]))
+    return items
+
+
+def run_eval(model, cfg, seed: int, card: str) -> dict:
+    """The evaluation entry point (`eval/eval_vqa.py`) after preparation, at
+    full width: EVAL_ITEMS VCR items (`vcr_eval_items`) through
+    `score_items` greedily at batch EVAL_BATCH, then EVAL_BEAM_ITEMS of them
+    with `--num-beams` EVAL_BEAMS, EVAL_TOKENS tokens each, counted: K1 32
+    a prefill (one batched, one per beam search), K2 32 a decode step,
+    exactly. Then the gates: each row of the batched prefill against its item
+    alone at B = 1 and the batch against `plain_versions()` (first logits'
+    cosine >= 0.999); the replayed beam search against the eager one
+    (`decode_step` with the kernels) on a cache of the same slots, the same
+    hypotheses and scores bit for bit; `num_beams` 1 equal to greedy
+    `generate`; the best hypothesis's score against a teacher-forced forward
+    (the prompt's prefill, then the hypothesis in one verify pass).
+    Readings: the greedy batch's items/s (its first
+    run with the captures, then a second), a beam step's wall replayed and
+    eager, the reorder's time, the captures, and what a smaller last batch
+    costs (batch EVAL_LAST_BATCH: batches of 6 and 2)."""
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from vis_zephyr_tpu_torch.eval.eval_vqa import collate, score_items
+    from vis_zephyr_tpu_torch.ops import _kernels
+    from vis_zephyr_tpu_torch.ops import flash_attention as fa
+    from vis_zephyr_tpu_torch.ops import kv_cache
+    from vis_zephyr_tpu_torch.serve import generate as gen
+
+    L = cfg.decoder.num_layers
+    eos = cfg.decoder.eos_token_id
+    tokenizer = WordTokenizer(cfg.decoder.vocab_size)
+    items = vcr_eval_items(cfg, seed, tokenizer)
+    sampling = gen.SamplingConfig(max_new_tokens=EVAL_TOKENS, eos_token_id=eos)
+    beam_items = items[:EVAL_BEAM_ITEMS]
+
+    def key(batch: int):
+        return batch, torch.device("cuda", torch.cuda.current_device())
+
+    def has_graphs(batch: int) -> bool:
+        return key(batch) in gen._bursts.get(model, {})
+
+    def graphs_of(batch: int):
+        return gen._bursts[model][key(batch)][1]
+
+    # The harness's two decode routes, counted from 0.
+    fa.launches = kv_cache.launches = 0
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = score_items(model, cfg, tokenizer, items, sampling, EVAL_BATCH, out)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    greedy_counts = (fa.launches, kv_cache.launches)
+    t0 = time.perf_counter()
+    beams = score_items(model, cfg, tokenizer, beam_items, sampling, EVAL_BATCH, out,
+                        num_beams=EVAL_BEAMS)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    counts = dict(k1=fa.launches, k2=kv_cache.launches)
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    steps = EVAL_TOKENS - 1  # no EOS: lm_head's EOS row is zero, below every beam's pool
+    want = dict(k1=L * (1 + EVAL_BEAM_ITEMS), k2=L * steps * (1 + EVAL_BEAM_ITEMS))
+    print(f"eval: {EVAL_ITEMS} VCR items greedy at batch {EVAL_BATCH} ({first_s:.2f} s with its "
+          f"capture: {EVAL_ITEMS / first_s:.2f} items/s), {EVAL_BEAM_ITEMS} with --num-beams "
+          f"{EVAL_BEAMS} ({beam_s:.2f} s with the capture), {EVAL_TOKENS} tokens each; "
+          f"(correct, total) {greedy} and {beams}; K1 {counts['k1']} (want {want['k1']}: 32 a "
+          f"prefill), K2 {counts['k2']} (want {want['k2']}: 32 a decode step); greedy alone "
+          f"K1 {greedy_counts[0]}, K2 {greedy_counts[1]} [{card}]")
+    if counts != want or greedy_counts != (L, L * steps):
+        raise AssertionError(f"eval: launch counts {counts} (greedy {greedy_counts}), want {want}")
+    if len(lines) != EVAL_ITEMS + EVAL_BEAM_ITEMS or any(
+            line["extracted_answer"] not in "ABCD" or line["gold_answer"] not in "ABCD"
+            or len(line["text"].split()) != EVAL_TOKENS for line in lines):
+        raise AssertionError(f"eval: the answers JSONL is not whole: {lines[:2]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score_items(model, cfg, tokenizer, items, sampling, EVAL_BATCH, io.StringIO())
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    print(f"eval: the greedy batch again (replays only): {again_s:.3f} s, "
+          f"{EVAL_ITEMS / again_s:.2f} items/s [{card}]")
+
+    # Each row of the batched prefill against its item alone, and the batch
+    # on the kernel path against the plain versions: the first logits.
+    def first_logits(batch):
+        ids, valid, px, pv = (torch.from_numpy(a).cuda() for a in collate(batch, cfg))
+        cache_len = gen._cache_len(ids.shape[1], px, cfg, EVAL_TOKENS)
+        return gen.prefill(model, ids, px, pv, cfg, cache_len, text_valid=valid)[0]
+
+    batched = first_logits(items)
+    alone = torch.cat([first_logits([it]) for it in items])
+    with _kernels.plain_versions():
+        plain = first_logits(items)
+    rows = [cosine(batched[b], alone[b]) for b in range(EVAL_ITEMS)]
+    vs_plain = [cosine(batched[b], plain[b]) for b in range(EVAL_ITEMS)]
+    print(f"eval: first logits of the batch of {EVAL_ITEMS} (right-padded, text_valid) against "
+          f"each item alone, cosine min {min(rows):.6f}, against the plain versions min "
+          f"{min(vs_plain):.6f} (>= 0.999 each); first tokens equal alone "
+          f"{int((batched.argmax(-1) == alone.argmax(-1)).sum())} of {EVAL_ITEMS}")
+    if not (bool(torch.isfinite(batched).all()) and min(rows) >= 0.999
+            and min(vs_plain) >= 0.999):
+        raise AssertionError(f"eval: batched prefill disagrees: alone {rows}, plain {vs_plain}")
+
+    # Beam search replayed against eager, on a cache of the same slots.
+    def one(it):
+        return (torch.as_tensor(it["input_ids"][None]).cuda(),
+                torch.as_tensor(it["images"][None]).cuda(),
+                torch.as_tensor(it["patch_valid"][None]).cuda())
+
+    replayed_stats, eager_stats = {}, {}
+    for it in beam_items:
+        args = (model, *one(it), cfg, EVAL_BEAMS, EVAL_TOKENS, eos)
+        got = gen.beam_hypotheses(*args, stats=replayed_stats)
+        slots = gen._bursts[model][key(EVAL_BEAMS)][0]["k"].shape[2]
+        want_pool = gen.beam_hypotheses(*args, cache_len=slots, eager=True, stats=eager_stats)
+        same = got == want_pool
+        print(f"eval: beam search ({EVAL_BEAMS} beams, {EVAL_TOKENS} tokens) of {it['question_id']}"
+              f": replayed over the fixed cache of {slots} slots against eager steps on a "
+              f"gathered cache of as many: {len(got)} hypotheses, scores and tokens bit-equal "
+              f"{same}; best {got[0][0]:.6f}")
+        if not same:
+            raise AssertionError(f"eval: replayed beams {got[:2]} differ from eager {want_pool[:2]}")
+    ids, px, pv = one(beam_items[0])
+    best_score, best = gen.beam_hypotheses(model, ids, px, pv, cfg, EVAL_BEAMS, EVAL_TOKENS,
+                                           eos)[0]
+    # The best hypothesis's score teacher-forced: the prompt's prefill, then
+    # the hypothesis in one cached forward (a verify pass of its tokens; the
+    # Q-Former reads the prompt's text, so the prompt is prefilled alone).
+    cache_len = gen._cache_len(ids.shape[1], px, cfg, EVAL_TOKENS)
+    last, cache, _ = gen.prefill(model, ids, px, pv, cfg, cache_len)
+    hyp = torch.tensor([best], device="cuda")
+    rest = gen.decode_verify(model, cache, hyp[:, :-1],
+                             torch.ones_like(hyp[:, :-1], dtype=torch.bool), cfg)[0]
+    logits = torch.cat([last[:, None], rest], dim=1)
+    lsm = torch.log_softmax(logits[0].float(), dim=-1)
+    chosen = lsm[torch.arange(len(best)), hyp[0]]
+    forced = float(chosen.sum()) / len(best)
+    tol = max(0.02 * abs(best_score), 0.02)
+    print(f"eval: the best hypothesis's score {best_score:.6f} against a teacher-forced forward "
+          f"of prompt + hypothesis {forced:.6f} (|diff| {abs(forced - best_score):.6f} <= "
+          f"{tol:.6f}: 2 % of the score, the bf16 rounding between {len(best) - 1} decode steps "
+          f"at B = {EVAL_BEAMS} and one pass over the {len(best) - 1} rows)")
+    if not abs(forced - best_score) <= tol:
+        raise AssertionError(f"eval: beam score {best_score} against teacher-forced {forced}")
+    greedy_toks = [int(t) for t in gen.generate(model, ids, px, pv, cfg, sampling)[0]]
+    one_beam = gen.beam_search(model, ids, px, pv, cfg, num_beams=1, max_new_tokens=EVAL_TOKENS,
+                               eos_token_id=eos)
+    print(f"eval: num_beams 1 against greedy generate: equal {one_beam == greedy_toks}")
+    if one_beam != greedy_toks:
+        raise AssertionError(f"eval: one beam {one_beam} is not greedy {greedy_toks}")
+
+    # Readings: a beam step's wall, the reorder's time, the captures.
+    cache = gen._bursts[model][key(EVAL_BEAMS)][0]
+    rows_now = int(cache["length"][0])
+    parents = [1, 0, 3, 2]  # every beam moved
+    reorder_ms = median_ms(lambda: gen._beam_reorder(cache, parents, rows=rows_now))
+    moved = 2 * L * EVAL_BEAMS * rows_now * cfg.decoder.num_kv_heads * cfg.decoder.head_dim * 2
+    replayed_ms, eager_ms = (statistics.median(st["step_s"]) * 1e3
+                             for st in (replayed_stats, eager_stats))
+    print(f"eval: a beam step (decode at B = {EVAL_BEAMS}, the top-{2 * EVAL_BEAMS} to the host, "
+          f"the ranking, the reorder): replayed median {replayed_ms:.2f} ms (of "
+          f"{len(replayed_stats['step_s'])}), eager {eager_ms:.2f} ms; the reorder of "
+          f"{EVAL_BEAMS} moved rows of {rows_now} slots {reorder_ms:.4f} ms (CUDA events around "
+          f"the call, its index copies included; bound {bound_ms(2 * moved, 0)[0]:.4f} ms: "
+          f"{moved / 2**20:.1f} MiB gathered and written) [{card}]")
+    for batch in (EVAL_BATCH, EVAL_BEAMS, 1):
+        g = graphs_of(batch)
+        print(f"eval: B = {batch} captures {g.captures} in {g.capture_seconds:.2f} s of host time, "
+              f"graph pools {g.pool_bytes() / 2**20:.1f} MiB")
+    last_batches = (EVAL_LAST_BATCH, EVAL_ITEMS % EVAL_LAST_BATCH)
+    before = {b: ((graphs_of(b).captures, graphs_of(b).capture_seconds) if has_graphs(b)
+                  else (0, 0.0)) for b in last_batches}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score_items(model, cfg, tokenizer, items, sampling, EVAL_LAST_BATCH, io.StringIO())
+    torch.cuda.synchronize()
+    last_s = time.perf_counter() - t0
+    added = [(b, graphs_of(b).captures - before[b][0], graphs_of(b).capture_seconds - before[b][1])
+             for b in last_batches]
+    print(f"eval: PIL importable on this host: {importlib.util.find_spec('PIL') is not None} "
+          f"(the items were built without it)")
+    print(f"eval: the {EVAL_ITEMS} items at batch {EVAL_LAST_BATCH} (batches of {EVAL_LAST_BATCH} "
+          f"and {EVAL_ITEMS % EVAL_LAST_BATCH}): {last_s:.3f} s with their burst caches and "
+          f"captures ({', '.join(f'B = {b}: {c} capture, {s:.2f} s' for b, c, s in added)}), "
+          f"against {again_s:.3f} s for one replayed batch of {EVAL_BATCH} [{card}]")
+    return counts
+
+
 PHASES = ("kernels", "slice1", "paged", "batch", "writefirst", "spec", "multistep",
           "dense_batch", "sampled", "openai", "draft", "prefix_swap", "mlora", "grammar",
-          "profile",
+          "eval", "profile",
           "precision", "int8", "mlp_probe", "int4", "train", "load", "attn_probes")
 
 
@@ -6551,6 +6818,11 @@ def main(argv=None) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         done("grammar")
+    if "eval" in phases:
+        evaluated = run_eval(model, cfg, args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        done("eval")
     if "profile" in phases:
         run_profile(model, cfg, args.seed, card)
         run_profile(model, cfg, args.seed, card, label="spec profile", lookahead=SPEC_LOOKAHEAD)
@@ -6674,8 +6946,9 @@ def main(argv=None) -> None:
     # dense batcher on bf16 and int8 weights, per-request sampling on both
     # batchers, the OpenAI endpoints, each batcher's four runs of the draft
     # phase, the prefix cache and lazy allocation's runs and the runs with a
-    # multi-LoRA pack on bf16 and int8 weights, and the grammar phase's runs
-    # on its three paths), each set to 0 just before its run and read just
+    # multi-LoRA pack on bf16 and int8 weights, the grammar phase's runs on
+    # its three paths, and the evaluation harness's greedy batch and beam
+    # searches), each set to 0 just before its run and read just
     # after it. `launches` is their sum and `launches_by_path`
     # says which run gave what.
     runs = {"dense": dense, "paged": paged, "dense_int8": dense8, "paged_int8": paged8,
@@ -6686,7 +6959,7 @@ def main(argv=None) -> None:
             "sampled_paged": sampled["paged"], "openai": openai,
             "draft_paged": drafted["paged"], "draft_dense": drafted["dense"],
             "prefix_swap": prefix_swap, "mlora": mlora, "mlora_int8": mlora8,
-            "grammar": grammar,
+            "grammar": grammar, "eval": evaluated,
             "writefirst": writefirst, "mlp_probe": mlp_probe,
             "train": trained["train"], "train_lora": trained["train_lora"],
             "load": loads["load"], "load_int8": loads["load_int8"], "attn_probes": attn}
@@ -6731,6 +7004,9 @@ def main(argv=None) -> None:
                # The grammar phase's admissions (K1), the dense and serialized
                # masked steps (K2) and the paged ones (K3, K4).
                "grammar": ("flash_fwd",) + paged_kernels,
+               # The harness's batched prefill and beam prefills (K1), its
+               # greedy and beam decode steps (K2).
+               "eval": dense_kernels,
                "writefirst": ("paged_attn_decode", "paged_kv_update"),
                "mlp_probe": ("fused_mlp_matvec",),
                "train": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),

@@ -9,13 +9,15 @@ OpenAI chat completion with logprobs and penalties, a chat on each batcher
 with a draft model and `ServingMetrics`, then drains, and takes one stage-1 and
 one stage-2 train step, whose state the builder serves back through the
 native tokenizer, and a regex-constrained OpenAI reply on the serialized
-path and the paged batcher (`serve/structured.py`); a source scan finds no
+path and the paged batcher (`serve/structured.py`), and scores a VCR item
+through the evaluation harness (`eval/eval_vqa.py::score_items`, greedy and
+with two beams) and draws a visual prompt (`data/vip`); a source scan finds no
 such import in the port or in `chip_smoke.py`. The modules the port copied instead of importing
 (`config`, `constants`, `conversation`, `data/anyres`, `data/tokenization`,
 the sampler of `data/dataset`, `MetricsLogger` and `ServingMetrics`,
 `StopMatcher` and the vocabulary's byte
-strings of the OpenAI endpoints and grammars, `data/tokenizer_native` and
-`data/native`)
+strings of the OpenAI endpoints and grammars, `data/tokenizer_native`,
+`data/native`, `data/vip/*` and `eval/answer_extraction`)
 give what the JAX package's give on the same inputs; the port builds its
 native libraries into its own build directory, never into `native/`.
 """
@@ -59,6 +61,7 @@ class Block(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Block())
 
+import json
 import numpy as np
 import torch
 import vis_zephyr_tpu_torch
@@ -73,6 +76,9 @@ assert "vis_zephyr_tpu_torch.ops.mlora" in names, names
 for probe in ("fused_mlp_matvec_probe", "batched_paged_attention_probe",
               "paired_slot_attention_probe"):
     assert f"vis_zephyr_tpu_torch.experiments.{probe}" in names, names
+for name in ("eval.eval_vqa", "eval.eval_mmbench", "eval.answer_extraction", "data.vip.config",
+             "data.vip.geometry", "data.vip.text", "data.vip.draw", "data.vip.processor"):
+    assert f"vis_zephyr_tpu_torch.{name}" in names, names
 
 # The fused int8 MLP probe's numerics check, at small widths on the CPU.
 import contextlib, io
@@ -127,6 +133,27 @@ for load_8bit in (False, True):
         replies.append(engine.chat_text("s", "<image>\nwhat is this"))
         engine.close()
 assert len(replies) == 6 and all(len(r.split()) == 3 for r in replies), replies
+
+# The VCR harness after preparation (`score_items`) on an item built without
+# PIL, greedy and with two beams; a ViP overlay on a blank image.
+import random
+from vis_zephyr_tpu_torch.data.vip.draw import blend_shape
+from vis_zephyr_tpu_torch.eval.eval_vqa import prompt_item, score_items
+from vis_zephyr_tpu_torch.serve.generate import SamplingConfig
+
+item = prompt_item("<image>\nwhich one?\nA. a\nB. b\nC. c\nD. d", pixels, valid, Tokenizer(),
+                   gold="B", question_id="q0")
+for beams in (1, 2):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()):  # its running accuracy
+        scored = score_items(model, cfg, Tokenizer(), [item], SamplingConfig(max_new_tokens=3),
+                             2, out, num_beams=beams)
+    assert scored[1] == 1, scored
+    assert json.loads(out.getvalue())["gold_answer"] == "B", out.getvalue()
+from PIL import Image
+drawn = blend_shape(Image.new("RGB", (40, 30)), "arrow", (5, 5, 30, 25), None, (255, 0, 0),
+                    random.Random(0))
+assert drawn.getbbox() is not None
 
 # Multi-LoRA serving on the int8 weights: two random adapters, one request.
 from vis_zephyr_tpu_torch.ops.mlora import make_random_pack
@@ -392,6 +419,34 @@ def test_token_strings_match():
     tok("some words to decode")
     assert tts(tok, 20) == jts(tok, 20)
     assert tts(Pieces(), 12) == jts(Pieces(), 12)
+
+
+COPIED = ("data.vip.config", "data.vip.geometry", "data.vip.text", "data.vip.draw",
+          "data.vip.processor", "eval.answer_extraction")
+
+
+@pytest.mark.parametrize("name", COPIED)
+def test_vip_and_answer_extraction_copies_match(name):
+    """`data/vip/*` and `eval/answer_extraction` are copies: every function and
+    class line for line the original's, every constant equal (the
+    behaviour is held in `tests/test_torch_vip.py` and
+    `tests/test_torch_eval.py`)."""
+    import importlib
+    import inspect
+
+    jmod = importlib.import_module(f"vis_zephyr_tpu.{name}")
+    tmod = importlib.import_module(f"vis_zephyr_tpu_torch.{name}")
+    own = [n for n, v in vars(jmod).items()
+           if getattr(v, "__module__", None) == jmod.__name__ or n.isupper()]
+    assert own
+    for n in own:
+        want, got = getattr(jmod, n), getattr(tmod, n)
+        if inspect.isfunction(want) or inspect.isclass(want):
+            assert inspect.getsource(got) == inspect.getsource(want), n
+        else:  # the styles are each package's own `VipStyle`: compared by repr
+            assert repr(got) == repr(want), n
+    assert sorted(n for n in vars(tmod) if not n.startswith("__")) == sorted(
+        n for n in vars(jmod) if not n.startswith("__"))
 
 
 def test_constants_match():

@@ -16,6 +16,7 @@ files those tests were split into.
 import dataclasses
 import functools
 import hashlib
+import json
 import os
 
 import jax
@@ -345,3 +346,62 @@ def ops_run_both(case, selfterm, window=None, slot_block=1):
         _t(q), _t(tk), _t(tv), _t(table), _t(lengths), _t(q_offs), sliding_window=window,
         k_scales=_t(tks), v_scales=_t(tvs), **{k: _t(v) for k, v in new.items()})
     return got.numpy(), np.asarray(want)
+
+
+# -- synthetic VCR records (`test_torch_vip.py`, `test_torch_eval.py`) -------------------
+
+VCR_CLASSES = ["person", "person", "dog", "car"]
+
+
+def vcr_records(root, n: int, seed: int = 0, size=(100, 80)):
+    """`n` VCR records in the reference's raw format under `root` (a
+    directory): each a seeded PNG of `size` (width, height), a `meta_dir`
+    JSON with 4 detector boxes (score last) and a polygon mask per box (the
+    second box's in two rings, one too short to keep), a question, 4 answer
+    and 4 rationale choices whose entity tags name the boxes. Returns (the
+    records, the image folder), the folder being what `meta_dir`'s
+    "./dataset" stands for."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    folder = os.path.join(str(root), "vcr_images")
+    os.makedirs(folder, exist_ok=True)
+    W, H = size
+    words = ["is", "the", "looking", "at", "holding", "near", "why", "what", "doing",
+             "because", "they", "want", "to", "go", "home", "it", "rains", "smiling"]
+    records = []
+    for i in range(n):
+        name = f"img{i}.png"
+        Image.fromarray(rng.integers(0, 255, (H, W, 3), np.uint8)).save(os.path.join(folder, name))
+        boxes, segms = [], []
+        for b in range(4):
+            x0, y0 = rng.uniform(0, W * 0.6), rng.uniform(0, H * 0.6)
+            x1, y1 = x0 + rng.uniform(8, W * 0.4), y0 + rng.uniform(8, H * 0.4)
+            boxes.append([float(x0), float(y0), float(x1), float(y1), float(rng.uniform())])
+            ring = [[float(x0), float(y0)], [float(x1), float(y0)],
+                    [float(x1), float(y1)], [float(x0), float(y1)]]
+            segms.append([ring, [[float(x0), float(y0)], [float(x1), float(y1)]]] if b == 1
+                         else [ring])
+        meta = f"meta{i}.json"
+        with open(os.path.join(folder, meta), "w") as f:
+            json.dump({"boxes": boxes, "segms": segms}, f)
+
+        def corpus(k):
+            picks = [str(w) for w in rng.choice(words, k)]
+            tags = sorted({int(e) for e in rng.choice(4, int(rng.integers(1, 3)), replace=False)})
+            picks.insert(int(rng.integers(0, k)), tags)
+            return picks + ["?" if k % 2 else "."]
+
+        records.append({
+            "id": f"vcr-val-{i}",
+            "question_id": f"q{i}",
+            "image": name,
+            "meta_dir": f"./dataset/{meta}",
+            "class_names": VCR_CLASSES,
+            "question": corpus(4),
+            "answer_choices": [corpus(5) for _ in range(4)],
+            "answer_label": int(rng.integers(0, 4)),
+            "rationale_choices": [corpus(6) for _ in range(4)],
+            "rationale_label": int(rng.integers(0, 4)),
+        })
+    return records, folder

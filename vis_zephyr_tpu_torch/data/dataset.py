@@ -19,9 +19,12 @@ surface:
 anyres route (`data/native.py`) wherever its library builds, PIL otherwise;
 "no" always takes PIL.
 
-Not ported, each refused with `NotImplementedError` naming its step in
-ROADMAP.md Queue A: visual-prompt (ViP) records (step 12) and the
-`spatial*` patch merge's `merge_info` (steps 2 and 3).
+Visual-prompt (ViP) records (an id of a ViP family, `data/vip`) are routed
+through `vip.visual_prompt_process` (or the `vip_processor` given), with a
+per-item `random.Random` seeded from `f"{seed}-{index}"`, as in the JAX
+dataset. Not ported, and refused with `NotImplementedError` naming its steps
+in ROADMAP.md Queue A: the `spatial*` patch merge's `merge_info` (steps 2
+and 3).
 """
 
 from __future__ import annotations
@@ -39,17 +42,6 @@ from ..conversation import Conversation, default_conversation
 from . import anyres
 from .image_pipeline import anyres_preprocess_host, preprocess_mode_host
 from .tokenization import preprocess
-
-# The dataset families the JAX package routes through its ViP processor
-# (`vis_zephyr_tpu/data/vip/config.py::VIP_TRAIN_STYLES`).
-VIP_DATASETS = ("refcocog", "vcr", "vg_rel", "flickr30k", "v7w", "pointQA_twice")
-
-
-def vip_supports(record_id) -> bool:
-    """Whether a record id belongs to a ViP dataset family (the JAX
-    `data/vip/processor.py::supports`)."""
-    return isinstance(record_id, str) and record_id.split("-")[0] in VIP_DATASETS
-
 
 def normalize_multimodal_text(text: str) -> str:
     """Force `<image>` to appear once, first, on its own line
@@ -70,7 +62,7 @@ class DataConfig:
     max_patches: Optional[int] = None   # default: derived from pinpoints
     mm_patch_merge_type: str = "flat"
     vision_patch_size: int = 14
-    visual_prompt_style: Optional[str] = None
+    visual_prompt_style: Optional[str] = None  # e.g. "vcr_qa" (eval) or None
     conv: Conversation = field(default_factory=lambda: default_conversation)
     seed: int = 0
     use_native: str = "auto"  # "auto" | "yes" | "no" — C++ image pipeline
@@ -79,7 +71,7 @@ class DataConfig:
 class SupervisedDataset:
     """Lazily processed supervised dataset (host-side)."""
 
-    def __init__(self, data_config: DataConfig, tokenizer):
+    def __init__(self, data_config: DataConfig, tokenizer, vip_processor=None):
         if data_config.mm_patch_merge_type.startswith("spatial"):
             raise NotImplementedError(
                 f"mm_patch_merge_type={data_config.mm_patch_merge_type!r} (merge_info) is not "
@@ -88,6 +80,9 @@ class SupervisedDataset:
             self.records = json.load(f)
         self.cfg = data_config
         self.tokenizer = tokenizer
+        # Callable (record, pil_image) -> (pil_image, conversations) that
+        # replaces the ViP route below.
+        self.vip_processor = vip_processor
         if data_config.max_patches is None:
             pins = anyres.parse_grid_pinpoints(data_config.mm_grid_pinpoints)
             self.max_patches = anyres.max_anyres_patches(pins, data_config.image_size)
@@ -102,6 +97,14 @@ class SupervisedDataset:
 
     def __len__(self):
         return len(self.records)
+
+    def _vip_rng(self, index: int):
+        """Per-item seeded RNG → reproducible train-time ViP randomization.
+        (random.Random only accepts scalar seeds — a (seed, index) tuple
+        raises TypeError on py3.12 — so mix them into one string.)"""
+        import random as _random
+
+        return _random.Random(f"{self.cfg.seed}-{index}")
 
     @staticmethod
     def _record_words(rec: Dict) -> int:
@@ -137,16 +140,29 @@ class SupervisedDataset:
 
         rec = self.records[i]
         has_image = "image" in rec
-        if has_image and vip_supports(rec.get("id")):
-            raise NotImplementedError(
-                f"record {rec.get('id')!r}: visual-prompt (ViP) records are not ported yet "
-                "(ROADMAP.md, Queue A step 12)")
+        # Raw VCR items carry no "conversations": the ViP route below builds
+        # them.
         conversations = copy.deepcopy(rec.get("conversations"))
 
         sample: Dict = {}
         if has_image:
             image = Image.open(os.path.join(self.cfg.image_folder, rec["image"])).convert("RGB")
             sample["images_size"] = image.size
+
+            if self.vip_processor is not None and isinstance(rec.get("id"), str):
+                image, conversations = self.vip_processor(rec, image)
+            else:
+                from . import vip
+
+                if vip.supports(rec.get("id")):
+                    image, conversations = vip.visual_prompt_process(
+                        rec,
+                        image,
+                        image_size_anchor=self.cfg.image_size,
+                        image_folder=self.cfg.image_folder,
+                        visual_prompt_style=self.cfg.visual_prompt_style,
+                        rng=self._vip_rng(i),
+                    )
             if self.cfg.image_aspect_ratio == "anyres":
                 if self._use_native:
                     from . import native

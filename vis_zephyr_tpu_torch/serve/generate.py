@@ -28,12 +28,22 @@ Grammars (structured output, `serve/structured.py`): `_sample` drops the
 tokens a bool `mask` [B, V] rules out before any selection, and
 `generate_stream` masks every step with its grammar's row (single steps,
 the state advanced on the host); on the card the row is copied into a fixed
-buffer that the captured step reads. Beams are not ported yet.
+buffer that the captured step reads.
+
+Beam search (`beam_search`, `beam_hypotheses`; evaluation's `--num-beams`):
+the JAX function's HF `BeamSearchScorer` semantics and host bookkeeping,
+with the candidates ranked by the same numpy call. On the card each beam
+step is a replay of one captured step (decode and the per-beam top-2K) over
+`burst_cache`'s fixed K-row cache, into which the B = 1 prefill is expanded
+and the parents' rows are reordered in place; on the CPU, and inside
+`_kernels.plain_versions()`, the steps run eagerly on gathered caches, as
+the JAX function's do.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import weakref
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -542,6 +552,206 @@ def generate(
     out = torch.cat(tokens).T.cpu().numpy()
     eos = sampling.eos_token_id
     return np.where(np.cumsum(out == eos, axis=1) > 0, eos, out)
+
+
+def _beam_expand(cache: Dict, n: int, rows: Optional[int] = None) -> Dict:
+    """B = 1 prefill cache → n identical beams. Without `rows`, a new cache:
+    K / V repeated on the batch axis, lengths broadcast (the JAX function).
+    With `rows`, in place in an n-row cache whose row 0 holds the prefill
+    (`burst_cache`'s, which a captured step reads at fixed addresses): row
+    0's first `rows` slots and its length are copied into rows 1 to n − 1
+    (slots past the length are never attended)."""
+    if rows is None:
+        return {"k": cache["k"].repeat_interleave(n, dim=1),
+                "v": cache["v"].repeat_interleave(n, dim=1),
+                "length": cache["length"].repeat_interleave(n, dim=0)}
+    for name in ("k", "v"):
+        t = cache[name][:, :, :rows]
+        t[:, 1:].copy_(t[:, :1].expand_as(t[:, 1:]))
+    cache["length"][1:].copy_(cache["length"][:1].expand(n - 1))
+    return cache
+
+
+def _beam_reorder(cache: Dict, beam_idx: List[int], rows: Optional[int] = None) -> Dict:
+    """Continue beam b from its parent `beam_idx[b]`'s cache row. Without
+    `rows`, a new cache gathered on the batch axis (the JAX function). With
+    `rows`, in place in the fixed cache: the beams whose parent is another row
+    take the parent's first `rows` slots and length (every beam has the same
+    length, and no slot past it is attended)."""
+    dev = cache["length"].device
+    if rows is None:
+        idx = torch.tensor(beam_idx, dtype=torch.int64, device=dev)
+        return {"k": cache["k"].index_select(1, idx), "v": cache["v"].index_select(1, idx),
+                "length": cache["length"].index_select(0, idx)}
+    moved = [b for b, parent in enumerate(beam_idx) if parent != b]
+    if moved:
+        dst = torch.tensor(moved, dtype=torch.int64, device=dev)
+        src = torch.tensor([beam_idx[b] for b in moved], dtype=torch.int64, device=dev)
+        for name in ("k", "v"):
+            t = cache[name][:, :, :rows]
+            t.index_copy_(1, dst, t.index_select(1, src))
+        cache["length"].index_copy_(0, dst, cache["length"].index_select(0, src))
+    return cache
+
+
+def _beam_topk(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-beam log-softmax top-2k candidates (the HF beam-search pool: 2k
+    lets EOS candidates retire without starving the k live beams), in
+    `lax.top_k`'s order: by value, the lower token id first among equal
+    values (a stable descending sort)."""
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    vals, ids = torch.sort(lsm, dim=-1, descending=True, stable=True)
+    return vals[:, :2 * k], ids[:, :2 * k]
+
+
+@torch.no_grad()
+def beam_hypotheses(
+    model: VisZephyr,
+    input_ids: torch.Tensor,
+    images: Optional[torch.Tensor],
+    patch_valid: Optional[torch.Tensor],
+    cfg: VisZephyrConfig,
+    num_beams: int = 4,
+    max_new_tokens: int = 64,
+    eos_token_id: int = 2,
+    length_penalty: float = 1.0,
+    cache_len: Optional[int] = None,
+    eager: bool = False,
+    stats: Optional[Dict] = None,
+) -> List[Tuple[float, List[int]]]:
+    """HF-semantics beam search (the reference's `num_beams > 1` path, `model.
+    generate` via HF `BeamSearchScorer`; the JAX `beam_search`): `num_beams`
+    live hypotheses; each step ranks the 2k best (beam, token) continuations,
+    retires EOS candidates to the finished pool scored `logprob_sum /
+    len**length_penalty`, and keeps the k best live. Returns the finished
+    pool, best first: (normalized score, new token ids without EOS).
+
+    On a CUDA tensor (outside `_kernels.plain_versions()`, and unless
+    `eager`) the beams live in `burst_cache`'s fixed K-row cache: the B = 1
+    prefill writes its row 0, `_beam_expand` copies it into the others, each
+    step replays one captured step (decode and `_beam_topk` into fixed
+    outputs) and `_beam_reorder` moves the parents' rows in place. Elsewhere,
+    and with `eager`, the steps run eagerly on a fresh cache gathered anew
+    each step. Greedy ties aside, both give the same hypotheses; on one cache
+    shape (`cache_len`) the same bits. `stats`, when given, counts the decode
+    steps (`steps`) and gathers the host seconds of each step that goes on
+    to the next (`step_s`: the decode, the top-2K's copy to the host, the
+    ranking and the reorder)."""
+    if input_ids.shape[0] != 1:
+        raise ValueError(f"beam search takes one prompt, got batch {input_ids.shape[0]}")
+    K = num_beams
+    if cache_len is None:
+        cache_len = _cache_len(input_ids.shape[1], images, cfg, max_new_tokens)
+    dev = input_ids.device
+    fixed, graphs = (None, None) if eager else burst_cache(model, cfg, K, cache_len, input_ids)
+    if fixed is None:
+        last_logits, cache, lengths = prefill(model, input_ids, images, patch_valid, cfg,
+                                              cache_len)
+        cache = _beam_expand(cache, K)
+    else:
+        row0 = {"k": fixed["k"][:, :1], "v": fixed["v"][:, :1], "length": fixed["length"][:1]}
+        last_logits, _, lengths = prefill(model, input_ids, images, patch_valid, cfg, cache_len,
+                                          cache=row0)
+        cache = _beam_expand(fixed, K, rows=int(lengths[0]))
+    length = int(lengths[0])  # every beam's, advanced by each step
+
+    # First expansion from the shared prefix: draw from a 2K candidate
+    # pool like every later step (HF BeamSearchScorer semantics) — an EOS
+    # among the top K retires to the finished pool WITHOUT consuming one
+    # of the K live beam slots.
+    lsm0 = torch.log_softmax(last_logits[0].float(), dim=-1)
+    pool0 = min(2 * K, lsm0.shape[-1])
+    vals0, ids0 = (t[:pool0].cpu().numpy()
+                   for t in torch.sort(lsm0, descending=True, stable=True))
+    finished: List[tuple] = []                   # (normalized score, seq)
+
+    def norm(s: float, length: int) -> float:
+        return s / (max(length, 1) ** length_penalty)
+
+    live: List[tuple] = []                       # (logprob sum, token)
+    for v, t in zip(vals0, ids0):
+        if int(t) == eos_token_id:
+            # The prompt's best continuation is to end immediately.
+            finished.append((norm(float(v), 1), []))
+        elif len(live) < K:
+            live.append((float(v), int(t)))
+    while len(live) < K:  # degenerate tiny-vocab case: pad with dead beams
+        live.append((-1e30, live[0][1] if live else 0))
+    scores = np.asarray([v for v, _ in live], np.float64)
+    seqs: List[List[int]] = [[t] for _, t in live]
+    tokens = np.asarray([t for _, t in live], np.int64)
+
+    if fixed is not None:
+        tok_buf = graphs.buffers(("beam", K), lambda: torch.zeros(K, dtype=torch.int64,
+                                                                  device=dev))
+
+        def step():
+            return _beam_topk(decode_step(model, cache, tok_buf, cfg)[0], K)
+
+        key = ("beam", K, weight_form(model),
+               *addresses(cache["k"], cache["v"], cache["length"]))
+    for _ in range(max_new_tokens - 1):
+        if all(s and s[-1] == eos_token_id for s in seqs):
+            break
+        t0 = time.perf_counter()
+        if fixed is None:
+            logits, cache = decode_step(model, cache, torch.from_numpy(tokens).to(dev), cfg)
+            vals, ids = _beam_topk(logits, K)
+        else:
+            tok_buf.copy_(torch.from_numpy(tokens))
+            vals, ids = graphs.run(key, step, dev)
+        length += 1
+        if stats is not None:
+            stats["steps"] = stats.get("steps", 0) + 1
+        vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
+        cand = scores[:, None] + vals            # [K, 2K]
+        order = np.argsort(-cand, axis=None)
+        next_beams: List[tuple] = []             # (parent, token, score)
+        for flat in order:
+            b, j = divmod(int(flat), 2 * K)
+            if seqs[b] and seqs[b][-1] == eos_token_id:
+                continue                         # parent already retired
+            tok = int(ids[b, j])
+            if tok == eos_token_id:
+                finished.append((norm(float(cand[b, j]), len(seqs[b])),
+                                 list(seqs[b])))
+                continue
+            next_beams.append((b, tok, float(cand[b, j])))
+            if len(next_beams) == K:
+                break
+        if not next_beams:
+            break                                # every continuation ended
+        # Early stop (HF early_stopping=False heuristic): no live beam can
+        # beat the worst kept finished hypothesis.
+        if len(finished) >= K:
+            worst_kept = sorted(finished, reverse=True)[K - 1][0]
+            best_live = norm(next_beams[0][2], len(seqs[next_beams[0][0]]) + 1)
+            if best_live < worst_kept:
+                break
+        beam_idx = [b for b, _, _ in next_beams]
+        tokens = np.asarray([t for _, t, _ in next_beams], np.int64)
+        scores = np.asarray([s for _, _, s in next_beams], np.float64)
+        seqs = [seqs[b] + [t] for b, t, _ in next_beams]
+        cache = _beam_reorder(cache, beam_idx, rows=None if fixed is None else length)
+        if stats is not None:
+            stats.setdefault("step_s", []).append(time.perf_counter() - t0)
+
+    for s, seq in zip(scores, seqs):
+        if not (seq and seq[-1] == eos_token_id):
+            finished.append((norm(float(s), len(seq)), list(seq)))
+    finished.sort(key=lambda x: -x[0])
+    return finished
+
+
+def beam_search(model: VisZephyr, input_ids: torch.Tensor, images: Optional[torch.Tensor],
+                patch_valid: Optional[torch.Tensor], cfg: VisZephyrConfig, num_beams: int = 4,
+                max_new_tokens: int = 64, eos_token_id: int = 2, length_penalty: float = 1.0,
+                cache_len: Optional[int] = None) -> List[int]:
+    """The best hypothesis of `beam_hypotheses`: its new token ids, EOS
+    excluded (the JAX `beam_search`)."""
+    return beam_hypotheses(model, input_ids, images, patch_valid, cfg, num_beams=num_beams,
+                           max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
+                           length_penalty=length_penalty, cache_len=cache_len)[0][1]
 
 
 @torch.no_grad()
